@@ -1,0 +1,70 @@
+"""The PyTorch port stands alone: it imports neither jax nor any module of
+the JAX package, and it never picks the host silently."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import cometbft_tpu_torch
+from cometbft_tpu_torch import device
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = Path(cometbft_tpu_torch.__file__).resolve().parent
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield ".".join(parts)
+
+
+def test_importing_the_port_loads_no_jax_module():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {list(_modules())!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith('jax.') or m == 'cometbft_tpu'\n"
+        "             or m.startswith('cometbft_tpu.'))\n"
+        "print(','.join(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", out.stdout
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
+    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_nothing_of_jax_or_the_jax_package(path):
+    for mod in _IMPORT.findall(path.read_text()):
+        top = mod.split(".")[0]
+        assert top != "jax", f"{path}: imports {mod}"
+        assert top != "cometbft_tpu", f"{path}: imports {mod}"
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(device.DeviceError, match="device='cpu'"):
+        device.default_device()
+    with pytest.raises(device.DeviceError):
+        device.resolve(None)
+    assert device.resolve("cpu") == torch.device("cpu")
+
+
+def test_default_device_refuses_a_card_that_is_not_hopper(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda i=0: (8, 0))
+    with pytest.raises(device.DeviceError, match="capability 8.0"):
+        device.default_device()
