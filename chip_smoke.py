@@ -20,11 +20,11 @@ Phases (any failure exits non-zero and prints no result line):
      x 1,000 validators through verify_tally_rows, one commit short of
      quorum; tallies must equal the host integer sums exactly.
 Before the last line it prints the `kernels` JSON (launches on the main
-path, times, bounds); the last line is {"ok": true, "device": {...}}.
+paths, in all and by path; times; bounds); the last line is
+{"ok": true, "device": {...}}.
 
 Launch counters are set to 0 just before each main-path phase and read just
-after; the circuit breaker must record no fault, so the host fallback never
-hides the device.
+after; the circuit breaker must record no fault.
 """
 from __future__ import annotations
 
@@ -144,6 +144,37 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def split_times(dev, vs, commit, n, runs):
+    """Host pack ms (host clock) and device ms (CUDA events around upload,
+    kernel and download) of `runs` verify batches of the commit's first n
+    signatures, through the same calls verify_batch makes."""
+    import torch
+
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+
+    idxs = list(range(n))
+    pubs = [vs.validators[i].pub_key.data for i in idxs]
+    msgs = commit.sign_bytes_rows(CHAIN_ID, idxs)
+    sigs = [commit.signatures[i].signature for i in idxs]
+    pack_ms, dev_ms = [], []
+    for _ in range(runs):
+        t = time.perf_counter()
+        rows = kf.pack_rows(ek.pack_batch(pubs, msgs, sigs,
+                                          pad_to=kf.pad_to_tile(n)))
+        pack_ms.append((time.perf_counter() - t) * 1e3)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        valid = kf.verify_rows(rows, dev).cpu().numpy()
+        b.record()
+        b.synchronize()
+        dev_ms.append(a.elapsed_time(b))
+        check(valid[:n].all() and not valid[n:].any(),
+              f"split-time batch of {n} verified wrongly")
+    return pack_ms, dev_ms
 
 
 # --------------------------------------------------------------------------
@@ -293,8 +324,7 @@ def phase_main_path(dev, pool, rng, kernel_stats):
     print(f"phase3 fixtures validators={N_VALS} keys+signatures_s="
           f"{time.perf_counter() - t0:.3f}", flush=True)
 
-    stats: dict = {}
-    fn = val.device_batch_fn(stats=stats)
+    fn = val.device_batch_fn()
     brk = cbatch.device_breaker()
     kf.ed25519_verify.launches = 0
     kf.tally_quorum.launches = 0
@@ -328,12 +358,14 @@ def phase_main_path(dev, pool, rng, kernel_stats):
     check(launches["ed25519_verify"] == calls,
           f"ed25519_verify launched {launches['ed25519_verify']} times "
           f"for {calls} batches")
-    light_pack = stats["pack_ms"][:LIGHT_RUNS]
-    light_dev = stats["device_ms"][:LIGHT_RUNS]
     full_p50 = statistics.median(full_ms)
+    n_light = vs.total_voting_power() * 2 // 3 // VAL_POWER + 1
+    saved = kf.ed25519_verify.launches
+    light_pack, light_dev = split_times(dev, vs, commit, n_light, LIGHT_RUNS)
+    full_pack, full_dev = split_times(dev, vs, commit, N_VALS, FULL_RUNS)
+    kf.ed25519_verify.launches = saved
     print(f"phase3 launches {json.dumps(launches)} breaker_trips=0 faults=0 "
           f"blamed_idx={TAMPER_IDX}", flush=True)
-    n_light = vs.total_voting_power() * 2 // 3 // VAL_POWER + 1
     print(f"phase3 VerifyCommitLight n_sigs={n_light} "
           f"padded={kf.pad_to_tile(n_light)} "
           f"p50_ms={statistics.median(light_ms):.3f} "
@@ -343,11 +375,8 @@ def phase_main_path(dev, pool, rng, kernel_stats):
           flush=True)
     print(f"phase3 VerifyCommit n_sigs={N_VALS} p50_ms={full_p50:.3f} "
           f"sigs_per_s={N_VALS / (full_p50 / 1e3):.1f} "
-          f"host_pack_p50_ms="
-          f"{statistics.median(stats['pack_ms'][LIGHT_RUNS:calls - 2]):.3f} "
-          f"device_p50_ms="
-          f"{statistics.median(stats['device_ms'][LIGHT_RUNS:calls - 2]):.3f}",
-          flush=True)
+          f"host_pack_p50_ms={statistics.median(full_pack):.3f} "
+          f"device_p50_ms={statistics.median(full_dev):.3f}", flush=True)
 
     # the kernel at the main path's shape (10,000 signatures in 16,384
     # columns), against its plain version on the same rows
@@ -369,7 +398,8 @@ def phase_main_path(dev, pool, rng, kernel_stats):
     check(err == 0, "ed25519_verify != plain at 16,384 cols")
     check(int(out.sum()) == N_VALS, "not every commit signature verified")
     kernel_stats["ed25519_verify"] = dict(
-        launches=launches["ed25519_verify"], ms=ms, plain_ms=plain_ms,
+        launches_by_path={"verify_commit": launches["ed25519_verify"]},
+        ms=ms, plain_ms=plain_ms,
         n_checked=int(pb.precheck.sum()), cols=int(rows.shape[1]),
         max_abs_err=err,
         bytes=rows.shape[1] * (kf.C_KROWS + 1) * 4 + 8192 * 3 * 10 * 4,
@@ -378,10 +408,11 @@ def phase_main_path(dev, pool, rng, kernel_stats):
     print(f"phase3 ed25519_verify cols={rows.shape[1]} kernel_ms={ms:.4f} "
           f"plain_ms={plain_ms:.1f} kernel==plain", flush=True)
     return {"light_p50_ms": statistics.median(light_ms),
-            "full_sigs_per_s": N_VALS / (full_p50 / 1e3)}
+            "full_sigs_per_s": N_VALS / (full_p50 / 1e3),
+            "tally_launches": launches["tally_quorum"]}
 
 
-def phase_fused_step(dev, pool, rng, kernel_stats):
+def phase_fused_step(dev, pool, rng, kernel_stats, tally_on_commit_path):
     import numpy as np
     import torch
 
@@ -501,12 +532,15 @@ def phase_fused_step(dev, pool, rng, kernel_stats):
     acc = torch.zeros((CHUNK_COMMITS, 5), dtype=torch.int64, device=dev)
     library_ms = cuda_ms(lambda: acc.index_add_(0, cids, contrib), 50)
     kernel_stats["tally_quorum"] = dict(
-        launches=launches["tally_quorum"], ms=ms, plain_ms=plain_ms,
+        launches_by_path={"verify_commit": tally_on_commit_path,
+                          "fused_step": launches["tally_quorum"]},
+        ms=ms, plain_ms=plain_ms,
         cols=B, bytes=B * 6 * 4 + CHUNK_COMMITS * (6 * 4 * 2 + 1),
         max_abs_err=err,
         library_ms=library_ms,
     )
-    kernel_stats["ed25519_verify"]["launches"] += launches["ed25519_verify"]
+    kernel_stats["ed25519_verify"]["launches_by_path"]["fused_step"] = (
+        launches["ed25519_verify"])
     print(f"phase4 tally_quorum cols={B} commits={CHUNK_COMMITS} "
           f"kernel_ms={ms:.5f} plain_ms={plain_ms:.4f} "
           f"index_add_ms={library_ms:.5f}", flush=True)
@@ -526,7 +560,9 @@ def kernels_json(kernel_stats):
         name="ed25519_verify", route="cuda",
         source="cometbft_tpu_torch/csrc/ed25519_verify.cu",
         replaces="cometbft_tpu/ops/ed25519_pallas.py:171",
-        launches=v["launches"], max_abs_err=v["max_abs_err"], ms=v["ms"],
+        launches=sum(v["launches_by_path"].values()),
+        launches_by_path=v["launches_by_path"],
+        max_abs_err=v["max_abs_err"], ms=v["ms"],
         plain_ms=v["plain_ms"], bound_ms=max(ops_ms, bytes_ms),
         bound_by="operations" if ops_ms >= bytes_ms else "bytes",
         library_ms=None,
@@ -538,7 +574,9 @@ def kernels_json(kernel_stats):
         name="tally_quorum", route="cuda",
         source="cometbft_tpu_torch/csrc/tally_quorum.cu",
         replaces="cometbft_tpu/ops/ed25519_kernel.py:247",
-        launches=t["launches"], max_abs_err=t["max_abs_err"], ms=t["ms"],
+        launches=sum(t["launches_by_path"].values()),
+        launches_by_path=t["launches_by_path"],
+        max_abs_err=t["max_abs_err"], ms=t["ms"],
         plain_ms=t["plain_ms"], bound_ms=max(ops_ms, bytes_ms),
         bound_by="operations" if ops_ms > bytes_ms else "bytes",
         library_ms=t["library_ms"],
@@ -579,7 +617,8 @@ def main() -> int:
         res = phase_main_path(dev, pool, rng, kernel_stats)
         print(f"phase3 s={time.perf_counter() - t:.3f}", flush=True)
         t = time.perf_counter()
-        phase_fused_step(dev, pool, rng, kernel_stats)
+        phase_fused_step(dev, pool, rng, kernel_stats,
+                         res["tally_launches"])
         print(f"phase4 s={time.perf_counter() - t:.3f}", flush=True)
     brk = cbatch.device_breaker()
     check(brk.trips == 0 and brk.faults == 0, "breaker recorded a fault")

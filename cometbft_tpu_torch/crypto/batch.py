@@ -4,16 +4,15 @@ the device under a circuit breaker.
 Reference: crypto/batch/batch.go:12-32 (CreateBatchVerifier switches on key
 type). Counterpart of the JAX package's crypto/batch.py, for the ed25519
 slice of the port: ed25519 rows go to the CUDA verify kernel
-(ops/ed25519_fused.py); a key type with no kernel yet is verified row by
-row on the host oracle.
+(ops/ed25519_fused.py).
 
-Degraded mode: every kernel dispatch runs under a circuit breaker. A device
-fault is caught, logged and counted, and the batch is re-verified on the
-host single-signature path: a sick device costs throughput, never consensus
-liveness. After `failure_threshold` consecutive faults the breaker opens
-and batches go straight to the host; every `cooldown` seconds one batch
-probes the device again, and a success closes the breaker. `faults` counts
-every recorded fault, so a run can prove the device path was never bypassed.
+Every kernel dispatch runs under a circuit breaker. A device fault is
+logged, counted and raised to the caller: the port never re-verifies on the
+host behind the caller's back (the liveness fallback is the verify plane's
+policy, not yet ported). After `failure_threshold` consecutive faults the
+breaker opens and batches fail fast with `DeviceError`; every `cooldown`
+seconds one batch probes the device again, and a success closes the
+breaker. `faults` counts every recorded fault.
 """
 from __future__ import annotations
 
@@ -26,17 +25,16 @@ from typing import Callable, Sequence
 import numpy as np
 
 from cometbft_tpu_torch.crypto.keys import ED25519_KEY_TYPE, PubKey
+from cometbft_tpu_torch.device import DeviceError
 
 _log = logging.getLogger(__name__)
-
-_BATCHABLE = {ED25519_KEY_TYPE}
 
 
 class CircuitBreaker:
     """Consecutive-failure breaker with timed half-open probes.
 
     closed  — device healthy, every batch dispatches to it.
-    open    — device sick: batches take the host path; once per `cooldown`
+    open    — device sick: batches fail fast; once per `cooldown`
               seconds a single batch is let through as a probe. Probe
               success -> closed; probe failure -> stay open.
     """
@@ -97,8 +95,7 @@ class CircuitBreaker:
         if now_tripping:
             _log.error(
                 "circuit breaker %s: OPEN after %d consecutive device "
-                "faults; verifying on the host path, re-probing every "
-                "%.1fs", self.name, self._failures, self.cooldown,
+                "faults; failing fast, re-probing every %.1fs", self.name, self._failures, self.cooldown,
             )
 
 
@@ -118,28 +115,20 @@ def _kernel_for(key_type: str) -> Callable:
     raise ValueError(f"no batch verifier for key type {key_type!r}")
 
 
-def _host_verify_rows(pubs, msgs, sigs, idxs, valid) -> None:
-    """Host fallback: per-row single verify on the oracle; fills `valid`
-    in place for the given indices."""
-    for i in idxs:
-        try:
-            valid[i] = pubs[i].verify_signature(msgs[i], sigs[i])
-        except ValueError:
-            valid[i] = False
-
-
 def verify_batch_direct(
     pubs: Sequence[PubKey],
     msgs: Sequence[bytes],
     sigs: Sequence[bytes],
-    kernels: dict = None,
+    device=None,
     breaker: CircuitBreaker = None,
 ) -> np.ndarray:
     """Group rows by key type and dispatch each group to its kernel under
     the circuit breaker; (n,) bool validity.
 
-    kernels overrides the per-type kernel; breaker overrides the global
-    device breaker (tests)."""
+    `device` is passed to the kernel (None: the CUDA card; "cpu": the plain
+    PyTorch version). A device fault is recorded on the breaker and raised;
+    while the breaker is open, groups raise `DeviceError` without touching
+    the device. `breaker` overrides the global device breaker (tests)."""
     n = len(pubs)
     valid = np.zeros((n,), np.bool_)
     brk = breaker if breaker is not None else _DEVICE_BREAKER
@@ -147,35 +136,30 @@ def verify_batch_direct(
     for i, p in enumerate(pubs):
         groups[p.key_type].append(i)
     for kt, idxs in groups.items():
-        if kt not in _BATCHABLE:
-            _host_verify_rows(pubs, msgs, sigs, idxs, valid)
-            continue
-        sub = None
-        if brk.allow():
-            kernel = (kernels or {}).get(kt) or _kernel_for(kt)
-            try:
-                sub = kernel(
-                    [pubs[i].data for i in idxs],
-                    [msgs[i] for i in idxs],
-                    [sigs[i] for i in idxs],
-                )
-                brk.record_success()
-            except Exception:  # noqa: BLE001 - device fault, not verdict
-                brk.record_failure()
-                _log.exception(
-                    "device batch verify failed for %s (%d sigs); "
-                    "falling back to the host path", kt, len(idxs),
-                )
-                sub = None
-        if sub is None:
-            _host_verify_rows(pubs, msgs, sigs, idxs, valid)
-        else:
-            valid[np.asarray(idxs)] = np.asarray(sub)
+        kernel = _kernel_for(kt)
+        if not brk.allow():
+            raise DeviceError(
+                f"circuit breaker {brk.name} is open; {len(idxs)} {kt} "
+                f"signatures not verified")
+        try:
+            sub = kernel(
+                [pubs[i].data for i in idxs],
+                [msgs[i] for i in idxs],
+                [sigs[i] for i in idxs],
+                device=device,
+            )
+        except Exception:
+            brk.record_failure()
+            _log.exception("device batch verify failed for %s (%d sigs)",
+                           kt, len(idxs))
+            raise
+        brk.record_success()
+        valid[np.asarray(idxs)] = np.asarray(sub)
     return valid
 
 
-def verify_batch(pubs, msgs, sigs, kernels: dict = None,
+def verify_batch(pubs, msgs, sigs, device=None,
                  breaker: CircuitBreaker = None) -> np.ndarray:
     """The batch_fn validation.py consumes. There is no verify plane in the
     port yet, so every call goes direct."""
-    return verify_batch_direct(pubs, msgs, sigs, kernels, breaker)
+    return verify_batch_direct(pubs, msgs, sigs, device, breaker)

@@ -5,9 +5,9 @@ with the JAX package's oracle. It is:
 
 1. The differential-test oracle for the batched CUDA verifier
    (`cometbft_tpu_torch.ops.ed25519_fused`).
-2. The host fallback the circuit breaker re-verifies on, mirroring the
-   reference's single-verify path (crypto/ed25519/ed25519.go:181
-   ``PubKey.VerifySignature``).
+2. The single-signature path (`PubKey.verify_signature`, the
+   validation loop below the batch threshold), mirroring the reference's
+   crypto/ed25519/ed25519.go:181 ``PubKey.VerifySignature``.
 3. The signer of test and benchmark fixtures. `sign` is variable-time
    Python bigint arithmetic: fine for fixtures, leaky for a long-term
    validator key.

@@ -14,11 +14,9 @@ device verifies every collected signature.
 """
 from __future__ import annotations
 
-import time
 from typing import Callable, List, Optional
 
 import numpy as np
-import torch
 
 from cometbft_tpu_torch.types.commit import Commit
 from cometbft_tpu_torch.types.validator import ValidatorSet
@@ -293,53 +291,24 @@ def _verify_single(
 # --------------------------------------------------------------------------
 
 
-def device_batch_fn(device=None, stats: Optional[dict] = None) -> Callable:
+def device_batch_fn(device=None) -> Callable:
     """Build a batch_fn backed by the CUDA verify kernel.
 
     Returns fn(pubs: [PubKey], msgs, sigs) -> (n,) bool validity, with rows
     grouped by key type under the device circuit breaker (crypto/batch.py).
-    `device` defaults to the CUDA card (device.default_device); pass "cpu"
-    for the plain PyTorch version. The voting-power tally stays host-side
-    here because the collection loop's early break is sequential; the fused
-    device tally serves whole-commit streams (ed25519_fused.verify_tally_rows).
-
-    With `stats`, each call appends its host pack time (`pack_ms`, host
-    clock) and its device time (`device_ms`: upload, kernel and download,
-    from CUDA events; host clock on the CPU) to lists in the dict.
+    `device` defaults to the CUDA card (device.default_device, resolved
+    here so a missing card fails at construction); pass "cpu" for the plain
+    PyTorch version. The voting-power tally stays host-side here because
+    the collection loop's early break is sequential; the fused device tally
+    serves whole-commit streams (ed25519_fused.verify_tally_rows).
     """
     from cometbft_tpu_torch.crypto import batch as cbatch
     from cometbft_tpu_torch.device import resolve
-    from cometbft_tpu_torch.ops import ed25519_fused as kf
-    from cometbft_tpu_torch.ops import ed25519_kernel as ek
 
     dev = resolve(device)
 
-    def ed25519_verify(pub_bytes, msgs, sigs):
-        n = len(pub_bytes)
-        t0 = time.perf_counter()
-        pb = ek.pack_batch(pub_bytes, msgs, sigs, pad_to=kf.pad_to_tile(n))
-        rows = kf.pack_rows(pb)
-        t1 = time.perf_counter()
-        if dev.type == "cuda":
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            valid = kf.verify_rows(rows, dev).cpu().numpy()
-            ev1.record()
-            ev1.synchronize()
-            dev_ms = ev0.elapsed_time(ev1)
-        else:
-            valid = kf.verify_rows(rows, dev).numpy()
-            dev_ms = (time.perf_counter() - t1) * 1e3
-        if stats is not None:
-            stats.setdefault("pack_ms", []).append((t1 - t0) * 1e3)
-            stats.setdefault("device_ms", []).append(dev_ms)
-        return valid[:n]
-
     def fn(pubs, msgs, sigs):
-        return cbatch.verify_batch(
-            pubs, msgs, sigs, kernels={"ed25519": ed25519_verify}
-        )
+        return cbatch.verify_batch(pubs, msgs, sigs, device=dev)
 
     return fn
 

@@ -151,17 +151,57 @@ def test_expected_outcomes_of_the_scenarios(pairs):
                    p.tc, tv.oracle_batch_fn()) == ("ok",)
 
 
-def test_breaker_falls_back_to_the_host_on_a_device_fault():
-    p = Pair(seed=8, n_vals=4, invalid=(2,))
-    brk = tbatch.CircuitBreaker(failure_threshold=1, cooldown=60)
+def _broken_kernel(pubs, msgs, sigs, device=None):
+    raise RuntimeError("device lost")
 
-    def broken(pubs, msgs, sigs):
-        raise RuntimeError("device lost")
 
+def _batch(p):
     pubs = [v.pub_key for v in p.tvals.validators]
     msgs = p.tc.sign_bytes_rows(CHAIN)
     sigs = [cs.signature for cs in p.tc.signatures]
-    valid = tbatch.verify_batch(pubs, msgs, sigs,
-                                kernels={"ed25519": broken}, breaker=brk)
+    return pubs, msgs, sigs
+
+
+def test_breaker_falls_back_to_the_host_on_a_device_fault(monkeypatch):
+    """No host fallback hides a device fault: it is counted, trips the
+    breaker and reaches the caller; only device="cpu" runs on the host."""
+    p = Pair(seed=8, n_vals=4, invalid=(2,))
+    brk = tbatch.CircuitBreaker(failure_threshold=1, cooldown=60)
+    pubs, msgs, sigs = _batch(p)
+    valid = tbatch.verify_batch(pubs, msgs, sigs, device="cpu", breaker=brk)
     assert valid.tolist() == [True, True, False, True]
+    assert brk.faults == 0
+    monkeypatch.setattr(tbatch, "_kernel_for", lambda kt: _broken_kernel)
+    with pytest.raises(RuntimeError, match="device lost"):
+        tbatch.verify_batch(pubs, msgs, sigs, device="cpu", breaker=brk)
     assert brk.faults == 1 and brk.trips == 1 and brk.state == "open"
+
+
+def test_open_breaker_fails_fast_and_a_probe_closes_it(monkeypatch):
+    p = Pair(seed=9, n_vals=4)
+    brk = tbatch.CircuitBreaker(failure_threshold=1, cooldown=60)
+    pubs, msgs, sigs = _batch(p)
+    real = tbatch._kernel_for("ed25519")
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    brk.record_failure()
+    assert brk.state == "open"
+    monkeypatch.setattr(tbatch, "_kernel_for", lambda kt: counted)
+    with pytest.raises(tbatch.DeviceError, match="open"):
+        tbatch.verify_batch(pubs, msgs, sigs, device="cpu", breaker=brk)
+    assert calls == []
+    brk._open_until = 0.0  # the cooldown has passed: one probe goes through
+    valid = tbatch.verify_batch(pubs, msgs, sigs, device="cpu", breaker=brk)
+    assert valid.all() and calls == [1]
+    assert brk.state == "closed" and brk.probes == 1 and brk.closes == 1
+
+
+def test_device_batch_fn_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(tbatch.DeviceError):
+        tv.device_batch_fn()
