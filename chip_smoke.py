@@ -18,13 +18,31 @@ Phases (any failure exits non-zero and prints no result line):
      the VerifyCommitLight p50 and verify_commit sigs/s;
   4. the fused verify + tally step on a blocksync-shaped chunk: 16 commits
      x 1,000 validators through verify_tally_rows, one commit short of
-     quorum; tallies must equal the host integer sums exactly.
+     quorum; tallies must equal the host integer sums exactly;
+  5. the cached-path kernels against their plain versions on the card,
+     exactly: valset_table_build at M = 128 (bad and edge keys included),
+     ed25519_verify_cached on 256 columns (also against the oracle),
+     stamp_rows over every fuzzed timestamp width with two templates (also
+     against pack_rows_cached of a host pack) and tally_quorum_cached on 8
+     commits;
+  6. blocksync at BASELINE config 4's width: make_stream_verifier() over 80
+     heights of a 1,000-validator set (64 under V0, 16 under V1 = V0 with 8
+     rotated keys), one tampered signature and one commit short of quorum;
+     outcomes must match the oracle, every chunk must be device-stamped,
+     launch counts exact; then each cached kernel at the stream's shapes
+     (B = 65,536 columns, M = 1,024) against its plain version;
+  7. verify_commit on phase 3's 10k commit with device_batch_fn(cached=True):
+     a cold table build, then warm calls; tampered signature 4,321 blamed;
+     then ed25519_verify_cached on the rows that path verified (10,240
+     columns, M = 16,384) and valset_table_build at M = 16,384 against their
+     plain versions.
 Before the last line it prints the `kernels` JSON (launches on the main
 paths, in all and by path; times; bounds); the last line is
 {"ok": true, "device": {...}}.
 
-Launch counters are set to 0 just before each main-path phase and read just
-after; the circuit breaker must record no fault.
+Launch counters are set to 0 just before each main-path run and read just
+after; launches made to compare a kernel with its plain version are not
+counted. The circuit breaker must record no fault.
 """
 from __future__ import annotations
 
@@ -46,6 +64,21 @@ CHUNK_VALS = 1000
 SHORT_COMMIT = 9             # the chunk's commit that misses quorum
 LIGHT_RUNS = 7
 FULL_RUNS = 5
+STREAM_VALS = 1000           # BASELINE config 4's width
+STREAM_HEIGHTS = 80
+V0_HEIGHTS = 64              # heights 1-64 under V0, then V1
+ROTATED = (5, 77, 150, 303, 421, 600, 777, 999)  # V1's new keys
+TAMPER_HEIGHT = 20
+TAMPER_VAL = 100
+SHORT_HEIGHT = 70            # its top SHORT_ABSENT validators are absent
+SHORT_ABSENT = 400
+STREAM_RUNS = 3              # one cold, two warm
+CACHED_RUNS = 5
+# timestamps that cross every varint width boundary, the zero-skipping
+# cases and the 10-byte two's-complement negatives
+FUZZ_SECS = [0, 1, 127, 128, 16383, 16384, 1_700_000_000, 2**31 - 1,
+             2**31, 2**40, 2**62, -1, -2**33]
+FUZZ_NANOS = [0, 1, 127, 128, 999_999_999, 5, 42, -7]
 H100_SMS = 132
 IMAD_PER_CLK = 64            # INT32 multiply-adds per SM per clock
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -144,6 +177,33 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def trace_device_ms(fn, name):
+    """(kernel ms, memcpy ms, wall ms) of one call under torch.profiler,
+    summed from the exported trace's device events (the trace is kept under
+    build/traces/), or None when the trace holds no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    os.makedirs(os.path.join("build", "traces"), exist_ok=True)
+    path = os.path.join("build", "traces", name)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kern = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel")
+    copy = sum(e.get("dur", 0) for e in events
+               if e.get("cat") in ("gpu_memcpy", "gpu_memset"))
+    if kern <= 0:
+        return None
+    return kern / 1e3, copy / 1e3, wall
 
 
 def split_times(dev, vs, commit, n, runs):
@@ -409,7 +469,8 @@ def phase_main_path(dev, pool, rng, kernel_stats):
           f"plain_ms={plain_ms:.1f} kernel==plain", flush=True)
     return {"light_p50_ms": statistics.median(light_ms),
             "full_sigs_per_s": N_VALS / (full_p50 / 1e3),
-            "tally_launches": launches["tally_quorum"]}
+            "tally_launches": launches["tally_quorum"],
+            "fixture": (vs, bid, height, commit)}
 
 
 def phase_fused_step(dev, pool, rng, kernel_stats, tally_on_commit_path):
@@ -546,11 +607,670 @@ def phase_fused_step(dev, pool, rng, kernel_stats, tally_on_commit_path):
           f"index_add_ms={library_ms:.5f}", flush=True)
 
 
+def cached_kernels():
+    """The cached-path kernel wrappers whose launch counters the phases
+    read: name -> function."""
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+
+    return {"ed25519_verify": kf.ed25519_verify,
+            "tally_quorum": kf.tally_quorum,
+            "valset_table_build": ec.valset_table_build,
+            "ed25519_verify_cached": ec.ed25519_verify_cached,
+            "tally_quorum_cached": ec.tally_quorum_cached,
+            "stamp_rows": es.stamp_rows}
+
+
+def zero_launches() -> None:
+    for fn in cached_kernels().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in cached_kernels().items()}
+
+
+def stamp_fixture(pool, rng, seeds, pubs, n, B, C):
+    """n precommits signed by seeds[b] (validator b of a table over pubs)
+    under two templates at every fuzzed timestamp: the staged deltas and
+    the host-packed rows they must stamp into."""
+    import numpy as np
+
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.types import canonical
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.vote import sign_bytes_template
+
+    bids = [None, BlockID(rng.bytes(32), PartSetHeader(9, rng.bytes(32)))]
+    combos = [(s, nn) for s in FUZZ_SECS for nn in FUZZ_NANOS]
+    secs = [combos[b % len(combos)][0] for b in range(n)]
+    nanos = [combos[b % len(combos)][1] for b in range(n)]
+    tids = [b % 2 for b in range(n)]
+    msgs = [canonical.canonical_vote_bytes(
+        CHAIN_ID, canonical.PRECOMMIT_TYPE, 1000 + t, 0, bids[t],
+        Timestamp(s, nn)) for s, nn, t in zip(secs, nanos, tids)]
+    sigs = [s[0] for _, s in sign_all(
+        pool, [(seeds[b], [msgs[b]]) for b in range(n)])]
+    counted = np.zeros(B, bool)
+    counted[:n] = [b % 4 != 0 for b in range(n)]
+    cids = np.zeros(B, np.int32)
+    cids[:n] = [b % C for b in range(n)]
+    thresh = np.stack([ek.threshold_limbs(int(v))[0]
+                       for v in rng.integers(0, 2**40, C)])
+    pb = ek.pack_batch(pubs[:n], msgs, sigs, pad_to=B)
+    ref = ec.pack_rows_cached(pb, counted, cids, thresh)
+    dsig = np.zeros((B, 64), np.uint8)
+    dsig[:n] = np.frombuffer(b"".join(sigs), np.uint8).reshape(-1, 64)
+    dts = np.zeros((B, 3), np.int32)
+    dts[:n] = canonical.split_ts_words(secs, nanos)
+    dfl = np.zeros(B, np.int32)
+    dfl[:n] = (1 | (counted[:n].astype(np.int32) << 1)
+               | (np.asarray(tids, np.int32) << 2) | (cids[:n] << 10))
+    tmpls = [sign_bytes_template(CHAIN_ID, canonical.PRECOMMIT_TYPE,
+                                 1000 + t, 0, bids[t]) for t in range(2)]
+    return dsig, dts, dfl, thresh, ref, [t.stamp_site() for t in tmpls]
+
+
+def phase_cached_kernels_vs_plain(dev, pool, rng):
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.crypto import ed25519_ref as ed
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+
+    # valset_table_build at M = 128: 120 keys and 4 bad or edge keys
+    seeds = [seed_bytes(rng) for _ in range(120)]
+    keys = [p for p, _ in sign_all(pool, [(s, []) for s in seeds])]
+    keys += [b"\xff" * 32, keys[0][:31], ed.pt_compress(ed.IDENT),
+             int.to_bytes(1 | (1 << 255), 32, "little")]
+    a_raw, lenok = ec._pack_pub_arrays(keys, 128)
+    pub = torch.from_numpy(a_raw).to(dev)
+    ln = torch.from_numpy(lenok).to(dev)
+    tk, ok_k = ec.valset_table_build(pub, ln)
+    tp, ok_p = ec.valset_table_build_plain(pub, ln)
+    torch.cuda.synchronize()
+    check(torch.equal(tk, tp) and torch.equal(ok_k, ok_p),
+          "valset_table_build != plain at M = 128")
+    okv = ok_k.cpu().numpy()
+    check(okv[:121].all() and not okv[121] and okv[122:124].all()
+          and not okv[124:].any(), f"table ok bits {okv[118:128]}")
+    print("phase5 valset_table_build M=128 keys=124 kernel==plain (bytes) "
+          f"ok={int(okv.sum())}", flush=True)
+
+    # ed25519_verify_cached on 256 columns (the mix of phase 2)
+    seeds = [seed_bytes(rng) for _ in range(200)]
+    msgs = [rng.bytes(int(rng.integers(0, 120))) for _ in range(200)]
+    signed = sign_all(pool, [(s, [m]) for s, m in zip(seeds, msgs)])
+    pubs = [p for p, _ in signed]
+    sigs = [s[0] for _, s in signed]
+    for i in range(0, 200, 9):
+        sigs[i] = flip(sigs[i], int(rng.integers(0, 64)),
+                       1 << int(rng.integers(0, 8)))
+    for i in range(4, 200, 11):
+        msgs[i] = msgs[i] + b"!"
+    for i in range(7, 200, 23):
+        s = int.from_bytes(sigs[i][32:], "little") + ed.L
+        if s < 2**256:
+            sigs[i] = sigs[i][:32] + int.to_bytes(s, 32, "little")
+    for _ in range(24):
+        pubs.append(rng.bytes(32))
+        msgs.append(rng.bytes(5))
+        sigs.append(rng.bytes(64))
+    for p, m, s in zip215_cases(pool):
+        pubs.append(p)
+        msgs.append(m)
+        sigs.append(s)
+    n = len(pubs)
+    table = ec.build_table(pubs, device=dev)
+    check(table.n_vals == 256 and 128 < n <= 256, f"phase5 n={n}")
+    oracle = np.array([ed.verify(p, m, s) for p, m, s in zip(pubs, msgs,
+                                                              sigs)])
+    pb = ek.pack_batch(pubs, msgs, sigs, pad_to=256)
+    rows = torch.from_numpy(ec.pack_rows_cached(pb)).to(dev)
+    got_k = ec.ed25519_verify_cached(rows, table.tab, table.ok)
+    got_p = ec.ed25519_verify_cached_plain(rows, table.tab, table.ok,
+                                           kf.base_points(dev))
+    torch.cuda.synchronize()
+    got_k, got_p = got_k.cpu().numpy(), got_p.cpu().numpy()
+    check(np.array_equal(got_k, got_p), "ed25519_verify_cached != plain")
+    check(np.array_equal(got_k[:n].astype(bool), oracle),
+          "ed25519_verify_cached != ed25519_ref oracle")
+    check(not got_k[n:].any(), "a dead cached column verified")
+    print(f"phase5 ed25519_verify_cached cols=256 rows={n} "
+          f"valid={int(oracle.sum())} kernel==plain==oracle", flush=True)
+
+    # stamp_rows: 200 rows, two templates, every fuzzed timestamp width
+    B, C = 256, 3
+    dsig, dts, dfl, thresh, ref, sites = stamp_fixture(
+        pool, rng, seeds, pubs, 200, B, C)
+    ent = es.template_entry(sites, dev)
+    t_rows = ec.packed_rows_shape(B, C)[0] - ec.V_THRESH
+    args = [torch.from_numpy(a).to(dev) for a in (dsig, dts, dfl)]
+    thr = torch.from_numpy(thresh).to(dev)
+    sk = es.stamp_rows(*args, ent, table.pub_raw, thr, t_rows)
+    sp = es.stamp_rows_plain(*args, ent.pre_mat, ent.pre_len, ent.suf_mat,
+                             ent.suf_len, ent.ts_tag, table.pub_raw, thr,
+                             ent.msg_max, t_rows)
+    torch.cuda.synchronize()
+    check(torch.equal(sk, sp), "stamp_rows != plain")
+    check(np.array_equal(sk.cpu().numpy(), ref),
+          "stamp_rows != pack_rows_cached of a host pack")
+    v = ec.ed25519_verify_cached(sk, table.tab, table.ok).cpu().numpy()
+    check(v[:200].all() and not v[200:].any(),
+          "stamped rows did not verify")
+    print(f"phase5 stamp_rows rows=200 cols={B} templates=2 "
+          f"timestamps={len(FUZZ_SECS)}x{len(FUZZ_NANOS)} "
+          "kernel==plain==host pack (bytes), all verify", flush=True)
+
+    # tally_quorum_cached on 8 commits
+    M, C = 256, 8
+    B = M * C
+    powers = rng.integers(1, 2**50, M)
+    power5 = torch.from_numpy(ek.power_limbs(powers)).to(dev)
+    counted = rng.random(B) < 0.9
+    valid = (rng.random(B) < 0.8).astype(np.int32)
+    sums = [sum(int(powers[b % M]) for b in range(c * M, (c + 1) * M)
+                if valid[b] and counted[b]) for c in range(C)]
+    thr = [s - 1 for s in sums]
+    thr[3] = sums[3]  # misses quorum by exactly 1
+    rows = np.zeros(ec.packed_rows_shape(B, C), np.int32)
+    rows[ec.V_FLAGS] = (counted.astype(np.int32) << 2) | (
+        np.repeat(np.arange(C, dtype=np.int32), M) << 3)
+    rows[ec.V_THRESH:].reshape(-1)[:C * 6] = np.stack(
+        [ek.threshold_limbs(t)[0] for t in thr]).reshape(-1)
+    r = torch.from_numpy(rows).to(dev)
+    vt = torch.from_numpy(valid).to(dev)
+    tk, qk = ec.tally_quorum_cached(vt, r, power5, C)
+    tp, qp = ec.tally_quorum_cached_plain(vt, r, power5, C)
+    check(torch.equal(tk, tp) and torch.equal(qk, qp),
+          "tally_quorum_cached != plain")
+    check([int(x) for x in ek.tally_to_int(tk.cpu().numpy())] == sums,
+          "tally_quorum_cached != host integer sums")
+    want_q = [True] * C
+    want_q[3] = False
+    check(qk.cpu().numpy().tolist() == want_q, "cached quorum bits wrong")
+    print(f"phase5 tally_quorum_cached commits={C} cols={B} "
+          "kernel==plain==host", flush=True)
+
+
+def _stream_fixture(pool, rng):
+    """80 signed commits of a 1,000-validator set: heights 1-64 under V0,
+    65-80 under V1 (V0 with 8 keys rotated, same powers and slots)."""
+    import numpy as np
+
+    from cometbft_tpu_torch.blocksync.pipeline import CommitJob
+    from cometbft_tpu_torch.crypto.keys import PubKey
+    from cometbft_tpu_torch.types.commit import CommitSig
+    from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+
+    n = STREAM_VALS
+    # distinct powers keep the power order, so a rotated key keeps its slot
+    powers = [1_000_000 - 997 * i for i in range(n)]
+    seeds0 = [seed_bytes(rng) for _ in range(n)]
+    seeds1 = list(seeds0)
+    for i in ROTATED:
+        seeds1[i] = seed_bytes(rng)
+    extra = [seeds1[i] for i in ROTATED]
+    pubs = [p for p, _ in sign_all(pool, [(s, []) for s in seeds0 + extra])]
+    pub_of = dict(zip(seeds0 + extra, pubs))
+    sets = [ValidatorSet([Validator(PubKey(pub_of[s]), w)
+                          for s, w in zip(seeds, powers)])
+            for seeds in (seeds0, seeds1)]
+    seed_of = {}
+    for vs, seeds in zip(sets, (seeds0, seeds1)):
+        for v, s in zip(vs.validators, seeds):
+            check(pub_of[s] == v.pub_key.data, "validator order moved")
+            seed_of[v.address] = s
+    jobs, per_seed = [], {}
+    for h in range(1, STREAM_HEIGHTS + 1):
+        vs = sets[0] if h <= V0_HEIGHTS else sets[1]
+        bid = block_id(rng)
+        commit = unsigned_commit(vs, h, bid, 1_700_000_000 + h)
+        if h == SHORT_HEIGHT:
+            for i in range(SHORT_ABSENT):
+                commit.signatures[i] = CommitSig()
+        for i, (cs, m) in enumerate(zip(commit.signatures,
+                                        commit.sign_bytes_rows(CHAIN_ID))):
+            if cs.for_block():
+                per_seed.setdefault(seed_of[cs.validator_address],
+                                    []).append((h, i, m))
+        jobs.append(CommitJob(vs, bid, h, commit, CHAIN_ID))
+    order = list(per_seed)
+    signed = sign_all(pool, [(s, [m for _, _, m in per_seed[s]])
+                             for s in order])
+    n_sigs = 0
+    for s, (_, sigs) in zip(order, signed):
+        for (h, i, _), sig in zip(per_seed[s], sigs):
+            jobs[h - 1].commit.signatures[i].signature = sig
+            n_sigs += 1
+    cs = jobs[TAMPER_HEIGHT - 1].commit.signatures[TAMPER_VAL]
+    cs.signature = flip(cs.signature, 50)
+    return jobs, sets, n_sigs, np.asarray(powers)
+
+
+def _oracle_outcome(job):
+    from cometbft_tpu_torch.types import validation as val
+
+    try:
+        val.verify_commit_light(job.chain_id, job.vals, job.block_id,
+                                job.height, job.commit,
+                                val.oracle_batch_fn())
+        return None
+    except val.InvalidSignatureError as e:
+        return ("InvalidSignatureError", e.idx)
+    except val.VerificationError as e:
+        return (type(e).__name__,)
+
+
+def _outcome(err):
+    if err is None:
+        return None
+    return ((type(err).__name__, err.idx) if hasattr(err, "idx")
+            else (type(err).__name__,))
+
+
+def _host_pack_chunk(jobs, M, B, thresh):
+    """pack_rows_cached over a host pack of one cached stream chunk: the
+    for-block signature of validator i in commit c at column c * M + i,
+    dead columns zero."""
+    import numpy as np
+
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+
+    pubs, msgs, sigs, pos = [], [], [], []
+    for c, job in enumerate(jobs):
+        for i, (cs, m) in enumerate(zip(job.commit.signatures,
+                                        job.commit.sign_bytes_rows(
+                                            job.chain_id))):
+            if cs.for_block():
+                pubs.append(job.vals.validators[i].pub_key.data)
+                msgs.append(m)
+                sigs.append(cs.signature)
+                pos.append(c * M + i)
+    n = len(pos)
+    pos = np.asarray(pos)
+    pb = ek.pack_batch(pubs, msgs, sigs, pad_to=n)
+
+    def spread(a):
+        a = np.asarray(a)
+        out = np.zeros((B,) + a.shape[1:], a.dtype)
+        out[pos] = a[:n]
+        return out
+
+    live = spread(np.ones(n, bool))
+    full = ek.PackedBatch(n, B, None, None, spread(pb.ry), spread(pb.rsign),
+                          spread(pb.sdig), spread(pb.hdig),
+                          spread(pb.precheck))
+    cids = np.where(live, np.arange(B) // M, 0).astype(np.int32)
+    return ec.pack_rows_cached(full, live, cids, thresh)
+
+
+def phase_stream(dev, pool, rng, kernel_stats):
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.blocksync import pipeline as bp
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+
+    t0 = time.perf_counter()
+    jobs, sets, n_sigs, powers = _stream_fixture(pool, rng)
+    print(f"phase6 fixtures validators={STREAM_VALS} heights="
+          f"{STREAM_HEIGHTS} signatures={n_sigs} keys+signatures_s="
+          f"{time.perf_counter() - t0:.3f}", flush=True)
+
+    brk = cbatch.device_breaker()
+    real_pack = ek.pack_batch
+    packs = []
+
+    def counting_pack(*a, **k):
+        packs.append(len(a[0]))
+        return real_pack(*a, **k)
+
+    runs = []  # (seconds, launches, stats, host_ms)
+    captured = {}
+    real_delta = es.verify_tally_delta_cached
+
+    def capture_delta(sig, ts, flags, ent, table, n_commits, thresh=None):
+        if not captured:
+            captured.update(sig=sig.copy(), ts=ts.copy(), flags=flags.copy(),
+                            ent=ent, table=table, n_commits=n_commits,
+                            thresh=np.asarray(thresh).copy())
+        return real_delta(sig, ts, flags, ent, table, n_commits, thresh)
+
+    ek.pack_batch = counting_pack
+    try:
+        for k in range(STREAM_RUNS):
+            s0 = ec.table_cache_stats()
+            if k == 1:
+                es.verify_tally_delta_cached = capture_delta
+            zero_launches()
+            sv = bp.make_stream_verifier()
+            t = time.perf_counter()
+            results = sv.verify(jobs)
+            runs.append((time.perf_counter() - t, read_launches(),
+                         {key: ec.table_cache_stats()[key] - s0[key]
+                          for key in s0}, dict(sv.stats)))
+            es.verify_tally_delta_cached = real_delta
+    finally:
+        ek.pack_batch = real_pack
+        es.verify_tally_delta_cached = real_delta
+    got = [_outcome(r) for r in results]
+    want = [None] * STREAM_HEIGHTS
+    want[TAMPER_HEIGHT - 1] = ("InvalidSignatureError", TAMPER_VAL)
+    want[SHORT_HEIGHT - 1] = ("NotEnoughPowerError",)
+    failed = [(i + 1, g) for i, g in enumerate(got) if g is not None]
+    check(got == want, f"stream outcomes by height {failed}")
+    sample = [1, TAMPER_HEIGHT, V0_HEIGHTS, V0_HEIGHTS + 1, SHORT_HEIGHT,
+              STREAM_HEIGHTS]
+    oracle = pool.map(_oracle_outcome, [jobs[h - 1] for h in sample])
+    check([got[h - 1] for h in sample] == oracle,
+          f"stream != oracle on heights {sample}: {oracle}")
+    check(not packs, f"pack_batch ran on the stamped path ({packs})")
+    for name in ("ed25519_verify", "tally_quorum"):
+        kernel_stats[name]["launches_by_path"]["stream"] = runs[0][1][name]
+    cold, warm = runs[0], runs[1:]
+    want_cold = {"ed25519_verify": 0, "tally_quorum": 0,
+                 "valset_table_build": 2, "ed25519_verify_cached": 2,
+                 "tally_quorum_cached": 2, "stamp_rows": 2}
+    check(cold[1] == want_cold, f"phase6 cold launches {cold[1]}")
+    check(cold[2]["misses"] == 2 and cold[2]["incremental_patches"] == 1,
+          f"phase6 cold table lookups {cold[2]}")
+    for _, launches, st, _ in warm:
+        check(launches == dict(want_cold, valset_table_build=0),
+              f"phase6 warm launches {launches}")
+        check(st["misses"] == 0, f"phase6 warm table lookups {st}")
+    for _, _, _, sst in runs:
+        check(sst["stamped_chunks"] == 2 and sst["general_chunks"] == 0
+              and sst["host_packed_cached_chunks"] == 0,
+              f"phase6 chunk branches {sst}")
+    check(brk.trips == 0 and brk.faults == 0,
+          f"breaker trips={brk.trips} faults={brk.faults}")
+    warm_s = statistics.median(r[0] for r in warm)
+    host_ms = [round(x, 3) for r in runs for x in r[3]["host_ms"]]
+    print(f"phase6 launches cold={json.dumps(cold[1])} chunks=2 stamped=2 "
+          f"pack_batch_calls=0 breaker_trips=0 faults=0 blamed_height="
+          f"{TAMPER_HEIGHT} idx={TAMPER_VAL} short_height={SHORT_HEIGHT}",
+          flush=True)
+    print(f"phase6 stream cold_s={cold[0]:.3f} warm_s="
+          f"{[round(r[0], 3) for r in warm]} blocks_per_s_cold="
+          f"{STREAM_HEIGHTS / cold[0]:.1f} blocks_per_s_warm="
+          f"{STREAM_HEIGHTS / warm_s:.1f} sigs_per_s_cold="
+          f"{n_sigs / cold[0]:.1f} sigs_per_s_warm={n_sigs / warm_s:.1f} "
+          f"host_ms_per_chunk={host_ms}", flush=True)
+
+    # the device's busy share of one warm run, from a profiler trace
+    saved = read_launches()
+    try:
+        busy = trace_device_ms(
+            lambda: bp.make_stream_verifier().verify(jobs),
+            "stream_trace.json")
+    except Exception as e:  # noqa: BLE001 - the trace is a measurement only
+        busy = None
+        print(f"phase6 profiler failed: {e!r}", flush=True)
+    if busy is None:
+        print("phase6 device busy share: not measured (no device events in "
+              "a trace)", flush=True)
+    else:
+        kern_ms, copy_ms, wall_ms = busy
+        print(f"phase6 traced warm run wall_ms={wall_ms:.3f} kernel_ms="
+              f"{kern_ms:.3f} memcpy_ms={copy_ms:.3f} device_idle_share="
+              f"{1 - (kern_ms + copy_ms) / wall_ms:.4f}", flush=True)
+
+    # the kernels at the stream's shapes, against their plain versions
+    table = captured["table"]
+    ent = captured["ent"]
+    cap = captured["n_commits"]
+    M = table.n_vals
+    B = captured["sig"].shape[0]
+    t_rows = ec.packed_rows_shape(B, cap)[0] - ec.V_THRESH
+    sig_t, ts_t, fl_t = (torch.from_numpy(captured[k]).to(dev)
+                         for k in ("sig", "ts", "flags"))
+    thr_t = torch.from_numpy(captured["thresh"]).to(dev)
+    stamp = lambda: es.stamp_rows(sig_t, ts_t, fl_t, ent,  # noqa: E731
+                                  table.pub_raw, thr_t, t_rows)
+    stamp_ms = cuda_ms(stamp, 10)
+    rows = stamp()
+    t = time.perf_counter()
+    rows_p = es.stamp_rows_plain(sig_t, ts_t, fl_t, ent.pre_mat, ent.pre_len,
+                                 ent.suf_mat, ent.suf_len, ent.ts_tag,
+                                 table.pub_raw, thr_t, ent.msg_max, t_rows)
+    torch.cuda.synchronize()
+    stamp_plain_ms = (time.perf_counter() - t) * 1e3
+    stamp_err = int((rows.to(torch.int64) - rows_p.to(torch.int64))
+                    .abs().max())
+    check(stamp_err == 0, "stamp_rows != plain at the stream's shape")
+    # the same chunk through the host pack: stamped rows are its bytes
+    check(np.array_equal(rows.cpu().numpy(), _host_pack_chunk(
+        jobs[:cap], M, B, captured["thresh"])),
+        "stamped chunk != pack_rows_cached of the host pack")
+    live = int((captured["flags"] & 1).sum())
+    blocks = sum(
+        es.sha512_blocks(len(m)) for job in jobs[:cap]
+        for m, cs in zip(job.commit.sign_bytes_rows(CHAIN_ID),
+                         job.commit.signatures) if cs.for_block())
+    print(f"phase6 stamp_rows cols={B} live={live} sha512_blocks={blocks} "
+          f"kernel_ms={stamp_ms:.4f} plain_ms={stamp_plain_ms:.1f} "
+          "kernel==plain==host pack (bytes)", flush=True)
+
+    vk = lambda: ec.ed25519_verify_cached(rows, table.tab,  # noqa: E731
+                                          table.ok)
+    verify_ms = cuda_ms(vk, 5)
+    verdicts = vk()
+    t = time.perf_counter()
+    vp = ec.ed25519_verify_cached_plain(rows, table.tab, table.ok,
+                                        ec.kf.base_points(dev))
+    torch.cuda.synchronize()
+    verify_plain_ms = (time.perf_counter() - t) * 1e3
+    verify_err = int((verdicts - vp).abs().max())
+    check(verify_err == 0, "ed25519_verify_cached != plain at B=65,536")
+    bad = 1 if TAMPER_HEIGHT <= cap else 0  # the planted signature
+    check(int(verdicts.sum()) == live - bad,
+          "the chunk's valid rows did not all verify")
+    print(f"phase6 ed25519_verify_cached cols={B} M={M} live={live} "
+          f"kernel_ms={verify_ms:.4f} plain_ms={verify_plain_ms:.1f} "
+          "kernel==plain", flush=True)
+
+    tq = lambda: ec.tally_quorum_cached(verdicts, rows,  # noqa: E731
+                                        table.power5, cap)
+    tally_ms = cuda_ms(tq, 50)
+    tally_plain_ms = cuda_ms(lambda: ec.tally_quorum_cached_plain(
+        verdicts, rows, table.power5, cap), 3)
+    tk, qk = tq()
+    tp, qp = ec.tally_quorum_cached_plain(verdicts, rows, table.power5, cap)
+    tally_err = max(int((tk - tp).abs().max()), int((qk != qp).sum()))
+    check(tally_err == 0, "tally_quorum_cached != plain at the chunk shape")
+    flags = rows[ec.V_FLAGS].to(torch.int64)
+    pw = table.power5[torch.arange(B, device=dev) % M].to(torch.int64)
+    contrib = pw * ((verdicts != 0) & (((flags >> 2) & 1) != 0)).to(
+        torch.int64)[:, None]
+    acc = torch.zeros((cap, 5), dtype=torch.int64, device=dev)
+    cids = flags >> 3
+    tally_lib_ms = cuda_ms(lambda: acc.index_add_(0, cids, contrib), 50)
+    print(f"phase6 tally_quorum_cached cols={B} commits={cap} "
+          f"kernel_ms={tally_ms:.5f} plain_ms={tally_plain_ms:.3f} "
+          f"index_add_ms={tally_lib_ms:.5f}", flush=True)
+
+    lenok = torch.ones((M,), dtype=torch.bool, device=dev)
+    lenok[STREAM_VALS:] = False
+    build = lambda: ec.valset_table_build(table.pub_raw, lenok)  # noqa
+    build_ms = cuda_ms(build, 3)
+    tab_k, ok_k = build()
+    t = time.perf_counter()
+    tab_p, ok_p = ec.valset_table_build_plain(table.pub_raw, lenok)
+    torch.cuda.synchronize()
+    build_plain_ms = (time.perf_counter() - t) * 1e3
+    build_err = int((tab_k - tab_p).abs().max())
+    check(build_err == 0 and torch.equal(ok_k, ok_p)
+          and torch.equal(tab_k, table.tab),
+          "valset_table_build != plain (or != the cached table) at M=1,024")
+    v1_pubs = [v.pub_key.data for v in sets[1].validators]
+    update_ms = []
+    for _ in range(3):
+        t = time.perf_counter()
+        patched = ec.update_table(table, [(i, v1_pubs[i]) for i in ROTATED])
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t) * 1e3)
+    check(torch.equal(patched.tab, ec.table_for_valset(sets[1]).tab),
+          "update_table != the stream's V1 table")
+    print(f"phase6 valset_table_build M={M} kernel_ms={build_ms:.3f} "
+          f"plain_ms={build_plain_ms:.1f} update_table_8_keys_ms="
+          f"{[round(x, 3) for x in update_ms]}", flush=True)
+    for name, n in saved.items():
+        cached_kernels()[name].launches = n
+
+    kernel_stats["valset_table_build"] = dict(
+        launches_by_path={"stream": cold[1]["valset_table_build"]},
+        ms=build_ms, plain_ms=build_plain_ms, max_abs_err=build_err,
+        ops=M * ec.build_products_per_validator(),
+        bytes=M * (32 + 1) + M * (ec.ENT_PER_VAL * 120 + 1), library_ms=None)
+    kernel_stats["ed25519_verify_cached"] = dict(
+        launches_by_path={"stream": cold[1]["ed25519_verify_cached"]},
+        ms=verify_ms, plain_ms=verify_plain_ms, max_abs_err=verify_err,
+        ops=live * ec.verify_cached_products_per_signature(),
+        bytes=(B * (ec.V_KROWS * 4 + 4) + M * (ec.ENT_PER_VAL * 120 + 1)
+               + 8192 * 120),
+        library_ms=None)
+    kernel_stats["tally_quorum_cached"] = dict(
+        launches_by_path={"stream": cold[1]["tally_quorum_cached"]},
+        ms=tally_ms, plain_ms=tally_plain_ms, max_abs_err=tally_err,
+        ops=B * 6, bytes=B * 8 + M * 20 + cap * (6 * 4 * 2 + 1),
+        library_ms=tally_lib_ms)
+    kernel_stats["stamp_rows"] = dict(
+        launches_by_path={"stream": cold[1]["stamp_rows"]},
+        ms=stamp_ms, plain_ms=stamp_plain_ms, max_abs_err=stamp_err,
+        ops=blocks * es.SHA512_OPS_PER_BLOCK,
+        bytes=B * (64 + 12 + 4) + M * 32 + (ec.V_THRESH + t_rows) * B * 4,
+        library_ms=None)
+    return {"stream_blocks_per_s": STREAM_HEIGHTS / warm_s,
+            "stream_sigs_per_s": n_sigs / warm_s}
+
+
+def phase_cached_commit(dev, res, kernel_stats):
+    import torch
+
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.types import validation as val
+
+    vs, bid, height, commit = res["fixture"]
+    fn = val.device_batch_fn(cached=True)
+    brk = cbatch.device_breaker()
+    captured = []  # (rows, table) of the clean and the tampered call
+    real_rows = ec.verify_rows_cached
+
+    def capture_rows(rows, table):
+        captured.append((rows, table))
+        return real_rows(rows, table)
+
+    ec.verify_rows_cached = capture_rows
+    try:
+        zero_launches()
+        t = time.perf_counter()
+        val.verify_commit(CHAIN_ID, vs, bid, height, commit, fn)
+        cold_ms = (time.perf_counter() - t) * 1e3
+        warm_ms = []
+        for _ in range(CACHED_RUNS):
+            t = time.perf_counter()
+            val.verify_commit(CHAIN_ID, vs, bid, height, commit, fn)
+            warm_ms.append((time.perf_counter() - t) * 1e3)
+        good = commit.signatures[TAMPER_IDX].signature
+        commit.signatures[TAMPER_IDX].signature = flip(good, 40)
+        try:
+            val.verify_commit(CHAIN_ID, vs, bid, height, commit, fn)
+            blamed = None
+        except val.InvalidSignatureError as e:
+            blamed = e.idx
+        commit.signatures[TAMPER_IDX].signature = good
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        ec.verify_rows_cached = real_rows
+    check(blamed == TAMPER_IDX, f"cached verify_commit blamed {blamed}")
+    want = {"ed25519_verify": 0, "tally_quorum": 0, "valset_table_build": 1,
+            "ed25519_verify_cached": CACHED_RUNS + 2,
+            "tally_quorum_cached": 0, "stamp_rows": 0}
+    check(launches == want, f"phase7 launches {launches}")
+    check(brk.trips == 0 and brk.faults == 0,
+          f"breaker trips={brk.trips} faults={brk.faults}")
+    p50 = statistics.median(warm_ms)
+    check(len(captured) == CACHED_RUNS + 2,
+          f"phase7 verify_rows_cached calls {len(captured)}")
+
+    # the kernels at this path's shapes, against their plain versions: the
+    # verify kernel on the rows of the clean and the tampered call
+    table = captured[0][1]
+    M = table.n_vals
+    verify_err = 0
+    for (rows_np, tb), n_valid in ((captured[0], N_VALS),
+                                   (captured[-1], N_VALS - 1)):
+        check(tb is table, "phase7 calls used different tables")
+        rows = torch.from_numpy(rows_np).to(dev)
+        got = ec.ed25519_verify_cached(rows, table.tab, table.ok)
+        want = ec.ed25519_verify_cached_plain(rows, table.tab, table.ok,
+                                              ec.kf.base_points(dev))
+        verify_err = max(verify_err, int((got - want).abs().max()))
+        check(int(got.sum()) == n_valid, "phase7 verdicts: valid count")
+    check(verify_err == 0,
+          f"ed25519_verify_cached != plain at {rows.shape[1]} columns, M={M}")
+    verify_ms = cuda_ms(lambda: ec.ed25519_verify_cached(
+        rows, table.tab, table.ok), 5)
+    # the M = 16,384 table build, kernel and plain, against the cached table
+    lenok = torch.ones((M,), dtype=torch.bool, device=dev)
+    lenok[N_VALS:] = False
+    build16k_ms = cuda_ms(lambda: ec.valset_table_build(table.pub_raw,
+                                                        lenok), 2)
+    tab_k, ok_k = ec.valset_table_build(table.pub_raw, lenok)
+    tab_p, ok_p = ec.valset_table_build_plain(table.pub_raw, lenok)
+    build_err = int((tab_k - tab_p).abs().max())
+    check(build_err == 0 and torch.equal(ok_k, ok_p)
+          and torch.equal(tab_k, table.tab),
+          "valset_table_build != plain (or != the cached table) at M=16,384")
+    del tab_k, tab_p
+    for name, n in launches.items():
+        cached_kernels()[name].launches = n
+    for name, err in (("valset_table_build", build_err),
+                      ("ed25519_verify_cached", verify_err)):
+        k = kernel_stats[name]
+        k["launches_by_path"]["verify_commit_cached"] = launches[name]
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+    print(f"phase7 launches {json.dumps(launches)} breaker_trips=0 faults=0 "
+          f"blamed_idx={TAMPER_IDX}", flush=True)
+    rate = int_ops_per_s()[1]
+    verify_bound = (N_VALS * ec.verify_cached_products_per_signature()
+                    / rate * 1e3)
+    build_bound = M * ec.build_products_per_validator() / rate * 1e3
+    print(f"phase7 ed25519_verify_cached cols={rows.shape[1]} M={M} "
+          f"kernel_ms={verify_ms:.4f} ops_bound_ms={verify_bound:.4f} "
+          "kernel==plain (clean and tampered rows); valset_table_build "
+          f"M={M} kernel_ms={build16k_ms:.3f} ops_bound_ms={build_bound:.4f} "
+          "kernel==plain==cached table", flush=True)
+    print(f"phase7 cached VerifyCommit n_sigs={N_VALS} M={M} "
+          f"cold_ms={cold_ms:.3f} p50_ms={p50:.3f} sigs_per_s="
+          f"{N_VALS / (p50 / 1e3):.1f} runs={CACHED_RUNS} "
+          f"all_ms={[round(x, 3) for x in warm_ms]}", flush=True)
+    return {"cached_p50_ms": p50, "cached_sigs_per_s": N_VALS / (p50 / 1e3)}
+
+
+def int_ops_per_s() -> tuple:
+    """(clocks.max.sm in MHz, INT32 multiply-adds per second of the card)."""
+    mhz = smi("clocks.max.sm").split()[0]
+    return mhz, H100_SMS * IMAD_PER_CLK * float(mhz) * 1e6
+
+
 def kernels_json(kernel_stats):
     from cometbft_tpu_torch.ops import ed25519_fused as kf
 
-    mhz = smi("clocks.max.sm").split()[0]
-    imad_per_s = H100_SMS * IMAD_PER_CLK * float(mhz) * 1e6
+    mhz, imad_per_s = int_ops_per_s()
     products = kf.verify_products_per_signature()
     out = []
     v = kernel_stats["ed25519_verify"]
@@ -581,6 +1301,30 @@ def kernels_json(kernel_stats):
         bound_by="operations" if ops_ms > bytes_ms else "bytes",
         library_ms=t["library_ms"],
     ))
+    sources = {
+        "valset_table_build": ("valset_table.cu",
+                               "cometbft_tpu/ops/ed25519_cached.py:110"),
+        "ed25519_verify_cached": ("ed25519_cached_verify.cu",
+                                  "cometbft_tpu/ops/ed25519_cached.py:849"),
+        "tally_quorum_cached": ("tally_quorum.cu",
+                                "cometbft_tpu/ops/ed25519_cached.py:948"),
+        "stamp_rows": ("stamp_rows.cu",
+                       "cometbft_tpu/ops/ed25519_cached.py:1495"),
+    }
+    for name, (src, replaces) in sources.items():
+        k = kernel_stats[name]
+        ops_ms = k["ops"] / imad_per_s * 1e3
+        bytes_ms = k["bytes"] / HBM_BYTES_PER_S * 1e3
+        out.append(dict(
+            name=name, route="cuda",
+            source=f"cometbft_tpu_torch/csrc/{src}", replaces=replaces,
+            launches=sum(k["launches_by_path"].values()),
+            launches_by_path=k["launches_by_path"],
+            max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            library_ms=k["library_ms"],
+        ))
     print(f"bound: {products} limb products/signature, clocks.max.sm={mhz} "
           f"MHz, {imad_per_s:.4e} INT32 multiply-adds/s", flush=True)
     return {"kernels": out}
@@ -620,11 +1364,24 @@ def main() -> int:
         phase_fused_step(dev, pool, rng, kernel_stats,
                          res["tally_launches"])
         print(f"phase4 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        phase_cached_kernels_vs_plain(dev, pool, rng)
+        print(f"phase5 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        res.update(phase_stream(dev, pool, rng, kernel_stats))
+        print(f"phase6 s={time.perf_counter() - t:.3f}", flush=True)
+    t = time.perf_counter()
+    res.update(phase_cached_commit(dev, res, kernel_stats))
+    print(f"phase7 s={time.perf_counter() - t:.3f}", flush=True)
     brk = cbatch.device_breaker()
     check(brk.trips == 0 and brk.faults == 0, "breaker recorded a fault")
     print(json.dumps(kernels_json(kernel_stats)), flush=True)
     print(f"summary VerifyCommitLight_p50_ms={res['light_p50_ms']:.3f} "
           f"VerifyCommit_sigs_per_s={res['full_sigs_per_s']:.1f} "
+          f"stream_blocks_per_s={res['stream_blocks_per_s']:.1f} "
+          f"stream_sigs_per_s={res['stream_sigs_per_s']:.1f} "
+          f"cached_VerifyCommit_p50_ms={res['cached_p50_ms']:.3f} "
+          f"cached_VerifyCommit_sigs_per_s={res['cached_sigs_per_s']:.1f} "
           f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print("nvidia-smi:", smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

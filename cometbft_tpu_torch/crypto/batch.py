@@ -4,7 +4,9 @@ the device under a circuit breaker.
 Reference: crypto/batch/batch.go:12-32 (CreateBatchVerifier switches on key
 type). Counterpart of the JAX package's crypto/batch.py, for the ed25519
 slice of the port: ed25519 rows go to the CUDA verify kernel
-(ops/ed25519_fused.py).
+(ops/ed25519_fused.py), or, with `cached=True`, groups of at least
+`CACHED_MIN_ROWS` rows go to the cached-valset kernel
+(ops/ed25519_cached.py `verify_batch_cached`).
 
 Every kernel dispatch runs under a circuit breaker. A device fault is
 logged, counted and raised to the caller: the port never re-verifies on the
@@ -107,6 +109,21 @@ def device_breaker() -> CircuitBreaker:
     return _DEVICE_BREAKER
 
 
+# The cached-valset kernel keys its window table on the EXACT pubkey list,
+# so it pays off for whole-valset batches; below one lane tile the general
+# kernel serves (the JAX package's `device_batch_fn(cached=True)` gate).
+CACHED_MIN_ROWS = 128
+
+
+def _ed25519_cached(pubs, msgs, sigs, device=None):
+    from cometbft_tpu_torch.ops import ed25519_cached, ed25519_fused
+
+    if len(pubs) >= CACHED_MIN_ROWS:
+        return ed25519_cached.verify_batch_cached(pubs, msgs, sigs,
+                                                  device=device)
+    return ed25519_fused.verify_batch(pubs, msgs, sigs, device=device)
+
+
 def _kernel_for(key_type: str) -> Callable:
     if key_type == ED25519_KEY_TYPE:
         from cometbft_tpu_torch.ops import ed25519_fused
@@ -115,20 +132,29 @@ def _kernel_for(key_type: str) -> Callable:
     raise ValueError(f"no batch verifier for key type {key_type!r}")
 
 
+def _cached_kernel_for(key_type: str) -> Callable:
+    if key_type == ED25519_KEY_TYPE:
+        return _ed25519_cached
+    return _kernel_for(key_type)
+
+
 def verify_batch_direct(
     pubs: Sequence[PubKey],
     msgs: Sequence[bytes],
     sigs: Sequence[bytes],
     device=None,
     breaker: CircuitBreaker = None,
+    cached: bool = False,
 ) -> np.ndarray:
     """Group rows by key type and dispatch each group to its kernel under
     the circuit breaker; (n,) bool validity.
 
     `device` is passed to the kernel (None: the CUDA card; "cpu": the plain
-    PyTorch version). A device fault is recorded on the breaker and raised;
-    while the breaker is open, groups raise `DeviceError` without touching
-    the device. `breaker` overrides the global device breaker (tests)."""
+    PyTorch version); `cached` routes ed25519 groups through the
+    cached-valset kernel. A device fault is recorded on the breaker and
+    raised; while the breaker is open, groups raise `DeviceError` without
+    touching the device. `breaker` overrides the global device breaker
+    (tests)."""
     n = len(pubs)
     valid = np.zeros((n,), np.bool_)
     brk = breaker if breaker is not None else _DEVICE_BREAKER
@@ -136,7 +162,7 @@ def verify_batch_direct(
     for i, p in enumerate(pubs):
         groups[p.key_type].append(i)
     for kt, idxs in groups.items():
-        kernel = _kernel_for(kt)
+        kernel = _cached_kernel_for(kt) if cached else _kernel_for(kt)
         if not brk.allow():
             raise DeviceError(
                 f"circuit breaker {brk.name} is open; {len(idxs)} {kt} "
@@ -159,7 +185,8 @@ def verify_batch_direct(
 
 
 def verify_batch(pubs, msgs, sigs, device=None,
-                 breaker: CircuitBreaker = None) -> np.ndarray:
+                 breaker: CircuitBreaker = None,
+                 cached: bool = False) -> np.ndarray:
     """The batch_fn validation.py consumes. There is no verify plane in the
     port yet, so every call goes direct."""
-    return verify_batch_direct(pubs, msgs, sigs, device, breaker)
+    return verify_batch_direct(pubs, msgs, sigs, device, breaker, cached)

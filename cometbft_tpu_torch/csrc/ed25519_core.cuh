@@ -166,6 +166,22 @@ CBT_HD fe fe_pow22523(const fe& z) {
   return fe_mul(fe_sq_n(z_250_0, 2), z);
 }
 
+// z^(p - 2) = z^(2^255 - 21), the ref10 inversion chain (0 maps to 0)
+CBT_HD fe fe_invert(const fe& z) {
+  fe z2 = fe_sq(z);
+  fe z9 = fe_mul(z, fe_sq_n(z2, 2));
+  fe z11 = fe_mul(z2, z9);
+  fe z_5_0 = fe_mul(z9, fe_sq(z11));
+  fe z_10_0 = fe_mul(fe_sq_n(z_5_0, 5), z_5_0);
+  fe z_20_0 = fe_mul(fe_sq_n(z_10_0, 10), z_10_0);
+  fe z_40_0 = fe_mul(fe_sq_n(z_20_0, 20), z_20_0);
+  fe z_50_0 = fe_mul(fe_sq_n(z_40_0, 10), z_10_0);
+  fe z_100_0 = fe_mul(fe_sq_n(z_50_0, 50), z_50_0);
+  fe z_200_0 = fe_mul(fe_sq_n(z_100_0, 100), z_100_0);
+  fe z_250_0 = fe_mul(fe_sq_n(z_200_0, 50), z_50_0);
+  return fe_mul(fe_sq_n(z_250_0, 5), z11);
+}
+
 // Canonical limbs of a carried value (ref10 fe_tobytes before packing):
 // q = floor(h / p) in {0, 1}, then h - q p with exact carries.
 CBT_HD fe fe_canon(const fe& f) {
@@ -298,6 +314,20 @@ CBT_HD bool ge_decompress(const fe& y, int sign, ge_p3* out) {
   return is_pos || is_neg;
 }
 
+// a value < 2^255 held as little-endian 64-bit words (w[4] = 0) -> fe
+CBT_HD fe fe_from_words(const uint64_t w[5]) {
+  int64_t h[10];
+  const int e[11] = {0, 26, 51, 77, 102, 128, 153, 179, 204, 230, 255};
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    const int s = e[i], n = e[i + 1] - e[i], wi = s >> 6, sh = s & 63;
+    uint64_t x = w[wi] >> sh;
+    if (sh + n > 64) x |= w[wi + 1] << (64 - sh);
+    h[i] = (int64_t)(x & ((1ull << n) - 1));
+  }
+  return fe_from_i64(h);
+}
+
 // 20 packed 13-bit limbs (word k = limb k | limb k+10 << 13) -> fe
 CBT_HD fe fe_from_packed13(const int32_t* rows, int B, int row0, int col) {
   uint64_t w[5] = {0, 0, 0, 0, 0};
@@ -313,16 +343,16 @@ CBT_HD fe fe_from_packed13(const int32_t* rows, int B, int row0, int col) {
       if (sh > 51) w[wi + 1] |= l >> (64 - sh);
     }
   }
-  int64_t h[10];
-  const int e[11] = {0, 26, 51, 77, 102, 128, 153, 179, 204, 230, 255};
+  return fe_from_words(w);
+}
+
+// the low 255 bits of a 32-byte little-endian encoding, unreduced -> fe
+CBT_HD fe fe_from_bytes(const uint8_t* s) {
+  uint64_t w[5] = {0, 0, 0, 0, 0};
 #pragma unroll
-  for (int i = 0; i < 10; i++) {
-    const int s = e[i], n = e[i + 1] - e[i], wi = s >> 6, sh = s & 63;
-    uint64_t x = w[wi] >> sh;
-    if (sh + n > 64) x |= w[wi + 1] << (64 - sh);
-    h[i] = (int64_t)(x & ((1ull << n) - 1));
-  }
-  return fe_from_i64(h);
+  for (int k = 0; k < 32; k++) w[k >> 3] |= (uint64_t)s[k] << (8 * (k & 7));
+  w[3] &= 0x7fffffffffffffffull;
+  return fe_from_words(w);
 }
 
 // The verdict of column `col` of the packed rows (R, B): 1 iff

@@ -1,11 +1,19 @@
 // tally_quorum: per-commit voting-power tally and quorum bit on Hopper.
 //
 // Replaces: cometbft_tpu/ops/ed25519_kernel.py `tally_core` + `quorum_core`
-// (XLA, run after the Pallas verify in `ed25519_pallas._verify_tally_rows`).
+// (XLA, run after the Pallas verify in `ed25519_pallas._verify_tally_rows`,
+// and, for the cached layout, in `ed25519_cached._verify_tally_cached`).
 //
-// What bounds it on an H100: bytes. It reads one verdict and five packed
-// words per column (24 B) and does a handful of integer adds with them;
-// the work is a few microseconds next to the verify kernel.
+// Two entries share the reduction:
+//   cbt_tally_quorum         general packed rows: power from rows C_POW..,
+//                            counted from C_FLAGS bit 3, commit id row C_CID;
+//   cbt_tally_quorum_cached  cached packed rows: power from the valset's
+//                            power5[b mod M], counted from V_FLAGS bit 2,
+//                            commit id V_FLAGS >> 3.
+//
+// What bounds it on an H100: bytes. It reads one verdict and a few packed
+// words per column and does a handful of integer adds with them; the work is
+// microseconds next to the verify kernels.
 //
 // Design: one block per commit. The block's threads stride over the B
 // columns and sum the 13-bit power limbs of the columns that are valid,
@@ -23,27 +31,15 @@ constexpr int kThreads = 256;
 constexpr int kPowerLimbs = 5;
 constexpr int kTallyLimbs = 6;
 constexpr int kC_FLAGS = 36, kC_POW = 37, kC_CID = 40, kC_THRESH = 41;
+constexpr int kV_FLAGS = 26, kV_THRESH = 27;
 constexpr uint32_t kM13 = (1u << 13) - 1;
 
-__global__ void __launch_bounds__(kThreads)
-tally_quorum_kernel(const int32_t* __restrict__ valid,
-                    const int32_t* __restrict__ rows, int B,
-                    int32_t* __restrict__ tally, uint8_t* __restrict__ quorum) {
-  const int c = blockIdx.x;
+// Reduces each thread's acc over the block, then thread 0 writes commit c's
+// canonical tally and quorum bit (tally > thresh).
+__device__ void reduce_and_finish(int32_t (&acc)[kPowerLimbs],
+                                  const int32_t* thresh, int c,
+                                  int32_t* tally, uint8_t* quorum) {
   __shared__ int32_t part[kPowerLimbs][kThreads];
-  int32_t acc[kPowerLimbs] = {0, 0, 0, 0, 0};
-  for (int b = threadIdx.x; b < B; b += kThreads) {
-    const uint32_t flags = (uint32_t)rows[kC_FLAGS * B + b];
-    if (valid[b] != 0 && ((flags >> 3) & 1u) && rows[kC_CID * B + b] == c) {
-      const uint32_t p01 = (uint32_t)rows[kC_POW * B + b];
-      const uint32_t p23 = (uint32_t)rows[(kC_POW + 1) * B + b];
-      acc[0] += (int32_t)(p01 & kM13);
-      acc[1] += (int32_t)((p01 >> 13) & kM13);
-      acc[2] += (int32_t)(p23 & kM13);
-      acc[3] += (int32_t)((p23 >> 13) & kM13);
-      acc[4] += rows[(kC_POW + 2) * B + b];
-    }
-  }
 #pragma unroll
   for (int k = 0; k < kPowerLimbs; k++) part[k][threadIdx.x] = acc[k];
   __syncthreads();
@@ -66,8 +62,6 @@ tally_quorum_kernel(const int32_t* __restrict__ valid,
     t[i] -= carry << 13;
     t[i + 1] += carry;
   }
-  // thresholds: rows[C_THRESH:] read flat, (n_commits, 6) limbs
-  const int32_t* thresh = rows + (size_t)kC_THRESH * B + (size_t)c * kTallyLimbs;
   bool gt = false, eq = true;
 #pragma unroll
   for (int i = kTallyLimbs - 1; i >= 0; i--) {
@@ -77,6 +71,50 @@ tally_quorum_kernel(const int32_t* __restrict__ valid,
 #pragma unroll
   for (int i = 0; i < kTallyLimbs; i++) tally[c * kTallyLimbs + i] = t[i];
   quorum[c] = gt ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+tally_quorum_kernel(const int32_t* __restrict__ valid,
+                    const int32_t* __restrict__ rows, int B,
+                    int32_t* __restrict__ tally, uint8_t* __restrict__ quorum) {
+  const int c = blockIdx.x;
+  int32_t acc[kPowerLimbs] = {0, 0, 0, 0, 0};
+  for (int b = threadIdx.x; b < B; b += kThreads) {
+    const uint32_t flags = (uint32_t)rows[kC_FLAGS * B + b];
+    if (valid[b] != 0 && ((flags >> 3) & 1u) && rows[kC_CID * B + b] == c) {
+      const uint32_t p01 = (uint32_t)rows[kC_POW * B + b];
+      const uint32_t p23 = (uint32_t)rows[(kC_POW + 1) * B + b];
+      acc[0] += (int32_t)(p01 & kM13);
+      acc[1] += (int32_t)((p01 >> 13) & kM13);
+      acc[2] += (int32_t)(p23 & kM13);
+      acc[3] += (int32_t)((p23 >> 13) & kM13);
+      acc[4] += rows[(kC_POW + 2) * B + b];
+    }
+  }
+  // thresholds: rows[C_THRESH:] read flat, (n_commits, 6) limbs
+  reduce_and_finish(acc, rows + (size_t)kC_THRESH * B + (size_t)c * kTallyLimbs,
+                    c, tally, quorum);
+}
+
+__global__ void __launch_bounds__(kThreads)
+tally_quorum_cached_kernel(const int32_t* __restrict__ valid,
+                           const int32_t* __restrict__ rows, int B,
+                           const int32_t* __restrict__ power5, int M,
+                           int32_t* __restrict__ tally,
+                           uint8_t* __restrict__ quorum) {
+  const int c = blockIdx.x;
+  int32_t acc[kPowerLimbs] = {0, 0, 0, 0, 0};
+  for (int b = threadIdx.x; b < B; b += kThreads) {
+    const int32_t flags = rows[kV_FLAGS * B + b];
+    if (valid[b] != 0 && ((flags >> 2) & 1) && (flags >> 3) == c) {
+      const int32_t* p = power5 + (size_t)(b % M) * kPowerLimbs;
+#pragma unroll
+      for (int k = 0; k < kPowerLimbs; k++) acc[k] += p[k];
+    }
+  }
+  // thresholds: rows[V_THRESH:] read flat, (n_commits, 6) limbs
+  reduce_and_finish(acc, rows + (size_t)kV_THRESH * B + (size_t)c * kTallyLimbs,
+                    c, tally, quorum);
 }
 
 }  // namespace
@@ -91,5 +129,19 @@ extern "C" int cbt_tally_quorum(const int32_t* valid, const int32_t* rows,
   if (n_commits <= 0) return 0;
   tally_quorum_kernel<<<n_commits, kThreads, 0, (cudaStream_t)stream>>>(
       valid, rows, B, tally, quorum);
+  return (int)cudaGetLastError();
+}
+
+// The cached layout: as above, with power5 the valset's (M, 5) int32 power
+// limbs (column b is validator b mod M).
+extern "C" int cbt_tally_quorum_cached(const int32_t* valid,
+                                       const int32_t* rows, int B,
+                                       const int32_t* power5, int M,
+                                       int n_commits, int32_t* tally,
+                                       uint8_t* quorum, void* stream) {
+  if (n_commits <= 0) return 0;
+  tally_quorum_cached_kernel<<<n_commits, kThreads, 0,
+                               (cudaStream_t)stream>>>(
+      valid, rows, B, power5, M, tally, quorum);
   return (int)cudaGetLastError();
 }

@@ -8,9 +8,9 @@ The first call builds every kernel source at once, one nvcc process each,
 all started together; later calls in any process load the cached files.
 Nothing here runs at import time.
 
-The same directory holds the host build of the verify kernel's arithmetic
-(csrc/ed25519_host.cpp, compiled with the system C++ compiler), which the
-CPU tests use.
+The same directory holds the host build of the kernels' per-thread
+arithmetic (csrc/ed25519_host.cpp over the csrc/*.cuh headers, compiled
+with the system C++ compiler), which the CPU tests use.
 """
 from __future__ import annotations
 
@@ -32,11 +32,26 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # source -> {C entry: argtypes}; every entry returns int (a cudaError_t)
 KERNELS = {
     "ed25519_verify.cu": {"cbt_ed25519_verify": [_P, _I, _P, _P, _P]},
-    "tally_quorum.cu": {"cbt_tally_quorum": [_P, _P, _I, _I, _P, _P, _P]},
+    "tally_quorum.cu": {
+        "cbt_tally_quorum": [_P, _P, _I, _I, _P, _P, _P],
+        "cbt_tally_quorum_cached": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
+    },
+    "valset_table.cu": {"cbt_valset_table_build": [_P, _P, _I, _P, _P, _P]},
+    "ed25519_cached_verify.cu": {
+        "cbt_ed25519_verify_cached": [_P, _I, _P, _I, _P, _P, _P, _P]},
+    "stamp_rows.cu": {"cbt_stamp_rows": [
+        _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I,
+        _P, _P]},
 }
 _HOST_FNS = {
     "cbt_host_verify": ([_P, _I, _P, _P], None),
+    "cbt_host_table_build": ([_P, _I, _P, _P], None),
+    "cbt_host_verify_cached": ([_P, _I, _P, _I, _P, _P, _P], None),
+    "cbt_host_stamp": ([_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P,
+                        _I, _P, _I, _I, _P], None),
+    "cbt_host_sc_reduce": ([_P, _P], None),
     "cbt_host_op_counts": ([ctypes.POINTER(ctypes.c_longlong)] * 2, None),
+    "cbt_host_sha_blocks": ([], ctypes.c_longlong),
 }
 
 _lock = threading.Lock()

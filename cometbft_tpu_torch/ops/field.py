@@ -166,6 +166,22 @@ def pow_p58(z):
     return mul(sq_n(z_250_0, 2), z)
 
 
+def invert(z):
+    """z^(p - 2), the ref10 inversion chain (0 maps to 0)."""
+    z2 = square(z)
+    z9 = mul(z, sq_n(z2, 2))
+    z11 = mul(z2, z9)
+    z_5_0 = mul(z9, square(z11))
+    z_10_0 = mul(sq_n(z_5_0, 5), z_5_0)
+    z_20_0 = mul(sq_n(z_10_0, 10), z_10_0)
+    z_40_0 = mul(sq_n(z_20_0, 20), z_20_0)
+    z_50_0 = mul(sq_n(z_40_0, 10), z_10_0)
+    z_100_0 = mul(sq_n(z_50_0, 50), z_50_0)
+    z_200_0 = mul(sq_n(z_100_0, 100), z_100_0)
+    z_250_0 = mul(sq_n(z_200_0, 50), z_50_0)
+    return mul(sq_n(z_250_0, 5), z11)
+
+
 def _ripple(x: torch.Tensor) -> torch.Tensor:
     """Sequential signed carry; the top limb keeps the overflow."""
     cols = list(x.unbind(-1))

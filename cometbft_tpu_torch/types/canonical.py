@@ -149,6 +149,60 @@ class SignRows:
                 for i in range(n)]
 
 
+class StampSite:
+    """The per-template metadata the device stamping kernel needs to
+    expand (secs, nanos) deltas into complete sign-bytes rows: the
+    invariant prefix/suffix byte arrays, the timestamp field tag, the
+    varint width bounds, and the worst-case row length.
+
+    The layout contract (mirrored by ``patch_rows`` and by the stamp
+    kernel of ops/ed25519_stamp.py):
+
+        row = uvarint(body_len) | pre | TS_TAG | ts_len
+              | [0x08 secs-varint]? | [0x10 nanos-varint]? | suf
+
+    with the two timestamp fields zero-skipped (proto3 scalar rules)
+    and body_len = P + 2 + ts_len + S. ``ol_max`` bounds the outer
+    length prefix; ``max_len`` bounds the whole row."""
+
+    __slots__ = ("pre", "suf", "ts_tag", "ol_max", "max_len")
+
+    # timestamp body worst case: 0x08 + 10-byte secs + 0x10 + 10-byte
+    # nanos (64-bit two's-complement varints)
+    TS_LEN_MAX = 22
+
+    def __init__(self, pre: np.ndarray, suf: np.ndarray, ts_tag: int):
+        self.pre = pre
+        self.suf = suf
+        self.ts_tag = ts_tag
+        body_max = pre.size + 2 + self.TS_LEN_MAX + suf.size
+        self.ol_max = len(pe.uvarint(body_max))
+        self.max_len = self.ol_max + body_max
+
+    @property
+    def key(self) -> tuple:
+        """Content identity: device template caches key on this."""
+        return (self.pre.tobytes(), self.suf.tobytes(), self.ts_tag)
+
+
+def split_ts_words(secs, nanos, out: Optional[np.ndarray] = None
+                   ) -> np.ndarray:
+    """(n,) secs + (n,) nanos -> (n, 3) int32 staged delta words
+    [secs_lo, secs_hi, nanos]: unsigned lo word (int32 view) +
+    arithmetic-shift hi word, nanos in their own word. ``out`` reuses a
+    caller buffer (a staging-pool row slice)."""
+    secs = np.ascontiguousarray(secs, np.int64)
+    nanos = np.asarray(nanos, np.int64)
+    if out is None:
+        out = np.empty((secs.shape[0], 3), np.int32)
+    u = secs.view(np.uint64)
+    out[:, 0] = (u & np.uint64(0xFFFFFFFF)).astype(
+        np.uint32).view(np.int32)
+    out[:, 1] = (secs >> np.int64(32)).astype(np.int32)
+    out[:, 2] = nanos.astype(np.int32)
+    return out
+
+
 class VoteRowTemplate:
     """Vectorized row builder for one (chain_id, type, height, round,
     block_id): the invariant prefix/suffix encode once, then
@@ -179,6 +233,15 @@ class VoteRowTemplate:
         body = (self._pre + pe.f_msg(5, pe.timestamp(ts.seconds, ts.nanos))
                 + self._suf)
         return pe.delimited(body)
+
+    def stamp_site(self) -> StampSite:
+        """The device stamping contract for this template (memoized —
+        one per template, shared by every chunk that cites it)."""
+        site = getattr(self, "_site", None)
+        if site is None:
+            site = StampSite(self._pre_arr, self._suf_arr, self.TS_TAG)
+            self._site = site
+        return site
 
     def patch_rows(self, secs: Sequence[int],
                    nanos: Sequence[int]) -> SignRows:

@@ -291,16 +291,21 @@ def _verify_single(
 # --------------------------------------------------------------------------
 
 
-def device_batch_fn(device=None) -> Callable:
-    """Build a batch_fn backed by the CUDA verify kernel.
+def device_batch_fn(device=None, cached: bool = False) -> Callable:
+    """Build a batch_fn backed by the CUDA verify kernels.
 
     Returns fn(pubs: [PubKey], msgs, sigs) -> (n,) bool validity, with rows
     grouped by key type under the device circuit breaker (crypto/batch.py).
     `device` defaults to the CUDA card (device.default_device, resolved
     here so a missing card fails at construction); pass "cpu" for the plain
-    PyTorch version. The voting-power tally stays host-side here because
-    the collection loop's early break is sequential; the fused device tally
-    serves whole-commit streams (ed25519_fused.verify_tally_rows).
+    PyTorch version. With `cached=True`, ed25519 groups of at least 128
+    rows go to the cached-valset kernel (ed25519_cached.verify_batch_cached),
+    whose window table is keyed on the exact pubkey list: callers must
+    present a stable list (the whole valset in order, as verify_commit
+    does) or every call pays a table build. The voting-power tally stays
+    host-side here because the collection loop's early break is
+    sequential; the fused device tally serves whole-commit streams
+    (blocksync.pipeline.StreamVerifier).
     """
     from cometbft_tpu_torch.crypto import batch as cbatch
     from cometbft_tpu_torch.device import resolve
@@ -308,7 +313,8 @@ def device_batch_fn(device=None) -> Callable:
     dev = resolve(device)
 
     def fn(pubs, msgs, sigs):
-        return cbatch.verify_batch(pubs, msgs, sigs, device=dev)
+        return cbatch.verify_batch(pubs, msgs, sigs, device=dev,
+                                   cached=cached)
 
     return fn
 
