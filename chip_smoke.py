@@ -35,7 +35,25 @@ Phases (any failure exits non-zero and prints no result line):
      a cold table build, then warm calls; tampered signature 4,321 blamed;
      then ed25519_verify_cached on the rows that path verified (10,240
      columns, M = 16,384) and valset_table_build at M = 16,384 against their
-     plain versions.
+     plain versions;
+  8. sr25519_verify and ecdsa_verify against their plain versions on the
+     card, exactly, 256 columns each over every edge case (edge_cases.py);
+     both sides must also equal the sr25519_ref / secp256k1_ref oracles;
+  9. BASELINE config 3 at full width: a 10,000-validator set, 5,000 ed25519
+     and 5,000 sr25519, one signed commit through verify_commit_light and
+     verify_commit with device_batch_fn() (two groups, two launches a call;
+     a tampered sr25519 signature must be blamed), then the fused form, each
+     group through its verify_tally_rows, tallies summed to the total power
+     exactly and each group's (tally, quorum) equal to tally_quorum_plain on
+     the same verdicts and rows; then ed25519_verify and sr25519_verify on
+     the rows the light and full calls launched them on (4,096 and 16,384
+     columns, clean and tampered) against plain;
+ 10. BASELINE config 5's verification core at full width: a 10,000-validator
+     secp256k1 set, one signed commit through verify_commit_light_trusting
+     (1/3) and verify_commit_light, the two calls verify_non_adjacent makes;
+     a tampered signature must be blamed; then ecdsa_verify on the rows both
+     calls launched it on (4,096 and 16,384 columns, clean and tampered)
+     against plain.
 Before the last line it prints the `kernels` JSON (launches on the main
 paths, in all and by path; times; bounds); the last line is
 {"ok": true, "device": {...}}.
@@ -59,6 +77,11 @@ CHAIN_ID = "chip-smoke"
 N_VALS = 10_000
 VAL_POWER = 1000
 TAMPER_IDX = 4321
+MIXED_VALS = 10_000          # BASELINE config 3: half ed25519, half sr25519
+MIXED_RUNS = 5
+LC_VALS = 10_000             # BASELINE config 5: secp256k1
+LC_RUNS = 5
+LC_TAMPER_IDX = 1234         # inside the 1/3 the trusting call collects
 CHUNK_COMMITS = 16
 CHUNK_VALS = 1000
 SHORT_COMMIT = 9             # the chunk's commit that misses quorum
@@ -117,6 +140,66 @@ def _sign_job(args):
 def sign_all(pool, jobs):
     """[(seed, [msg])] -> [(pub, [sig])] over the worker pool."""
     return pool.map(_sign_job, jobs, chunksize=max(1, len(jobs) // 64))
+
+
+def _sign_typed_job(args):
+    kind, seed, msgs = args
+    if kind == "sr25519":
+        from cometbft_tpu_torch.crypto import sr25519_ref
+
+        return sr25519_ref.sign_many(seed, msgs, rng=seed)
+    if kind == "secp256k1":
+        from cometbft_tpu_torch.crypto import keys, secp256k1_ref
+
+        d = keys.Secp256k1PrivKey.generate(seed).secret
+        return secp256k1_ref.sign_many(d, msgs)
+    return _sign_job((seed, msgs))
+
+
+def sign_typed(pool, jobs):
+    """[(key type, seed, [msg])] -> [(pub, [sig])] over the worker pool;
+    sr25519 and secp256k1 sign in pure Python (no `cryptography` on the
+    card's machine)."""
+    return pool.map(_sign_typed_job, jobs,
+                    chunksize=max(1, len(jobs) // 64))
+
+
+def _oracle_job(args):
+    kind, pub, msg, sig = args
+    from cometbft_tpu_torch.crypto.keys import PubKey
+
+    return PubKey(pub, kind).verify_signature(msg, sig)
+
+
+def oracle_verdicts(pool, kind, pubs, msgs, sigs):
+    import numpy as np
+
+    return np.asarray(pool.map(
+        _oracle_job, [(kind, p, m, s) for p, m, s in zip(pubs, msgs, sigs)],
+        chunksize=16))
+
+
+def make_typed_valset(pool, rng, kinds, powers):
+    """Validators of the given key types from seeded keys; returns
+    (ValidatorSet, (key type, seed) by address)."""
+    from cometbft_tpu_torch.crypto.keys import PubKey
+    from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+
+    seeds = [seed_bytes(rng) for _ in kinds]
+    pubs = [pub for pub, _ in sign_typed(
+        pool, [(k, s, []) for k, s in zip(kinds, seeds)])]
+    vals = [Validator(PubKey(p, k), int(w))
+            for p, k, w in zip(pubs, kinds, powers)]
+    vs = ValidatorSet(vals)
+    return vs, {v.address: (k, s) for v, k, s in zip(vals, kinds, seeds)}
+
+
+def sign_commit_typed(pool, commit, key_of):
+    for cs, (_, (sig,)) in zip(commit.signatures, sign_typed(pool, [
+            (*key_of[cs.validator_address], [m])
+            for cs, m in zip(commit.signatures,
+                             commit.sign_bytes_rows(CHAIN_ID))])):
+        cs.signature = sig
 
 
 def seed_bytes(rng) -> bytes:
@@ -255,8 +338,12 @@ def phase_card_and_build():
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "bytes stack" in line:
             print("ptxas:", line.strip())
+    from cometbft_tpu_torch.crypto import secp256k1_ref
+
     print(f"phase1 build_s={time.perf_counter() - t0:.3f} "
-          f"device={torch.cuda.get_device_name(0)}", flush=True)
+          f"device={torch.cuda.get_device_name(0)} kernel_sources="
+          f"{len(_build.KERNELS)} ripemd160="
+          f"{secp256k1_ref.ripemd160_source()}", flush=True)
     return dev
 
 
@@ -607,28 +694,37 @@ def phase_fused_step(dev, pool, rng, kernel_stats, tally_on_commit_path):
           f"index_add_ms={library_ms:.5f}", flush=True)
 
 
-def cached_kernels():
-    """The cached-path kernel wrappers whose launch counters the phases
-    read: name -> function."""
+def all_kernels():
+    """Every kernel wrapper whose launch counter the phases read: name ->
+    function."""
+    from cometbft_tpu_torch.ops import ecdsa_fused as ef
     from cometbft_tpu_torch.ops import ed25519_cached as ec
     from cometbft_tpu_torch.ops import ed25519_fused as kf
     from cometbft_tpu_torch.ops import ed25519_stamp as es
+    from cometbft_tpu_torch.ops import sr25519_kernel as srk
 
     return {"ed25519_verify": kf.ed25519_verify,
             "tally_quorum": kf.tally_quorum,
             "valset_table_build": ec.valset_table_build,
             "ed25519_verify_cached": ec.ed25519_verify_cached,
             "tally_quorum_cached": ec.tally_quorum_cached,
-            "stamp_rows": es.stamp_rows}
+            "stamp_rows": es.stamp_rows,
+            "sr25519_verify": srk.sr25519_verify,
+            "ecdsa_verify": ef.ecdsa_verify}
 
 
 def zero_launches() -> None:
-    for fn in cached_kernels().values():
+    for fn in all_kernels().values():
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in cached_kernels().items()}
+    return {name: fn.launches for name, fn in all_kernels().items()}
+
+
+def restore_launches(saved: dict) -> None:
+    for name, n in saved.items():
+        all_kernels()[name].launches = n
 
 
 def stamp_fixture(pool, rng, seeds, pubs, n, B, C):
@@ -981,7 +1077,8 @@ def phase_stream(dev, pool, rng, kernel_stats):
     cold, warm = runs[0], runs[1:]
     want_cold = {"ed25519_verify": 0, "tally_quorum": 0,
                  "valset_table_build": 2, "ed25519_verify_cached": 2,
-                 "tally_quorum_cached": 2, "stamp_rows": 2}
+                 "tally_quorum_cached": 2, "stamp_rows": 2,
+                 "sr25519_verify": 0, "ecdsa_verify": 0}
     check(cold[1] == want_cold, f"phase6 cold launches {cold[1]}")
     check(cold[2]["misses"] == 2 and cold[2]["incremental_patches"] == 1,
           f"phase6 cold table lookups {cold[2]}")
@@ -1125,8 +1222,7 @@ def phase_stream(dev, pool, rng, kernel_stats):
     print(f"phase6 valset_table_build M={M} kernel_ms={build_ms:.3f} "
           f"plain_ms={build_plain_ms:.1f} update_table_8_keys_ms="
           f"{[round(x, 3) for x in update_ms]}", flush=True)
-    for name, n in saved.items():
-        cached_kernels()[name].launches = n
+    restore_launches(saved)
 
     kernel_stats["valset_table_build"] = dict(
         launches_by_path={"stream": cold[1]["valset_table_build"]},
@@ -1198,7 +1294,8 @@ def phase_cached_commit(dev, res, kernel_stats):
     check(blamed == TAMPER_IDX, f"cached verify_commit blamed {blamed}")
     want = {"ed25519_verify": 0, "tally_quorum": 0, "valset_table_build": 1,
             "ed25519_verify_cached": CACHED_RUNS + 2,
-            "tally_quorum_cached": 0, "stamp_rows": 0}
+            "tally_quorum_cached": 0, "stamp_rows": 0,
+            "sr25519_verify": 0, "ecdsa_verify": 0}
     check(launches == want, f"phase7 launches {launches}")
     check(brk.trips == 0 and brk.faults == 0,
           f"breaker trips={brk.trips} faults={brk.faults}")
@@ -1236,8 +1333,7 @@ def phase_cached_commit(dev, res, kernel_stats):
           and torch.equal(tab_k, table.tab),
           "valset_table_build != plain (or != the cached table) at M=16,384")
     del tab_k, tab_p
-    for name, n in launches.items():
-        cached_kernels()[name].launches = n
+    restore_launches(launches)
     for name, err in (("valset_table_build", build_err),
                       ("ed25519_verify_cached", verify_err)):
         k = kernel_stats[name]
@@ -1259,6 +1355,433 @@ def phase_cached_commit(dev, res, kernel_stats):
           f"{N_VALS / (p50 / 1e3):.1f} runs={CACHED_RUNS} "
           f"all_ms={[round(x, 3) for x in warm_ms]}", flush=True)
     return {"cached_p50_ms": p50, "cached_sigs_per_s": N_VALS / (p50 / 1e3)}
+
+
+def phase_new_kernels_vs_plain(dev, pool, rng):
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch import edge_cases
+    from cometbft_tpu_torch.ops import ecdsa_fused as ef
+    from cometbft_tpu_torch.ops import ecdsa_kernel as eck
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+    from cometbft_tpu_torch.ops import sr25519_kernel as srk
+
+    saved = read_launches()
+    # sr25519_verify on 256 columns: 200 signed rows and every edge case
+    pubs, msgs, sigs = edge_cases.sr25519_cases(rng, n_valid=200)
+    n = len(pubs)
+    check(128 < n <= 256, f"phase8 sr25519 fixture has {n} rows")
+    oracle = oracle_verdicts(pool, "sr25519", pubs, msgs, sigs)
+    rows = torch.from_numpy(srk.pack_batch_sr(pubs, msgs, sigs,
+                                              pad_to=256)).to(dev)
+    got_k = srk.sr25519_verify(rows).cpu().numpy()
+    got_p = srk.sr25519_verify_plain(rows, kf.base_points(dev)).cpu().numpy()
+    check(np.array_equal(got_k, got_p), "sr25519_verify != plain on 256 cols")
+    check(np.array_equal(got_k[:n].astype(bool), oracle),
+          "sr25519_verify != sr25519_ref oracle")
+    check(not got_k[n:].any(), "an sr25519 padding column verified")
+    check(oracle[:200].all() and oracle[-1] and not oracle[200:-1].any(),
+          "phase8 sr25519 edge cases do not split as built")
+    print(f"phase8 sr25519_verify cols=256 rows={n} valid={int(oracle.sum())}"
+          f" edge_cases={n - 200} kernel==plain==oracle", flush=True)
+
+    # ecdsa_verify on 256 columns: 200 signed rows and every edge case
+    pubs, msgs, sigs = edge_cases.ecdsa_cases(rng, n_valid=200)
+    n = len(pubs)
+    check(128 < n <= 256, f"phase8 ecdsa fixture has {n} rows")
+    oracle = oracle_verdicts(pool, "secp256k1", pubs, msgs, sigs)
+    pb = eck.pack_batch(pubs, msgs, sigs, pad_to=256)
+    check(int(pb.precheck[n - 2]) == 1 and not np.array_equal(
+        pb.xr1[n - 2], pb.xr2[n - 2]), "the xr2 case packs no r + N")
+    rows = torch.from_numpy(ef.pack_rows(pb)).to(dev)
+    got_k = ef.ecdsa_verify(rows).cpu().numpy()
+    got_p = ef.ecdsa_verify_plain(rows, ef.base_points(dev)).cpu().numpy()
+    check(np.array_equal(got_k, got_p), "ecdsa_verify != plain on 256 cols")
+    check(np.array_equal(got_k[:n].astype(bool), oracle),
+          "ecdsa_verify != secp256k1_ref.verify_py oracle")
+    check(not got_k[n:].any(), "an ECDSA padding column verified")
+    check(oracle[:200].all() and oracle[-1] and oracle[-2]
+          and not oracle[200:-2].any(),
+          "phase8 ECDSA edge cases do not split as built")
+    restore_launches(saved)
+    print(f"phase8 ecdsa_verify cols=256 rows={n} valid={int(oracle.sum())} "
+          f"edge_cases={n - 200} xr2_branch_valid=1 kernel==plain==oracle",
+          flush=True)
+
+
+def group_split_times(dev, kind, pubs, msgs, sigs, runs):
+    """Host pack ms (host clock) and device ms (CUDA events around upload,
+    kernel and download) of `runs` batches of one key-type group, through
+    the calls its verify_batch makes."""
+    import torch
+
+    from cometbft_tpu_torch.ops import ecdsa_fused as ef
+    from cometbft_tpu_torch.ops import ecdsa_kernel as eck
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import sr25519_kernel as srk
+
+    n = len(pubs)
+    pack_ms, dev_ms = [], []
+    for _ in range(runs):
+        t = time.perf_counter()
+        if kind == "sr25519":
+            rows, verify = srk.pack_batch_sr(pubs, msgs, sigs), srk.verify_rows
+        elif kind == "secp256k1":
+            rows = ef.pack_rows(eck.pack_batch(pubs, msgs, sigs,
+                                               pad_to=ef.pad_to_tile(n)))
+            verify = ef.verify_rows
+        else:
+            rows = kf.pack_rows(ek.pack_batch(pubs, msgs, sigs,
+                                              pad_to=kf.pad_to_tile(n)))
+            verify = kf.verify_rows
+        pack_ms.append((time.perf_counter() - t) * 1e3)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        valid = verify(rows, dev).cpu().numpy()
+        b.record()
+        b.synchronize()
+        dev_ms.append(a.elapsed_time(b))
+        check(valid[:n].all() and not valid[n:].any(),
+              f"split-time {kind} batch of {n} verified wrongly")
+    return pack_ms, dev_ms, rows
+
+
+class capture_verify_rows:
+    """While the block runs, record the packed rows of every verify_rows
+    call of the given modules, in call order: {name: [rows, ...]}."""
+
+    def __init__(self, **modules):
+        self.modules = modules
+        self.seen = {name: [] for name in modules}
+
+    def __enter__(self):
+        self.real = {name: m.verify_rows for name, m in self.modules.items()}
+        for name, m in self.modules.items():
+            m.verify_rows = self._recorder(name)
+        return self.seen
+
+    def _recorder(self, name):
+        def rec(rows, device=None):
+            self.seen[name].append(rows)
+            return self.real[name](rows, device)
+        return rec
+
+    def __exit__(self, *exc):
+        for name, m in self.modules.items():
+            m.verify_rows = self.real[name]
+
+
+def hold_shapes_against_plain(dev, kernel, plain, captured):
+    """Run `kernel` and `plain` on the first (clean) and the last
+    (tampered) rows of each column count in `captured`, the rows a path
+    launched its kernel on; -> (max |kernel - plain|, [column counts])."""
+    import torch
+
+    by_cols: dict = {}
+    for rows in captured:
+        by_cols.setdefault(rows.shape[1], []).append(rows)
+    err = 0
+    for batches in by_cols.values():
+        for rows_np in {id(r): r for r in (batches[0], batches[-1])}.values():
+            rows = torch.as_tensor(rows_np).to(dev)
+            err = max(err, int((kernel(rows) - plain(rows)).abs().max()))
+    return err, sorted(by_cols)
+
+
+def phase_mixed_commit(dev, pool, rng, kernel_stats):
+    """BASELINE config 3: a 10,000-validator commit, half ed25519 and half
+    sr25519."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import sr25519_kernel as srk
+    from cometbft_tpu_torch.types import validation as val
+
+    t0 = time.perf_counter()
+    half = MIXED_VALS // 2
+    kinds = ["ed25519"] * half + ["sr25519"] * (MIXED_VALS - half)
+    vs, key_of = make_typed_valset(pool, rng, kinds,
+                                   [VAL_POWER] * MIXED_VALS)
+    bid = block_id(rng)
+    height = 2_000_003
+    commit = unsigned_commit(vs, height, bid, 1_700_100_000)
+    sign_commit_typed(pool, commit, key_of)
+    types = [v.pub_key.key_type for v in vs.validators]
+    groups = {k: [i for i, t in enumerate(types) if t == k]
+              for k in ("ed25519", "sr25519")}
+    tamper = next(i for i in groups["sr25519"] if i >= TAMPER_IDX)
+    print(f"phase9 fixtures validators={MIXED_VALS} ed25519="
+          f"{len(groups['ed25519'])} sr25519={len(groups['sr25519'])} "
+          f"keys+signatures_s={time.perf_counter() - t0:.3f}", flush=True)
+
+    fn = val.device_batch_fn()
+    brk = cbatch.device_breaker()
+    with capture_verify_rows(ed25519=kf, sr25519=srk) as path_rows:
+        zero_launches()
+        light_ms, full_ms = [], []
+        for _ in range(MIXED_RUNS):
+            t = time.perf_counter()
+            val.verify_commit_light(CHAIN_ID, vs, bid, height, commit, fn)
+            light_ms.append((time.perf_counter() - t) * 1e3)
+        for _ in range(MIXED_RUNS):
+            t = time.perf_counter()
+            val.verify_commit(CHAIN_ID, vs, bid, height, commit, fn)
+            full_ms.append((time.perf_counter() - t) * 1e3)
+        good = commit.signatures[tamper].signature
+        commit.signatures[tamper].signature = flip(good, 40)
+        blamed = []
+        for verify in (val.verify_commit, val.verify_commit_light):
+            try:
+                verify(CHAIN_ID, vs, bid, height, commit, fn)
+                blamed.append(None)
+            except val.InvalidSignatureError as e:
+                blamed.append(e.idx)
+        commit.signatures[tamper].signature = good
+        torch.cuda.synchronize()
+        launches = read_launches()
+    calls = 2 * MIXED_RUNS + 2
+    want = dict.fromkeys(launches, 0)
+    want.update(ed25519_verify=calls, sr25519_verify=calls)
+    check(launches == want, f"phase9 launches {launches}, want {want}")
+    check(blamed == [tamper, tamper],
+          f"tampered sr25519 signature blamed at {blamed}, want {tamper}")
+    check(brk.trips == 0 and brk.faults == 0,
+          f"breaker trips={brk.trips} faults={brk.faults}")
+    print(f"phase9 launches {json.dumps(launches)} breaker_trips=0 faults=0 "
+          f"blamed_idx={tamper} (sr25519)", flush=True)
+    full_p50 = statistics.median(full_ms)
+    print(f"phase9 mixed VerifyCommitLight p50_ms="
+          f"{statistics.median(light_ms):.3f} all_ms="
+          f"{[round(x, 3) for x in light_ms]}", flush=True)
+    print(f"phase9 mixed VerifyCommit n_sigs={MIXED_VALS} p50_ms="
+          f"{full_p50:.3f} sigs_per_s={MIXED_VALS / (full_p50 / 1e3):.1f} "
+          f"all_ms={[round(x, 3) for x in full_ms]}", flush=True)
+    msgs_all = commit.sign_bytes_rows(CHAIN_ID)
+    for kind, idxs in groups.items():
+        pack, devt, rows = group_split_times(
+            dev, kind, [vs.validators[i].pub_key.data for i in idxs],
+            [msgs_all[i] for i in idxs],
+            [commit.signatures[i].signature for i in idxs], MIXED_RUNS)
+        print(f"phase9 group {kind} n_sigs={len(idxs)} padded="
+              f"{rows.shape[1]} host_pack_p50_ms={statistics.median(pack):.3f}"
+              f" device_p50_ms={statistics.median(devt):.3f}", flush=True)
+    restore_launches(launches)
+
+    # the fused form: each group's rows through its verify_tally_rows, the
+    # two tallies summed on the host (a 6-limb add)
+    total = vs.total_voting_power()
+    need = total * 2 // 3
+    fused_rows = {}
+    for kind, idxs in groups.items():
+        n = len(idxs)
+        pad = kf.pad_to_tile(n)
+        power5 = np.zeros((pad, ek.POWER_LIMBS), np.int32)
+        power5[:n] = ek.power_limbs(np.asarray(
+            [vs.validators[i].voting_power for i in idxs], np.int64))
+        args = ([vs.validators[i].pub_key.data for i in idxs],
+                [msgs_all[i] for i in idxs],
+                [commit.signatures[i].signature for i in idxs])
+        meta = dict(power5=power5, counted=np.arange(pad) < n,
+                    commit_ids=np.zeros(pad, np.int32),
+                    thresh=ek.threshold_limbs(1))
+        if kind == "sr25519":
+            fused_rows[kind] = srk.pack_batch_sr(*args, pad_to=pad, **meta)
+        else:
+            fused_rows[kind] = kf.pack_rows(
+                ek.pack_batch(*args, pad_to=pad), meta["power5"],
+                meta["counted"], meta["commit_ids"], meta["thresh"])
+    zero_launches()
+    step_ms = []
+    for _ in range(MIXED_RUNS):
+        t = time.perf_counter()
+        out_ed = kf.verify_tally_rows(fused_rows["ed25519"], 1, dev)
+        out_sr = srk.verify_tally_rows(fused_rows["sr25519"], 1, dev)
+        tallies = [out_ed[1].cpu().numpy(), out_sr[1].cpu().numpy()]
+        v_ed, v_sr = out_ed[0].cpu().numpy(), out_sr[0].cpu().numpy()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    fused_launches = read_launches()
+    want = dict.fromkeys(fused_launches, 0)
+    want.update(ed25519_verify=MIXED_RUNS, sr25519_verify=MIXED_RUNS,
+                tally_quorum=2 * MIXED_RUNS)
+    check(fused_launches == want, f"phase9 fused launches {fused_launches}")
+    summed = sum(int(ek.tally_to_int(t)[0]) for t in tallies)
+    check(summed == total, f"phase9 fused tallies sum to {summed}, want "
+          f"the total power {total}")
+    check(summed > need, "phase9 fused quorum does not hold")
+    check(v_ed[:len(groups["ed25519"])].all()
+          and v_sr[:len(groups["sr25519"])].all(), "phase9 fused verdicts")
+    # each group's (tally, quorum) against the plain tally of the same
+    # verdicts and rows (one commit over 16,384 columns)
+    tally_err = 0
+    for kind, (valid, tally, quorum) in (("ed25519", out_ed),
+                                         ("sr25519", out_sr)):
+        rows = torch.from_numpy(fused_rows[kind]).to(dev)
+        t_plain, q_plain = kf.tally_quorum_plain(valid, rows, 1)
+        tally_err = max(tally_err, int((tally - t_plain).abs().max()),
+                        int((quorum.int() - q_plain.int()).abs().max()))
+    check(tally_err == 0, "phase9 fused tally_quorum != plain")
+    print(f"phase9 fused launches {json.dumps(fused_launches)} step_p50_ms="
+          f"{statistics.median(step_ms):.3f} tally_sum={summed} == total "
+          f"power, quorum={summed > need}, tally_quorum==plain per group "
+          f"cols={fused_rows['sr25519'].shape[1]}", flush=True)
+
+    # both verify kernels on the rows the light and full calls launched them
+    # on (clean and tampered), against their plain versions
+    points = kf.base_points(dev)
+    ed_err, ed_cols = hold_shapes_against_plain(
+        dev, kf.ed25519_verify,
+        lambda r: kf.ed25519_verify_plain(r, points), path_rows["ed25519"])
+    err, sr_cols = hold_shapes_against_plain(
+        dev, srk.sr25519_verify,
+        lambda r: srk.sr25519_verify_plain(r, points), path_rows["sr25519"])
+    check(ed_err == 0, f"ed25519_verify != plain at {ed_cols} cols")
+    check(err == 0, f"sr25519_verify != plain at {sr_cols} cols")
+    check(len(path_rows["sr25519"]) == launches["sr25519_verify"]
+          and len(path_rows["ed25519"]) == launches["ed25519_verify"],
+          "phase9 captured rows do not match the launches")
+    # sr25519_verify timed at this path's widest shape
+    rows = torch.as_tensor(path_rows["sr25519"][MIXED_RUNS]).to(dev)
+    ms = cuda_ms(lambda: srk.sr25519_verify(rows), 10)
+    t = time.perf_counter()
+    plain = srk.sr25519_verify_plain(rows, points)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    out = srk.sr25519_verify(rows)
+    restore_launches(launches)
+    n_sr = len(groups["sr25519"])
+    check(rows.shape[1] == max(sr_cols) and torch.equal(out, plain),
+          f"sr25519_verify != plain at {rows.shape[1]} cols")
+    check(int(out.sum()) == n_sr, "not every sr25519 signature verified")
+    kernel_stats["sr25519_verify"] = dict(
+        launches_by_path={"mixed_commit": launches["sr25519_verify"],
+                          "mixed_fused": fused_launches["sr25519_verify"]},
+        ms=ms, plain_ms=plain_ms, max_abs_err=err,
+        ops=n_sr * srk.verify_products_per_signature(),
+        bytes=rows.shape[1] * (kf.C_KROWS + 1) * 4 + 8192 * 3 * 10 * 4,
+        library_ms=None)
+    for name, e in (("ed25519_verify", ed_err), ("tally_quorum", tally_err)):
+        k = kernel_stats[name]
+        k["launches_by_path"]["mixed_commit"] = launches[name]
+        k["launches_by_path"]["mixed_fused"] = fused_launches[name]
+        k["max_abs_err"] = max(k["max_abs_err"], e)
+    print(f"phase9 sr25519_verify cols={rows.shape[1]} live={n_sr} "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.1f}; kernel==plain for "
+          f"ed25519_verify at cols={ed_cols} and sr25519_verify at cols="
+          f"{sr_cols} (clean and tampered rows of the path)", flush=True)
+    return {"mixed_light_p50_ms": statistics.median(light_ms),
+            "mixed_sigs_per_s": MIXED_VALS / (full_p50 / 1e3)}
+
+
+def phase_light_secp(dev, pool, rng, kernel_stats):
+    """BASELINE config 5's verification core: the two commit checks
+    light/verifier.verify_non_adjacent makes, on a 10,000-validator
+    secp256k1 set."""
+    import torch
+
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.ops import ecdsa_fused as ef
+    from cometbft_tpu_torch.types import validation as val
+
+    t0 = time.perf_counter()
+    vs, key_of = make_typed_valset(pool, rng, ["secp256k1"] * LC_VALS,
+                                   [VAL_POWER] * LC_VALS)
+    bid = block_id(rng)
+    height = 3_000_005
+    commit = unsigned_commit(vs, height, bid, 1_700_200_000)
+    sign_commit_typed(pool, commit, key_of)
+    print(f"phase10 fixtures validators={LC_VALS} secp256k1 "
+          f"keys+signatures_s={time.perf_counter() - t0:.3f}", flush=True)
+
+    def pair():
+        val.verify_commit_light_trusting(CHAIN_ID, vs, commit, (1, 3), fn)
+        val.verify_commit_light(CHAIN_ID, vs, bid, height, commit, fn)
+
+    fn = val.device_batch_fn()
+    brk = cbatch.device_breaker()
+    with capture_verify_rows(secp256k1=ef) as path_rows:
+        zero_launches()
+        pair_ms = []
+        for _ in range(LC_RUNS):
+            t = time.perf_counter()
+            pair()
+            pair_ms.append((time.perf_counter() - t) * 1e3)
+        good = commit.signatures[LC_TAMPER_IDX].signature
+        commit.signatures[LC_TAMPER_IDX].signature = flip(good, 40)
+        blamed = []
+        for call in (lambda: val.verify_commit_light_trusting(
+                         CHAIN_ID, vs, commit, (1, 3), fn),
+                     lambda: val.verify_commit_light(CHAIN_ID, vs, bid,
+                                                     height, commit, fn)):
+            try:
+                call()
+                blamed.append(None)
+            except val.InvalidSignatureError as e:
+                blamed.append(e.idx)
+        commit.signatures[LC_TAMPER_IDX].signature = good
+        torch.cuda.synchronize()
+        launches = read_launches()
+    want = dict.fromkeys(launches, 0)
+    want.update(ecdsa_verify=2 * LC_RUNS + 2)
+    check(launches == want, f"phase10 launches {launches}, want {want}")
+    check(blamed == [LC_TAMPER_IDX, LC_TAMPER_IDX],
+          f"tampered secp256k1 signature blamed at {blamed}")
+    check(brk.trips == 0 and brk.faults == 0,
+          f"breaker trips={brk.trips} faults={brk.faults}")
+    print(f"phase10 launches {json.dumps(launches)} breaker_trips=0 faults=0"
+          f" blamed_idx={LC_TAMPER_IDX}", flush=True)
+    total = vs.total_voting_power()
+    n_trust = total // 3 // VAL_POWER + 1
+    n_light = total * 2 // 3 // VAL_POWER + 1
+    msgs_all = commit.sign_bytes_rows(CHAIN_ID)
+    for name, n in (("trusting", n_trust), ("light", n_light)):
+        pack, devt, rows = group_split_times(
+            dev, "secp256k1", [v.pub_key.data for v in vs.validators[:n]],
+            msgs_all[:n], [cs.signature for cs in commit.signatures[:n]],
+            LC_RUNS)
+        print(f"phase10 {name} n_sigs={n} padded={rows.shape[1]} "
+              f"host_pack_p50_ms={statistics.median(pack):.3f} "
+              f"device_p50_ms={statistics.median(devt):.3f}", flush=True)
+    restore_launches(launches)
+    p50 = statistics.median(pair_ms)
+    print(f"phase10 light pair (trusting 1/3 + VerifyCommitLight) p50_ms="
+          f"{p50:.3f} all_ms={[round(x, 3) for x in pair_ms]}", flush=True)
+
+    # ecdsa_verify on the rows both calls launched it on (clean and
+    # tampered), against its plain version; timed at the widest shape
+    points = ef.base_points(dev)
+    err, ec_cols = hold_shapes_against_plain(
+        dev, ef.ecdsa_verify, lambda r: ef.ecdsa_verify_plain(r, points),
+        path_rows["secp256k1"])
+    check(err == 0, f"ecdsa_verify != plain at {ec_cols} cols")
+    check(len(path_rows["secp256k1"]) == launches["ecdsa_verify"],
+          "phase10 captured rows do not match the launches")
+    rows = torch.as_tensor(path_rows["secp256k1"][1]).to(dev)
+    ms = cuda_ms(lambda: ef.ecdsa_verify(rows), 10)
+    t = time.perf_counter()
+    plain = ef.ecdsa_verify_plain(rows, points)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    out = ef.ecdsa_verify(rows)
+    restore_launches(launches)
+    check(rows.shape[1] == max(ec_cols) and torch.equal(out, plain),
+          f"ecdsa_verify != plain at {rows.shape[1]} cols")
+    check(int(out.sum()) == n_light, "not every secp256k1 signature verified")
+    kernel_stats["ecdsa_verify"] = dict(
+        launches_by_path={"light_pair": launches["ecdsa_verify"]},
+        ms=ms, plain_ms=plain_ms, max_abs_err=err,
+        ops=n_light * ef.verify_products_per_signature(),
+        bytes=rows.shape[1] * (ef.E_KROWS + 1) * 4 + 8192 * 3 * 10 * 4,
+        library_ms=None)
+    print(f"phase10 ecdsa_verify cols={rows.shape[1]} live={n_light} "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.1f}; kernel==plain at "
+          f"cols={ec_cols} (clean and tampered rows of the path)", flush=True)
+    return {"lc_pair_p50_ms": p50}
 
 
 def int_ops_per_s() -> tuple:
@@ -1302,6 +1825,10 @@ def kernels_json(kernel_stats):
         library_ms=t["library_ms"],
     ))
     sources = {
+        "sr25519_verify": ("sr25519_verify.cu",
+                           "cometbft_tpu/ops/sr25519_kernel.py:92"),
+        "ecdsa_verify": ("ecdsa_verify.cu",
+                         "cometbft_tpu/ops/ecdsa_pallas.py:127"),
         "valset_table_build": ("valset_table.cu",
                                "cometbft_tpu/ops/ed25519_cached.py:110"),
         "ed25519_verify_cached": ("ed25519_cached_verify.cu",
@@ -1370,9 +1897,18 @@ def main() -> int:
         t = time.perf_counter()
         res.update(phase_stream(dev, pool, rng, kernel_stats))
         print(f"phase6 s={time.perf_counter() - t:.3f}", flush=True)
-    t = time.perf_counter()
-    res.update(phase_cached_commit(dev, res, kernel_stats))
-    print(f"phase7 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        res.update(phase_cached_commit(dev, res, kernel_stats))
+        print(f"phase7 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        phase_new_kernels_vs_plain(dev, pool, rng)
+        print(f"phase8 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        res.update(phase_mixed_commit(dev, pool, rng, kernel_stats))
+        print(f"phase9 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        res.update(phase_light_secp(dev, pool, rng, kernel_stats))
+        print(f"phase10 s={time.perf_counter() - t:.3f}", flush=True)
     brk = cbatch.device_breaker()
     check(brk.trips == 0 and brk.faults == 0, "breaker recorded a fault")
     print(json.dumps(kernels_json(kernel_stats)), flush=True)
@@ -1382,6 +1918,9 @@ def main() -> int:
           f"stream_sigs_per_s={res['stream_sigs_per_s']:.1f} "
           f"cached_VerifyCommit_p50_ms={res['cached_p50_ms']:.3f} "
           f"cached_VerifyCommit_sigs_per_s={res['cached_sigs_per_s']:.1f} "
+          f"mixed_VerifyCommitLight_p50_ms={res['mixed_light_p50_ms']:.3f} "
+          f"mixed_VerifyCommit_sigs_per_s={res['mixed_sigs_per_s']:.1f} "
+          f"secp_light_pair_p50_ms={res['lc_pair_p50_ms']:.3f} "
           f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print("nvidia-smi:", smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,12 @@ return the port's tensors:
                                  the arrays of an ed25519_cached.ValsetTable
                                  -> the port's ValsetTable (same entries,
                                  the port's layout), so both packages
-                                 verify against one table.
+                                 verify against one table;
+  secp_base_from_jax(t8, device) ecdsa_pallas.base_table8_np(), a
+                                 (8192, 60) float32 array of 13-bit limbs
+                                 of projective [d * 256^w]G -> the ECDSA
+                                 kernel's (8192, 3, 10) int32 table of
+                                 26-bit limbs.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from cometbft_tpu_torch.device import resolve
+from cometbft_tpu_torch.ops import ecdsa_fused as ef
 from cometbft_tpu_torch.ops import ed25519_cached as ec
 from cometbft_tpu_torch.ops import ed25519_fused as kf
 from cometbft_tpu_torch.ops.field import NLIMBS
@@ -40,6 +46,20 @@ def base_table_from_jax(base_f32: np.ndarray, device="cpu") -> torch.Tensor:
         raise ValueError("base table limbs are not integers")
     niels = kf.niels_from_points13(limbs.reshape(-1, 4, NLIMBS))
     return torch.from_numpy(niels).to(resolve(device))
+
+
+def secp_base_from_jax(t8: np.ndarray, device="cpu") -> torch.Tensor:
+    """(8192, 3 * NLIMBS) float32 secp256k1 comb table -> (8192, 3, 10)
+    int32 ECDSA kernel table on `device`. The float32 limbs are < 2^13, so
+    they are exact; identity rows (0, 1, 0) stay identity rows."""
+    b = np.asarray(t8)
+    if b.shape != (32 * 256, 3 * NLIMBS):
+        raise ValueError(f"comb table has shape {b.shape}")
+    limbs = b.astype(np.int64)
+    if not np.array_equal(limbs.astype(b.dtype), b):
+        raise ValueError("comb table limbs are not integers")
+    comb = ef.comb26_from_points13(limbs.reshape(-1, 3, NLIMBS))
+    return torch.from_numpy(comb).to(resolve(device))
 
 
 def rows_from_jax(rows: np.ndarray, device=None) -> torch.Tensor:

@@ -2,11 +2,16 @@
 the device under a circuit breaker.
 
 Reference: crypto/batch/batch.go:12-32 (CreateBatchVerifier switches on key
-type). Counterpart of the JAX package's crypto/batch.py, for the ed25519
-slice of the port: ed25519 rows go to the CUDA verify kernel
-(ops/ed25519_fused.py), or, with `cached=True`, groups of at least
-`CACHED_MIN_ROWS` rows go to the cached-valset kernel
-(ops/ed25519_cached.py `verify_batch_cached`).
+type). Counterpart of the JAX package's crypto/batch.py: ed25519 rows go to
+the CUDA verify kernel (ops/ed25519_fused.py), or, with `cached=True`,
+groups of at least `CACHED_MIN_ROWS` rows go to the cached-valset kernel
+(ops/ed25519_cached.py `verify_batch_cached`); sr25519 rows go to the
+sr25519 kernel (ops/sr25519_kernel.py) and secp256k1 rows to the ECDSA
+kernel (ops/ecdsa_fused.py). A mixed commit is one call that makes one
+kernel launch per key-type group. Rows of a key type with no batch
+verifier are verified one by one through `PubKey.verify_signature`, and
+rows it cannot verify are marked invalid, as the JAX package does: that is
+the semantics of an unknown key, not a device fallback.
 
 Every kernel dispatch runs under a circuit breaker. A device fault is
 logged, counted and raised to the caller: the port never re-verifies on the
@@ -26,7 +31,12 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-from cometbft_tpu_torch.crypto.keys import ED25519_KEY_TYPE, PubKey
+from cometbft_tpu_torch.crypto.keys import (
+    ED25519_KEY_TYPE,
+    SECP256K1_KEY_TYPE,
+    SR25519_KEY_TYPE,
+    PubKey,
+)
 from cometbft_tpu_torch.device import DeviceError
 
 _log = logging.getLogger(__name__)
@@ -124,12 +134,22 @@ def _ed25519_cached(pubs, msgs, sigs, device=None):
     return ed25519_fused.verify_batch(pubs, msgs, sigs, device=device)
 
 
-def _kernel_for(key_type: str) -> Callable:
+def _kernel_for(key_type: str) -> Callable | None:
+    """The batch verifier of a key type, or None for a key type with
+    none (its rows stay invalid)."""
     if key_type == ED25519_KEY_TYPE:
         from cometbft_tpu_torch.ops import ed25519_fused
 
         return ed25519_fused.verify_batch
-    raise ValueError(f"no batch verifier for key type {key_type!r}")
+    if key_type == SECP256K1_KEY_TYPE:
+        from cometbft_tpu_torch.ops import ecdsa_fused
+
+        return ecdsa_fused.verify_batch
+    if key_type == SR25519_KEY_TYPE:
+        from cometbft_tpu_torch.ops import sr25519_kernel
+
+        return sr25519_kernel.verify_batch
+    return None
 
 
 def _cached_kernel_for(key_type: str) -> Callable:
@@ -147,7 +167,9 @@ def verify_batch_direct(
     cached: bool = False,
 ) -> np.ndarray:
     """Group rows by key type and dispatch each group to its kernel under
-    the circuit breaker; (n,) bool validity.
+    the circuit breaker; (n,) bool validity. Rows of a key type with no
+    batch verifier are invalid (PubKey.verify_signature cannot verify them
+    either).
 
     `device` is passed to the kernel (None: the CUDA card; "cpu": the plain
     PyTorch version); `cached` routes ed25519 groups through the
@@ -163,6 +185,8 @@ def verify_batch_direct(
         groups[p.key_type].append(i)
     for kt, idxs in groups.items():
         kernel = _cached_kernel_for(kt) if cached else _kernel_for(kt)
+        if kernel is None:
+            continue
         if not brk.allow():
             raise DeviceError(
                 f"circuit breaker {brk.name} is open; {len(idxs)} {kt} "

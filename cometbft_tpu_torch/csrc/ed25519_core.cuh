@@ -328,9 +328,12 @@ CBT_HD fe fe_from_words(const uint64_t w[5]) {
   return fe_from_i64(h);
 }
 
-// 20 packed 13-bit limbs (word k = limb k | limb k+10 << 13) -> fe
-CBT_HD fe fe_from_packed13(const int32_t* rows, int B, int row0, int col) {
-  uint64_t w[5] = {0, 0, 0, 0, 0};
+// 20 packed 13-bit limbs (word k = limb k | limb k+10 << 13) of column
+// `col` -> the 260-bit value as little-endian 64-bit words
+CBT_HD void packed13_words(const int32_t* rows, int B, int row0, int col,
+                           uint64_t w[5]) {
+#pragma unroll
+  for (int k = 0; k < 5; k++) w[k] = 0;
 #pragma unroll
   for (int k = 0; k < 10; k++) {
     const uint32_t word = (uint32_t)rows[(row0 + k) * B + col];
@@ -343,6 +346,12 @@ CBT_HD fe fe_from_packed13(const int32_t* rows, int B, int row0, int col) {
       if (sh > 51) w[wi + 1] |= l >> (64 - sh);
     }
   }
+}
+
+// the low 255 bits of 20 packed 13-bit limbs -> fe
+CBT_HD fe fe_from_packed13(const int32_t* rows, int B, int row0, int col) {
+  uint64_t w[5];
+  packed13_words(rows, B, row0, col, w);
   return fe_from_words(w);
 }
 
@@ -355,22 +364,12 @@ CBT_HD fe fe_from_bytes(const uint8_t* s) {
   return fe_from_words(w);
 }
 
-// The verdict of column `col` of the packed rows (R, B): 1 iff
-// [8]([s]B + [h](-A) - R) is the identity, A and R decode, and the host
-// precheck (lengths, S < L) passed. `base` is the (32 * 256) niels comb
-// table: entry w * 256 + d is [d * 256^w]B.
-CBT_HD int verify_column(const int32_t* rows, int B, int col,
+// [s]B + [h](-A) for column `col` of the packed rows: s from the C_S8
+// byte digits, h from the C_H4 nibble digits. `base` is the (32 * 256)
+// niels comb table: entry w * 256 + d is [d * 256^w]B. Shared by the
+// ed25519 and sr25519 verdicts.
+CBT_HD ge_p3 sb_minus_ha(const int32_t* rows, int B, int col, const ge_p3& A,
                          const ge_niels* base) {
-  const uint32_t flags = (uint32_t)rows[C_FLAGS * B + col];
-  if (((flags >> 2) & 1) == 0) return 0;  // precheck failed or padding
-
-  ge_p3 A, R;
-  const bool ok_a =
-      ge_decompress(fe_from_packed13(rows, B, C_AY, col), flags & 1, &A);
-  const bool ok_r = ge_decompress(fe_from_packed13(rows, B, C_RY, col),
-                                  (flags >> 1) & 1, &R);
-  if (!(ok_a && ok_r)) return 0;
-
   // per-signature table [d](-A), d < 16, in cached form
   ge_p3 negA = A;
   negA.X = fe_neg(A.X);
@@ -403,6 +402,25 @@ CBT_HD int verify_column(const int32_t* rows, int B, int col,
     const uint32_t word = (uint32_t)rows[(C_S8 + (w & 7)) * B + col];
     acc = ge_madd(acc, base[w * 256 + ((word >> (8 * (w >> 3))) & 255)]);
   }
+  return acc;
+}
+
+// The verdict of column `col` of the packed rows (R, B): 1 iff
+// [8]([s]B + [h](-A) - R) is the identity, A and R decode, and the host
+// precheck (lengths, S < L) passed.
+CBT_HD int verify_column(const int32_t* rows, int B, int col,
+                         const ge_niels* base) {
+  const uint32_t flags = (uint32_t)rows[C_FLAGS * B + col];
+  if (((flags >> 2) & 1) == 0) return 0;  // precheck failed or padding
+
+  ge_p3 A, R;
+  const bool ok_a =
+      ge_decompress(fe_from_packed13(rows, B, C_AY, col), flags & 1, &A);
+  const bool ok_r = ge_decompress(fe_from_packed13(rows, B, C_RY, col),
+                                  (flags >> 1) & 1, &R);
+  if (!(ok_a && ok_r)) return 0;
+
+  ge_p3 acc = sb_minus_ha(rows, B, col, A, base);
 
   // - R, then the cofactor: [8]W == identity <=> X == 0 and Y == Z
   acc = ge_add(acc, ge_cached_neg(ge_to_cached(R)));

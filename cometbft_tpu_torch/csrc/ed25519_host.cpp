@@ -14,6 +14,8 @@ long long cbt_sha_block_count = 0;
 
 #include "ed25519_cached.cuh"
 #include "ed25519_core.cuh"
+#include "ristretto_core.cuh"
+#include "secp256k1_core.cuh"
 #include "stamp_core.cuh"
 
 extern "C" void cbt_host_verify(const int32_t* rows, int B,
@@ -21,6 +23,46 @@ extern "C" void cbt_host_verify(const int32_t* rows, int B,
   const cbt::ge_niels* tbl = reinterpret_cast<const cbt::ge_niels*>(base);
   for (int col = 0; col < B; col++)
     out[col] = cbt::verify_column(rows, B, col, tbl);
+}
+
+extern "C" void cbt_host_sr25519_verify(const int32_t* rows, int B,
+                                        const int32_t* base, int32_t* out) {
+  const cbt::ge_niels* tbl = reinterpret_cast<const cbt::ge_niels*>(base);
+  for (int col = 0; col < B; col++)
+    out[col] = cbt::verify_column_sr(rows, B, col, tbl);
+}
+
+extern "C" void cbt_host_ecdsa_verify(const int32_t* rows, int B,
+                                      const int32_t* base, int32_t* out) {
+  const cbt_secp::gpt* tbl = reinterpret_cast<const cbt_secp::gpt*>(base);
+  for (int col = 0; col < B; col++)
+    out[col] = cbt_secp::ecdsa_verify_column(rows, B, col, tbl);
+}
+
+// Field arithmetic of secp256k1_core.cuh on n pairs of carried limbs, for
+// the CPU tests: op 0 mul, 1 sq, 2 add, 3 sub, 4 canon, 5 sqrt power,
+// 6 is_zero (in limb 0), 7 parity (in limb 0).
+extern "C" void cbt_host_secp_fe(int op, const int32_t* a, const int32_t* b,
+                                 int n, int32_t* out) {
+  using cbt_secp::fe;
+  for (int k = 0; k < n; k++) {
+    fe x, y, r;
+    for (int i = 0; i < 10; i++) {
+      x.v[i] = a[10 * k + i];
+      y.v[i] = b[10 * k + i];
+    }
+    switch (op) {
+      case 0: r = cbt_secp::fe_mul(x, y); break;
+      case 1: r = cbt_secp::fe_sq(x); break;
+      case 2: r = cbt_secp::fe_add(x, y); break;
+      case 3: r = cbt_secp::fe_sub(x, y); break;
+      case 4: r = cbt_secp::fe_canon(x); break;
+      case 5: r = cbt_secp::fe_pow_sqrt(x); break;
+      case 6: r = cbt_secp::fe_small(cbt_secp::fe_is_zero(x) ? 1 : 0); break;
+      default: r = cbt_secp::fe_small(cbt_secp::fe_parity(x)); break;
+    }
+    for (int i = 0; i < 10; i++) out[10 * k + i] = r.v[i];
+  }
 }
 
 // pub_raw (n, 32) uint8 -> tab (n * 128, 3, 10) int32 and decode bits (n,)

@@ -42,9 +42,14 @@ KERNELS = {
     "stamp_rows.cu": {"cbt_stamp_rows": [
         _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I,
         _P, _P]},
+    "sr25519_verify.cu": {"cbt_sr25519_verify": [_P, _I, _P, _P, _P]},
+    "ecdsa_verify.cu": {"cbt_ecdsa_verify": [_P, _I, _P, _P, _P]},
 }
 _HOST_FNS = {
     "cbt_host_verify": ([_P, _I, _P, _P], None),
+    "cbt_host_sr25519_verify": ([_P, _I, _P, _P], None),
+    "cbt_host_ecdsa_verify": ([_P, _I, _P, _P], None),
+    "cbt_host_secp_fe": ([_I, _P, _P, _I, _P], None),
     "cbt_host_table_build": ([_P, _I, _P, _P], None),
     "cbt_host_verify_cached": ([_P, _I, _P, _I, _P, _P, _P], None),
     "cbt_host_stamp": ([_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P,

@@ -56,18 +56,23 @@ _L_WORDS = np.frombuffer(int.to_bytes(ref.L, 32, "little"), np.uint8).view(
 )
 
 
-def s_below_l(s_bytes: np.ndarray) -> np.ndarray:
-    """(B, 32) uint8 LE -> (B,) bool S < L, the malleability precheck of
-    crypto/ed25519/ed25519.go:189, as a lexicographic compare over four
-    little-endian uint64 words."""
-    w = np.ascontiguousarray(s_bytes).view("<u8")  # (B, 4)
-    lt = np.zeros(s_bytes.shape[0], np.bool_)
-    decided = np.zeros(s_bytes.shape[0], np.bool_)
+def below_words(b: np.ndarray, mod_words: np.ndarray) -> np.ndarray:
+    """(B, 32) uint8 LE -> (B,) bool value < modulus, vectorized as a
+    lexicographic compare over four little-endian uint64 words."""
+    w = np.ascontiguousarray(b).view("<u8")  # (B, 4)
+    lt = np.zeros(b.shape[0], np.bool_)
+    decided = np.zeros(b.shape[0], np.bool_)
     for i in range(3, -1, -1):
-        mw = _L_WORDS[i]
+        mw = mod_words[i]
         lt |= ~decided & (w[:, i] < mw)
         decided |= w[:, i] != mw
     return lt
+
+
+def s_below_l(s_bytes: np.ndarray) -> np.ndarray:
+    """(B, 32) uint8 LE -> (B,) bool S < L, the malleability precheck of
+    crypto/ed25519/ed25519.go:189."""
+    return below_words(s_bytes, _L_WORDS)
 
 
 def power_limbs(powers: np.ndarray) -> np.ndarray:

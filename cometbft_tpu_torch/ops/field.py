@@ -218,3 +218,144 @@ def eq(a, b):
 
 def parity(x):
     return canonical(x)[..., 0] & 1
+
+
+# --------------------------------------------------------------------------
+# GF(2^256 - 2^32 - 977), the secp256k1 base field, on the same limbs
+# --------------------------------------------------------------------------
+
+
+class SecpField:
+    """Plain torch arithmetic mod p = 2^256 - 2^32 - 977 on (..., NLIMBS)
+    int64 13-bit limbs, the plain side of the ECDSA kernel, plus the host
+    packing helpers of the JAX package's `FSECP` (`from_int`,
+    `from_bytes_le`), so packed rows are byte for byte the JAX package's.
+
+    Reduction folds weight 2^260 = 2^36 + 0x3D10 (mod p), which in 13-bit
+    limbs is (7440, 1, 1024) at limbs 0-2. Every op returns limbs with
+    |limb| < 2^14 (`carry`); `mul` accepts |limb| < 2^15, so a sum or
+    difference of two results may enter it uncarried. Canonical form is
+    only needed for equality and parity."""
+
+    P = 2**256 - 2**32 - 977
+    FOLD = ((0, 7440), (1, 1), (2, 1024))  # 2^260 mod p, by limb
+    _TOP_SHIFT = 256 - LIMB_BITS * (NLIMBS - 1)  # 9: bit 256 in limb 19
+
+    def from_int(self, v: int) -> np.ndarray:
+        """(NLIMBS,) int32 limbs of v mod p."""
+        return int_to_limbs(v % self.P).astype(np.int32)
+
+    @staticmethod
+    def from_bytes_le(b: np.ndarray, nbits: int = 256) -> np.ndarray:
+        """(..., 32) uint8 little-endian -> (..., NLIMBS) int32 limbs of
+        the low `nbits` bits, not reduced."""
+        return from_bytes_le(b, nbits)
+
+    def const(self, v: int, device) -> torch.Tensor:
+        return _const(f"s{v % self.P}", lambda: int_to_limbs(v % self.P),
+                      device)
+
+    def _fold_vec(self, device) -> torch.Tensor:
+        return _const("sfold", lambda: [7440, 1, 1024] + [0] * (NLIMBS - 3),
+                      device)
+
+    def carry(self, x: torch.Tensor, passes: int = 3) -> torch.Tensor:
+        """Parallel carry passes over 20 limbs, the carry out of limb 19
+        folded through 2^260: |limb| < 2^27 in, |limb| < 2^14 out."""
+        fold = self._fold_vec(x.device)
+        for _ in range(passes):
+            c = x >> LIMB_BITS
+            x = ((x & MASK) + F.pad(c[..., :-1], (1, 0))
+                 + c[..., -1:] * fold)
+        return x
+
+    def _reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Columns (..., W >= 20), |col| < 2^40 -> 20 carried limbs: two
+        parallel carry passes (width + 2), then the columns >= 20 folded
+        through 2^260, until 20 columns are left."""
+        while x.shape[-1] > NLIMBS:
+            for _ in range(2):
+                c = x >> LIMB_BITS
+                x = F.pad(x & MASK, (0, 1)) + F.pad(c, (1, 0))
+            low, high = x[..., :NLIMBS], x[..., NLIMBS:]
+            nh = high.shape[-1]
+            buf = F.pad(low, (0, max(NLIMBS, 2 + nh) - NLIMBS))
+            for off, m in self.FOLD:
+                buf = buf + F.pad(high * m, (off, buf.shape[-1] - off - nh))
+            x = buf
+        return self.carry(x)
+
+    def add(self, a, b):
+        return self.carry(a + b, 2)
+
+    def sub(self, a, b):
+        return self.carry(a - b, 2)
+
+    def mul_small(self, a, k: int):
+        return self.carry(a * k, 3)
+
+    def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Schoolbook product skewed into 39 columns (as the ed25519 `mul`),
+        then `_reduce`."""
+        a, b = torch.broadcast_tensors(a, b)
+        prod = a.unsqueeze(-1) * b.unsqueeze(-2)  # (..., 20, 20)
+        lead = prod.shape[:-2]
+        flat = F.pad(prod, (0, NLIMBS)).reshape(
+            lead + (2 * NLIMBS * NLIMBS,))
+        wide = flat[..., : NLIMBS * (2 * NLIMBS - 1)].reshape(
+            lead + (NLIMBS, 2 * NLIMBS - 1)).sum(-2)  # (..., 39)
+        return self._reduce(wide)
+
+    def square(self, a):
+        return self.mul(a, a)
+
+    def sq_n(self, a, n: int):
+        for _ in range(n):
+            a = self.mul(a, a)
+        return a
+
+    def pow_sqrt(self, a):
+        """a^((p + 1) / 4), the chain of csrc/secp256k1_core.cuh
+        `fe_pow_sqrt` (blocks of 223, 22 and 2 ones)."""
+        x2 = self.mul(self.square(a), a)
+        x3 = self.mul(self.square(x2), a)
+        x6 = self.mul(self.sq_n(x3, 3), x3)
+        x9 = self.mul(self.sq_n(x6, 3), x3)
+        x11 = self.mul(self.sq_n(x9, 2), x2)
+        x22 = self.mul(self.sq_n(x11, 11), x11)
+        x44 = self.mul(self.sq_n(x22, 22), x22)
+        x88 = self.mul(self.sq_n(x44, 44), x44)
+        x176 = self.mul(self.sq_n(x88, 88), x88)
+        x220 = self.mul(self.sq_n(x176, 44), x44)
+        x223 = self.mul(self.sq_n(x220, 3), x3)
+        t = self.mul(self.sq_n(x223, 23), x22)
+        t = self.mul(self.sq_n(t, 6), x2)
+        return self.sq_n(t, 2)
+
+    def canonical(self, x: torch.Tensor) -> torch.Tensor:
+        """The representative in [0, p), limbs in [0, 2^13). Input: |limb|
+        < 2^15, so |value| < 2^263 and 256 p lifts it above 0; two rounds
+        fold the bits >= 2^256 through 2^256 = 2^32 + 977 (limb 0 gets
+        977, limb 2 gets 64), then one conditional subtraction of p."""
+        dev = x.device
+        x = x + _const("sbias", lambda: int_to_limbs(256 * self.P), dev)
+        top = _const("stop", lambda: [977, 0, 64] + [0] * (NLIMBS - 3), dev)
+        for _ in range(2):
+            x = _ripple(x)
+            hi = x[..., -1:] >> self._TOP_SHIFT
+            x = x - F.pad(hi << self._TOP_SHIFT, (NLIMBS - 1, 0)) + hi * top
+        x = _ripple(x)  # 0 <= value < 2^256 < 2 p
+        t = _ripple(x - _const("sp", lambda: int_to_limbs(self.P), dev))
+        return torch.where((t[..., -1:] < 0), x, t)
+
+    def is_zero(self, x):
+        return (self.canonical(x) == 0).all(-1)
+
+    def eq(self, a, b):
+        return self.is_zero(a - b)
+
+    def parity(self, x):
+        return self.canonical(x)[..., 0] & 1
+
+
+FSECP = SecpField()

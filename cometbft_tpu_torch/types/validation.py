@@ -295,10 +295,12 @@ def device_batch_fn(device=None, cached: bool = False) -> Callable:
     """Build a batch_fn backed by the CUDA verify kernels.
 
     Returns fn(pubs: [PubKey], msgs, sigs) -> (n,) bool validity, with rows
-    grouped by key type under the device circuit breaker (crypto/batch.py).
-    `device` defaults to the CUDA card (device.default_device, resolved
+    grouped by key type under the device circuit breaker (crypto/batch.py):
+    ed25519 rows on the ed25519 kernel, sr25519 rows on the sr25519
+    kernel, secp256k1 rows on the ECDSA kernel, so a mixed commit costs one
+    launch per key type present. `device` defaults to the CUDA card (device.default_device, resolved
     here so a missing card fails at construction); pass "cpu" for the plain
-    PyTorch version. With `cached=True`, ed25519 groups of at least 128
+    PyTorch versions. With `cached=True`, ed25519 groups of at least 128
     rows go to the cached-valset kernel (ed25519_cached.verify_batch_cached),
     whose window table is keyed on the exact pubkey list: callers must
     present a stable list (the whole valset in order, as verify_commit

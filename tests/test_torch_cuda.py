@@ -185,3 +185,42 @@ def test_stamp_rows_kernel_equals_plain(card):
     torch.cuda.synchronize()
     assert es.stamp_rows.launches == before + 1
     assert torch.equal(got, want)
+
+
+def test_sr25519_verify_kernel_equals_plain(card):
+    from cometbft_tpu_torch.crypto import sr25519_ref as sr
+    from cometbft_tpu_torch.edge_cases import sr25519_cases
+    from cometbft_tpu_torch.ops import sr25519_kernel as srk
+
+    pubs, msgs, sigs = sr25519_cases(np.random.default_rng(7), n_valid=100)
+    rows = torch.from_numpy(srk.pack_batch_sr(pubs, msgs, sigs,
+                                              pad_to=256)).to(card)
+    before = srk.sr25519_verify.launches
+    got = srk.sr25519_verify(rows)
+    want = srk.sr25519_verify_plain(rows, kf.base_points(card))
+    torch.cuda.synchronize()
+    assert srk.sr25519_verify.launches == before + 1
+    assert torch.equal(got, want)
+    exp = [sr.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
+    assert got.cpu().numpy()[:len(pubs)].astype(bool).tolist() == exp
+    assert not got.cpu().numpy()[len(pubs):].any()
+
+
+def test_ecdsa_verify_kernel_equals_plain(card):
+    from cometbft_tpu_torch.crypto import secp256k1_ref as secp
+    from cometbft_tpu_torch.edge_cases import ecdsa_cases
+    from cometbft_tpu_torch.ops import ecdsa_fused as ef
+    from cometbft_tpu_torch.ops import ecdsa_kernel as eck
+
+    pubs, msgs, sigs = ecdsa_cases(np.random.default_rng(8), n_valid=100)
+    rows = torch.from_numpy(ef.pack_rows(eck.pack_batch(
+        pubs, msgs, sigs, pad_to=256))).to(card)
+    before = ef.ecdsa_verify.launches
+    got = ef.ecdsa_verify(rows)
+    want = ef.ecdsa_verify_plain(rows, ef.base_points(card))
+    torch.cuda.synchronize()
+    assert ef.ecdsa_verify.launches == before + 1
+    assert torch.equal(got, want)
+    exp = [secp.verify_py(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
+    assert got.cpu().numpy()[:len(pubs)].astype(bool).tolist() == exp
+    assert not got.cpu().numpy()[len(pubs):].any()

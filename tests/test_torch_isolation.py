@@ -53,6 +53,28 @@ def test_source_imports_nothing_of_jax_or_the_jax_package(path):
         assert top != "cometbft_tpu", f"{path}: imports {mod}"
 
 
+def test_the_checks_cover_every_module_and_kernel_source():
+    """The import checks above walk every module of the port, the sr25519
+    and ECDSA slice's included; every kernel source has a build entry and
+    every header is in the host build the CPU tests check."""
+    from cometbft_tpu_torch.ops import _build
+
+    mods = set(_modules())
+    for m in ("crypto.keccak", "crypto.merlin", "crypto.ristretto_ref",
+              "crypto.sr25519_ref", "crypto.secp256k1_ref", "edge_cases",
+              "ops.sr25519_kernel", "ops.secp256k1", "ops.ecdsa_kernel",
+              "ops.ecdsa_fused"):
+        assert f"cometbft_tpu_torch.{m}" in mods
+    csrc = PKG / "csrc"
+    assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(_build.KERNELS)
+    host = (csrc / "ed25519_host.cpp").read_text()
+    for h in csrc.glob("*.cuh"):
+        assert f'#include "{h.name}"' in host, h.name
+        for mod in re.findall(r'^#include\s+[<"]([\w./]+)[>"]',
+                              h.read_text(), re.M):
+            assert "jax" not in mod and "cometbft_tpu/" not in mod
+
+
 def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(device.DeviceError, match="device='cpu'"):
