@@ -10,7 +10,9 @@ Phases (any failure exits non-zero and prints no result line):
      ed25519_verify on 256 columns (valid, flipped bit, tampered message,
      S >= L, garbage, ZIP-215 edge cases; both must equal the ed25519_ref
      oracle) and tally_quorum on 8 commits with random masks, large powers
-     and one commit that misses quorum by exactly 1;
+     and one commit that misses quorum by exactly 1, then on every case of
+     edge_cases.TALLY_CASES (up to 2^17 columns, one commit above the
+     kernel's shared-memory cap);
   3. the main path at full size: a 10,000-validator ValidatorSet and one
      signed commit through verify_commit_light (6,667 signatures) and
      verify_commit (10,000), both padded to 16,384 columns, with
@@ -18,19 +20,23 @@ Phases (any failure exits non-zero and prints no result line):
      the VerifyCommitLight p50 and verify_commit sigs/s;
   4. the fused verify + tally step on a blocksync-shaped chunk: 16 commits
      x 1,000 validators through verify_tally_rows, one commit short of
-     quorum; tallies must equal the host integer sums exactly;
+     quorum; tallies must equal the host integer sums exactly; then
+     tally_quorum at the chunk's shape, per call (CUDA events) and in
+     device time (a profiler trace), beside index_add_ on the same inputs;
   5. the cached-path kernels against their plain versions on the card,
      exactly: valset_table_build at M = 128 (bad and edge keys included),
      ed25519_verify_cached on 256 columns (also against the oracle),
      stamp_rows over every fuzzed timestamp width with two templates (also
      against pack_rows_cached of a host pack) and tally_quorum_cached on 8
-     commits;
+     commits and on every case of edge_cases.TALLY_CASES;
   6. blocksync at BASELINE config 4's width: make_stream_verifier() over 80
      heights of a 1,000-validator set (64 under V0, 16 under V1 = V0 with 8
      rotated keys), one tampered signature and one commit short of quorum;
      outcomes must match the oracle, every chunk must be device-stamped,
      launch counts exact; then each cached kernel at the stream's shapes
-     (B = 65,536 columns, M = 1,024) against its plain version;
+     (B = 65,536 columns, M = 1,024) against its plain version, the tally
+     also with 513 commits (above its shared-memory cap) and timed in
+     device time beside index_add_;
   7. verify_commit on phase 3's 10k commit with device_batch_fn(cached=True):
      a cold table build, then warm calls; tampered signature 4,321 blamed;
      then ed25519_verify_cached on the rows that path verified (10,240
@@ -55,8 +61,9 @@ Phases (any failure exits non-zero and prints no result line):
      calls launched it on (4,096 and 16,384 columns, clean and tampered)
      against plain.
 Before the last line it prints the `kernels` JSON (launches on the main
-paths, in all and by path; times; bounds); the last line is
-{"ok": true, "device": {...}}.
+paths, in all and by path; times; bounds; for the two tally entries also
+`device_ms` and `library_device_ms`, from profiler traces); the last line
+is {"ok": true, "device": {...}}.
 
 Launch counters are set to 0 just before each main-path run and read just
 after; launches made to compare a kernel with its plain version are not
@@ -97,6 +104,7 @@ SHORT_HEIGHT = 70            # its top SHORT_ABSENT validators are absent
 SHORT_ABSENT = 400
 STREAM_RUNS = 3              # one cold, two warm
 CACHED_RUNS = 5
+DEVICE_REPS = 50             # calls in a profiler trace for device_ms
 # timestamps that cross every varint width boundary, the zero-skipping
 # cases and the 10-byte two's-complement negatives
 FUZZ_SECS = [0, 1, 127, 128, 16383, 16384, 1_700_000_000, 2**31 - 1,
@@ -262,10 +270,9 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def trace_device_ms(fn, name):
-    """(kernel ms, memcpy ms, wall ms) of one call under torch.profiler,
-    summed from the exported trace's device events (the trace is kept under
-    build/traces/), or None when the trace holds no device events."""
+def _traced(fn, name):
+    """(device events, wall ms) of fn() under torch.profiler; the trace is
+    kept under build/traces/<name>."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -281,12 +288,60 @@ def trace_device_ms(fn, name):
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
-    kern = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel")
-    copy = sum(e.get("dur", 0) for e in events
-               if e.get("cat") in ("gpu_memcpy", "gpu_memset"))
+    return [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")], wall
+
+
+def trace_device_ms(fn, name):
+    """(kernel ms, memcpy ms, wall ms) of one call under torch.profiler,
+    summed from the exported trace's device events, or None when the trace
+    holds no device events."""
+    events, wall = _traced(fn, name)
+    kern = sum(e.get("dur", 0) for e in events if e["cat"] == "kernel")
+    copy = sum(e.get("dur", 0) for e in events if e["cat"] != "kernel")
     if kern <= 0:
         return None
     return kern / 1e3, copy / 1e3, wall
+
+
+def device_ms(fn, reps: int, name: str):
+    """Device time of one call of fn, from a profiler trace of `reps`
+    calls: for kernels and for memsets, the mean duration of the trace's
+    events times their count per call rounded to a whole number (a trace
+    may miss an event or two of a run). Returns (ms, kernel events per
+    call, memset events per call), or None when the trace holds no kernel.
+    Unlike `cuda_ms`, which times a loop of calls between two events and so
+    also counts the host's time to enqueue each one, this counts only the
+    time the card works."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+
+    def loop():
+        for _ in range(reps):
+            fn()
+
+    try:
+        events, _ = _traced(loop, name)
+    except Exception as e:  # noqa: BLE001 - the trace is a measurement only
+        print(f"device_ms {name}: profiler failed: {e!r}", flush=True)
+        return None
+    kern = [e.get("dur", 0) for e in events if e["cat"] == "kernel"]
+    mset = [e.get("dur", 0) for e in events if e["cat"] == "gpu_memset"]
+    if not kern:
+        return None
+    us = sum(sum(d) / len(d) * round(len(d) / reps)
+             for d in (kern, mset) if d)
+    return us / 1e3, len(kern) / reps, len(mset) / reps
+
+
+def device_line(kernel, library) -> str:
+    """The phase line's report of two device_ms results."""
+    def one(t):
+        return "not measured" if t is None else (
+            f"{t[0]:.6f} (kernels/call={t[1]:g} memsets/call={t[2]:g})")
+    return f"device_ms={one(kernel)} index_add_device_ms={one(library)}"
 
 
 def split_times(dev, vs, commit, n, runs):
@@ -370,6 +425,34 @@ def zip215_cases(pool):
     return cases
 
 
+def tally_edge_cases(dev, cached: bool) -> int:
+    """Each tally entry against its plain version and the exact integer
+    sums on every case of edge_cases.TALLY_CASES; returns the count."""
+    import torch
+
+    from cometbft_tpu_torch.edge_cases import TALLY_CASES, tally_edge_case
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+
+    for name, *_ in TALLY_CASES:
+        case = tally_edge_case(name, cached)
+        v = torch.from_numpy(case.valid).to(dev)
+        r = torch.from_numpy(case.rows).to(dev)
+        if cached:
+            p5 = torch.from_numpy(case.power5).to(dev)
+            tk, qk = ec.tally_quorum_cached(v, r, p5, case.C)
+            tp, qp = ec.tally_quorum_cached_plain(v, r, p5, case.C)
+        else:
+            tk, qk = kf.tally_quorum(v, r, case.C)
+            tp, qp = kf.tally_quorum_plain(v, r, case.C)
+        check(torch.equal(tk, tp) and torch.equal(qk, qp),
+              f"tally (cached={cached}) != plain on edge case {name}")
+        check([int(x) for x in ek.tally_to_int(tk.cpu().numpy())]
+              == case.sums, f"tally (cached={cached}) != host sums on {name}")
+    return len(TALLY_CASES)
+
+
 def phase_kernels_vs_plain(dev, pool, rng):
     import numpy as np
     import torch
@@ -447,6 +530,10 @@ def phase_kernels_vs_plain(dev, pool, rng):
     check(qk.cpu().numpy().tolist() == want_q, "quorum bits wrong")
     print(f"phase2 tally_quorum commits={C} cols={B} kernel==plain==host "
           f"quorum={qk.cpu().numpy().astype(int).tolist()}", flush=True)
+    n = tally_edge_cases(dev, cached=False)
+    print(f"phase2 tally_quorum edge_cases={n} (up to {1 << 17} cols, "
+          f"{kf.TALLY_SMEM_COMMITS + 1} commits) kernel==plain==host",
+          flush=True)
 
 
 def phase_main_path(dev, pool, rng, kernel_stats):
@@ -678,7 +765,12 @@ def phase_fused_step(dev, pool, rng, kernel_stats, tally_on_commit_path):
     power5, counted, cids, _ = kf.tally_inputs(r, CHUNK_COMMITS)
     contrib = power5 * ((verdicts != 0) & counted).to(torch.int64)[:, None]
     acc = torch.zeros((CHUNK_COMMITS, 5), dtype=torch.int64, device=dev)
-    library_ms = cuda_ms(lambda: acc.index_add_(0, cids, contrib), 50)
+    library = lambda: acc.index_add_(0, cids, contrib)  # noqa: E731
+    library_ms = cuda_ms(library, 50)
+    dev_t = device_ms(lambda: kf.tally_quorum(verdicts, r, CHUNK_COMMITS),
+                      DEVICE_REPS, "tally_quorum_trace.json")
+    kf.tally_quorum.launches = saved
+    lib_t = device_ms(library, DEVICE_REPS, "index_add_chunk_trace.json")
     kernel_stats["tally_quorum"] = dict(
         launches_by_path={"verify_commit": tally_on_commit_path,
                           "fused_step": launches["tally_quorum"]},
@@ -686,12 +778,14 @@ def phase_fused_step(dev, pool, rng, kernel_stats, tally_on_commit_path):
         cols=B, bytes=B * 6 * 4 + CHUNK_COMMITS * (6 * 4 * 2 + 1),
         max_abs_err=err,
         library_ms=library_ms,
+        device_ms=dev_t and dev_t[0], library_device_ms=lib_t and lib_t[0],
     )
     kernel_stats["ed25519_verify"]["launches_by_path"]["fused_step"] = (
         launches["ed25519_verify"])
     print(f"phase4 tally_quorum cols={B} commits={CHUNK_COMMITS} "
           f"kernel_ms={ms:.5f} plain_ms={plain_ms:.4f} "
-          f"index_add_ms={library_ms:.5f}", flush=True)
+          f"index_add_ms={library_ms:.5f} "
+          f"{device_line(dev_t, lib_t)}", flush=True)
 
 
 def all_kernels():
@@ -893,6 +987,9 @@ def phase_cached_kernels_vs_plain(dev, pool, rng):
     check(qk.cpu().numpy().tolist() == want_q, "cached quorum bits wrong")
     print(f"phase5 tally_quorum_cached commits={C} cols={B} "
           "kernel==plain==host", flush=True)
+    n = tally_edge_cases(dev, cached=True)
+    print(f"phase5 tally_quorum_cached edge_cases={n} kernel==plain==host",
+          flush=True)
 
 
 def _stream_fixture(pool, rng):
@@ -1186,16 +1283,44 @@ def phase_stream(dev, pool, rng, kernel_stats):
     tp, qp = ec.tally_quorum_cached_plain(verdicts, rows, table.power5, cap)
     tally_err = max(int((tk - tp).abs().max()), int((qk != qp).sum()))
     check(tally_err == 0, "tally_quorum_cached != plain at the chunk shape")
+    # the same verdicts and rows with more commits than the kernel keeps in
+    # shared memory (its global-atomics branch): commit ids in runs of 128
+    # columns over 2 * TALLY_SMEM_COMMITS + 1 commits, thresholds at each
+    # exact sum - 1, the sum and the sum + 1
+    big_c = 2 * ec.kf.TALLY_SMEM_COMMITS + 1
+    big = rows.clone()
+    col = torch.arange(B, dtype=torch.int32, device=dev)
+    big[ec.V_FLAGS] = (rows[ec.V_FLAGS] & 7) | (((col // 128) % big_c) << 3)
+    big_sums = [int(x) for x in ek.tally_to_int(ec.tally_quorum_cached_plain(
+        verdicts, big, table.power5, big_c)[0].cpu().numpy())]
+    big_thr = [max(0, x + c % 3 - 1) for c, x in enumerate(big_sums)]
+    big[ec.V_THRESH:].reshape(-1)[:big_c * 6] = torch.from_numpy(np.stack(
+        [ek.threshold_limbs(t)[0] for t in big_thr]).reshape(-1)).to(dev)
+    tk, qk = ec.tally_quorum_cached(verdicts, big, table.power5, big_c)
+    tp, qp = ec.tally_quorum_cached_plain(verdicts, big, table.power5, big_c)
+    big_err = max(int((tk - tp).abs().max()), int((qk != qp).sum()))
+    check(big_err == 0 and qk.cpu().tolist() == [
+        s > t for s, t in zip(big_sums, big_thr)],
+        f"tally_quorum_cached != plain at {big_c} commits")
+    tally_err = max(tally_err, big_err)
+    print(f"phase6 tally_quorum_cached cols={B} commits={big_c} (above the "
+          f"shared-memory cap of {ec.kf.TALLY_SMEM_COMMITS}) kernel==plain",
+          flush=True)
     flags = rows[ec.V_FLAGS].to(torch.int64)
     pw = table.power5[torch.arange(B, device=dev) % M].to(torch.int64)
     contrib = pw * ((verdicts != 0) & (((flags >> 2) & 1) != 0)).to(
         torch.int64)[:, None]
     acc = torch.zeros((cap, 5), dtype=torch.int64, device=dev)
     cids = flags >> 3
-    tally_lib_ms = cuda_ms(lambda: acc.index_add_(0, cids, contrib), 50)
+    library = lambda: acc.index_add_(0, cids, contrib)  # noqa: E731
+    tally_lib_ms = cuda_ms(library, 50)
+    tally_dev = device_ms(tq, DEVICE_REPS, "tally_quorum_cached_trace.json")
+    tally_lib_dev = device_ms(library, DEVICE_REPS,
+                              "index_add_stream_trace.json")
     print(f"phase6 tally_quorum_cached cols={B} commits={cap} "
           f"kernel_ms={tally_ms:.5f} plain_ms={tally_plain_ms:.3f} "
-          f"index_add_ms={tally_lib_ms:.5f}", flush=True)
+          f"index_add_ms={tally_lib_ms:.5f} "
+          f"{device_line(tally_dev, tally_lib_dev)}", flush=True)
 
     lenok = torch.ones((M,), dtype=torch.bool, device=dev)
     lenok[STREAM_VALS:] = False
@@ -1240,7 +1365,8 @@ def phase_stream(dev, pool, rng, kernel_stats):
         launches_by_path={"stream": cold[1]["tally_quorum_cached"]},
         ms=tally_ms, plain_ms=tally_plain_ms, max_abs_err=tally_err,
         ops=B * 6, bytes=B * 8 + M * 20 + cap * (6 * 4 * 2 + 1),
-        library_ms=tally_lib_ms)
+        library_ms=tally_lib_ms, device_ms=tally_dev and tally_dev[0],
+        library_device_ms=tally_lib_dev and tally_lib_dev[0])
     kernel_stats["stamp_rows"] = dict(
         launches_by_path={"stream": cold[1]["stamp_rows"]},
         ms=stamp_ms, plain_ms=stamp_plain_ms, max_abs_err=stamp_err,
@@ -1822,7 +1948,8 @@ def kernels_json(kernel_stats):
         max_abs_err=t["max_abs_err"], ms=t["ms"],
         plain_ms=t["plain_ms"], bound_ms=max(ops_ms, bytes_ms),
         bound_by="operations" if ops_ms > bytes_ms else "bytes",
-        library_ms=t["library_ms"],
+        library_ms=t["library_ms"], device_ms=t["device_ms"],
+        library_device_ms=t["library_device_ms"],
     ))
     sources = {
         "sr25519_verify": ("sr25519_verify.cu",
@@ -1834,7 +1961,7 @@ def kernels_json(kernel_stats):
         "ed25519_verify_cached": ("ed25519_cached_verify.cu",
                                   "cometbft_tpu/ops/ed25519_cached.py:849"),
         "tally_quorum_cached": ("tally_quorum.cu",
-                                "cometbft_tpu/ops/ed25519_cached.py:948"),
+                                "cometbft_tpu/ops/ed25519_cached.py:987"),
         "stamp_rows": ("stamp_rows.cu",
                        "cometbft_tpu/ops/ed25519_cached.py:1495"),
     }
@@ -1851,6 +1978,8 @@ def kernels_json(kernel_stats):
             bound_ms=max(ops_ms, bytes_ms),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
             library_ms=k["library_ms"],
+            **{key: k[key] for key in ("device_ms", "library_device_ms")
+               if key in k},
         ))
     print(f"bound: {products} limb products/signature, clocks.max.sm={mhz} "
           f"MHz, {imad_per_s:.4e} INT32 multiply-adds/s", flush=True)

@@ -1,9 +1,12 @@
 // Host build of the kernels' per-thread arithmetic (csrc/*.cuh), compiled
-// with a C++ compiler. The CPU tests hold its results against the oracle and
-// the plain PyTorch versions, and, built with -DCBT_COUNT_OPS, it counts the
-// field multiplications behind the kernels' bounds. The GPU path never loads
-// it.
+// with a C++ compiler, and of the tally kernel's block and thread partition.
+// The CPU tests hold its results against the oracle and the plain PyTorch
+// versions, and, built with -DCBT_COUNT_OPS, it counts the field
+// multiplications behind the kernels' bounds. The GPU path never loads it.
 #include <stdint.h>
+
+#include <algorithm>
+#include <vector>
 
 #ifdef CBT_COUNT_OPS
 extern "C" {
@@ -17,6 +20,7 @@ long long cbt_sha_block_count = 0;
 #include "ristretto_core.cuh"
 #include "secp256k1_core.cuh"
 #include "stamp_core.cuh"
+#include "tally_core.cuh"
 
 extern "C" void cbt_host_verify(const int32_t* rows, int B,
                                 const int32_t* base, int32_t* out) {
@@ -101,6 +105,55 @@ extern "C" void cbt_host_stamp(const uint8_t* sig, const int32_t* ts,
   for (int b = 0; b < B; b++)
     cbt_stamp::stamp_column(b, B, sig, ts, flags, tp, pub_raw, M, thr, n_thr,
                             t_rows, out);
+}
+
+// The tally kernel (csrc/tally_quorum.cu) run one step at a time with its
+// own block and thread partition: per block, each warp's 32 threads load
+// and sum their columns, then the warp combines; below the shared-memory
+// cap each block's partials are added to the sums after the block, above
+// it the warps add to the sums directly. Returns 1 where the kernel keeps
+// block partials in shared memory, 0 where it takes the global branch.
+template <typename Src>
+static int host_tally(const Src& s, int B, int C, int32_t* tally,
+                      uint8_t* quorum) {
+  using namespace cbt_tally;
+  const bool smem = smem_partials(C);
+  const bool vec = vector_loads(s.valid, s.rows, B);
+  std::vector<int32_t> sums((size_t)C * kPowerLimbs, 0);
+  std::vector<int32_t> part(smem ? sums.size() : 0);
+  for (int blk = 0; blk < grid_blocks(B); blk++) {
+    std::fill(part.begin(), part.end(), 0);
+    int32_t* dst = smem ? part.data() : sums.data();
+    for (int w = 0; w < kThreads / kWarp; w++) {
+      int32_t cid[kWarp], acc[kWarp][kPowerLimbs];
+      for (int l = 0; l < kWarp; l++) {
+        Col c[kColsPerThread];
+        thread_load(s, B, blk, w * kWarp + l, vec, c);
+        thread_runs(c, C, dst, cid[l], acc[l]);
+      }
+      warp_combine_host(cid, acc, dst);
+    }
+    for (size_t i = 0; i < part.size(); i++)
+      if (part[i] != 0) add_to(&sums[i], part[i]);
+  }
+  const int32_t* th = s.thresh();
+  for (int k = 0; k < C; k++)
+    finish_commit(&sums[(size_t)k * kPowerLimbs], th + (size_t)k * kTallyLimbs,
+                  tally + (size_t)k * kTallyLimbs, quorum + k);
+  return smem ? 1 : 0;
+}
+
+// cached = 0: the general entry (power5 and M unused); 1: the cached one.
+extern "C" int cbt_host_tally(int cached, const int32_t* valid,
+                              const int32_t* rows, int B,
+                              const int32_t* power5, int M, int n_commits,
+                              int32_t* tally, uint8_t* quorum) {
+  if (n_commits <= 0) return -1;
+  if (cached)
+    return host_tally(cbt_tally::CachedSrc{valid, rows, B, power5, M}, B,
+                      n_commits, tally, quorum);
+  return host_tally(cbt_tally::GeneralSrc{valid, rows, B}, B, n_commits,
+                    tally, quorum);
 }
 
 extern "C" void cbt_host_sc_reduce(const uint8_t* in, uint8_t* out) {

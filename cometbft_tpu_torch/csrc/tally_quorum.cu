@@ -4,132 +4,121 @@
 // (XLA, run after the Pallas verify in `ed25519_pallas._verify_tally_rows`,
 // and, for the cached layout, in `ed25519_cached._verify_tally_cached`).
 //
-// Two entries share the reduction:
+// Two entries share one templated kernel; only the column source differs
+// (csrc/tally_core.cuh):
 //   cbt_tally_quorum         general packed rows: power from rows C_POW..,
 //                            counted from C_FLAGS bit 3, commit id row C_CID;
 //   cbt_tally_quorum_cached  cached packed rows: power from the valset's
 //                            power5[b mod M], counted from V_FLAGS bit 2,
 //                            commit id V_FLAGS >> 3.
 //
-// What bounds it on an H100: bytes. It reads one verdict and a few packed
-// words per column and does a handful of integer adds with them; the work is
-// microseconds next to the verify kernels.
+// What bounds it on an H100: bytes, 24 B a column (general) or 8 B plus a
+// gathered 20 B power entry (cached), and at the main paths' sizes (B =
+// 16,384 and 65,536) that is well under a microsecond; what is left is one
+// launch and one round trip of loads.
 //
-// Design: one block per commit. The block's threads stride over the B
-// columns and sum the 13-bit power limbs of the columns that are valid,
-// counted and carry this commit's id; a shared-memory tree then reduces the
-// per-thread sums. The order is fixed and there are no atomics, so the
-// result is bit-exact. Per-limb sums stay below 2^30 for B <= 2^17 (limbs
-// < 2^13), so int32 is enough. Thread 0 carries the limbs to canonical
-// 13-bit form and compares them with the threshold, top limb down.
+// Design: each column is read once, by a grid sized by B. Thread t of block
+// k takes columns k * 512 + 4t .. + 3 with one 16-byte load a row (where B
+// % 4 == 0), every load issued before the first is used, and sums its live
+// columns into runs of one commit id. A warp whose lanes all hold the same
+// commit sums each limb with __reduce_add_sync; then lane 0 adds it to the
+// block's partials per (commit, limb) in shared memory (up to 256 commits;
+// above that, straight into the global sums). Each block adds its non-zero
+// partials into a (C, 5) int32 scratch with integer atomics, fences, and
+// counts itself done; the last block carries every commit's sums to
+// canonical 13-bit limbs and compares them with the threshold, top limb
+// down. Integer addition is exact in any order, so the atomics give the
+// same result every run; per-limb sums stay below 2^30 for B <= 2^17
+// (limbs < 2^13, which the wrappers check). One memset of the scratch and
+// one launch a call; the scratch belongs to the call, so calls on two
+// streams share nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tally_core.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPowerLimbs = 5;
-constexpr int kTallyLimbs = 6;
-constexpr int kC_FLAGS = 36, kC_POW = 37, kC_CID = 40, kC_THRESH = 41;
-constexpr int kV_FLAGS = 26, kV_THRESH = 27;
-constexpr uint32_t kM13 = (1u << 13) - 1;
+using namespace cbt_tally;
 
-// Reduces each thread's acc over the block, then thread 0 writes commit c's
-// canonical tally and quorum bit (tally > thresh).
-__device__ void reduce_and_finish(int32_t (&acc)[kPowerLimbs],
-                                  const int32_t* thresh, int c,
-                                  int32_t* tally, uint8_t* quorum) {
-  __shared__ int32_t part[kPowerLimbs][kThreads];
-#pragma unroll
-  for (int k = 0; k < kPowerLimbs; k++) part[k][threadIdx.x] = acc[k];
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-#pragma unroll
-      for (int k = 0; k < kPowerLimbs; k++)
-        part[k][threadIdx.x] += part[k][threadIdx.x + s];
-    }
+template <typename Src, bool kSmem>
+__global__ void __launch_bounds__(kThreads)
+tally_kernel(Src s, int B, int C, bool vec, int32_t* __restrict__ sums,
+             unsigned* __restrict__ done, int32_t* __restrict__ tally,
+             uint8_t* __restrict__ quorum) {
+  extern __shared__ int32_t smem[];
+  __shared__ bool last;
+  Col c[kColsPerThread];
+  thread_load(s, B, blockIdx.x, threadIdx.x, vec, c);
+  int32_t* part = kSmem ? smem : sums;
+  if (kSmem) {
+    for (int i = threadIdx.x; i < C * kPowerLimbs; i += kThreads) smem[i] = 0;
     __syncthreads();
   }
-  if (threadIdx.x != 0) return;
-  int32_t t[kTallyLimbs];
-#pragma unroll
-  for (int k = 0; k < kPowerLimbs; k++) t[k] = part[k][0];
-  t[kPowerLimbs] = 0;
-#pragma unroll
-  for (int i = 0; i < kTallyLimbs - 1; i++) {
-    const int32_t carry = t[i] >> 13;
-    t[i] -= carry << 13;
-    t[i + 1] += carry;
-  }
-  bool gt = false, eq = true;
-#pragma unroll
-  for (int i = kTallyLimbs - 1; i >= 0; i--) {
-    gt = gt || (eq && t[i] > thresh[i]);
-    eq = eq && t[i] == thresh[i];
-  }
-#pragma unroll
-  for (int i = 0; i < kTallyLimbs; i++) tally[c * kTallyLimbs + i] = t[i];
-  quorum[c] = gt ? 1 : 0;
-}
-
-__global__ void __launch_bounds__(kThreads)
-tally_quorum_kernel(const int32_t* __restrict__ valid,
-                    const int32_t* __restrict__ rows, int B,
-                    int32_t* __restrict__ tally, uint8_t* __restrict__ quorum) {
-  const int c = blockIdx.x;
-  int32_t acc[kPowerLimbs] = {0, 0, 0, 0, 0};
-  for (int b = threadIdx.x; b < B; b += kThreads) {
-    const uint32_t flags = (uint32_t)rows[kC_FLAGS * B + b];
-    if (valid[b] != 0 && ((flags >> 3) & 1u) && rows[kC_CID * B + b] == c) {
-      const uint32_t p01 = (uint32_t)rows[kC_POW * B + b];
-      const uint32_t p23 = (uint32_t)rows[(kC_POW + 1) * B + b];
-      acc[0] += (int32_t)(p01 & kM13);
-      acc[1] += (int32_t)((p01 >> 13) & kM13);
-      acc[2] += (int32_t)(p23 & kM13);
-      acc[3] += (int32_t)((p23 >> 13) & kM13);
-      acc[4] += rows[(kC_POW + 2) * B + b];
+  int32_t cid, acc[kPowerLimbs];
+  thread_runs(c, C, part, cid, acc);
+  warp_combine(cid, acc, part);
+  if (kSmem) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < C * kPowerLimbs; i += kThreads) {
+      const int32_t v = smem[i];
+      if (v != 0) atomicAdd(sums + i, v);
     }
   }
-  // thresholds: rows[C_THRESH:] read flat, (n_commits, 6) limbs
-  reduce_and_finish(acc, rows + (size_t)kC_THRESH * B + (size_t)c * kTallyLimbs,
-                    c, tally, quorum);
+  // the block's adds are visible before it counts itself done
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int32_t* th = s.thresh();
+  for (int k = threadIdx.x; k < C; k += kThreads) {
+    int32_t sum[kPowerLimbs];
+#pragma unroll
+    for (int i = 0; i < kPowerLimbs; i++)
+      sum[i] = __ldcg(sums + (size_t)k * kPowerLimbs + i);
+    finish_commit(sum, th + (size_t)k * kTallyLimbs,
+                  tally + (size_t)k * kTallyLimbs, quorum + k);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-tally_quorum_cached_kernel(const int32_t* __restrict__ valid,
-                           const int32_t* __restrict__ rows, int B,
-                           const int32_t* __restrict__ power5, int M,
-                           int32_t* __restrict__ tally,
-                           uint8_t* __restrict__ quorum) {
-  const int c = blockIdx.x;
-  int32_t acc[kPowerLimbs] = {0, 0, 0, 0, 0};
-  for (int b = threadIdx.x; b < B; b += kThreads) {
-    const int32_t flags = rows[kV_FLAGS * B + b];
-    if (valid[b] != 0 && ((flags >> 2) & 1) && (flags >> 3) == c) {
-      const int32_t* p = power5 + (size_t)(b % M) * kPowerLimbs;
-#pragma unroll
-      for (int k = 0; k < kPowerLimbs; k++) acc[k] += p[k];
-    }
+template <typename Src>
+int launch(const Src& s, int B, int C, bool vec, int32_t* scratch,
+           int32_t* tally, uint8_t* quorum, cudaStream_t st) {
+  if (C <= 0) return 0;
+  // scratch: C * 5 sums, then the done counter
+  const cudaError_t e = cudaMemsetAsync(
+      scratch, 0, ((size_t)C * kPowerLimbs + 1) * sizeof(int32_t), st);
+  if (e != cudaSuccess) return (int)e;
+  unsigned* done = reinterpret_cast<unsigned*>(scratch +
+                                               (size_t)C * kPowerLimbs);
+  const int blocks = grid_blocks(B);
+  if (smem_partials(C)) {
+    tally_kernel<Src, true>
+        <<<blocks, kThreads, C * kPowerLimbs * sizeof(int32_t), st>>>(
+            s, B, C, vec, scratch, done, tally, quorum);
+  } else {
+    tally_kernel<Src, false><<<blocks, kThreads, 0, st>>>(
+        s, B, C, vec, scratch, done, tally, quorum);
   }
-  // thresholds: rows[V_THRESH:] read flat, (n_commits, 6) limbs
-  reduce_and_finish(acc, rows + (size_t)kV_THRESH * B + (size_t)c * kTallyLimbs,
-                    c, tally, quorum);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // valid: (B,) int32 verdicts; rows: the packed (R, B) int32 array;
-// tally: (n_commits, 6) int32; quorum: (n_commits,) bool (one byte each).
-// Launches on `stream`, allocates nothing, does not synchronise; returns
-// cudaGetLastError().
+// scratch: (n_commits * 5 + 1) int32, any contents; tally: (n_commits, 6)
+// int32; quorum: (n_commits,) bool (one byte each). Zeroes the scratch and
+// launches on `stream`, allocates nothing, does not synchronise; returns
+// the first CUDA error.
 extern "C" int cbt_tally_quorum(const int32_t* valid, const int32_t* rows,
-                                int B, int n_commits, int32_t* tally,
-                                uint8_t* quorum, void* stream) {
-  if (n_commits <= 0) return 0;
-  tally_quorum_kernel<<<n_commits, kThreads, 0, (cudaStream_t)stream>>>(
-      valid, rows, B, tally, quorum);
-  return (int)cudaGetLastError();
+                                int B, int n_commits, int32_t* scratch,
+                                int32_t* tally, uint8_t* quorum,
+                                void* stream) {
+  return launch(GeneralSrc{valid, rows, B}, B, n_commits,
+                vector_loads(valid, rows, B), scratch, tally, quorum,
+                (cudaStream_t)stream);
 }
 
 // The cached layout: as above, with power5 the valset's (M, 5) int32 power
@@ -137,11 +126,10 @@ extern "C" int cbt_tally_quorum(const int32_t* valid, const int32_t* rows,
 extern "C" int cbt_tally_quorum_cached(const int32_t* valid,
                                        const int32_t* rows, int B,
                                        const int32_t* power5, int M,
-                                       int n_commits, int32_t* tally,
-                                       uint8_t* quorum, void* stream) {
-  if (n_commits <= 0) return 0;
-  tally_quorum_cached_kernel<<<n_commits, kThreads, 0,
-                               (cudaStream_t)stream>>>(
-      valid, rows, B, power5, M, tally, quorum);
-  return (int)cudaGetLastError();
+                                       int n_commits, int32_t* scratch,
+                                       int32_t* tally, uint8_t* quorum,
+                                       void* stream) {
+  return launch(CachedSrc{valid, rows, B, power5, M}, B, n_commits,
+                vector_loads(valid, rows, B), scratch, tally, quorum,
+                (cudaStream_t)stream);
 }

@@ -1,14 +1,21 @@
 """Seeded signature batches with every edge case of the sr25519 and ECDSA
-verifiers, shared by the CPU tests, the GPU tests and chip_smoke.py, which
-hold the kernels, their plain versions and the oracles to each other on
-them. `rng` is a numpy Generator."""
+verifiers, and seeded inputs with every edge case of the two tally kernels,
+shared by the CPU tests, the GPU tests and chip_smoke.py, which hold the
+kernels, their plain versions and the oracles to each other on them. `rng`
+is a numpy Generator."""
 from __future__ import annotations
 
 import hashlib
+from types import SimpleNamespace
+
+import numpy as np
 
 from cometbft_tpu_torch.crypto import ristretto_ref as rist
 from cometbft_tpu_torch.crypto import secp256k1_ref as secp
 from cometbft_tpu_torch.crypto import sr25519_ref as sr
+from cometbft_tpu_torch.ops import ed25519_cached as ec
+from cometbft_tpu_torch.ops import ed25519_fused as kf
+from cometbft_tpu_torch.ops import ed25519_kernel as ek
 
 
 def non_decodable_ristretto() -> bytes:
@@ -114,3 +121,86 @@ def ecdsa_cases(rng, n_valid: int = 12):
         msgs.append(mm)
         sigs.append(ss)
     return pubs, msgs, sigs
+
+
+# The tally kernels' edge cases: (name, B, C, options) for `tally_case`.
+# C = 257 is one above csrc/tally_core.cuh's shared-memory cap of 256
+# commits; B = 777 and 4,099 are not multiples of 4 (no 16-byte loads) and
+# 1,000 not of the 512 columns a block takes; B = 2^17 with every column
+# valid and counted in one commit and every limb 2^13 - 1 is the largest
+# per-limb sum the wrappers accept (2^17 (2^13 - 1) < 2^30).
+TALLY_CASES = (
+    ("one_commit", 1024, 1, {}),
+    ("ragged_scalar_loads", 777, 5, {}),
+    ("ragged_blocks", 1000, 16, {}),
+    ("odd_width", 4099, 64, {"M": 999}),
+    ("at_smem_cap", 2048, 256, {}),
+    ("above_smem_cap", 2048, 257, {}),
+    ("full_limbs", 4096, 12, {"full_limbs": True}),
+    ("b_2_17_one_commit", 1 << 17, 3, {"one_commit": 1, "M": 1000}),
+)
+
+
+def tally_case(rng, B: int, C: int, cached: bool = False, M: int = 100,
+               one_commit=None, full_limbs: bool = False):
+    """A seeded tally input with its edge cases, for both kernels: verdicts
+    other than 0 and 1, uncounted columns, commit ids below 0 and at or
+    above C, power limbs at 2^13 - 1, and per-commit thresholds at the
+    exact sum - 1, the sum and the sum + 1 (by commit id mod 3).
+
+    `one_commit`: every column valid and counted in that commit.
+    `full_limbs`: every power limb 2^13 - 1. Returns a namespace of the
+    packed (R, B) int32 `rows`, (B,) int32 `valid`, the cached layout's
+    (M, 5) int32 `power5` (None for the general one), the tally's inputs
+    column by column (`p5` (B, 5), `counted`, `cids`), the (C, 6) `thresh`
+    limbs and the exact per-commit `sums` (Python ints)."""
+    mask = (1 << 13) - 1
+    if one_commit is not None:
+        valid = np.ones(B, np.int32)
+        counted = np.ones(B, bool)
+        cids = np.full(B, one_commit, np.int32)
+    else:
+        valid = rng.choice(np.array([0, 1, 1, 1, 2, -1, 7, -2**31], np.int32),
+                           B)
+        counted = rng.random(B) < 0.85
+        cids = rng.integers(-3, C + 3, B).astype(np.int32)
+    if cached:
+        power5 = rng.integers(0, mask + 1, (M, 5)).astype(np.int32)
+        power5[rng.random(M) < 0.2] = mask
+        if full_limbs or one_commit is not None:
+            power5[:] = mask
+        p5 = power5[np.arange(B) % M]
+    else:
+        power5 = None
+        p5 = rng.integers(0, mask + 1, (B, 5)).astype(np.int32)
+        p5[rng.random(B) < 0.2] = mask
+        if full_limbs or one_commit is not None:
+            p5[:] = mask
+    live = (valid != 0) & counted & (cids >= 0) & (cids < C)
+    col_int = ek.tally_to_int(p5)
+    sums = [0] * C
+    for b in np.flatnonzero(live):
+        sums[cids[b]] += int(col_int[b])
+    thresh = np.stack([ek.threshold_limbs(max(0, s + c % 3 - 1))[0]
+                       for c, s in enumerate(sums)])
+    if cached:
+        flags = (counted.astype(np.int32) << 2) | (cids << 3) | \
+            rng.integers(0, 4, B).astype(np.int32)
+        rows = np.zeros(ec.packed_rows_shape(B, C), np.int32)
+        rows[ec.V_FLAGS] = flags
+        rows[ec.V_THRESH:].reshape(-1)[:C * 6] = thresh.reshape(-1)
+    else:
+        rows = kf.pack_rows(ek.pack_batch([], [], [], pad_to=B), p5, counted,
+                            cids, thresh)
+    return SimpleNamespace(rows=rows, valid=valid, power5=power5, p5=p5,
+                           counted=counted, cids=cids, thresh=thresh,
+                           sums=sums, C=C)
+
+
+def tally_edge_case(name: str, cached: bool = False):
+    """The case of TALLY_CASES called `name`, made from its own seed."""
+    names = [c[0] for c in TALLY_CASES]
+    i = names.index(name)
+    _, B, C, opts = TALLY_CASES[i]
+    return tally_case(np.random.default_rng(1000 + 2 * i + int(cached)), B,
+                      C, cached=cached, **opts)

@@ -33,8 +33,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
     "ed25519_verify.cu": {"cbt_ed25519_verify": [_P, _I, _P, _P, _P]},
     "tally_quorum.cu": {
-        "cbt_tally_quorum": [_P, _P, _I, _I, _P, _P, _P],
-        "cbt_tally_quorum_cached": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
+        "cbt_tally_quorum": [_P, _P, _I, _I, _P, _P, _P, _P],
+        "cbt_tally_quorum_cached": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
     },
     "valset_table.cu": {"cbt_valset_table_build": [_P, _P, _I, _P, _P, _P]},
     "ed25519_cached_verify.cu": {
@@ -55,6 +55,7 @@ _HOST_FNS = {
     "cbt_host_stamp": ([_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P,
                         _I, _P, _I, _I, _P], None),
     "cbt_host_sc_reduce": ([_P, _P], None),
+    "cbt_host_tally": ([_I, _P, _P, _I, _P, _I, _I, _P, _P], ctypes.c_int),
     "cbt_host_op_counts": ([ctypes.POINTER(ctypes.c_longlong)] * 2, None),
     "cbt_host_sha_blocks": ([], ctypes.c_longlong),
 }

@@ -738,12 +738,15 @@ def tally_quorum_cached(valid: torch.Tensor, rows: torch.Tensor,
     """Per-commit tally over valid, counted columns of the cached layout
     (power of column b is power5[b mod M]) and the quorum bit
     (tally > threshold). CUDA tensors launch the cached entry of
-    csrc/tally_quorum.cu; CPU tensors run `tally_quorum_cached_plain`."""
+    csrc/tally_quorum.cu (one memset of its scratch, one kernel); CPU
+    tensors run `tally_quorum_cached_plain`."""
     kf._check_rows(rows, V_THRESH + 1)
     B = rows.shape[1]
     _check(valid, "valid", torch.int32, (B,))
     M = power5.shape[0]
     _check(power5, "power5", torch.int32, (M, ek.POWER_LIMBS))
+    if M < 1:
+        raise ValueError("power5 holds no validator")
     if n_commits * ek.TALLY_LIMBS > (rows.shape[0] - V_THRESH) * B:
         raise ValueError("rows hold fewer thresholds than n_commits")
     if B > (1 << 17):
@@ -755,13 +758,12 @@ def tally_quorum_cached(valid: torch.Tensor, rows: torch.Tensor,
     from cometbft_tpu_torch.ops import _build
 
     fn = _build.kernel_lib("tally_quorum.cu").cbt_tally_quorum_cached
-    tally = torch.empty((n_commits, ek.TALLY_LIMBS), dtype=torch.int32,
-                        device=dev)
-    quorum = torch.empty((n_commits,), dtype=torch.bool, device=dev)
+    tally, quorum, scratch = kf.tally_outputs(n_commits, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(valid.data_ptr(), rows.data_ptr(), B, power5.data_ptr(), M,
-                 n_commits, tally.data_ptr(), quorum.data_ptr(), stream)
+                 n_commits, scratch.data_ptr(), tally.data_ptr(),
+                 quorum.data_ptr(), stream)
     kf._raise_on(err, "tally_quorum_cached")
     tally_quorum_cached.launches += 1
     return tally, quorum

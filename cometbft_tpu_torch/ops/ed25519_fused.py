@@ -282,10 +282,28 @@ def tally_quorum_plain(valid: torch.Tensor, rows: torch.Tensor,
     return tally, ek.quorum_core(tally, thresh)
 
 
+# csrc/tally_core.cuh kMaxSmemCommits: up to this many commits the tally
+# kernel keeps its block partials in shared memory; above it, it adds to
+# the global sums directly.
+TALLY_SMEM_COMMITS = 256
+
+
+def tally_outputs(n_commits: int, dev: torch.device):
+    """The tally kernels' (n_commits, 6) int32 tally, (n_commits,) bool
+    quorum and (n_commits * 5 + 1) int32 scratch (the kernel's entry
+    zeroes it)."""
+    return (torch.empty((n_commits, ek.TALLY_LIMBS), dtype=torch.int32,
+                        device=dev),
+            torch.empty((n_commits,), dtype=torch.bool, device=dev),
+            torch.empty((n_commits * ek.POWER_LIMBS + 1,), dtype=torch.int32,
+                        device=dev))
+
+
 def tally_quorum(valid: torch.Tensor, rows: torch.Tensor, n_commits: int):
     """Per-commit tally over valid, counted columns and the quorum bit
-    (tally > threshold). CUDA tensors launch csrc/tally_quorum.cu; CPU
-    tensors run `tally_quorum_plain`."""
+    (tally > threshold). CUDA tensors launch csrc/tally_quorum.cu (one
+    memset of its scratch, one kernel); CPU tensors run
+    `tally_quorum_plain`."""
     _check_rows(rows, C_THRESH + 1)
     B = rows.shape[1]
     if (valid.dtype != torch.int32 or tuple(valid.shape) != (B,)
@@ -304,13 +322,12 @@ def tally_quorum(valid: torch.Tensor, rows: torch.Tensor, n_commits: int):
     from cometbft_tpu_torch.ops import _build
 
     fn = _build.kernel_lib("tally_quorum.cu").cbt_tally_quorum
-    tally = torch.empty((n_commits, ek.TALLY_LIMBS), dtype=torch.int32,
-                        device=dev)
-    quorum = torch.empty((n_commits,), dtype=torch.bool, device=dev)
+    tally, quorum, scratch = tally_outputs(n_commits, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(valid.data_ptr(), rows.data_ptr(), B,
-                 n_commits, tally.data_ptr(), quorum.data_ptr(), stream)
+        err = fn(valid.data_ptr(), rows.data_ptr(), B, n_commits,
+                 scratch.data_ptr(), tally.data_ptr(), quorum.data_ptr(),
+                 stream)
     _raise_on(err, "tally_quorum")
     tally_quorum.launches += 1
     return tally, quorum

@@ -8,6 +8,8 @@ import pytest
 import torch
 
 from cometbft_tpu_torch.crypto import ed25519_ref as ed
+from cometbft_tpu_torch.edge_cases import TALLY_CASES, tally_edge_case
+from cometbft_tpu_torch.ops import ed25519_cached as ec
 from cometbft_tpu_torch.ops import ed25519_fused as kf
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
 
@@ -71,6 +73,50 @@ def test_tally_quorum_kernel_equals_plain(card):
     torch.cuda.synchronize()
     assert kf.tally_quorum.launches == before + 1
     assert torch.equal(tk, tp) and torch.equal(qk, qp)
+
+
+def _tally_call(case, cached, dev):
+    """(kernel call, plain call) of one tally entry on a case's inputs."""
+    v = torch.from_numpy(case.valid).to(dev)
+    r = torch.from_numpy(case.rows).to(dev)
+    if cached:
+        p5 = torch.from_numpy(case.power5).to(dev)
+        return (lambda: ec.tally_quorum_cached(v, r, p5, case.C),
+                lambda: ec.tally_quorum_cached_plain(v, r, p5, case.C))
+    return (lambda: kf.tally_quorum(v, r, case.C),
+            lambda: kf.tally_quorum_plain(v, r, case.C))
+
+
+@pytest.mark.parametrize("cached", [False, True], ids=["general", "cached"])
+@pytest.mark.parametrize("name", [c[0] for c in TALLY_CASES])
+def test_tally_kernels_equal_plain_on_every_edge_case(card, name, cached):
+    case = tally_edge_case(name, cached)
+    kernel, plain = _tally_call(case, cached, card)
+    counter = ec.tally_quorum_cached if cached else kf.tally_quorum
+    before = counter.launches
+    tk, qk = kernel()
+    tp, qp = plain()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert torch.equal(tk, tp) and torch.equal(qk, qp)
+    assert [int(x) for x in ek.tally_to_int(tk.cpu().numpy())] == case.sums
+
+
+@pytest.mark.parametrize("cached", [False, True], ids=["general", "cached"])
+@pytest.mark.parametrize("name", ["odd_width", "above_smem_cap"])
+def test_tally_kernels_give_one_result_every_run(card, name, cached):
+    """1,000 launches on one input (atomics from lanes, warps and blocks in
+    whatever order they land), each equal to plain and so to one
+    another."""
+    case = tally_edge_case(name, cached)
+    kernel, plain = _tally_call(case, cached, card)
+    counter = ec.tally_quorum_cached if cached else kf.tally_quorum
+    tp, qp = plain()
+    before = counter.launches
+    outs = [kernel() for _ in range(1000)]
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1000
+    assert all(torch.equal(t, tp) and torch.equal(q, qp) for t, q in outs)
 
 
 def _table_keys(seed, n):

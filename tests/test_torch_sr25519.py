@@ -237,6 +237,32 @@ def test_verify_batch_on_the_host_matches_the_oracle():
     assert np.array_equal(got, oracle(pubs, msgs, sigs))
 
 
+def test_short_key_is_invalid_without_a_device_fault():
+    """A 31-byte sr25519 key through the port's batch verifier: the row is
+    invalid, as the oracle says, the rest of the batch verifies, and the
+    breaker records no fault. The JAX package's challenge batching raises
+    on the key instead, and its breaker counts that as a device fault
+    before it host-verifies the group (ROADMAP, faults of the reference):
+    the port must not copy it, since its breaker fails the batch on a
+    device fault, so one malformed key from a peer would fail a commit."""
+    from cometbft_tpu_torch.crypto import batch as cbatch
+
+    pubs, msgs, sigs = sr25519_cases(np.random.default_rng(14), n_valid=4)
+    short = [i for i, p in enumerate(pubs) if len(p) == 31]
+    assert len(short) == 1
+    with pytest.raises(ValueError):
+        jsrk.batch_challenges(msgs, pubs, [s[:32] for s in sigs])
+    keys = [tkeys.PubKey(p, tkeys.SR25519_KEY_TYPE) for p in pubs]
+    brk = cbatch.device_breaker()
+    before = (brk.faults, brk.trips)
+    got = cbatch.verify_batch(keys, msgs, sigs, device="cpu")
+    assert (brk.faults, brk.trips) == before
+    assert got.tolist() == [sr.verify(p, m, s)
+                            for p, m, s in zip(pubs, msgs, sigs)]
+    assert got.tolist() == oracle(pubs, msgs, sigs).tolist()
+    assert not got[short[0]] and got[:4].all()
+
+
 def test_verify_tally_rows_on_the_host():
     pubs, msgs, sigs = sr25519_cases(np.random.default_rng(13), n_valid=6)
     n = len(pubs)
