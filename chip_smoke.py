@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. card and build: the card's name and power limit, capability 9.0, and
-     the nvcc build of every kernel from csrc/ (seconds printed);
+     the nvcc build of every kernel from csrc/ (seconds printed, and each
+     kernel's ptxas registers, stack and spills);
   2. each kernel against its plain PyTorch version on the card, exactly:
      ed25519_verify on 256 columns (valid, flipped bit, tampered message,
      S >= L, garbage, ZIP-215 edge cases; both must equal the ed25519_ref
@@ -17,12 +18,16 @@ Phases (any failure exits non-zero and prints no result line):
      signed commit through verify_commit_light (6,667 signatures) and
      verify_commit (10,000), both padded to 16,384 columns, with
      device_batch_fn(); a tampered signature 4,321 must be blamed; prints
-     the VerifyCommitLight p50 and verify_commit sigs/s;
+     the VerifyCommitLight p50 and verify_commit sigs/s; then
+     ed25519_verify at both calls' shapes (10,000 and 6,667 live of
+     16,384 columns) against its plain version, timed by device time;
   4. the fused verify + tally step on a blocksync-shaped chunk: 16 commits
      x 1,000 validators through verify_tally_rows, one commit short of
      quorum; tallies must equal the host integer sums exactly; then
-     tally_quorum at the chunk's shape, per call (CUDA events) and in
-     device time (a profiler trace), beside index_add_ on the same inputs;
+     ed25519_verify at the chunk's shape against its plain version, in
+     device time (a profiler trace), and tally_quorum at it, per call
+     (CUDA events) and in device time, beside index_add_ on the same
+     inputs;
   5. the cached-path kernels against their plain versions on the card,
      exactly: valset_table_build at M = 128 (bad and edge keys included),
      ed25519_verify_cached on 256 columns (also against the oracle),
@@ -61,9 +66,10 @@ Phases (any failure exits non-zero and prints no result line):
      calls launched it on (4,096 and 16,384 columns, clean and tampered)
      against plain.
 Before the last line it prints the `kernels` JSON (launches on the main
-paths, in all and by path; times; bounds; for the two tally entries also
-`device_ms` and `library_device_ms`, from profiler traces); the last line
-is {"ok": true, "device": {...}}.
+paths, in all and by path; times; bounds; for every kernel `device_ms`, from
+a profiler trace at its phase's shape, by live columns or by shape where a
+phase runs it at two; for the two tallies also `library_device_ms`); the
+last line is {"ok": true, "device": {...}}.
 
 Launch counters are set to 0 just before each main-path run and read just
 after; launches made to compare a kernel with its plain version are not
@@ -336,6 +342,17 @@ def device_ms(fn, reps: int, name: str):
     return us / 1e3, len(kern) / reps, len(mset) / reps
 
 
+def dev_ms(fn, name: str):
+    """Device ms of one call of fn (`device_ms` over DEVICE_REPS calls),
+    or None where the trace holds no kernel."""
+    t = device_ms(fn, DEVICE_REPS, name)
+    return t and t[0]
+
+
+def fmt_ms(t) -> str:
+    return "not measured" if t is None else f"{t:.6f}"
+
+
 def device_line(kernel, library) -> str:
     """The phase line's report of two device_ms results."""
     def one(t):
@@ -390,9 +407,12 @@ def phase_card_and_build():
     dev = default_device()  # raises unless capability is (9, 0)
     t0 = time.perf_counter()
     _build.build_all()
+    entry = "?"
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "bytes stack" in line:
-            print("ptxas:", line.strip())
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "registers" in line or "spill" in line or "bytes stack" in line:
+            print(f"ptxas: {entry}: {line.strip()}")
     from cometbft_tpu_torch.crypto import secp256k1_ref
 
     print(f"phase1 build_s={time.perf_counter() - t0:.3f} "
@@ -400,29 +420,6 @@ def phase_card_and_build():
           f"{len(_build.KERNELS)} ripemd160="
           f"{secp256k1_ref.ripemd160_source()}", flush=True)
     return dev
-
-
-def zip215_cases(pool):
-    from cometbft_tpu_torch.crypto import ed25519_ref as ed
-
-    ident = ed.pt_compress(ed.IDENT)
-    cases = [(ident, b"m", ident + b"\x00" * 32)]
-    for y in range(19):
-        u, v = (y * y - 1) % ed.P, (ed.D * y * y + 1) % ed.P
-        ok, x = ed._sqrt_ratio(u, v)
-        if ok:
-            enc_nc = int.to_bytes((y + ed.P) | ((x & 1) << 255), 32, "little")
-            break
-    pub, (sig,) = ed.sign_many(bytes(32), [b"x"])
-    cases.append((pub, b"x", enc_nc + sig[32:]))
-    cases.append((enc_nc, b"x", sig))
-    neg_zero = int.to_bytes(1 | (1 << 255), 32, "little")
-    cases.append((neg_zero, b"m", neg_zero + b"\x00" * 32))
-    # small-order A (order 4 point (sqrt(-1)-ish y = 0)) with s = 0, R = 0
-    zero_y = bytes(32)
-    cases.append((zero_y, b"s", ident + b"\x00" * 32))
-    cases.append((ident, b"s", zero_y + b"\x00" * 32))
-    return cases
 
 
 def tally_edge_cases(dev, cached: bool) -> int:
@@ -457,6 +454,7 @@ def phase_kernels_vs_plain(dev, pool, rng):
     import numpy as np
     import torch
 
+    from cometbft_tpu_torch import edge_cases
     from cometbft_tpu_torch.crypto import ed25519_ref as ed
     from cometbft_tpu_torch.ops import ed25519_fused as kf
     from cometbft_tpu_torch.ops import ed25519_kernel as ek
@@ -481,7 +479,7 @@ def phase_kernels_vs_plain(dev, pool, rng):
         pubs.append(rng.bytes(32))
         msgs.append(rng.bytes(5))
         sigs.append(rng.bytes(64))
-    zip_cases = zip215_cases(pool)
+    zip_cases = edge_cases.ed25519_zip215_cases()
     for p, m, s in zip_cases:
         pubs.append(p)
         msgs.append(m)
@@ -631,16 +629,34 @@ def phase_main_path(dev, pool, rng, kernel_stats):
     err = int((out - plain).abs().max())
     check(err == 0, "ed25519_verify != plain at 16,384 cols")
     check(int(out.sum()) == N_VALS, "not every commit signature verified")
+    dev_full = dev_ms(lambda: kf.ed25519_verify(rows),
+                      "ed25519_verify_10000_trace.json")
+    # the light call's shape: its 6,667 signatures in 16,384 columns
+    pb_l = ek.pack_batch(pubs[:n_light],
+                         commit.sign_bytes_rows(CHAIN_ID, idxs[:n_light]),
+                         sigs[:n_light], pad_to=kf.pad_to_tile(n_light))
+    rows_l = torch.from_numpy(kf.pack_rows(pb_l)).to(dev)
+    out_l = kf.ed25519_verify(rows_l)
+    err_l = int((out_l - kf.ed25519_verify_plain(
+        rows_l, kf.base_points(dev))).abs().max())
+    check(err_l == 0, f"ed25519_verify != plain at {n_light} live columns")
+    check(int(out_l.sum()) == n_light, "not every light signature verified")
+    dev_light = dev_ms(lambda: kf.ed25519_verify(rows_l),
+                       f"ed25519_verify_{n_light}_trace.json")
+    kf.ed25519_verify.launches = saved
     kernel_stats["ed25519_verify"] = dict(
         launches_by_path={"verify_commit": launches["ed25519_verify"]},
         ms=ms, plain_ms=plain_ms,
         n_checked=int(pb.precheck.sum()), cols=int(rows.shape[1]),
-        max_abs_err=err,
+        max_abs_err=max(err, err_l),
         bytes=rows.shape[1] * (kf.C_KROWS + 1) * 4 + 8192 * 3 * 10 * 4,
-        library_ms=None,
+        library_ms=None, device_ms=dev_full,
+        device_ms_by_live={N_VALS: dev_full, n_light: dev_light},
     )
     print(f"phase3 ed25519_verify cols={rows.shape[1]} kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.1f} kernel==plain", flush=True)
+          f"device_ms={fmt_ms(dev_full)} (live={N_VALS}) device_ms="
+          f"{fmt_ms(dev_light)} (live={n_light}) plain_ms={plain_ms:.1f} "
+          f"kernel==plain at live={N_VALS} and {n_light}", flush=True)
     return {"light_p50_ms": statistics.median(light_ms),
             "full_sigs_per_s": N_VALS / (full_p50 / 1e3),
             "tally_launches": launches["tally_quorum"],
@@ -751,7 +767,14 @@ def phase_fused_step(dev, pool, rng, kernel_stats, tally_on_commit_path):
     # tally_quorum at this shape, against its plain version and
     # index_add_ (the segmented sum alone)
     r = torch.from_numpy(rows_np).to(dev)
+    saved_v = kf.ed25519_verify.launches
     verdicts = kf.ed25519_verify(r)
+    v_err = int((verdicts - kf.ed25519_verify_plain(
+        r, kf.base_points(dev))).abs().max())
+    check(v_err == 0, f"ed25519_verify != plain at {n} live of {B} cols")
+    v_dev = dev_ms(lambda: kf.ed25519_verify(r),
+                   f"ed25519_verify_{n}_trace.json")
+    kf.ed25519_verify.launches = saved_v
     saved = kf.tally_quorum.launches
     ms = cuda_ms(lambda: kf.tally_quorum(verdicts, r, CHUNK_COMMITS), 50)
     kf.tally_quorum.launches = saved
@@ -780,8 +803,12 @@ def phase_fused_step(dev, pool, rng, kernel_stats, tally_on_commit_path):
         library_ms=library_ms,
         device_ms=dev_t and dev_t[0], library_device_ms=lib_t and lib_t[0],
     )
-    kernel_stats["ed25519_verify"]["launches_by_path"]["fused_step"] = (
-        launches["ed25519_verify"])
+    v = kernel_stats["ed25519_verify"]
+    v["launches_by_path"]["fused_step"] = launches["ed25519_verify"]
+    v["max_abs_err"] = max(v["max_abs_err"], v_err)
+    v["device_ms_by_live"][n] = v_dev
+    print(f"phase4 ed25519_verify cols={B} live={n} device_ms="
+          f"{fmt_ms(v_dev)} kernel==plain", flush=True)
     print(f"phase4 tally_quorum cols={B} commits={CHUNK_COMMITS} "
           f"kernel_ms={ms:.5f} plain_ms={plain_ms:.4f} "
           f"index_add_ms={library_ms:.5f} "
@@ -868,6 +895,7 @@ def phase_cached_kernels_vs_plain(dev, pool, rng):
     import numpy as np
     import torch
 
+    from cometbft_tpu_torch import edge_cases
     from cometbft_tpu_torch.crypto import ed25519_ref as ed
     from cometbft_tpu_torch.ops import ed25519_cached as ec
     from cometbft_tpu_torch.ops import ed25519_fused as kf
@@ -912,7 +940,7 @@ def phase_cached_kernels_vs_plain(dev, pool, rng):
         pubs.append(rng.bytes(32))
         msgs.append(rng.bytes(5))
         sigs.append(rng.bytes(64))
-    for p, m, s in zip215_cases(pool):
+    for p, m, s in edge_cases.ed25519_zip215_cases():
         pubs.append(p)
         msgs.append(m)
         sigs.append(s)
@@ -1252,8 +1280,10 @@ def phase_stream(dev, pool, rng, kernel_stats):
         es.sha512_blocks(len(m)) for job in jobs[:cap]
         for m, cs in zip(job.commit.sign_bytes_rows(CHAIN_ID),
                          job.commit.signatures) if cs.for_block())
+    stamp_dev = dev_ms(stamp, "stamp_rows_trace.json")
     print(f"phase6 stamp_rows cols={B} live={live} sha512_blocks={blocks} "
-          f"kernel_ms={stamp_ms:.4f} plain_ms={stamp_plain_ms:.1f} "
+          f"kernel_ms={stamp_ms:.4f} device_ms={fmt_ms(stamp_dev)} "
+          f"plain_ms={stamp_plain_ms:.1f} "
           "kernel==plain==host pack (bytes)", flush=True)
 
     vk = lambda: ec.ed25519_verify_cached(rows, table.tab,  # noqa: E731
@@ -1270,8 +1300,10 @@ def phase_stream(dev, pool, rng, kernel_stats):
     bad = 1 if TAMPER_HEIGHT <= cap else 0  # the planted signature
     check(int(verdicts.sum()) == live - bad,
           "the chunk's valid rows did not all verify")
+    verify_dev = dev_ms(vk, "ed25519_verify_cached_stream_trace.json")
     print(f"phase6 ed25519_verify_cached cols={B} M={M} live={live} "
-          f"kernel_ms={verify_ms:.4f} plain_ms={verify_plain_ms:.1f} "
+          f"kernel_ms={verify_ms:.4f} device_ms={fmt_ms(verify_dev)} "
+          f"plain_ms={verify_plain_ms:.1f} "
           "kernel==plain", flush=True)
 
     tq = lambda: ec.tally_quorum_cached(verdicts, rows,  # noqa: E731
@@ -1344,7 +1376,9 @@ def phase_stream(dev, pool, rng, kernel_stats):
         update_ms.append((time.perf_counter() - t) * 1e3)
     check(torch.equal(patched.tab, ec.table_for_valset(sets[1]).tab),
           "update_table != the stream's V1 table")
+    build_dev = dev_ms(build, "valset_table_build_1024_trace.json")
     print(f"phase6 valset_table_build M={M} kernel_ms={build_ms:.3f} "
+          f"device_ms={fmt_ms(build_dev)} "
           f"plain_ms={build_plain_ms:.1f} update_table_8_keys_ms="
           f"{[round(x, 3) for x in update_ms]}", flush=True)
     restore_launches(saved)
@@ -1353,14 +1387,16 @@ def phase_stream(dev, pool, rng, kernel_stats):
         launches_by_path={"stream": cold[1]["valset_table_build"]},
         ms=build_ms, plain_ms=build_plain_ms, max_abs_err=build_err,
         ops=M * ec.build_products_per_validator(),
-        bytes=M * (32 + 1) + M * (ec.ENT_PER_VAL * 120 + 1), library_ms=None)
+        bytes=M * (32 + 1) + M * (ec.ENT_PER_VAL * 120 + 1), library_ms=None,
+        device_ms=build_dev, device_ms_by_shape={f"M={M}": build_dev})
     kernel_stats["ed25519_verify_cached"] = dict(
         launches_by_path={"stream": cold[1]["ed25519_verify_cached"]},
         ms=verify_ms, plain_ms=verify_plain_ms, max_abs_err=verify_err,
         ops=live * ec.verify_cached_products_per_signature(),
         bytes=(B * (ec.V_KROWS * 4 + 4) + M * (ec.ENT_PER_VAL * 120 + 1)
                + 8192 * 120),
-        library_ms=None)
+        library_ms=None, device_ms=verify_dev,
+        device_ms_by_shape={f"{B}x{M}": verify_dev})
     kernel_stats["tally_quorum_cached"] = dict(
         launches_by_path={"stream": cold[1]["tally_quorum_cached"]},
         ms=tally_ms, plain_ms=tally_plain_ms, max_abs_err=tally_err,
@@ -1372,7 +1408,7 @@ def phase_stream(dev, pool, rng, kernel_stats):
         ms=stamp_ms, plain_ms=stamp_plain_ms, max_abs_err=stamp_err,
         ops=blocks * es.SHA512_OPS_PER_BLOCK,
         bytes=B * (64 + 12 + 4) + M * 32 + (ec.V_THRESH + t_rows) * B * 4,
-        library_ms=None)
+        library_ms=None, device_ms=stamp_dev)
     return {"stream_blocks_per_s": STREAM_HEIGHTS / warm_s,
             "stream_sigs_per_s": n_sigs / warm_s}
 
@@ -1445,13 +1481,16 @@ def phase_cached_commit(dev, res, kernel_stats):
         check(int(got.sum()) == n_valid, "phase7 verdicts: valid count")
     check(verify_err == 0,
           f"ed25519_verify_cached != plain at {rows.shape[1]} columns, M={M}")
-    verify_ms = cuda_ms(lambda: ec.ed25519_verify_cached(
-        rows, table.tab, table.ok), 5)
+    vk = lambda: ec.ed25519_verify_cached(rows, table.tab,  # noqa: E731
+                                          table.ok)
+    verify_ms = cuda_ms(vk, 5)
+    verify_dev = dev_ms(vk, "ed25519_verify_cached_commit_trace.json")
     # the M = 16,384 table build, kernel and plain, against the cached table
     lenok = torch.ones((M,), dtype=torch.bool, device=dev)
     lenok[N_VALS:] = False
-    build16k_ms = cuda_ms(lambda: ec.valset_table_build(table.pub_raw,
-                                                        lenok), 2)
+    build = lambda: ec.valset_table_build(table.pub_raw, lenok)  # noqa
+    build16k_ms = cuda_ms(build, 2)
+    build16k_dev = dev_ms(build, f"valset_table_build_{M}_trace.json")
     tab_k, ok_k = ec.valset_table_build(table.pub_raw, lenok)
     tab_p, ok_p = ec.valset_table_build_plain(table.pub_raw, lenok)
     build_err = int((tab_k - tab_p).abs().max())
@@ -1460,11 +1499,14 @@ def phase_cached_commit(dev, res, kernel_stats):
           "valset_table_build != plain (or != the cached table) at M=16,384")
     del tab_k, tab_p
     restore_launches(launches)
-    for name, err in (("valset_table_build", build_err),
-                      ("ed25519_verify_cached", verify_err)):
+    for name, err, shape, t in (
+            ("valset_table_build", build_err, f"M={M}", build16k_dev),
+            ("ed25519_verify_cached", verify_err, f"{rows.shape[1]}x{M}",
+             verify_dev)):
         k = kernel_stats[name]
         k["launches_by_path"]["verify_commit_cached"] = launches[name]
         k["max_abs_err"] = max(k["max_abs_err"], err)
+        k["device_ms_by_shape"][shape] = t
     print(f"phase7 launches {json.dumps(launches)} breaker_trips=0 faults=0 "
           f"blamed_idx={TAMPER_IDX}", flush=True)
     rate = int_ops_per_s()[1]
@@ -1472,9 +1514,11 @@ def phase_cached_commit(dev, res, kernel_stats):
                     / rate * 1e3)
     build_bound = M * ec.build_products_per_validator() / rate * 1e3
     print(f"phase7 ed25519_verify_cached cols={rows.shape[1]} M={M} "
-          f"kernel_ms={verify_ms:.4f} ops_bound_ms={verify_bound:.4f} "
+          f"kernel_ms={verify_ms:.4f} device_ms={fmt_ms(verify_dev)} "
+          f"ops_bound_ms={verify_bound:.4f} "
           "kernel==plain (clean and tampered rows); valset_table_build "
-          f"M={M} kernel_ms={build16k_ms:.3f} ops_bound_ms={build_bound:.4f} "
+          f"M={M} kernel_ms={build16k_ms:.3f} device_ms="
+          f"{fmt_ms(build16k_dev)} ops_bound_ms={build_bound:.4f} "
           "kernel==plain==cached table", flush=True)
     print(f"phase7 cached VerifyCommit n_sigs={N_VALS} M={M} "
           f"cold_ms={cold_ms:.3f} p50_ms={p50:.3f} sigs_per_s="
@@ -1774,6 +1818,8 @@ def phase_mixed_commit(dev, pool, rng, kernel_stats):
     # sr25519_verify timed at this path's widest shape
     rows = torch.as_tensor(path_rows["sr25519"][MIXED_RUNS]).to(dev)
     ms = cuda_ms(lambda: srk.sr25519_verify(rows), 10)
+    sr_dev = dev_ms(lambda: srk.sr25519_verify(rows),
+                    "sr25519_verify_trace.json")
     t = time.perf_counter()
     plain = srk.sr25519_verify_plain(rows, points)
     torch.cuda.synchronize()
@@ -1790,14 +1836,15 @@ def phase_mixed_commit(dev, pool, rng, kernel_stats):
         ms=ms, plain_ms=plain_ms, max_abs_err=err,
         ops=n_sr * srk.verify_products_per_signature(),
         bytes=rows.shape[1] * (kf.C_KROWS + 1) * 4 + 8192 * 3 * 10 * 4,
-        library_ms=None)
+        library_ms=None, device_ms=sr_dev)
     for name, e in (("ed25519_verify", ed_err), ("tally_quorum", tally_err)):
         k = kernel_stats[name]
         k["launches_by_path"]["mixed_commit"] = launches[name]
         k["launches_by_path"]["mixed_fused"] = fused_launches[name]
         k["max_abs_err"] = max(k["max_abs_err"], e)
     print(f"phase9 sr25519_verify cols={rows.shape[1]} live={n_sr} "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.1f}; kernel==plain for "
+          f"kernel_ms={ms:.4f} device_ms={fmt_ms(sr_dev)} "
+          f"plain_ms={plain_ms:.1f}; kernel==plain for "
           f"ed25519_verify at cols={ed_cols} and sr25519_verify at cols="
           f"{sr_cols} (clean and tampered rows of the path)", flush=True)
     return {"mixed_light_p50_ms": statistics.median(light_ms),
@@ -1889,6 +1936,7 @@ def phase_light_secp(dev, pool, rng, kernel_stats):
           "phase10 captured rows do not match the launches")
     rows = torch.as_tensor(path_rows["secp256k1"][1]).to(dev)
     ms = cuda_ms(lambda: ef.ecdsa_verify(rows), 10)
+    ec_dev = dev_ms(lambda: ef.ecdsa_verify(rows), "ecdsa_verify_trace.json")
     t = time.perf_counter()
     plain = ef.ecdsa_verify_plain(rows, points)
     torch.cuda.synchronize()
@@ -1903,9 +1951,10 @@ def phase_light_secp(dev, pool, rng, kernel_stats):
         ms=ms, plain_ms=plain_ms, max_abs_err=err,
         ops=n_light * ef.verify_products_per_signature(),
         bytes=rows.shape[1] * (ef.E_KROWS + 1) * 4 + 8192 * 3 * 10 * 4,
-        library_ms=None)
+        library_ms=None, device_ms=ec_dev)
     print(f"phase10 ecdsa_verify cols={rows.shape[1]} live={n_light} "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.1f}; kernel==plain at "
+          f"kernel_ms={ms:.4f} device_ms={fmt_ms(ec_dev)} "
+          f"plain_ms={plain_ms:.1f}; kernel==plain at "
           f"cols={ec_cols} (clean and tampered rows of the path)", flush=True)
     return {"lc_pair_p50_ms": p50}
 
@@ -1934,7 +1983,8 @@ def kernels_json(kernel_stats):
         max_abs_err=v["max_abs_err"], ms=v["ms"],
         plain_ms=v["plain_ms"], bound_ms=max(ops_ms, bytes_ms),
         bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-        library_ms=None,
+        library_ms=None, device_ms=v["device_ms"],
+        device_ms_by_live=v["device_ms_by_live"],
     ))
     t = kernel_stats["tally_quorum"]
     bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -1978,8 +2028,9 @@ def kernels_json(kernel_stats):
             bound_ms=max(ops_ms, bytes_ms),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
             library_ms=k["library_ms"],
-            **{key: k[key] for key in ("device_ms", "library_device_ms")
-               if key in k},
+            device_ms=k["device_ms"],
+            **{key: k[key] for key in ("library_device_ms",
+                                       "device_ms_by_shape") if key in k},
         ))
     print(f"bound: {products} limb products/signature, clocks.max.sm={mhz} "
           f"MHz, {imad_per_s:.4e} INT32 multiply-adds/s", flush=True)

@@ -188,7 +188,8 @@ CBT_TALLY_HD void thread_runs(const Col c[kColsPerThread], int C,
       for (int k = 0; k < kPowerLimbs; k++) acc[k] = c[j].p[k];
     } else {
 #pragma unroll
-      for (int k = 0; k < kPowerLimbs; k++) acc[k] += c[j].p[k];
+      for (int k = 0; k < kPowerLimbs; k++)  // wraps, as add_to does
+        acc[k] = (int32_t)((uint32_t)acc[k] + (uint32_t)c[j].p[k]);
     }
   }
 }

@@ -28,10 +28,12 @@
 // counts itself done; the last block carries every commit's sums to
 // canonical 13-bit limbs and compares them with the threshold, top limb
 // down. Integer addition is exact in any order, so the atomics give the
-// same result every run; per-limb sums stay below 2^30 for B <= 2^17
-// (limbs < 2^13, which the wrappers check). One memset of the scratch and
-// one launch a call; the scratch belongs to the call, so calls on two
-// streams share nothing.
+// same result every run; per-limb sums stay below 2^30 for B <= 2^17.
+// Precondition, not checked here: power limbs < 2^13, as the host makes
+// them (ops/ed25519_kernel.py power_limbs, check_power_limbs). Sums of
+// larger limbs wrap modulo 2^32, as the JAX int32 sum does. One memset of
+// the scratch and one launch a call; the scratch belongs to the call, so
+// calls on two streams share nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

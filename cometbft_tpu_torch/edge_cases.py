@@ -1,8 +1,9 @@
-"""Seeded signature batches with every edge case of the sr25519 and ECDSA
-verifiers, and seeded inputs with every edge case of the two tally kernels,
-shared by the CPU tests, the GPU tests and chip_smoke.py, which hold the
-kernels, their plain versions and the oracles to each other on them. `rng`
-is a numpy Generator."""
+"""The ZIP-215 edge cases of the ed25519 verifiers, seeded signature
+batches with every edge case of the sr25519 and ECDSA verifiers, and
+seeded inputs with every edge case of the two tally kernels, shared by the
+CPU tests, the GPU tests and chip_smoke.py, which hold the kernels, their
+plain versions and the oracles to each other on them. `rng` is a numpy
+Generator."""
 from __future__ import annotations
 
 import hashlib
@@ -10,12 +11,36 @@ from types import SimpleNamespace
 
 import numpy as np
 
+from cometbft_tpu_torch.crypto import ed25519_ref as ed
 from cometbft_tpu_torch.crypto import ristretto_ref as rist
 from cometbft_tpu_torch.crypto import secp256k1_ref as secp
 from cometbft_tpu_torch.crypto import sr25519_ref as sr
 from cometbft_tpu_torch.ops import ed25519_cached as ec
 from cometbft_tpu_torch.ops import ed25519_fused as kf
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
+
+
+def ed25519_zip215_cases():
+    """(pub, msg, sig) rows on ZIP-215's edges: the identity, a
+    non-canonical y (>= p) as R and as A, -0, and small-order A and R at
+    y = 0 (the matrix of tests/test_ed25519_pallas.py::test_zip215_edges
+    and more)."""
+    ident = ed.pt_compress(ed.IDENT)
+    cases = [(ident, b"m", ident + b"\x00" * 32)]
+    for y in range(19):
+        u, v = (y * y - 1) % ed.P, (ed.D * y * y + 1) % ed.P
+        ok, x = ed._sqrt_ratio(u, v)
+        if ok:
+            enc_nc = int.to_bytes((y + ed.P) | ((x & 1) << 255), 32, "little")
+            break
+    pub, (sig,) = ed.sign_many(bytes(32), [b"x"])
+    cases.append((pub, b"x", enc_nc + sig[32:]))
+    cases.append((enc_nc, b"x", sig))
+    neg_zero = int.to_bytes(1 | (1 << 255), 32, "little")
+    cases.append((neg_zero, b"m", neg_zero + b"\x00" * 32))
+    cases.append((bytes(32), b"s", ident + b"\x00" * 32))
+    cases.append((ident, b"s", bytes(32) + b"\x00" * 32))
+    return cases
 
 
 def non_decodable_ristretto() -> bytes:

@@ -739,7 +739,12 @@ def tally_quorum_cached(valid: torch.Tensor, rows: torch.Tensor,
     (power of column b is power5[b mod M]) and the quorum bit
     (tally > threshold). CUDA tensors launch the cached entry of
     csrc/tally_quorum.cu (one memset of its scratch, one kernel); CPU
-    tensors run `tally_quorum_cached_plain`."""
+    tensors run `tally_quorum_cached_plain`.
+
+    Precondition, not checked here: every limb of power5 is below 2^13,
+    as `ek.power_limbs` makes them where a table's power5 is built or
+    patched. On larger limbs the kernel's int32 sums wrap as the JAX
+    package's do, and the plain version's int64 sums do not."""
     kf._check_rows(rows, V_THRESH + 1)
     B = rows.shape[1]
     _check(valid, "valid", torch.int32, (B,))

@@ -77,7 +77,7 @@ def pack_rows(pb, power5=None, counted=None, commit_ids=None,
         flags = flags | (np.asarray(counted, np.int32) << 3)
     rows[C_FLAGS] = flags
     if power5 is not None:
-        p = np.asarray(power5, np.int32)
+        p = ek.check_power_limbs(power5)
         rows[C_POW] = p[:, 0] | (p[:, 1] << 13)
         rows[C_POW + 1] = p[:, 2] | (p[:, 3] << 13)
         rows[C_POW + 2] = p[:, 4]
@@ -303,7 +303,13 @@ def tally_quorum(valid: torch.Tensor, rows: torch.Tensor, n_commits: int):
     """Per-commit tally over valid, counted columns and the quorum bit
     (tally > threshold). CUDA tensors launch csrc/tally_quorum.cu (one
     memset of its scratch, one kernel); CPU tensors run
-    `tally_quorum_plain`."""
+    `tally_quorum_plain`.
+
+    Precondition, not checked here: every power limb in rows C_POW.. is
+    below 2^13, as `pack_rows` (through `ek.check_power_limbs`) and
+    `ek.power_limbs` make them. On larger limbs the kernel's int32 sums
+    wrap as the JAX package's do, and the plain version's int64 sums do
+    not."""
     _check_rows(rows, C_THRESH + 1)
     B = rows.shape[1]
     if (valid.dtype != torch.int32 or tuple(valid.shape) != (B,)

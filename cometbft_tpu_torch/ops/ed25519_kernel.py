@@ -76,12 +76,30 @@ def s_below_l(s_bytes: np.ndarray) -> np.ndarray:
 
 
 def power_limbs(powers: np.ndarray) -> np.ndarray:
-    """(B,) int64 voting powers -> (B, POWER_LIMBS) int32 13-bit limbs."""
+    """(B,) int64 voting powers -> (B, POWER_LIMBS) int32 13-bit limbs.
+
+    Raises ValueError on a negative power: a power in [0, 2^63) has five
+    limbs in [0, 2^13), the tally kernels' precondition."""
     p = np.asarray(powers, dtype=np.int64)
+    if p.size and int(p.min()) < 0:
+        raise ValueError("voting powers must be non-negative")
     out = np.empty(p.shape + (POWER_LIMBS,), dtype=np.int32)
     for i in range(POWER_LIMBS):
         out[..., i] = (p >> (POWER_LIMB_BITS * i)) & POWER_MASK
     return out
+
+
+def check_power_limbs(power5) -> np.ndarray:
+    """power5 as a (B, POWER_LIMBS) int32 array, after checking the tally
+    kernels' precondition: every limb in [0, 2^13). The kernels do not
+    check it; a larger limb would spill into its neighbour in the packed
+    rows and could overflow the int32 limb sums."""
+    p = np.asarray(power5)
+    if p.ndim != 2 or p.shape[1] != POWER_LIMBS:
+        raise ValueError(f"power limbs have shape {p.shape}")
+    if p.size and (int(p.min()) < 0 or int(p.max()) > POWER_MASK):
+        raise ValueError("a power limb is outside [0, 2^13)")
+    return p.astype(np.int32)
 
 
 def threshold_limbs(v: int, n_commits: int = 1) -> np.ndarray:

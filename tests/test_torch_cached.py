@@ -22,6 +22,7 @@ from cometbft_tpu.types import vote as jvote
 from cometbft_tpu.types.block_id import BlockID as JBlockID
 from cometbft_tpu.types.block_id import PartSetHeader as JPSH
 from cometbft_tpu_torch.crypto import ed25519_ref as ed
+from cometbft_tpu_torch.edge_cases import ed25519_zip215_cases
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import ed25519_cached as ec
 from cometbft_tpu_torch.ops import ed25519_fused as kf
@@ -51,26 +52,6 @@ needs_cxx = pytest.mark.skipif(
     reason="no C++ compiler for the host build of the kernel arithmetic")
 
 
-def zip215_cases():
-    """Identity, non-canonical y, -0 and small-order encodings."""
-    ident = ed.pt_compress(ed.IDENT)
-    cases = [(ident, b"m", ident + b"\x00" * 32)]
-    for y in range(19):
-        u, v = (y * y - 1) % ed.P, (ed.D * y * y + 1) % ed.P
-        ok, x = ed._sqrt_ratio(u, v)
-        if ok:
-            enc_nc = int.to_bytes((y + ed.P) | ((x & 1) << 255), 32, "little")
-            break
-    pub, (sig,) = ed.sign_many(bytes(32), [b"x"])
-    cases.append((pub, b"x", enc_nc + sig[32:]))
-    cases.append((enc_nc, b"x", sig))
-    neg_zero = int.to_bytes(1 | (1 << 255), 32, "little")
-    cases.append((neg_zero, b"m", neg_zero + b"\x00" * 32))
-    cases.append((bytes(32), b"s", ident + b"\x00" * 32))
-    cases.append((ident, b"s", bytes(32) + b"\x00" * 32))
-    return cases
-
-
 def mixed_batch(seed=0, n_valid=30):
     """Valid, flipped-bit, tampered-message, S >= L, garbage, undecodable
     and short keys, and ZIP-215 rows (<= 64, one JAX bucket)."""
@@ -94,7 +75,7 @@ def mixed_batch(seed=0, n_valid=30):
         pubs.append(rng.bytes(32))
         msgs.append(rng.bytes(3))
         sigs.append(rng.bytes(64))
-    for p, m, s in zip215_cases():
+    for p, m, s in ed25519_zip215_cases():
         pubs.append(p)
         msgs.append(m)
         sigs.append(s)

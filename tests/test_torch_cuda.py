@@ -54,6 +54,83 @@ def test_ed25519_verify_kernel_equals_plain(card):
     assert got.cpu().numpy()[:len(pubs)].astype(bool).tolist() == exp
 
 
+def _signed_rows(seed, n):
+    """Packed rows of n signed columns (one in seven tampered) and their
+    oracle verdicts."""
+    pubs, msgs, sigs, _ = _batch(seed, n=n, pad=n)
+    rows = kf.pack_rows(ek.pack_batch(pubs, msgs, sigs, pad_to=n))
+    exp = np.array([ed.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)])
+    return rows, exp
+
+
+def _verify_equals_plain(card, rows):
+    """One kernel call (exactly one launch) on rows, equal to plain;
+    -> the verdicts."""
+    r = torch.from_numpy(np.ascontiguousarray(rows)).to(card)
+    before = kf.ed25519_verify.launches
+    got = kf.ed25519_verify(r)
+    want = kf.ed25519_verify_plain(r, kf.base_points(card))
+    torch.cuda.synchronize()
+    assert kf.ed25519_verify.launches == before + 1
+    assert torch.equal(got, want)
+    return got.cpu().numpy()
+
+
+@pytest.mark.parametrize("name", ["zip215", "ragged", "one", "all_padding"])
+def test_ed25519_verify_kernel_edge_shapes(card, name):
+    """ZIP-215 encodings, a B that is not a multiple of a block's 16
+    signatures, B = 1 and a batch of padding only."""
+    from cometbft_tpu_torch.edge_cases import ed25519_zip215_cases
+
+    if name == "zip215":
+        pubs, msgs, sigs = map(list, zip(*ed25519_zip215_cases()))
+        B = 8
+    elif name == "all_padding":
+        pubs, msgs, sigs, B = [], [], [], 64
+    elif name == "ragged":
+        pubs, msgs, sigs, _ = _batch(9, n=13, pad=13)
+        B = 17
+    else:  # one valid signature
+        pub, (sig,) = ed.sign_many(b"\x07" * 32, [b"one"])
+        pubs, msgs, sigs, B = [pub], [b"one"], [sig], 1
+    rows = kf.pack_rows(ek.pack_batch(pubs, msgs, sigs, pad_to=B))
+    got = _verify_equals_plain(card, rows)
+    exp = [ed.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
+    assert got[:len(pubs)].astype(bool).tolist() == exp
+    assert not got[len(pubs):].any()
+
+
+@pytest.mark.parametrize("live,spread", [(10_000, False), (6_667, False),
+                                         (10_000, True)])
+def test_ed25519_verify_kernel_at_the_main_paths_shapes(card, live, spread):
+    """16,384 columns with the commit paths' live counts: live columns
+    first and padding last, as the packers put them, or scattered among
+    the padding. 256 signed columns are tiled to the live count."""
+    sig_rows, exp = _signed_rows(10, 256)
+    B = 16_384
+    pos = np.arange(live)
+    if spread:
+        pos = np.sort(np.random.default_rng(11).choice(B, live,
+                                                       replace=False))
+    rows = np.zeros((sig_rows.shape[0], B), np.int32)
+    rows[:, pos] = sig_rows[:, np.arange(live) % 256]
+    got = _verify_equals_plain(card, rows)
+    want = np.zeros(B, bool)
+    want[pos] = exp[np.arange(live) % 256]
+    assert np.array_equal(got.astype(bool), want)
+
+
+def test_ed25519_verify_kernel_gives_one_result_every_run(card):
+    rows, _ = _signed_rows(12, 200)
+    r = torch.from_numpy(rows).to(card)
+    want = kf.ed25519_verify_plain(r, kf.base_points(card))
+    before = kf.ed25519_verify.launches
+    outs = [kf.ed25519_verify(r) for _ in range(100)]
+    torch.cuda.synchronize()
+    assert kf.ed25519_verify.launches == before + 100
+    assert all(torch.equal(o, want) for o in outs)
+
+
 def test_tally_quorum_kernel_equals_plain(card):
     rng = np.random.default_rng(2)
     B, C = 4096, 12

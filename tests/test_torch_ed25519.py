@@ -2,8 +2,9 @@
 inputs: packing is byte-identical, and the plain PyTorch versions of the
 verify and tally kernels give exactly the JAX verdicts, tallies and quorum
 bits (and the oracle's). The verify kernel's own arithmetic
-(csrc/ed25519_core.cuh) is also built for the host and held against the
-oracle. The CUDA kernels themselves run in tests/test_torch_cuda.py."""
+(csrc/ed25519_core.cuh) and its quad lane program (csrc/ed25519_quad.cuh)
+are also built for the host and held against the oracle and each other.
+The CUDA kernels themselves run in tests/test_torch_cuda.py."""
 import ctypes
 import shutil
 
@@ -16,6 +17,7 @@ from cometbft_tpu.ops import ed25519_kernel as jek
 from cometbft_tpu.ops import ed25519_pallas as jkp
 from cometbft_tpu_torch import convert
 from cometbft_tpu_torch.crypto import ed25519_ref as ed
+from cometbft_tpu_torch.edge_cases import ed25519_zip215_cases
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import ed25519_fused as kf
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
@@ -39,28 +41,6 @@ def signed(rng, n):
     return pubs, msgs, sigs
 
 
-def zip215_cases():
-    """Non-canonical, small-order and -0 encodings (the matrix of
-    tests/test_ed25519_pallas.py::test_zip215_edges, plus small-order A and
-    R at y = 0)."""
-    ident = ed.pt_compress(ed.IDENT)
-    cases = [(ident, b"m", ident + b"\x00" * 32)]
-    for y in range(19):
-        u, v = (y * y - 1) % ed.P, (ed.D * y * y + 1) % ed.P
-        ok, x = ed._sqrt_ratio(u, v)
-        if ok:
-            enc_nc = int.to_bytes((y + ed.P) | ((x & 1) << 255), 32, "little")
-            break
-    pub, (sig,) = ed.sign_many(bytes(32), [b"x"])
-    cases.append((pub, b"x", enc_nc + sig[32:]))
-    cases.append((enc_nc, b"x", sig))
-    neg_zero = int.to_bytes(1 | (1 << 255), 32, "little")
-    cases.append((neg_zero, b"m", neg_zero + b"\x00" * 32))
-    cases.append((bytes(32), b"s", ident + b"\x00" * 32))
-    cases.append((ident, b"s", bytes(32) + b"\x00" * 32))
-    return cases
-
-
 def mixed_batch(seed=0, n_valid=24):
     """Valid, flipped-bit, tampered-message, S >= L, garbage, bad-length
     and ZIP-215 rows (<= 64, one JAX bucket)."""
@@ -76,7 +56,7 @@ def mixed_batch(seed=0, n_valid=24):
         pubs.append(rng.bytes(32))
         msgs.append(rng.bytes(3))
         sigs.append(rng.bytes(64))
-    for p, m, s in zip215_cases():
+    for p, m, s in ed25519_zip215_cases():
         pubs.append(p)
         msgs.append(m)
         sigs.append(s)
@@ -248,6 +228,54 @@ def test_kernel_arithmetic_host_build_on_random_signatures():
     rows = kf.pack_rows(ek.pack_batch(pubs, msgs, sigs, pad_to=128))
     out = _host_verify(_build.host_lib(), rows, kf.niels_table_np())
     assert np.array_equal(out[:96].astype(bool), oracle(pubs, msgs, sigs))
+
+
+def _quad_case(name):
+    """(pubs, msgs, sigs, B) of one input the quad program is held on."""
+    rng = np.random.default_rng(70)
+    if name == "batch64":
+        return (*mixed_batch(6), 64)
+    if name == "random_tampered":
+        pubs, msgs, sigs = signed(rng, 40)
+        for i in rng.choice(40, 14, replace=False):
+            b = int(rng.integers(0, 64))
+            sigs[i] = sigs[i][:b] + bytes([sigs[i][b] ^ (1 << int(
+                rng.integers(0, 8)))]) + sigs[i][b + 1:]
+        for i in rng.choice(40, 4, replace=False):
+            msgs[i] = msgs[i] + b"~"
+        return pubs, msgs, sigs, 64
+    if name == "zip215":
+        return (*map(list, zip(*ed25519_zip215_cases())), 8)
+    if name == "ragged":  # 17 columns: not a multiple of a block's 16
+        return (*signed(rng, 13), 17)
+    if name == "one":
+        return (*signed(rng, 1), 1)
+    assert name == "all_padding"
+    return [], [], [], 64
+
+
+@needs_cxx
+@pytest.mark.parametrize("name", ["batch64", "random_tampered", "zip215",
+                                  "ragged", "one", "all_padding"])
+def test_quad_lane_program_matches_host_plain_and_oracle(name):
+    """cbt_host_verify_quad runs the quad kernel's lane program
+    (csrc/ed25519_quad.cuh) with its four lanes on one thread; it must give
+    the single-thread host build's, the plain version's and the oracle's
+    verdict on every column, padding included."""
+    pubs, msgs, sigs, B = _quad_case(name)
+    rows = kf.pack_rows(ek.pack_batch(pubs, msgs, sigs, pad_to=B))
+    assert rows.shape[1] == B
+    lib, table = _build.host_lib(), kf.niels_table_np()
+    quad = np.zeros(B, np.int32)
+    lib.cbt_host_verify_quad(rows.ctypes.data, B, table.ctypes.data,
+                             quad.ctypes.data)
+    assert np.array_equal(quad, _host_verify(lib, rows, table))
+    plain = kf.ed25519_verify_plain(torch.from_numpy(rows),
+                                    kf.base_points(CPU))
+    assert np.array_equal(quad, plain.numpy())
+    assert np.array_equal(quad[:len(pubs)].astype(bool),
+                          oracle(pubs, msgs, sigs))
+    assert not quad[len(pubs):].any()
 
 
 @needs_cxx

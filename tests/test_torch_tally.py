@@ -126,3 +126,39 @@ def test_cached_wrapper_refuses_an_empty_power5():
     with pytest.raises(ValueError, match="no validator"):
         ec.tally_quorum_cached(torch.zeros(512, dtype=torch.int32), rows,
                                torch.zeros((0, 5), dtype=torch.int32), 1)
+
+
+@pytest.mark.parametrize("cached", [False, True], ids=["general", "cached"])
+def test_wrappers_refuse_short_threshold_rows(cached):
+    """Rows that hold fewer threshold words than n_commits * 6 are refused
+    (the JAX `_verify_tally_cached` pads them with zero thresholds)."""
+    B, C = 8, 2  # one threshold row: 8 words for the 12 that C needs
+    valid = torch.ones(B, dtype=torch.int32)
+    if cached:
+        rows = torch.zeros((ec.V_THRESH + 1, B), dtype=torch.int32)
+        p5 = torch.zeros((4, 5), dtype=torch.int32)
+        call = lambda c: ec.tally_quorum_cached(  # noqa: E731
+            valid, rows, p5, c)
+    else:
+        rows = torch.zeros((kf.C_THRESH + 1, B), dtype=torch.int32)
+        call = lambda c: kf.tally_quorum(valid, rows, c)  # noqa: E731
+    with pytest.raises(ValueError, match="fewer thresholds"):
+        call(C)
+    assert call(1)[0].shape == (1, ek.TALLY_LIMBS)  # one commit fits
+
+
+@pytest.mark.parametrize("bad", ["negative_power", "limb_2_13",
+                                 "negative_limb"])
+def test_power_limbs_outside_13_bits_are_refused_on_the_host(bad):
+    """The tally kernels' precondition (every power limb < 2^13) is checked
+    where the host makes limbs, never on the card."""
+    if bad == "negative_power":
+        with pytest.raises(ValueError, match="non-negative"):
+            ek.power_limbs(np.array([5, -1, 7]))
+        return
+    p5 = ek.power_limbs(np.array([1, 2**62, 12345]))
+    p5[1, 4] = 1 << 13 if bad == "limb_2_13" else -1
+    with pytest.raises(ValueError, match="2\\^13"):
+        ek.check_power_limbs(p5)
+    with pytest.raises(ValueError, match="2\\^13"):
+        kf.pack_rows(ek.pack_batch([], [], [], pad_to=3), p5)
