@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero and prints no result line):
   1. card and build: the card's name and power limit, capability 9.0, and
      the nvcc build of every kernel from csrc/ (seconds printed, and each
-     kernel's ptxas registers, stack and spills);
+     kernel's ptxas registers, stack and spills, labelled by source);
   2. each kernel against its plain PyTorch version on the card, exactly:
      ed25519_verify on 256 columns (valid, flipped bit, tampered message,
      S >= L, garbage, ZIP-215 edge cases; both must equal the ed25519_ref
@@ -58,7 +58,9 @@ Phases (any failure exits non-zero and prints no result line):
      exactly and each group's (tally, quorum) equal to tally_quorum_plain on
      the same verdicts and rows; then ed25519_verify and sr25519_verify on
      the rows the light and full calls launched them on (4,096 and 16,384
-     columns, clean and tampered) against plain;
+     columns, clean and tampered) against plain, and sr25519_verify's
+     device time at both shapes (the light and the full call's live
+     counts);
  10. BASELINE config 5's verification core at full width: a 10,000-validator
      secp256k1 set, one signed commit through verify_commit_light_trusting
      (1/3) and verify_commit_light, the two calls verify_non_adjacent makes;
@@ -407,12 +409,14 @@ def phase_card_and_build():
     dev = default_device()  # raises unless capability is (9, 0)
     t0 = time.perf_counter()
     _build.build_all()
-    entry = "?"
+    entry, source = "?", "?"
     for line in _build.build_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
+            source = next((s for s in _build.KERNELS
+                           if f"_{s.replace('.', '_')}_" in entry), "?")
         elif "registers" in line or "spill" in line or "bytes stack" in line:
-            print(f"ptxas: {entry}: {line.strip()}")
+            print(f"ptxas [{source}]: {entry}: {line.strip()}")
     from cometbft_tpu_torch.crypto import secp256k1_ref
 
     print(f"phase1 build_s={time.perf_counter() - t0:.3f} "
@@ -1815,11 +1819,18 @@ def phase_mixed_commit(dev, pool, rng, kernel_stats):
     check(len(path_rows["sr25519"]) == launches["sr25519_verify"]
           and len(path_rows["ed25519"]) == launches["ed25519_verify"],
           "phase9 captured rows do not match the launches")
-    # sr25519_verify timed at this path's widest shape
+    # sr25519_verify timed at this path's widest shape (the full call's)
+    # and at the light call's
     rows = torch.as_tensor(path_rows["sr25519"][MIXED_RUNS]).to(dev)
     ms = cuda_ms(lambda: srk.sr25519_verify(rows), 10)
     sr_dev = dev_ms(lambda: srk.sr25519_verify(rows),
                     "sr25519_verify_trace.json")
+    rows_l = torch.as_tensor(path_rows["sr25519"][0]).to(dev)
+    n_sr_light = int(((rows_l[kf.C_FLAGS] >> 2) & 1).sum())
+    check(rows_l.shape[1] == min(sr_cols),
+          f"the light call's sr25519 rows have {rows_l.shape[1]} cols")
+    sr_dev_light = dev_ms(lambda: srk.sr25519_verify(rows_l),
+                          "sr25519_verify_light_trace.json")
     t = time.perf_counter()
     plain = srk.sr25519_verify_plain(rows, points)
     torch.cuda.synchronize()
@@ -1836,14 +1847,17 @@ def phase_mixed_commit(dev, pool, rng, kernel_stats):
         ms=ms, plain_ms=plain_ms, max_abs_err=err,
         ops=n_sr * srk.verify_products_per_signature(),
         bytes=rows.shape[1] * (kf.C_KROWS + 1) * 4 + 8192 * 3 * 10 * 4,
-        library_ms=None, device_ms=sr_dev)
+        library_ms=None, device_ms=sr_dev,
+        device_ms_by_live={n_sr: sr_dev, n_sr_light: sr_dev_light})
     for name, e in (("ed25519_verify", ed_err), ("tally_quorum", tally_err)):
         k = kernel_stats[name]
         k["launches_by_path"]["mixed_commit"] = launches[name]
         k["launches_by_path"]["mixed_fused"] = fused_launches[name]
         k["max_abs_err"] = max(k["max_abs_err"], e)
     print(f"phase9 sr25519_verify cols={rows.shape[1]} live={n_sr} "
-          f"kernel_ms={ms:.4f} device_ms={fmt_ms(sr_dev)} "
+          f"kernel_ms={ms:.4f} device_ms={fmt_ms(sr_dev)}; cols="
+          f"{rows_l.shape[1]} live={n_sr_light} device_ms="
+          f"{fmt_ms(sr_dev_light)}; "
           f"plain_ms={plain_ms:.1f}; kernel==plain for "
           f"ed25519_verify at cols={ed_cols} and sr25519_verify at cols="
           f"{sr_cols} (clean and tampered rows of the path)", flush=True)
@@ -2030,7 +2044,8 @@ def kernels_json(kernel_stats):
             library_ms=k["library_ms"],
             device_ms=k["device_ms"],
             **{key: k[key] for key in ("library_device_ms",
-                                       "device_ms_by_shape") if key in k},
+                                       "device_ms_by_shape",
+                                       "device_ms_by_live") if key in k},
         ))
     print(f"bound: {products} limb products/signature, clocks.max.sm={mhz} "
           f"MHz, {imad_per_s:.4e} INT32 multiply-adds/s", flush=True)

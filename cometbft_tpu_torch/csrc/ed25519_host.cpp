@@ -20,6 +20,7 @@ long long cbt_sha_block_count = 0;
 #include "ed25519_quad.cuh"
 #include "ristretto_core.cuh"
 #include "secp256k1_core.cuh"
+#include "sr25519_quad.cuh"
 #include "stamp_core.cuh"
 #include "tally_core.cuh"
 
@@ -45,6 +46,17 @@ extern "C" void cbt_host_sr25519_verify(const int32_t* rows, int B,
   const cbt::ge_niels* tbl = reinterpret_cast<const cbt::ge_niels*>(base);
   for (int col = 0; col < B; col++)
     out[col] = cbt::verify_column_sr(rows, B, col, tbl);
+}
+
+// The sr25519 quad kernel's lane program (csrc/sr25519_quad.cuh) with all
+// four lanes on one thread, column by column.
+extern "C" void cbt_host_sr25519_verify_quad(const int32_t* rows, int B,
+                                             const int32_t* base,
+                                             int32_t* out) {
+  const cbt::ge_niels* tbl = reinterpret_cast<const cbt::ge_niels*>(base);
+  cbt_quad::QTab<4> tab;
+  for (int col = 0; col < B; col++)
+    out[col] = cbt_quad::verify_column_sr_quad(rows, B, col, tbl, tab);
 }
 
 extern "C" void cbt_host_ecdsa_verify(const int32_t* rows, int B,

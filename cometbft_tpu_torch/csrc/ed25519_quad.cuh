@@ -233,12 +233,14 @@ CBT_QD Q<W> q_cached(const Q<W>& s) {
   return c;
 }
 
-// The per-signature table: [d](-A) at d < 16, then -R at kNegR, all
-// cached, lane k keeping component k of each entry. On the card it lives
-// in shared memory as [entry][limb][thread], so the 32 lanes of a warp
-// touch 32 banks whatever entry each quad reads; on the host it is an
-// array.
-constexpr int kNegR = 16, kTabEntries = 17;
+// The per-signature table: [d](-A) at d < kMulEntries, then (ed25519
+// only) -R at kNegR, all cached, lane k keeping component k of each entry.
+// On the card it lives in shared memory as [entry][limb][thread], so the
+// 32 lanes of a warp touch 32 banks whatever entry each quad reads; the
+// kernel sizes its shared array by the entries it uses (kTabEntries for
+// ed25519, kMulEntries for sr25519). On the host it is an array.
+constexpr int kMulEntries = 16, kNegR = kMulEntries,
+              kTabEntries = kMulEntries + 1;
 
 template <int W>
 struct QTab;
@@ -308,33 +310,30 @@ CBT_QD int decode_point(const int32_t* rows, int B, int col, int which,
   return ok;
 }
 
-// The quad's program for column `col` whose A and R decoded to x = xA and
-// xR: 1 iff [8]([s]B + [h](-A) - R) is the identity. Every lane returns
-// it. It has no branch on the lane or the data around an exchange, so a
-// warp whose columns are padding or failed still runs it in step (the
-// kernel masks those verdicts). `tab` is the lanes' table storage.
+// -P = (-x, y, -x y, 1) for the affine point (x, y), spread over the
+// lanes as (X, Y, T, Z).
 template <int W>
-CBT_QD int quad_verdict(const int32_t* rows, int B, int col,
-                        const cbt::ge_niels* base, QTab<W>& tab,
-                        const fe& xA, const fe& xR) {
-  using namespace cbt;
-  // -A = (-x, y, -x y, 1) and -R alike, spread over the lanes as (X, Y,
-  // T, Z)
-  Q<W> negA, negR;
-  {
-    const fe yA = fe_from_packed13(rows, B, C_AY, col),
-             yR = fe_from_packed13(rows, B, C_RY, col);
-    const fe nxA = fe_neg(xA), nxyA = fe_neg(qfe_mul(xA, yA)),
-             nxR = fe_neg(xR), nxyR = fe_neg(qfe_mul(xR, yR)), one = fe_one();
+CBT_QD Q<W> q_neg_affine(const fe& x, const fe& y) {
+  const fe nx = cbt::fe_neg(x), nxy = cbt::fe_neg(qfe_mul(x, y)),
+           one = cbt::fe_one();
+  Q<W> p;
 #pragma unroll
-    for (int k = 0; k < W; k++) {
-      const int lane = lane_of<W>(k);
-      negA.v[k] = lane == 0 ? nxA : lane == 1 ? yA : lane == 2 ? nxyA : one;
-      negR.v[k] = lane == 0 ? nxR : lane == 1 ? yR : lane == 2 ? nxyR : one;
-    }
+  for (int k = 0; k < W; k++) {
+    const int lane = lane_of<W>(k);
+    p.v[k] = lane == 0 ? nx : lane == 1 ? y : lane == 2 ? nxy : one;
   }
-  tab.put(kNegR, q_cached(negR));
+  return p;
+}
 
+// [s]B + [h](-A) for column `col`, the quad counterpart of
+// cbt::sb_minus_ha, shared by the ed25519 and sr25519 verdicts: fills
+// table entries 0..15 with [d](-A) and returns the accumulator (X, Y, T,
+// Z). negA is -A as q_neg_affine spreads it.
+template <int W>
+CBT_QD Q<W> q_sb_minus_ha(const int32_t* rows, int B, int col,
+                          const cbt::ge_niels* base, QTab<W>& tab,
+                          const Q<W>& negA) {
+  using namespace cbt;
   // the table [d](-A): entry 0 the identity (1, 1, 0, 1), entry 1 -A,
   // entry d = entry d-1 + (-A)
   {
@@ -347,7 +346,7 @@ CBT_QD int quad_verdict(const int32_t* rows, int B, int col,
   const Q<W> cA = q_cached(negA);
   tab.put(1, cA);
   Q<W> m = negA;
-  for (int d = 2; d < 16; d++) {
+  for (int d = 2; d < kMulEntries; d++) {
     q_add(m, cA);
     tab.put(d, q_cached(m));
   }
@@ -370,6 +369,24 @@ CBT_QD int quad_verdict(const int32_t* rows, int B, int col,
     const uint32_t word = (uint32_t)rows[(C_S8 + (w & 7)) * B + col];
     q_add(acc, q_niels<W>(base, w * 256 + ((word >> (8 * (w >> 3))) & 255)));
   }
+  return acc;
+}
+
+// The quad's program for column `col` whose A and R decoded to x = xA and
+// xR: 1 iff [8]([s]B + [h](-A) - R) is the identity. Every lane returns
+// it. It has no branch on the lane or the data around an exchange, so a
+// warp whose columns are padding or failed still runs it in step (the
+// kernel masks those verdicts). `tab` is the lanes' table storage.
+template <int W>
+CBT_QD int quad_verdict(const int32_t* rows, int B, int col,
+                        const cbt::ge_niels* base, QTab<W>& tab,
+                        const fe& xA, const fe& xR) {
+  using namespace cbt;
+  const fe yA = fe_from_packed13(rows, B, C_AY, col),
+           yR = fe_from_packed13(rows, B, C_RY, col);
+  const Q<W> negA = q_neg_affine<W>(xA, yA);
+  tab.put(kNegR, q_cached(q_neg_affine<W>(xR, yR)));
+  Q<W> acc = q_sb_minus_ha(rows, B, col, base, tab, negA);
 
   // - R, then the cofactor: [8]W == identity <=> X == 0 and Y == Z
   q_add(acc, tab.get(kNegR));

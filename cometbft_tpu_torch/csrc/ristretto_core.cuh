@@ -1,8 +1,9 @@
 // ristretto255 decoding and the sr25519 (schnorrkel) verdict of one packed
-// column, over the edwards25519 arithmetic of ed25519_core.cuh. Shared by
-// the Hopper kernel (sr25519_verify.cu) and the host build
-// (ed25519_host.cpp) that the CPU tests hold against the oracle
-// (crypto/sr25519_ref.py).
+// column on one thread, over the edwards25519 arithmetic of
+// ed25519_core.cuh. The Hopper kernel (sr25519_verify.cu) decodes with
+// rist_decode and runs the quad form of the verdict (sr25519_quad.cuh);
+// the host build (ed25519_host.cpp) runs both verdicts, and the CPU tests
+// hold them against each other and the oracle (crypto/sr25519_ref.py).
 #pragma once
 #include "ed25519_core.cuh"
 

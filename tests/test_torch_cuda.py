@@ -329,6 +329,112 @@ def test_sr25519_verify_kernel_equals_plain(card):
     assert not got.cpu().numpy()[len(pubs):].any()
 
 
+def _sr_signed(seed, n):
+    """n signed sr25519 (pub, msg, sig) rows, one in seven tampered."""
+    from cometbft_tpu_torch.crypto import sr25519_ref as sr
+
+    rng = np.random.default_rng(seed)
+    pubs, msgs, sigs = [], [], []
+    for i in range(n):
+        m = rng.bytes(int(rng.integers(0, 64)))
+        pub, (sig,) = sr.sign_many(rng.bytes(32), [m], rng=rng.bytes(32))
+        if i % 7 == 3:
+            sig = sig[:9] + bytes([sig[9] ^ 4]) + sig[10:]
+        pubs.append(pub)
+        msgs.append(m)
+        sigs.append(sig)
+    return pubs, msgs, sigs
+
+
+def _sr_oracle(pubs, msgs, sigs):
+    from cometbft_tpu_torch.crypto import sr25519_ref as sr
+
+    return np.array([sr.verify(p, m, s) for p, m, s in zip(pubs, msgs, sigs)],
+                    bool)
+
+
+def _sr_verify_equals_plain(card, rows):
+    """One sr25519 kernel call (exactly one launch) on rows, equal to
+    plain; -> the verdicts."""
+    from cometbft_tpu_torch.ops import sr25519_kernel as srk
+
+    r = torch.from_numpy(np.ascontiguousarray(rows)).to(card)
+    before = srk.sr25519_verify.launches
+    got = srk.sr25519_verify(r)
+    want = srk.sr25519_verify_plain(r, kf.base_points(card))
+    torch.cuda.synchronize()
+    assert srk.sr25519_verify.launches == before + 1
+    assert torch.equal(got, want)
+    return got.cpu().numpy()
+
+
+@pytest.mark.parametrize("name,B", [("edge_cases", 256),
+                                    ("edge_cases", 4096), ("ragged", 17),
+                                    ("one", 1), ("all_padding", 64)])
+def test_sr25519_verify_kernel_edge_shapes(card, name, B):
+    """Every sr25519 edge case (tampered message, missing marker, s >= L,
+    odd, non-canonical and non-decodable A and R, short key and signature)
+    at 256 and 4,096 columns, a B that is not a multiple of a block's 16
+    signatures, B = 1 and a batch of padding only."""
+    from cometbft_tpu_torch.edge_cases import sr25519_cases
+    from cometbft_tpu_torch.ops import sr25519_kernel as srk
+
+    if name == "edge_cases":
+        pubs, msgs, sigs = sr25519_cases(np.random.default_rng(B),
+                                         n_valid=100)
+    elif name == "all_padding":
+        pubs, msgs, sigs = [], [], []
+    else:
+        pubs, msgs, sigs = _sr_signed(B, 13 if name == "ragged" else 1)
+    got = _sr_verify_equals_plain(card, srk.pack_batch_sr(pubs, msgs, sigs,
+                                                          pad_to=B))
+    assert np.array_equal(got[:len(pubs)].astype(bool),
+                          _sr_oracle(pubs, msgs, sigs))
+    assert not got[len(pubs):].any()
+
+
+@pytest.mark.parametrize("live,B,spread", [(5_000, 16_384, False),
+                                           (3_334, 4_096, False),
+                                           (5_000, 16_384, True)])
+def test_sr25519_verify_kernel_at_the_main_paths_shapes(card, live, B,
+                                                        spread):
+    """The mixed commit's sr25519 shapes: 5,000 live of 16,384 columns (the
+    full call) and 3,334 of 4,096 (the light call), live columns first and
+    padding last, as the packer puts them, or scattered among the padding.
+    256 signed columns are tiled to the live count."""
+    from cometbft_tpu_torch.ops import sr25519_kernel as srk
+
+    pubs, msgs, sigs = _sr_signed(20, 256)
+    sig_rows = srk.pack_batch_sr(pubs, msgs, sigs, pad_to=256)
+    exp = _sr_oracle(pubs, msgs, sigs)
+    pos = np.arange(live)
+    if spread:
+        pos = np.sort(np.random.default_rng(21).choice(B, live,
+                                                       replace=False))
+    rows = np.zeros((sig_rows.shape[0], B), np.int32)
+    rows[:, pos] = sig_rows[:, np.arange(live) % 256]
+    got = _sr_verify_equals_plain(card, rows)
+    want = np.zeros(B, bool)
+    want[pos] = exp[np.arange(live) % 256]
+    assert np.array_equal(got.astype(bool), want)
+
+
+def test_sr25519_verify_kernel_gives_one_result_every_run(card):
+    from cometbft_tpu_torch.ops import sr25519_kernel as srk
+
+    pubs, msgs, sigs = _sr_signed(22, 200)
+    r = torch.from_numpy(srk.pack_batch_sr(pubs, msgs, sigs,
+                                           pad_to=256)).to(card)
+    want = srk.sr25519_verify_plain(r, kf.base_points(card))
+    assert np.array_equal(want.cpu().numpy()[:200].astype(bool),
+                          _sr_oracle(pubs, msgs, sigs))
+    before = srk.sr25519_verify.launches
+    outs = [srk.sr25519_verify(r) for _ in range(100)]
+    torch.cuda.synchronize()
+    assert srk.sr25519_verify.launches == before + 100
+    assert all(torch.equal(o, want) for o in outs)
+
+
 def test_ecdsa_verify_kernel_equals_plain(card):
     from cometbft_tpu_torch.crypto import secp256k1_ref as secp
     from cometbft_tpu_torch.edge_cases import ecdsa_cases

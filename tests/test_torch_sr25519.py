@@ -299,6 +299,56 @@ def test_kernel_arithmetic_host_build_matches_the_oracle(cases):
     assert not out[n:].any()
 
 
+def _quad_case(name):
+    """(pubs, msgs, sigs, B) of one input the quad program is held on."""
+    rng = np.random.default_rng(80)
+    if name == "edge_cases":
+        return (*sr25519_cases(rng, n_valid=16), 32)
+    n = {"random_tampered": 64, "ragged": 13, "one": 1, "all_padding": 0}[
+        name]
+    pubs, msgs, sigs = [], [], []
+    for _ in range(n):
+        m = rng.bytes(int(rng.integers(0, 120)))
+        pk, (sig,) = sr.sign_many(rng.bytes(32), [m], rng=rng.bytes(32))
+        pubs.append(pk)
+        msgs.append(m)
+        sigs.append(sig)
+    if name == "random_tampered":
+        for i in rng.choice(n, 12, replace=False):
+            b = int(rng.integers(0, 64))
+            sigs[i] = sigs[i][:b] + bytes([sigs[i][b] ^ (1 << int(
+                rng.integers(0, 8)))]) + sigs[i][b + 1:]
+        for i in rng.choice(n, 4, replace=False):
+            msgs[i] = msgs[i] + b"~"
+    B = {"random_tampered": 64, "ragged": 17, "one": 1, "all_padding": 64}[
+        name]
+    return pubs, msgs, sigs, B
+
+
+@needs_cxx
+@pytest.mark.parametrize("name", ["edge_cases", "random_tampered", "ragged",
+                                  "one", "all_padding"])
+def test_quad_lane_program_matches_host_plain_and_oracle(name):
+    """cbt_host_sr25519_verify_quad runs the quad kernel's lane program
+    (csrc/sr25519_quad.cuh) with its four lanes on one thread; it must give
+    the single-thread host build's, the plain version's and the oracle's
+    verdict on every column, padding included."""
+    pubs, msgs, sigs, B = _quad_case(name)
+    rows = srk.pack_batch_sr(pubs, msgs, sigs, pad_to=B)
+    assert rows.shape[1] == B
+    lib, table = _build.host_lib(), kf.niels_table_np()
+    quad = np.zeros(B, np.int32)
+    lib.cbt_host_sr25519_verify_quad(rows.ctypes.data, B, table.ctypes.data,
+                                     quad.ctypes.data)
+    assert np.array_equal(quad, _host_verify(lib, rows, table))
+    plain = srk.sr25519_verify_plain(torch.from_numpy(rows),
+                                     kf.base_points(torch.device("cpu")))
+    assert np.array_equal(quad, plain.numpy())
+    assert np.array_equal(quad[:len(pubs)].astype(bool),
+                          oracle(pubs, msgs, sigs))
+    assert not quad[len(pubs):].any()
+
+
 @needs_cxx
 def test_field_op_count_behind_the_bound():
     """The per-signature multiplication count the bound uses is the count
