@@ -66,7 +66,8 @@ Phases (any failure exits non-zero and prints no result line):
      (1/3) and verify_commit_light, the two calls verify_non_adjacent makes;
      a tampered signature must be blamed; then ecdsa_verify on the rows both
      calls launched it on (4,096 and 16,384 columns, clean and tampered)
-     against plain.
+     against plain, and its device time at both shapes (the trusting and
+     the light call's live counts).
 Before the last line it prints the `kernels` JSON (launches on the main
 paths, in all and by path; times; bounds; for every kernel `device_ms`, from
 a profiler trace at its phase's shape, by live columns or by shape where a
@@ -1940,7 +1941,8 @@ def phase_light_secp(dev, pool, rng, kernel_stats):
           f"{p50:.3f} all_ms={[round(x, 3) for x in pair_ms]}", flush=True)
 
     # ecdsa_verify on the rows both calls launched it on (clean and
-    # tampered), against its plain version; timed at the widest shape
+    # tampered), against its plain version; timed at the widest shape (the
+    # light call's) and at the trusting call's
     points = ef.base_points(dev)
     err, ec_cols = hold_shapes_against_plain(
         dev, ef.ecdsa_verify, lambda r: ef.ecdsa_verify_plain(r, points),
@@ -1951,6 +1953,12 @@ def phase_light_secp(dev, pool, rng, kernel_stats):
     rows = torch.as_tensor(path_rows["secp256k1"][1]).to(dev)
     ms = cuda_ms(lambda: ef.ecdsa_verify(rows), 10)
     ec_dev = dev_ms(lambda: ef.ecdsa_verify(rows), "ecdsa_verify_trace.json")
+    rows_t = torch.as_tensor(path_rows["secp256k1"][0]).to(dev)
+    check(rows_t.shape[1] == min(ec_cols),
+          f"the trusting call's rows have {rows_t.shape[1]} cols")
+    n_trust_live = int(((rows_t[ef.E_FLAGS] >> 2) & 1).sum())
+    ec_dev_trust = dev_ms(lambda: ef.ecdsa_verify(rows_t),
+                          "ecdsa_verify_trusting_trace.json")
     t = time.perf_counter()
     plain = ef.ecdsa_verify_plain(rows, points)
     torch.cuda.synchronize()
@@ -1965,10 +1973,12 @@ def phase_light_secp(dev, pool, rng, kernel_stats):
         ms=ms, plain_ms=plain_ms, max_abs_err=err,
         ops=n_light * ef.verify_products_per_signature(),
         bytes=rows.shape[1] * (ef.E_KROWS + 1) * 4 + 8192 * 3 * 10 * 4,
-        library_ms=None, device_ms=ec_dev)
+        library_ms=None, device_ms=ec_dev,
+        device_ms_by_live={n_light: ec_dev, n_trust_live: ec_dev_trust})
     print(f"phase10 ecdsa_verify cols={rows.shape[1]} live={n_light} "
-          f"kernel_ms={ms:.4f} device_ms={fmt_ms(ec_dev)} "
-          f"plain_ms={plain_ms:.1f}; kernel==plain at "
+          f"kernel_ms={ms:.4f} device_ms={fmt_ms(ec_dev)}; cols="
+          f"{rows_t.shape[1]} live={n_trust_live} device_ms="
+          f"{fmt_ms(ec_dev_trust)}; plain_ms={plain_ms:.1f}; kernel==plain at "
           f"cols={ec_cols} (clean and tampered rows of the path)", flush=True)
     return {"lc_pair_p50_ms": p50}
 

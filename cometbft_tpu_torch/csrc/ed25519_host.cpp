@@ -20,6 +20,7 @@ long long cbt_sha_block_count = 0;
 #include "ed25519_quad.cuh"
 #include "ristretto_core.cuh"
 #include "secp256k1_core.cuh"
+#include "secp256k1_quad.cuh"
 #include "sr25519_quad.cuh"
 #include "stamp_core.cuh"
 #include "tally_core.cuh"
@@ -64,6 +65,36 @@ extern "C" void cbt_host_ecdsa_verify(const int32_t* rows, int B,
   const cbt_secp::gpt* tbl = reinterpret_cast<const cbt_secp::gpt*>(base);
   for (int col = 0; col < B; col++)
     out[col] = cbt_secp::ecdsa_verify_column(rows, B, col, tbl);
+}
+
+// The secp256k1 quad kernel's lane program (csrc/secp256k1_quad.cuh) with
+// all four lanes on one thread, column by column.
+extern "C" void cbt_host_ecdsa_verify_quad(const int32_t* rows, int B,
+                                           const int32_t* base,
+                                           int32_t* out) {
+  const cbt_secp::gpt* tbl = reinterpret_cast<const cbt_secp::gpt*>(base);
+  cbt_secp_quad::QTab<4> tab;
+  for (int col = 0; col < B; col++)
+    out[col] = cbt_secp_quad::verify_column_ecdsa_quad(rows, B, col, tbl, tab);
+}
+
+// The quad's point operations on n projective points a (and b), each
+// (X, Y, Z) of ten limbs: op 0 a + b (a the accumulator, b the addend),
+// op 1 2 a. out gets the four lanes (Y, Y, Z, X) of each result.
+extern "C" void cbt_host_secp_quad_pt(int op, const int32_t* a,
+                                      const int32_t* b, int n, int32_t* out) {
+  using namespace cbt_secp_quad;
+  const cbt_secp::gpt* pa = reinterpret_cast<const cbt_secp::gpt*>(a);
+  const cbt_secp::gpt* pb = reinterpret_cast<const cbt_secp::gpt*>(b);
+  for (int k = 0; k < n; k++) {
+    Q<4> s = q_from_xyz<4>(pa[k].X, pa[k].Y, pa[k].Z);
+    if (op == 0)
+      q_add(s, q_addend(q_from_xyz<4>(pb[k].X, pb[k].Y, pb[k].Z)));
+    else
+      q_dbl(s);
+    for (int l = 0; l < 4; l++)
+      for (int i = 0; i < 10; i++) out[(4 * k + l) * 10 + i] = s.v[l].v[i];
+  }
 }
 
 // Field arithmetic of secp256k1_core.cuh on n pairs of carried limbs, for

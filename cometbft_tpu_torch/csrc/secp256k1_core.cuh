@@ -1,8 +1,10 @@
 // GF(p), p = 2^256 - 2^32 - 977, and secp256k1 point arithmetic for one
-// signature per thread, plus the ECDSA verdict of one packed column.
-// Shared by the Hopper kernel (ecdsa_verify.cu) and the host build
-// (ed25519_host.cpp) that the CPU tests hold against the oracle
-// (crypto/secp256k1_ref.py) and the plain PyTorch version.
+// signature per thread, plus the ECDSA verdict of one packed column. The
+// Hopper kernel (ecdsa_verify.cu) decodes Q with it (decode_q) and its
+// quad program (secp256k1_quad.cuh) runs on this field; the host build
+// (ed25519_host.cpp) runs the one-thread verdict, which the CPU tests hold
+// against the oracle (crypto/secp256k1_ref.py), the plain PyTorch version
+// and the quad program.
 //
 // Field elements: ten signed int32 limbs of 26 bits (libsecp256k1's
 // field_10x26 radix), limb i of weight 2^(26 i), 260 bits in all. A limb
@@ -284,24 +286,30 @@ CBT_HD gpt pt_dbl(const gpt& p) {
   return r;
 }
 
-// The ECDSA verdict of column `col` of the packed rows (R, B): 1 iff the
-// host precheck passed (flags bit 2), Q = (x, y) decompresses (y =
-// (x^3 + 7)^((p+1)/4) squares back, y's parity flipped to flags bit 0),
-// and R = [u1]G + [u2]Q has Z != 0 and X = r Z or X = xr2 Z (xr2 = r + N
-// when that is below p, else r), with no inversion. `base` is the
-// (32 * 256) comb table: entry w * 256 + d is [d * 256^w]G, projective,
-// identity rows (0, 1, 0).
-CBT_HD int ecdsa_verify_column(const int32_t* rows, int B, int col,
-                               const gpt* base) {
+// The public key Q = (x, y) of column `col`: 1 iff the host precheck
+// passed (flags bit 2) and x decompresses (y = (x^3 + 7)^((p+1)/4) squares
+// back), with y's parity flipped to flags bit 0; 0 for padding. One
+// thread, through the out-of-line field ops.
+CBT_HD int decode_q(const int32_t* rows, int B, int col, fe* x, fe* y) {
   const uint32_t flags = (uint32_t)rows[E_FLAGS * B + col];
   if (((flags >> 2) & 1) == 0) return 0;  // precheck failed or padding
+  *x = fe_from_packed13(rows, B, E_QX, col);
+  const fe yy = fe_add(fe_mul(fe_sq(*x), *x), fe_small(7));
+  const fe r = fe_pow_sqrt(yy);
+  if (!fe_eq(fe_sq(r), yy)) return 0;  // x is not on the curve
+  *y = (uint32_t)fe_parity(r) != (flags & 1) ? fe_neg(r) : r;
+  return 1;
+}
 
+// The ECDSA verdict of column `col` of the packed rows (R, B): 1 iff Q
+// decodes (decode_q) and R = [u1]G + [u2]Q has Z != 0 and X = r Z or
+// X = xr2 Z (xr2 = r + N when that is below p, else r), with no
+// inversion. `base` is the (32 * 256) comb table: entry w * 256 + d is
+// [d * 256^w]G, projective, identity rows (0, 1, 0).
+CBT_HD int ecdsa_verify_column(const int32_t* rows, int B, int col,
+                               const gpt* base) {
   gpt Q;
-  Q.X = fe_from_packed13(rows, B, E_QX, col);
-  const fe yy = fe_add(fe_mul(fe_sq(Q.X), Q.X), fe_small(7));
-  Q.Y = fe_pow_sqrt(yy);
-  if (!fe_eq(fe_sq(Q.Y), yy)) return 0;  // x is not on the curve
-  if ((uint32_t)fe_parity(Q.Y) != (flags & 1)) Q.Y = fe_neg(Q.Y);
+  if (!decode_q(rows, B, col, &Q.X, &Q.Y)) return 0;
   Q.Z = fe_small(1);
 
   // per-signature table [d]Q, d < 16, in local memory

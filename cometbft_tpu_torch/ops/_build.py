@@ -51,6 +51,8 @@ _HOST_FNS = {
     "cbt_host_sr25519_verify": ([_P, _I, _P, _P], None),
     "cbt_host_sr25519_verify_quad": ([_P, _I, _P, _P], None),
     "cbt_host_ecdsa_verify": ([_P, _I, _P, _P], None),
+    "cbt_host_ecdsa_verify_quad": ([_P, _I, _P, _P], None),
+    "cbt_host_secp_quad_pt": ([_I, _P, _P, _I, _P], None),
     "cbt_host_secp_fe": ([_I, _P, _P, _I, _P], None),
     "cbt_host_table_build": ([_P, _I, _P, _P], None),
     "cbt_host_verify_cached": ([_P, _I, _P, _I, _P, _P, _P], None),

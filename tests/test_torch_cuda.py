@@ -453,3 +453,113 @@ def test_ecdsa_verify_kernel_equals_plain(card):
     exp = [secp.verify_py(p, m, s) for p, m, s in zip(pubs, msgs, sigs)]
     assert got.cpu().numpy()[:len(pubs)].astype(bool).tolist() == exp
     assert not got.cpu().numpy()[len(pubs):].any()
+
+
+def _ec_signed(seed, n):
+    """n signed secp256k1 (pub, msg, sig) rows, one in seven tampered."""
+    from cometbft_tpu_torch.crypto import secp256k1_ref as secp
+
+    rng = np.random.default_rng(seed)
+    pubs, msgs, sigs = [], [], []
+    for i in range(n):
+        d = int(rng.integers(1, 2**62)) * int(rng.integers(1, 2**62))
+        m = rng.bytes(int(rng.integers(0, 64)))
+        sig = secp.sign(d, m)
+        if i % 7 == 3:
+            sig = sig[:9] + bytes([sig[9] ^ 4]) + sig[10:]
+        pubs.append(secp.pubkey_from_secret(d))
+        msgs.append(m)
+        sigs.append(sig)
+    return pubs, msgs, sigs
+
+
+def _ec_oracle(pubs, msgs, sigs):
+    from cometbft_tpu_torch.crypto import secp256k1_ref as secp
+
+    return np.array([secp.verify_py(p, m, s)
+                     for p, m, s in zip(pubs, msgs, sigs)], bool)
+
+
+def _ec_rows(pubs, msgs, sigs, B):
+    from cometbft_tpu_torch.ops import ecdsa_fused as ef
+    from cometbft_tpu_torch.ops import ecdsa_kernel as eck
+
+    return ef.pack_rows(eck.pack_batch(pubs, msgs, sigs, pad_to=B))
+
+
+def _ec_verify_equals_plain(card, rows):
+    """One ECDSA kernel call (exactly one launch) on rows, equal to plain;
+    -> the verdicts."""
+    from cometbft_tpu_torch.ops import ecdsa_fused as ef
+
+    r = torch.from_numpy(np.ascontiguousarray(rows)).to(card)
+    before = ef.ecdsa_verify.launches
+    got = ef.ecdsa_verify(r)
+    want = ef.ecdsa_verify_plain(r, ef.base_points(card))
+    torch.cuda.synchronize()
+    assert ef.ecdsa_verify.launches == before + 1
+    assert torch.equal(got, want)
+    return got.cpu().numpy()
+
+
+@pytest.mark.parametrize("name,B", [("edge_cases", 256), ("signed", 65),
+                                    ("signed", 64), ("ragged", 17),
+                                    ("one", 1), ("all_padding", 64)])
+def test_ecdsa_verify_kernel_edge_shapes(card, name, B):
+    """Every ECDSA edge case (tampered signature and message, high S, r = 0,
+    r >= N, s = 0, bad prefix, x >= p, x off the curve, short key and
+    signature, the r + N branch) at 256 columns, 64 and 65 columns (a
+    block's 16 signatures, and one more), a B that is not a multiple of
+    16, B = 1 and a batch of padding only."""
+    from cometbft_tpu_torch.edge_cases import ecdsa_cases
+
+    if name == "edge_cases":
+        pubs, msgs, sigs = ecdsa_cases(np.random.default_rng(B),
+                                       n_valid=100)
+    elif name == "all_padding":
+        pubs, msgs, sigs = [], [], []
+    else:
+        pubs, msgs, sigs = _ec_signed(B, {"signed": B, "ragged": 13,
+                                          "one": 1}[name])
+    got = _ec_verify_equals_plain(card, _ec_rows(pubs, msgs, sigs, B))
+    assert np.array_equal(got[:len(pubs)].astype(bool),
+                          _ec_oracle(pubs, msgs, sigs))
+    assert not got[len(pubs):].any()
+
+
+@pytest.mark.parametrize("live,B,spread", [(6_667, 16_384, False),
+                                           (3_334, 4_096, False),
+                                           (6_667, 16_384, True)])
+def test_ecdsa_verify_kernel_at_the_main_paths_shapes(card, live, B, spread):
+    """The secp256k1 light pair's shapes: 6,667 live of 16,384 columns (the
+    light call) and 3,334 of 4,096 (the trusting call), live columns first
+    and padding last, as the packer puts them, or scattered among the
+    padding. 256 signed columns are tiled to the live count."""
+    pubs, msgs, sigs = _ec_signed(30, 256)
+    sig_rows = _ec_rows(pubs, msgs, sigs, 256)
+    exp = _ec_oracle(pubs, msgs, sigs)
+    pos = np.arange(live)
+    if spread:
+        pos = np.sort(np.random.default_rng(31).choice(B, live,
+                                                       replace=False))
+    rows = np.zeros((sig_rows.shape[0], B), np.int32)
+    rows[:, pos] = sig_rows[:, np.arange(live) % 256]
+    got = _ec_verify_equals_plain(card, rows)
+    want = np.zeros(B, bool)
+    want[pos] = exp[np.arange(live) % 256]
+    assert np.array_equal(got.astype(bool), want)
+
+
+def test_ecdsa_verify_kernel_gives_one_result_every_run(card):
+    from cometbft_tpu_torch.ops import ecdsa_fused as ef
+
+    pubs, msgs, sigs = _ec_signed(32, 200)
+    r = torch.from_numpy(_ec_rows(pubs, msgs, sigs, 256)).to(card)
+    want = ef.ecdsa_verify_plain(r, ef.base_points(card))
+    assert np.array_equal(want.cpu().numpy()[:200].astype(bool),
+                          _ec_oracle(pubs, msgs, sigs))
+    before = ef.ecdsa_verify.launches
+    outs = [ef.ecdsa_verify(r) for _ in range(100)]
+    torch.cuda.synchronize()
+    assert ef.ecdsa_verify.launches == before + 100
+    assert all(torch.equal(o, want) for o in outs)

@@ -2,8 +2,10 @@
 seeded inputs: the copied oracle agrees with the JAX package's, the plain
 field is exact near p, `pack_batch` + `pack_rows` are byte-identical over
 the malformed cases, the comb table equals the converted JAX table, and
-the plain PyTorch verify and the host build of the kernel's arithmetic
-(csrc/secp256k1_core.cuh) give exactly the oracle's verdicts. The last
+the plain PyTorch verify, the host build of the one-thread arithmetic
+(csrc/secp256k1_core.cuh) and of the kernel's quad lane program
+(csrc/secp256k1_quad.cuh) give exactly the oracle's verdicts, and the
+quad's addition and doubling give the oracle's points. The last
 tests put a mixed ed25519 + sr25519 + secp256k1 commit through the
 VerifyCommit family. The CUDA kernel itself runs in
 tests/test_torch_cuda.py."""
@@ -350,6 +352,128 @@ def test_field_op_count_behind_the_bound():
         assert m1.value - m0.value == ef.VERIFY_FE_MULS
         assert s1.value - s0.value == ef.VERIFY_FE_SQUARES
     assert ef.verify_products_per_signature() == 2836 * 100 + 759 * 55
+
+
+def _quad_case(name):
+    """(pubs, msgs, sigs, B) of one input the quad program is held on."""
+    rng = np.random.default_rng(90)
+    if name == "edge_cases":
+        return (*ecdsa_cases(rng), 32)
+    n = {"random_tampered": 64, "ragged": 13, "one": 1, "all_padding": 0}[
+        name]
+    pubs, msgs, sigs = [], [], []
+    for _ in range(n):
+        d = int(rng.integers(1, 2**62)) * int(rng.integers(1, 2**62))
+        m = rng.bytes(int(rng.integers(0, 120)))
+        pubs.append(ref.pubkey_from_secret(d))
+        msgs.append(m)
+        sigs.append(ref.sign(d, m))
+    if name == "random_tampered":
+        for i in rng.choice(n, 12, replace=False):
+            b = int(rng.integers(0, 64))
+            sigs[i] = sigs[i][:b] + bytes([sigs[i][b] ^ (1 << int(
+                rng.integers(0, 8)))]) + sigs[i][b + 1:]
+        for i in rng.choice(n, 4, replace=False):
+            msgs[i] = msgs[i] + b"~"
+    B = {"random_tampered": 64, "ragged": 17, "one": 1, "all_padding": 64}[
+        name]
+    return pubs, msgs, sigs, B
+
+
+@needs_cxx
+@pytest.mark.parametrize("name", ["edge_cases", "random_tampered", "ragged",
+                                  "one", "all_padding"])
+def test_quad_lane_program_matches_host_plain_and_oracle(name):
+    """cbt_host_ecdsa_verify_quad runs the quad kernel's lane program
+    (csrc/secp256k1_quad.cuh) with its four lanes on one thread; it must
+    give the single-thread host build's, the plain version's and the
+    oracle's verdict on every column, padding and the xr2 case included."""
+    pubs, msgs, sigs, B = _quad_case(name)
+    rows = ef.pack_rows(eck.pack_batch(pubs, msgs, sigs, pad_to=B))
+    assert rows.shape[1] == B
+    lib, table = _build.host_lib(), ef.comb_table_np()
+    quad = np.zeros(B, np.int32)
+    lib.cbt_host_ecdsa_verify_quad(rows.ctypes.data, B, table.ctypes.data,
+                                   quad.ctypes.data)
+    assert np.array_equal(quad, _host_verify(lib, rows, table))
+    plain = ef.ecdsa_verify_plain(torch.from_numpy(rows),
+                                  ef.base_points(torch.device("cpu")))
+    assert np.array_equal(quad, plain.numpy())
+    assert np.array_equal(quad[:len(pubs)].astype(bool),
+                          oracle(pubs, msgs, sigs))
+    assert not quad[len(pubs):].any()
+    if name == "edge_cases":  # the xr2 row verifies only through r + N
+        assert quad[len(pubs) - 2] == 1
+
+
+def _proj(pts, rng):
+    """Affine points (None: the identity) -> (n, 3, 10) int32 projective
+    (X, Y, Z) in 26-bit limbs, each scaled by a random Z (the identity as
+    (0, Z, 0))."""
+    out = []
+    for p in pts:
+        z = int(rng.integers(1, 2**62)) ** 4 % ref.P
+        x, y = (0, 1) if p is None else p
+        xyz = (0 if p is None else x * z % ref.P, y * z % ref.P,
+               0 if p is None else z)
+        out.append([_limbs26(c) for c in xyz])
+    return np.ascontiguousarray(np.array(out, np.int32))
+
+
+def _quad_pt(lib, op, a, b):
+    n = len(a)
+    out = np.zeros((n, 4, 10), np.int32)
+    lib.cbt_host_secp_quad_pt(op, a.ctypes.data, b.ctypes.data, n,
+                              out.ctypes.data)
+    res = []
+    for lanes in out:
+        y0, y1, z, x = (_val26(r) % ref.P for r in lanes)
+        assert y0 == y1  # lanes 0 and 1 both hold Y
+        if z == 0:
+            assert x == 0 and y0 != 0
+            res.append(None)
+            continue
+        zi = pow(z, ref.P - 2, ref.P)
+        res.append((x * zi % ref.P, y0 * zi % ref.P))
+    return res
+
+
+@needs_cxx
+def test_quad_point_ops_are_complete():
+    """The quad's addition and doubling (no branch) on the inputs the
+    complete formulas must carry: random points, the identity on either
+    side and on both, P + P, P + (-P), and comb entries of G (Z = 1, the
+    identity rows (0, 1, 0)) as addends; against the oracle's point
+    operations."""
+    lib = _build.host_lib()
+    rng = np.random.default_rng(91)
+    pts = [ref.pt_mul(int(rng.integers(1, 2**62)) * 7919 + i,
+                      (ref.GX, ref.GY)) for i in range(8)]
+    neg = [(x, ref.P - y) for x, y in pts]
+    pairs = ([(pts[i], pts[i + 1]) for i in range(7)]
+             + [(None, pts[0]), (pts[1], None), (None, None)]
+             + [(p, p) for p in pts[:3]] + [(p, q) for p, q in
+                                            zip(pts[:3], neg[:3])])
+    a = _proj([p for p, _ in pairs], rng)
+    b = _proj([q for _, q in pairs], rng)
+    assert _quad_pt(lib, 0, a, b) == [ref.pt_add(p, q) for p, q in pairs]
+    singles = pts + neg[:2] + [None]
+    a = _proj(singles, rng)
+    assert _quad_pt(lib, 1, a, a) == [ref.pt_add(p, p) for p in singles]
+    # comb entries as addends: [d 256^w]G with Z = 1, and d = 0's identity
+    table = ef.comb_table_np()
+    idx = [0, 1, 2, 255, 256, 257, 31 * 256, 31 * 256 + 200, 8191]
+    comb = np.ascontiguousarray(table[idx])
+    want_b = [None if d % 256 == 0 else ref.pt_mul(
+        (d % 256) * 256 ** (d // 256), (ref.GX, ref.GY)) for d in idx]
+    assert all(comb[i, 2, 0] == (0 if w is None else 1)
+               for i, w in enumerate(want_b))
+    acc = [pts[i % 8] for i in range(len(idx))]
+    acc[1] = want_b[1]      # P + P through a comb entry
+    acc[3] = None           # the identity plus a comb entry
+    acc[5] = (want_b[5][0], ref.P - want_b[5][1])  # P + (-P)
+    got = _quad_pt(lib, 0, _proj(acc, rng), comb)
+    assert got == [ref.pt_add(p, q) for p, q in zip(acc, want_b)]
 
 
 @pytest.mark.slow  # ~70 s or more: the JAX XLA ECDSA kernel's compile
