@@ -41,12 +41,15 @@ Phases (any failure exits non-zero and prints no result line):
      launch counts exact; then each cached kernel at the stream's shapes
      (B = 65,536 columns, M = 1,024) against its plain version, the tally
      also with 513 commits (above its shared-memory cap) and timed in
-     device time beside index_add_;
+     device time beside index_add_; then both entries of
+     ed25519_verify_cached (the one-thread kernel first, then the quad) on
+     the chunk's first 8,192 / 10,240 / 16,384 / 32,768 / 65,536 columns,
+     each against plain and timed in device time;
   7. verify_commit on phase 3's 10k commit with device_batch_fn(cached=True):
      a cold table build, then warm calls; tampered signature 4,321 blamed;
      then ed25519_verify_cached on the rows that path verified (10,240
      columns, M = 16,384) and valset_table_build at M = 16,384 against their
-     plain versions;
+     plain versions, and both verify entries timed at that shape;
   8. sr25519_verify and ecdsa_verify against their plain versions on the
      card, exactly, 256 columns each over every edge case (edge_cases.py);
      both sides must also equal the sr25519_ref / secp256k1_ref oracles;
@@ -71,8 +74,9 @@ Phases (any failure exits non-zero and prints no result line):
 Before the last line it prints the `kernels` JSON (launches on the main
 paths, in all and by path; times; bounds; for every kernel `device_ms`, from
 a profiler trace at its phase's shape, by live columns or by shape where a
-phase runs it at two; for the two tallies also `library_device_ms`); the
-last line is {"ok": true, "device": {...}}.
+phase runs it at two; for the two tallies also `library_device_ms`; for
+ed25519_verify_cached the entry the wrapper launched at each shape and the
+sweep of both entries); the last line is {"ok": true, "device": {...}}.
 
 Launch counters are set to 0 just before each main-path run and read just
 after; launches made to compare a kernel with its plain version are not
@@ -114,6 +118,9 @@ SHORT_ABSENT = 400
 STREAM_RUNS = 3              # one cold, two warm
 CACHED_RUNS = 5
 DEVICE_REPS = 50             # calls in a profiler trace for device_ms
+# column prefixes of the stream chunk (M = 1,024) at which every entry of
+# the cached verify is timed; 8,192 is pad_rows(6,667), the light call's
+STREAM_SWEEP = (8192, 10_240, 16_384, 32_768, 65_536)
 # timestamps that cross every varint width boundary, the zero-skipping
 # cases and the 10-byte two's-complement negatives
 FUZZ_SECS = [0, 1, 127, 128, 16383, 16384, 1_700_000_000, 2**31 - 1,
@@ -362,6 +369,38 @@ def device_line(kernel, library) -> str:
         return "not measured" if t is None else (
             f"{t[0]:.6f} (kernels/call={t[1]:g} memsets/call={t[2]:g})")
     return f"device_ms={one(kernel)} index_add_device_ms={one(library)}"
+
+
+def cached_entry_sweep(dev, rows, table, plain, widths, phase):
+    """Each entry of the cached verify (ec.VERIFY_CACHED_ENTRIES, the one-
+    thread entry first) on the first B columns of rows for every B in
+    widths: held against the plain verdicts `plain` of those columns and
+    timed by device time. Launches through ec.launch_verify_cached, so the
+    wrappers' counts do not move. Returns {entry: {"BxM": device ms}}."""
+    import torch
+
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+
+    M = table.n_vals
+    entries = sorted(ec.VERIFY_CACHED_ENTRIES, key=lambda e: e != "thread")
+    sweep = {}
+    for entry in entries:
+        sweep[entry] = {}
+        for B in widths:
+            r = rows[:, :B].contiguous()
+            got = ec.launch_verify_cached(r, table.tab, table.ok, entry)
+            check(torch.equal(got, plain[:B]),
+                  f"ed25519_verify_cached entry {entry} != plain at "
+                  f"{B} columns, M={M}")
+            t = dev_ms(lambda: ec.launch_verify_cached(  # noqa: B023
+                r, table.tab, table.ok, entry),
+                f"ed25519_verify_cached_{entry}_{B}x{M}_trace.json")
+            sweep[entry][f"{B}x{M}"] = t
+        print(f"{phase} ed25519_verify_cached entry={entry} M={M} "
+              f"kernel==plain, device_ms by cols " + " ".join(
+                  f"{k.split('x')[0]}={fmt_ms(t)}"
+                  for k, t in sweep[entry].items()), flush=True)
+    return sweep
 
 
 def split_times(dev, vs, commit, n, runs):
@@ -1306,10 +1345,13 @@ def phase_stream(dev, pool, rng, kernel_stats):
     check(int(verdicts.sum()) == live - bad,
           "the chunk's valid rows did not all verify")
     verify_dev = dev_ms(vk, "ed25519_verify_cached_stream_trace.json")
+    verify_entry = ec.verify_cached_entry(B, ec.sm_count(dev))
     print(f"phase6 ed25519_verify_cached cols={B} M={M} live={live} "
-          f"kernel_ms={verify_ms:.4f} device_ms={fmt_ms(verify_dev)} "
-          f"plain_ms={verify_plain_ms:.1f} "
+          f"entry={verify_entry} kernel_ms={verify_ms:.4f} "
+          f"device_ms={fmt_ms(verify_dev)} plain_ms={verify_plain_ms:.1f} "
           "kernel==plain", flush=True)
+    verify_sweep = cached_entry_sweep(dev, rows, table, vp, STREAM_SWEEP,
+                                      "phase6")
 
     tq = lambda: ec.tally_quorum_cached(verdicts, rows,  # noqa: E731
                                         table.power5, cap)
@@ -1401,7 +1443,9 @@ def phase_stream(dev, pool, rng, kernel_stats):
         bytes=(B * (ec.V_KROWS * 4 + 4) + M * (ec.ENT_PER_VAL * 120 + 1)
                + 8192 * 120),
         library_ms=None, device_ms=verify_dev,
-        device_ms_by_shape={f"{B}x{M}": verify_dev})
+        device_ms_by_shape={f"{B}x{M}": verify_dev},
+        entry_by_shape={f"{B}x{M}": verify_entry},
+        sweep_device_ms=verify_sweep)
     kernel_stats["tally_quorum_cached"] = dict(
         launches_by_path={"stream": cold[1]["tally_quorum_cached"]},
         ms=tally_ms, plain_ms=tally_plain_ms, max_abs_err=tally_err,
@@ -1490,6 +1534,9 @@ def phase_cached_commit(dev, res, kernel_stats):
                                           table.ok)
     verify_ms = cuda_ms(vk, 5)
     verify_dev = dev_ms(vk, "ed25519_verify_cached_commit_trace.json")
+    verify_entry = ec.verify_cached_entry(rows.shape[1], ec.sm_count(dev))
+    verify_sweep = cached_entry_sweep(dev, rows, table, want,
+                                      (rows.shape[1],), "phase7")
     # the M = 16,384 table build, kernel and plain, against the cached table
     lenok = torch.ones((M,), dtype=torch.bool, device=dev)
     lenok[N_VALS:] = False
@@ -1512,6 +1559,10 @@ def phase_cached_commit(dev, res, kernel_stats):
         k["launches_by_path"]["verify_commit_cached"] = launches[name]
         k["max_abs_err"] = max(k["max_abs_err"], err)
         k["device_ms_by_shape"][shape] = t
+    k = kernel_stats["ed25519_verify_cached"]
+    k["entry_by_shape"][f"{rows.shape[1]}x{M}"] = verify_entry
+    for entry, times in verify_sweep.items():
+        k["sweep_device_ms"].setdefault(entry, {}).update(times)
     print(f"phase7 launches {json.dumps(launches)} breaker_trips=0 faults=0 "
           f"blamed_idx={TAMPER_IDX}", flush=True)
     rate = int_ops_per_s()[1]
@@ -1519,8 +1570,8 @@ def phase_cached_commit(dev, res, kernel_stats):
                     / rate * 1e3)
     build_bound = M * ec.build_products_per_validator() / rate * 1e3
     print(f"phase7 ed25519_verify_cached cols={rows.shape[1]} M={M} "
-          f"kernel_ms={verify_ms:.4f} device_ms={fmt_ms(verify_dev)} "
-          f"ops_bound_ms={verify_bound:.4f} "
+          f"entry={verify_entry} kernel_ms={verify_ms:.4f} "
+          f"device_ms={fmt_ms(verify_dev)} ops_bound_ms={verify_bound:.4f} "
           "kernel==plain (clean and tampered rows); valset_table_build "
           f"M={M} kernel_ms={build16k_ms:.3f} device_ms="
           f"{fmt_ms(build16k_dev)} ops_bound_ms={build_bound:.4f} "
@@ -2055,7 +2106,8 @@ def kernels_json(kernel_stats):
             device_ms=k["device_ms"],
             **{key: k[key] for key in ("library_device_ms",
                                        "device_ms_by_shape",
-                                       "device_ms_by_live") if key in k},
+                                       "device_ms_by_live", "entry_by_shape",
+                                       "sweep_device_ms") if key in k},
         ))
     print(f"bound: {products} limb products/signature, clocks.max.sm={mhz} "
           f"MHz, {imad_per_s:.4e} INT32 multiply-adds/s", flush=True)

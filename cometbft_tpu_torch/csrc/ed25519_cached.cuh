@@ -1,7 +1,12 @@
-// Cached-valset ed25519 arithmetic shared by the table-build kernel
-// (valset_table.cu), the cached verify kernel (ed25519_cached_verify.cu) and
-// their host build (ed25519_host.cpp, compiled with the C++ compiler so the
-// CPU tests check it against the oracle and the plain versions).
+// Cached-valset ed25519 arithmetic: the table build, which the table-build
+// kernel (valset_table.cu) runs on the card, and verify_column_cached, the
+// one-thread verdict of a cached column. The cached verify kernel
+// (ed25519_cached_verify.cu) runs the quad program of
+// ed25519_cached_quad.cuh on the card; verify_column_cached is its host
+// reference (cbt_host_verify_cached), and runs on the card only in the
+// kernel's one-thread entry. The host build (ed25519_host.cpp, compiled
+// with the C++ compiler) lets the CPU tests check all of it against the
+// oracle and the plain versions.
 //
 // The port's valset table: entry e = j * 16 + d of validator v, at index
 // v * 128 + e, is [d] * (2^(32 j) * (-A_v)) as an affine niels point
@@ -62,8 +67,11 @@ CBT_HD bool table_entries(const uint8_t* pub, int j, ge_niels* out) {
   return ok;
 }
 
-// The verdict of column `col` of the cached packed rows (R, B): column col
-// is validator v = col mod M, whose 128 table entries start at tab[v * 128].
+// The verdict of column `col` of the cached packed rows (R, B), one thread
+// a column: the host reference of the quad kernel's program
+// (cbt_quad::quad_verdict_cached), and the kernel's one-thread entry.
+// Column col is validator v = col mod M, whose 128 table entries start at
+// tab[v * 128].
 // 1 iff the precheck passed, ok[v], R decodes and
 // [8]([h](-A) + [s]B - R) is the identity. h(-A) is a Horner loop over 8
 // windows of 4 doublings; window w adds base j's digit, nibble 8 j + w of h,

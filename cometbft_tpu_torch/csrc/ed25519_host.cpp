@@ -16,6 +16,7 @@ long long cbt_sha_block_count = 0;
 #endif
 
 #include "ed25519_cached.cuh"
+#include "ed25519_cached_quad.cuh"
 #include "ed25519_core.cuh"
 #include "ed25519_quad.cuh"
 #include "ristretto_core.cuh"
@@ -143,6 +144,19 @@ extern "C" void cbt_host_verify_cached(const int32_t* rows, int B,
   const cbt::ge_niels* b = reinterpret_cast<const cbt::ge_niels*>(base);
   for (int col = 0; col < B; col++)
     out[col] = cbt::verify_column_cached(rows, B, col, t, M, ok, b);
+}
+
+// The cached quad kernel's lane program (csrc/ed25519_cached_quad.cuh) with
+// all four lanes on one thread, column by column.
+extern "C" void cbt_host_verify_cached_quad(const int32_t* rows, int B,
+                                            const int32_t* tab, int M,
+                                            const uint8_t* ok,
+                                            const int32_t* base,
+                                            int32_t* out) {
+  const cbt::ge_niels* t = reinterpret_cast<const cbt::ge_niels*>(tab);
+  const cbt::ge_niels* b = reinterpret_cast<const cbt::ge_niels*>(base);
+  for (int col = 0; col < B; col++)
+    out[col] = cbt_quad::verify_column_cached_quad(rows, B, col, t, M, ok, b);
 }
 
 extern "C" void cbt_host_stamp(const uint8_t* sig, const int32_t* ts,

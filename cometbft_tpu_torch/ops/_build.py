@@ -38,7 +38,9 @@ KERNELS = {
     },
     "valset_table.cu": {"cbt_valset_table_build": [_P, _P, _I, _P, _P, _P]},
     "ed25519_cached_verify.cu": {
-        "cbt_ed25519_verify_cached": [_P, _I, _P, _I, _P, _P, _P, _P]},
+        "cbt_ed25519_verify_cached": [_P, _I, _P, _I, _P, _P, _P, _P],
+        "cbt_ed25519_verify_cached_thread": [_P, _I, _P, _I, _P, _P, _P,
+                                             _P]},
     "stamp_rows.cu": {"cbt_stamp_rows": [
         _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I,
         _P, _P]},
@@ -56,6 +58,7 @@ _HOST_FNS = {
     "cbt_host_secp_fe": ([_I, _P, _P, _I, _P], None),
     "cbt_host_table_build": ([_P, _I, _P, _P], None),
     "cbt_host_verify_cached": ([_P, _I, _P, _I, _P, _P, _P], None),
+    "cbt_host_verify_cached_quad": ([_P, _I, _P, _I, _P, _P, _P], None),
     "cbt_host_stamp": ([_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P,
                         _I, _P, _I, _I, _P], None),
     "cbt_host_sc_reduce": ([_P, _P], None),

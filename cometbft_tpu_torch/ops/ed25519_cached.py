@@ -655,6 +655,54 @@ def _check_table(tab: torch.Tensor, ok: torch.Tensor) -> int:
     return M
 
 
+# The C entries of csrc/ed25519_cached_verify.cu: a quad of four threads a
+# column, and one thread a column.
+VERIFY_CACHED_ENTRIES = {"quad": "cbt_ed25519_verify_cached",
+                         "thread": "cbt_ed25519_verify_cached_thread"}
+
+# The wrapper launches the quad entry up to this many columns an SM, and the
+# one-thread entry above. From chip_smoke.py's sweep of both entries over
+# the stream chunk's column prefixes (M = 1,024; device time on one NVIDIA
+# H100 80GB HBM3 at 700.00 W, 132 SMs), quad / one-thread ms: 0.249 / 0.584
+# at 8,192 columns, 0.331 / 0.585 at 10,240, 0.576 / 0.583 at 16,384 (124
+# an SM), 0.877 / 0.794 at 32,768 and 1.783 / 1.571 at 65,536. Below the
+# crossover the one-thread kernel leaves SMs idle; above it every SM is
+# full and the quad's extra instructions a column cost more than its
+# shorter chain saves.
+QUAD_MAX_COLS_PER_SM = 124
+
+
+def verify_cached_entry(B: int, sms: int) -> str:
+    """The entry the wrapper launches for B columns on a card of `sms`
+    SMs: "quad" up to QUAD_MAX_COLS_PER_SM columns an SM, else "thread"."""
+    return "quad" if B <= QUAD_MAX_COLS_PER_SM * sms else "thread"
+
+
+def sm_count(dev: torch.device) -> int:
+    """The streaming multiprocessors of CUDA device `dev`."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def launch_verify_cached(rows: torch.Tensor, tab: torch.Tensor,
+                         ok: torch.Tensor, entry: str) -> torch.Tensor:
+    """One launch of the cached verify entry `entry` on CUDA operands the
+    wrapper has checked; counts nothing."""
+    from cometbft_tpu_torch.ops import _build
+
+    dev = rows.device
+    fn = getattr(_build.kernel_lib("ed25519_cached_verify.cu"),
+                 VERIFY_CACHED_ENTRIES[entry])
+    base = kf.base_table(dev)
+    B = rows.shape[1]
+    out = torch.empty((B,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(rows.data_ptr(), B, tab.data_ptr(), ok.shape[0],
+                 ok.data_ptr(), base.data_ptr(), out.data_ptr(), stream)
+    kf._raise_on(err, "ed25519_verify_cached")
+    return out
+
+
 def ed25519_verify_cached(rows: torch.Tensor, tab: torch.Tensor,
                           ok: torch.Tensor) -> torch.Tensor:
     """(>= V_KROWS, B) int32 cached packed rows + a valset table's (tab,
@@ -662,27 +710,17 @@ def ed25519_verify_cached(rows: torch.Tensor, tab: torch.Tensor,
     b mod M.
 
     CUDA tensors launch csrc/ed25519_cached_verify.cu with the niels comb
-    table (`ed25519_fused.base_table`); CPU tensors run
-    `ed25519_verify_cached_plain`."""
+    table (`ed25519_fused.base_table`), the entry `verify_cached_entry`
+    names; CPU tensors run `ed25519_verify_cached_plain`."""
     kf._check_rows(rows, V_KROWS)
-    M = _check_table(tab, ok)
+    _check_table(tab, ok)
     dev = rows.device
     if dev.type == "cpu" and tab.device == dev and ok.device == dev:
         return ed25519_verify_cached_plain(rows, tab, ok,
                                            kf.base_points(dev))
     _kernel_device(dev, "ed25519_verify_cached", tab, ok)
-    from cometbft_tpu_torch.ops import _build
-
-    fn = _build.kernel_lib(
-        "ed25519_cached_verify.cu").cbt_ed25519_verify_cached
-    base = kf.base_table(dev)
-    B = rows.shape[1]
-    out = torch.empty((B,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(rows.data_ptr(), B, tab.data_ptr(), M, ok.data_ptr(),
-                 base.data_ptr(), out.data_ptr(), stream)
-    kf._raise_on(err, "ed25519_verify_cached")
+    out = launch_verify_cached(
+        rows, tab, ok, verify_cached_entry(rows.shape[1], sm_count(dev)))
     ed25519_verify_cached.launches += 1
     return out
 

@@ -517,6 +517,96 @@ def test_host_build_of_the_table_and_cached_verify_match_plain(batch):
     assert np.array_equal(out, ec.verify_rows_cached(rows, table).numpy())
 
 
+@pytest.mark.parametrize("sms", [132, 114])
+def test_wrapper_launches_the_quad_up_to_the_crossover(sms):
+    """The quad entry runs up to QUAD_MAX_COLS_PER_SM columns an SM and the
+    one-thread entry above, on the card's SM count: on an H100 SXM (132
+    SMs) the light call's 8,192 and the cached commit's 10,240 columns run
+    the quad, the stream chunk's 65,536 the one-thread kernel."""
+    cap = ec.QUAD_MAX_COLS_PER_SM * sms
+    assert ec.verify_cached_entry(1, sms) == "quad"
+    assert ec.verify_cached_entry(cap, sms) == "quad"
+    assert ec.verify_cached_entry(cap + 1, sms) == "thread"
+    assert set(ec.VERIFY_CACHED_ENTRIES) == {"quad", "thread"}
+    if sms == 132:
+        assert [ec.verify_cached_entry(B, sms) for B in (
+            8192, 10_240, 16_384, 65_536)] == ["quad", "quad", "thread",
+                                               "thread"]
+
+
+@pytest.fixture(scope="module")
+def batch_expected(batch):
+    """The batch's verdicts by column: the oracle's (False for a short
+    key) and the JAX package's XLA verify kernel's, padding False."""
+    pubs, msgs, sigs, _, rows = batch
+    n, B = len(pubs), rows.shape[1]
+    exp = np.zeros(B, bool)
+    exp[:n] = oracle(pubs, msgs, sigs) & np.array([len(p) == 32
+                                                   for p in pubs])
+    jpb = jek.pack_batch(pubs, msgs, sigs, pad_to=64)
+    want = np.zeros(B, bool)
+    want[:n] = np.asarray(jek.verify_kernel(
+        jpb.ay, jpb.asign, jpb.ry, jpb.rsign, jpb.sdig, jpb.hdig,
+        jpb.precheck))[:n].astype(bool)
+    return exp, want
+
+
+def _quad_lane_case(name, rows):
+    """(rows, source column of each column, or None for padding only)."""
+    B0 = rows.shape[1]
+    if name == "batch":
+        return rows, np.arange(B0)
+    if name == "wrapped":  # four copies: B = 512 > M, so col mod M wraps
+        return np.ascontiguousarray(np.tile(rows, (1, 4))), \
+            np.arange(4 * B0) % B0
+    if name in ("b17", "b1"):
+        B = 17 if name == "b17" else 1
+        return np.ascontiguousarray(rows[:, :B]), np.arange(B)
+    return np.zeros((rows.shape[0], 64), np.int32), None
+
+
+@needs_cxx
+@pytest.mark.parametrize("name", ["batch", "wrapped", "b17", "b1",
+                                  "all_padding"])
+def test_cached_quad_lane_program_matches_host_plain_jax_and_oracle(
+        name, batch, batch_expected):
+    """cbt_host_verify_cached_quad runs the cached quad kernel's lane
+    program (csrc/ed25519_cached_quad.cuh) with its four lanes on one
+    thread; it must give the one-thread host build's, the plain version's,
+    the JAX package's and the oracle's verdict on every column: tampered
+    signatures, S >= L, an undecodable and a short key (ok False), the
+    ZIP-215 edge cases, the table's columns wrapped four times, a ragged
+    B, B = 1 and padding only."""
+    _, _, _, table, rows0 = batch
+    rows, src = _quad_lane_case(name, rows0)
+    B = rows.shape[1]
+    lib, base = _build.host_lib(), kf.niels_table_np()
+    tab = table.tab.numpy()
+    M = table.ok.shape[0]
+    ok = table.ok.numpy().astype(np.uint8)
+    assert M == 128 and (name != "wrapped" or B == 512)
+    quad = np.zeros(B, np.int32)
+    lib.cbt_host_verify_cached_quad(rows.ctypes.data, B, tab.ctypes.data, M,
+                                    ok.ctypes.data, base.ctypes.data,
+                                    quad.ctypes.data)
+    one = np.zeros(B, np.int32)
+    lib.cbt_host_verify_cached(rows.ctypes.data, B, tab.ctypes.data, M,
+                               ok.ctypes.data, base.ctypes.data,
+                               one.ctypes.data)
+    plain = ec.ed25519_verify_cached_plain(
+        torch.from_numpy(rows), table.tab, table.ok, kf.base_points(CPU))
+    assert np.array_equal(quad, one)
+    assert np.array_equal(quad, plain.numpy())
+    exp, want = batch_expected
+    if src is None:
+        assert not quad.any()
+        return
+    assert np.array_equal(quad.astype(bool), exp[src])
+    assert np.array_equal(quad.astype(bool), want[src])
+    if name in ("batch", "wrapped"):
+        assert quad.sum() >= 20 and not quad.all()
+
+
 def _host_stamp(lib, case) -> np.ndarray:
     """The host build of stamp_core.cuh over a _stamp_case's deltas."""
     ent = es.template_entry([t.stamp_site() for t in case.ttm], "cpu")

@@ -245,6 +245,115 @@ def test_ed25519_verify_cached_kernel_equals_plain(card):
     assert got.cpu().numpy()[:100].astype(bool).tolist() == exp
 
 
+def _cached_fixture():
+    """128 packed cached columns over a 128-slot table: 60 signed rows
+    (one in six tampered, S >= L on three, an undecodable and a short key
+    whose ok is False) and 68 padding columns; -> (rows, table on the CPU,
+    oracle verdict of each column)."""
+    rng = np.random.default_rng(14)
+    seeds = [rng.bytes(32) for _ in range(60)]
+    pubs = [ed.pubkey_from_seed(s) for s in seeds]
+    msgs = [rng.bytes(int(rng.integers(0, 60))) for _ in range(60)]
+    sigs = [ed.sign(s, m) for s, m in zip(seeds, msgs)]
+    for i in range(0, 60, 6):
+        sigs[i] = sigs[i][:40] + bytes([sigs[i][40] ^ 8]) + sigs[i][41:]
+    for i in (5, 29, 47):
+        s = int.from_bytes(sigs[i][32:], "little") + ed.L
+        sigs[i] = sigs[i][:32] + int.to_bytes(s, 32, "little")
+    pubs[7] = b"\x02" + bytes(31)  # y = 2 is not on the curve
+    pubs[13] = pubs[13][:31]
+    table = ec.build_table(pubs, device="cpu")
+    assert table.n_vals == 128 and not table.ok[7] and not table.ok[13]
+    pb = ek.pack_batch(pubs, msgs, sigs, pad_to=128)
+    exp = np.zeros(128, bool)
+    exp[:60] = [len(p) == 32 and ed.verify(p, m, s)
+                 for p, m, s in zip(pubs, msgs, sigs)]
+    return ec.pack_rows_cached(pb), table, exp
+
+
+@pytest.fixture(scope="module")
+def cached_fixture():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper GPU (torch.cuda is unavailable)")
+    return _cached_fixture()
+
+
+def _cached_on(card, fixture, B):
+    """The fixture's columns tiled to B (B > 128 wraps col mod M), on the
+    card, with the plain verdicts and the oracle's."""
+    rows, table, exp = fixture
+    reps = -(-B // rows.shape[1])
+    r = torch.from_numpy(np.ascontiguousarray(
+        np.tile(rows, (1, reps))[:, :B])).to(card)
+    tab, ok = table.tab.to(card), table.ok.to(card)
+    want = ec.ed25519_verify_cached_plain(r, tab, ok, kf.base_points(card))
+    return r, tab, ok, want, np.tile(exp, reps)[:B]
+
+
+@pytest.mark.parametrize("B", [1, 17, 256, 512])
+def test_ed25519_verify_cached_kernel_edge_shapes(card, cached_fixture, B):
+    """B = 1, a B that is not a multiple of a block's 16 columns, and B
+    above M = 128, over dead columns, failed prechecks and ok False
+    slots: one launch of the entry the wrapper names, equal to plain and
+    to the oracle."""
+    r, tab, ok, want, exp = _cached_on(card, cached_fixture, B)
+    before = ec.ed25519_verify_cached.launches
+    got = ec.ed25519_verify_cached(r, tab, ok)
+    torch.cuda.synchronize()
+    assert ec.ed25519_verify_cached.launches == before + 1
+    assert torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy().astype(bool), exp)
+
+
+@pytest.mark.parametrize("entry", sorted(ec.VERIFY_CACHED_ENTRIES))
+@pytest.mark.parametrize("B", [17, 512])
+def test_ed25519_verify_cached_entries_equal_plain(card, cached_fixture,
+                                                   entry, B):
+    """Every C entry of the cached verify gives the plain verdicts, and
+    launching one directly does not count as the wrapper's launch."""
+    r, tab, ok, want, _ = _cached_on(card, cached_fixture, B)
+    before = ec.ed25519_verify_cached.launches
+    got = ec.launch_verify_cached(r, tab, ok, entry)
+    torch.cuda.synchronize()
+    assert ec.ed25519_verify_cached.launches == before
+    assert torch.equal(got, want)
+
+
+def test_ed25519_verify_cached_wrapper_launches_the_entry_it_names(
+        card, cached_fixture, monkeypatch):
+    """At the crossover's last quad width and one column above it, the
+    wrapper launches the entry verify_cached_entry names, once, and both
+    give the plain verdicts."""
+    cap = ec.QUAD_MAX_COLS_PER_SM * ec.sm_count(card)
+    ran = []
+    real = ec.launch_verify_cached
+
+    def spy(rows, tab, ok, entry):
+        ran.append(entry)
+        return real(rows, tab, ok, entry)
+
+    monkeypatch.setattr(ec, "launch_verify_cached", spy)
+    for B in (cap, cap + 1):
+        r, tab, ok, want, exp = _cached_on(card, cached_fixture, B)
+        before = ec.ed25519_verify_cached.launches
+        got = ec.ed25519_verify_cached(r, tab, ok)
+        torch.cuda.synchronize()
+        assert ec.ed25519_verify_cached.launches == before + 1
+        assert torch.equal(got, want)
+        assert np.array_equal(got.cpu().numpy().astype(bool), exp)
+    assert ran == ["quad", "thread"]
+
+
+def test_ed25519_verify_cached_kernel_gives_one_result_every_run(
+        card, cached_fixture):
+    r, tab, ok, want, _ = _cached_on(card, cached_fixture, 512)
+    before = ec.ed25519_verify_cached.launches
+    outs = [ec.ed25519_verify_cached(r, tab, ok) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert ec.ed25519_verify_cached.launches == before + 2
+    assert all(torch.equal(o, want) for o in outs)
+
+
 def test_tally_quorum_cached_kernel_equals_plain(card):
     from cometbft_tpu_torch.ops import ed25519_cached as ec
 
