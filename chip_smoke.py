@@ -29,7 +29,8 @@ Phases (any failure exits non-zero and prints no result line):
      (CUDA events) and in device time, beside index_add_ on the same
      inputs;
   5. the cached-path kernels against their plain versions on the card,
-     exactly: valset_table_build at M = 128 (bad and edge keys included),
+     exactly: valset_table_build at M = 128 (bad and edge keys included;
+     the wrapper and each of its entries),
      ed25519_verify_cached on 256 columns (also against the oracle),
      stamp_rows over every fuzzed timestamp width with two templates (also
      against pack_rows_cached of a host pack) and tally_quorum_cached on 8
@@ -44,12 +45,19 @@ Phases (any failure exits non-zero and prints no result line):
      device time beside index_add_; then both entries of
      ed25519_verify_cached (the one-thread kernel first, then the quad) on
      the chunk's first 8,192 / 10,240 / 16,384 / 32,768 / 65,536 columns,
-     each against plain and timed in device time;
+     each against plain and timed in device time; valset_table_build at
+     the stream's M = 1,024 and at update_table's 128-slot delta (the 8
+     rotated keys), the wrapper and each entry against plain, timed in
+     device time, and update_table's columns equal to the delta's plain
+     build;
   7. verify_commit on phase 3's 10k commit with device_batch_fn(cached=True):
      a cold table build, then warm calls; tampered signature 4,321 blamed;
      then ed25519_verify_cached on the rows that path verified (10,240
-     columns, M = 16,384) and valset_table_build at M = 16,384 against their
-     plain versions, and both verify entries timed at that shape;
+     columns, M = 16,384) and valset_table_build at M = 16,384 (the wrapper
+     and each entry, also against the cached table) against their plain
+     versions, both verify entries and both table entries timed at that
+     shape, and both table entries also at the table's first 2,048 and
+     4,096 slots (TABLE_CROSS_SWEEP), against the plain table's prefix;
   8. sr25519_verify and ecdsa_verify against their plain versions on the
      card, exactly, 256 columns each over every edge case (edge_cases.py);
      both sides must also equal the sr25519_ref / secp256k1_ref oracles;
@@ -75,8 +83,9 @@ Before the last line it prints the `kernels` JSON (launches on the main
 paths, in all and by path; times; bounds; for every kernel `device_ms`, from
 a profiler trace at its phase's shape, by live columns or by shape where a
 phase runs it at two; for the two tallies also `library_device_ms`; for
-ed25519_verify_cached the entry the wrapper launched at each shape and the
-sweep of both entries); the last line is {"ok": true, "device": {...}}.
+ed25519_verify_cached and valset_table_build the entry the wrapper
+launched at each shape and the sweep of every entry); the last line is
+{"ok": true, "device": {...}}.
 
 Launch counters are set to 0 just before each main-path run and read just
 after; launches made to compare a kernel with its plain version are not
@@ -121,6 +130,10 @@ DEVICE_REPS = 50             # calls in a profiler trace for device_ms
 # column prefixes of the stream chunk (M = 1,024) at which every entry of
 # the cached verify is timed; 8,192 is pad_rows(6,667), the light call's
 STREAM_SWEEP = (8192, 10_240, 16_384, 32_768, 65_536)
+# slot prefixes of the cached commit's table (all live) at which every
+# entry of the table build is also timed: above the stream's M = 1,024,
+# so that they bracket the entries' crossover (WARP_MAX_VALS_PER_SM)
+TABLE_CROSS_SWEEP = (2048, 4096)
 # timestamps that cross every varint width boundary, the zero-skipping
 # cases and the 10-byte two's-complement negatives
 FUZZ_SECS = [0, 1, 127, 128, 16383, 16384, 1_700_000_000, 2**31 - 1,
@@ -401,6 +414,44 @@ def cached_entry_sweep(dev, rows, table, plain, widths, phase):
                   f"{k.split('x')[0]}={fmt_ms(t)}"
                   for k, t in sweep[entry].items()), flush=True)
     return sweep
+
+
+def table_build_entries() -> dict:
+    """Every entry of valset_table_build: name -> fn(pub_raw, lenok) ->
+    (tab, ok), launched through ec.launch_valset_table_build, so the
+    wrapper's count does not move."""
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+
+    return {e: (lambda pub, ln, e=e: ec.launch_valset_table_build(pub, ln, e))
+            for e in ec.TABLE_BUILD_ENTRIES}
+
+
+def table_entry_sweep(pub, lenok, want, phase):
+    """Each entry of valset_table_build on (pub, lenok), held byte for byte
+    against `want` = (tab, ok) and timed by device time. Returns
+    {entry: {"M=<M>": device ms}}."""
+    import torch
+
+    M = pub.shape[0]
+    sweep = {}
+    for entry, fn in table_build_entries().items():
+        tab, ok = fn(pub, lenok)
+        torch.cuda.synchronize()
+        check(torch.equal(tab, want[0]) and torch.equal(ok, want[1]),
+              f"valset_table_build entry {entry} != plain at M={M}")
+        del tab, ok
+        t = dev_ms(lambda: fn(pub, lenok),  # noqa: B023
+                   f"valset_table_build_{entry}_{M}_trace.json")
+        sweep[entry] = {f"M={M}": t}
+        print(f"{phase} valset_table_build entry={entry} M={M} "
+              f"kernel==plain (bytes) device_ms={fmt_ms(t)}", flush=True)
+    return sweep
+
+
+def merge_sweep(stats: dict, sweep: dict) -> None:
+    for entry, times in sweep.items():
+        stats.setdefault("sweep_device_ms", {}).setdefault(
+            entry, {}).update(times)
 
 
 def split_times(dev, vs, commit, n, runs):
@@ -962,8 +1013,14 @@ def phase_cached_kernels_vs_plain(dev, pool, rng):
     okv = ok_k.cpu().numpy()
     check(okv[:121].all() and not okv[121] and okv[122:124].all()
           and not okv[124:].any(), f"table ok bits {okv[118:128]}")
-    print("phase5 valset_table_build M=128 keys=124 kernel==plain (bytes) "
-          f"ok={int(okv.sum())}", flush=True)
+    for entry, fn in table_build_entries().items():
+        te, ok_e = fn(pub, ln)
+        torch.cuda.synchronize()
+        check(torch.equal(te, tp) and torch.equal(ok_e, ok_p),
+              f"valset_table_build entry {entry} != plain at M = 128")
+    print("phase5 valset_table_build M=128 keys=124 kernel==plain (bytes), "
+          f"entries {sorted(table_build_entries())} ==plain ok="
+          f"{int(okv.sum())}", flush=True)
 
     # ed25519_verify_cached on 256 columns (the mix of phase 2)
     seeds = [seed_bytes(rng) for _ in range(200)]
@@ -1424,9 +1481,31 @@ def phase_stream(dev, pool, rng, kernel_stats):
     check(torch.equal(patched.tab, ec.table_for_valset(sets[1]).tab),
           "update_table != the stream's V1 table")
     build_dev = dev_ms(build, "valset_table_build_1024_trace.json")
-    print(f"phase6 valset_table_build M={M} kernel_ms={build_ms:.3f} "
+    sms = ec.sm_count(dev)
+    table_sweep = table_entry_sweep(table.pub_raw, lenok, (tab_p, ok_p),
+                                    "phase6")
+    del tab_k, tab_p
+    # update_table's delta: the 8 rotated keys in UPDATE_PAD = 128 slots,
+    # the same inputs update_table hands the wrapper
+    d_raw, d_len = ec._pack_pub_arrays([v1_pubs[i] for i in ROTATED],
+                                       ec.UPDATE_PAD)
+    d_pub = torch.from_numpy(d_raw).to(dev)
+    d_len = torch.from_numpy(d_len).to(dev)
+    delta = lambda: ec.valset_table_build(d_pub, d_len)  # noqa: E731
+    delta_dev = dev_ms(delta, "valset_table_build_128_trace.json")
+    d_tab, d_ok = ec.valset_table_build_plain(d_pub, d_len)
+    check(torch.equal(patched.tab.view(M, -1)[list(ROTATED)],
+                      d_tab.view(ec.UPDATE_PAD, -1)[:len(ROTATED)]),
+          "update_table's columns != the plain delta build")
+    for entry, times in table_entry_sweep(d_pub, d_len, (d_tab, d_ok),
+                                          "phase6").items():
+        table_sweep[entry].update(times)
+    print(f"phase6 valset_table_build M={M} entry="
+          f"{ec.table_build_entry(M, sms)} kernel_ms={build_ms:.3f} "
           f"device_ms={fmt_ms(build_dev)} "
-          f"plain_ms={build_plain_ms:.1f} update_table_8_keys_ms="
+          f"plain_ms={build_plain_ms:.1f}; update delta M={ec.UPDATE_PAD} "
+          f"entry={ec.table_build_entry(ec.UPDATE_PAD, sms)} device_ms="
+          f"{fmt_ms(delta_dev)} update_table_8_keys_ms="
           f"{[round(x, 3) for x in update_ms]}", flush=True)
     restore_launches(saved)
 
@@ -1435,7 +1514,13 @@ def phase_stream(dev, pool, rng, kernel_stats):
         ms=build_ms, plain_ms=build_plain_ms, max_abs_err=build_err,
         ops=M * ec.build_products_per_validator(),
         bytes=M * (32 + 1) + M * (ec.ENT_PER_VAL * 120 + 1), library_ms=None,
-        device_ms=build_dev, device_ms_by_shape={f"M={M}": build_dev})
+        device_ms=build_dev,
+        device_ms_by_shape={f"M={ec.UPDATE_PAD}": delta_dev,
+                            f"M={M}": build_dev},
+        entry_by_shape={
+            f"M={m}": ec.table_build_entry(m, sms)
+            for m in (ec.UPDATE_PAD, M)},
+        sweep_device_ms=table_sweep)
     kernel_stats["ed25519_verify_cached"] = dict(
         launches_by_path={"stream": cold[1]["ed25519_verify_cached"]},
         ms=verify_ms, plain_ms=verify_plain_ms, max_abs_err=verify_err,
@@ -1549,7 +1634,15 @@ def phase_cached_commit(dev, res, kernel_stats):
     check(build_err == 0 and torch.equal(ok_k, ok_p)
           and torch.equal(tab_k, table.tab),
           "valset_table_build != plain (or != the cached table) at M=16,384")
-    del tab_k, tab_p
+    del tab_k
+    table_sweep = table_entry_sweep(table.pub_raw, lenok, (tab_p, ok_p),
+                                    "phase7")
+    for m in TABLE_CROSS_SWEEP:
+        for entry, times in table_entry_sweep(
+                table.pub_raw[:m], lenok[:m], (tab_p[:m * 128], ok_p[:m]),
+                "phase7").items():
+            table_sweep[entry].update(times)
+    del tab_p
     restore_launches(launches)
     for name, err, shape, t in (
             ("valset_table_build", build_err, f"M={M}", build16k_dev),
@@ -1561,8 +1654,10 @@ def phase_cached_commit(dev, res, kernel_stats):
         k["device_ms_by_shape"][shape] = t
     k = kernel_stats["ed25519_verify_cached"]
     k["entry_by_shape"][f"{rows.shape[1]}x{M}"] = verify_entry
-    for entry, times in verify_sweep.items():
-        k["sweep_device_ms"].setdefault(entry, {}).update(times)
+    merge_sweep(k, verify_sweep)
+    k = kernel_stats["valset_table_build"]
+    k["entry_by_shape"][f"M={M}"] = ec.table_build_entry(M, ec.sm_count(dev))
+    merge_sweep(k, table_sweep)
     print(f"phase7 launches {json.dumps(launches)} breaker_trips=0 faults=0 "
           f"blamed_idx={TAMPER_IDX}", flush=True)
     rate = int_ops_per_s()[1]
@@ -1573,7 +1668,8 @@ def phase_cached_commit(dev, res, kernel_stats):
           f"entry={verify_entry} kernel_ms={verify_ms:.4f} "
           f"device_ms={fmt_ms(verify_dev)} ops_bound_ms={verify_bound:.4f} "
           "kernel==plain (clean and tampered rows); valset_table_build "
-          f"M={M} kernel_ms={build16k_ms:.3f} device_ms="
+          f"M={M} entry={ec.table_build_entry(M, ec.sm_count(dev))} "
+          f"kernel_ms={build16k_ms:.3f} device_ms="
           f"{fmt_ms(build16k_dev)} ops_bound_ms={build_bound:.4f} "
           "kernel==plain==cached table", flush=True)
     print(f"phase7 cached VerifyCommit n_sigs={N_VALS} M={M} "

@@ -1,6 +1,8 @@
-// Cached-valset ed25519 arithmetic: the table build, which the table-build
-// kernel (valset_table.cu) runs on the card, and verify_column_cached, the
-// one-thread verdict of a cached column. The cached verify kernel
+// Cached-valset ed25519 arithmetic: table_entries, the one-thread table
+// build, and verify_column_cached, the one-thread verdict of a cached
+// column. The table kernel (valset_table.cu) runs the lane programs of
+// valset_table_quad.cuh on the card; table_entries is their host reference
+// (cbt_host_table_build). The cached verify kernel
 // (ed25519_cached_verify.cu) runs the quad program of
 // ed25519_cached_quad.cuh on the card; verify_column_cached is its host
 // reference (cbt_host_verify_cached), and runs on the card only in the

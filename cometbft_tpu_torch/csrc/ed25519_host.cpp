@@ -25,6 +25,7 @@ long long cbt_sha_block_count = 0;
 #include "sr25519_quad.cuh"
 #include "stamp_core.cuh"
 #include "tally_core.cuh"
+#include "valset_table_quad.cuh"
 
 extern "C" void cbt_host_verify(const int32_t* rows, int B,
                                 const int32_t* base, int32_t* out) {
@@ -134,6 +135,31 @@ extern "C" void cbt_host_table_build(const uint8_t* pub_raw, int n,
       const bool dec = cbt::table_entries(pub_raw + (size_t)v * 32, j, out);
       if (j == 0) ok[v] = dec ? 1 : 0;
     }
+}
+
+// The table kernel's quad and warp programs (csrc/valset_table_quad.cuh)
+// with all four lanes of a quad on one thread, validator by validator;
+// the same arguments and outputs as cbt_host_table_build.
+template <bool (*Program)(const uint8_t*, int32_t*, int32_t*)>
+static void host_table_build_lanes(const uint8_t* pub_raw, int n,
+                                   int32_t* tab, uint8_t* ok) {
+  std::vector<int32_t> zs(cbt_quad::kValZs * cbt_quad::kFeWords);
+  for (int v = 0; v < n; v++)
+    ok[v] = Program(pub_raw + (size_t)v * 32,
+                    tab + (size_t)v * cbt::TAB_PER_VAL * cbt_quad::kNielsWords,
+                    zs.data())
+                ? 1
+                : 0;
+}
+
+extern "C" void cbt_host_table_build_quad(const uint8_t* pub_raw, int n,
+                                          int32_t* tab, uint8_t* ok) {
+  host_table_build_lanes<cbt_quad::table_quad_host>(pub_raw, n, tab, ok);
+}
+
+extern "C" void cbt_host_table_build_warp(const uint8_t* pub_raw, int n,
+                                          int32_t* tab, uint8_t* ok) {
+  host_table_build_lanes<cbt_quad::table_warp_host>(pub_raw, n, tab, ok);
 }
 
 extern "C" void cbt_host_verify_cached(const int32_t* rows, int B,

@@ -14,7 +14,8 @@
 // So the host build runs the kernel's own lane program, exchange for
 // exchange. Field arithmetic is ed25519_core.cuh's, with its own inline
 // multiply and square (qfe_mul, qfe_sq) so that the other kernels' out-of-
-// line fe_mul and fe_sq stay as they are.
+// line fe_mul and fe_sq stay as they are; the host's counting build
+// (CBT_COUNT_OPS) counts both kinds alike, one a lane.
 //
 // Lane k holds coordinate k of a point in the order (X, Y, T, Z), and
 // component k of a cached point in the order (Y - X, Y + X, 2dT, Z): the
@@ -51,6 +52,7 @@ using cbt::fe_from_i64;
 // ---------------------------------------------------------------------------
 
 CBT_QD fe qfe_mul(const fe& f, const fe& g) {
+  CBT_COUNT(cbt_fe_mul_count);
   int32_t g19[10], f2[10];
 #pragma unroll
   for (int i = 0; i < 10; i++) {
@@ -73,6 +75,7 @@ CBT_QD fe qfe_mul(const fe& f, const fe& g) {
 }
 
 CBT_QD fe qfe_sq(const fe& f) {
+  CBT_COUNT(cbt_fe_sq_count);
   int64_t h[10];
 #pragma unroll
   for (int k = 0; k < 10; k++) h[k] = 0;

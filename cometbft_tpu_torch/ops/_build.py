@@ -36,7 +36,9 @@ KERNELS = {
         "cbt_tally_quorum": [_P, _P, _I, _I, _P, _P, _P, _P],
         "cbt_tally_quorum_cached": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
     },
-    "valset_table.cu": {"cbt_valset_table_build": [_P, _P, _I, _P, _P, _P]},
+    "valset_table.cu": {
+        "cbt_valset_table_build_quad": [_P, _P, _I, _P, _P, _P, _P],
+        "cbt_valset_table_build_warp": [_P, _P, _I, _P, _P, _P, _P]},
     "ed25519_cached_verify.cu": {
         "cbt_ed25519_verify_cached": [_P, _I, _P, _I, _P, _P, _P, _P],
         "cbt_ed25519_verify_cached_thread": [_P, _I, _P, _I, _P, _P, _P,
@@ -57,6 +59,8 @@ _HOST_FNS = {
     "cbt_host_secp_quad_pt": ([_I, _P, _P, _I, _P], None),
     "cbt_host_secp_fe": ([_I, _P, _P, _I, _P], None),
     "cbt_host_table_build": ([_P, _I, _P, _P], None),
+    "cbt_host_table_build_quad": ([_P, _I, _P, _P], None),
+    "cbt_host_table_build_warp": ([_P, _I, _P, _P], None),
     "cbt_host_verify_cached": ([_P, _I, _P, _I, _P, _P, _P], None),
     "cbt_host_verify_cached_quad": ([_P, _I, _P, _I, _P, _P, _P], None),
     "cbt_host_stamp": ([_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P,

@@ -184,12 +184,63 @@ def valset_table_build_plain(pub_raw: torch.Tensor, lenok: torch.Tensor):
             dec & lenok)
 
 
+# The C entries of csrc/valset_table.cu: a quad of four threads a
+# validator, and a warp (eight quads) a validator. Both park their Z's in
+# a scratch of TABLE_SCRATCH_WORDS int32 a validator.
+TABLE_BUILD_ENTRIES = {"quad": "cbt_valset_table_build_quad",
+                       "warp": "cbt_valset_table_build_warp"}
+TABLE_SCRATCH_WORDS = NJ * (NENT - 1) * 10
+
+# The wrapper launches the warp entry up to this many validators an SM and
+# the quad entry above (1,056 validators on 132 SMs). From chip_smoke.py's
+# sweep of both entries in phases 6 and 7 (device ms on one NVIDIA H100
+# 80GB HBM3 at 700.00 W), warp / quad: 0.362026 / 0.678799 at M = 128,
+# 0.466920 / 0.685865 at 1,024 (7.8 an SM), 0.812371 / 0.706293 at 2,048
+# (15.5 an SM), 1.566344 / 0.731497 at 4,096, 5.928422 / 1.798220 at
+# 16,384. While schedulers idle the chain decides, and the warp entry's
+# is shorter; once every SM is full issue decides, and the quad issues
+# about a quarter of the products a validator. The crossover lies
+# between 7.8 and 15.5 validators an SM; 8 is the first whole number
+# above the measured warp win.
+WARP_MAX_VALS_PER_SM = 8
+
+
+def table_build_entry(M: int, sms: int) -> str:
+    """The entry the wrapper launches for an M-validator build on a card of
+    `sms` SMs: "warp" up to WARP_MAX_VALS_PER_SM validators an SM, else
+    "quad"."""
+    return "warp" if M <= WARP_MAX_VALS_PER_SM * sms else "quad"
+
+
+def launch_valset_table_build(pub_raw: torch.Tensor, lenok: torch.Tensor,
+                              entry: str):
+    """One launch of the table-build entry `entry` on CUDA operands the
+    wrapper has checked; counts nothing. -> (tab, ok)."""
+    from cometbft_tpu_torch.ops import _build
+
+    dev = pub_raw.device
+    M = pub_raw.shape[0]
+    fn = getattr(_build.kernel_lib("valset_table.cu"),
+                 TABLE_BUILD_ENTRIES[entry])
+    tab = torch.empty((M * ENT_PER_VAL, 3, 10), dtype=torch.int32,
+                      device=dev)
+    ok = torch.empty((M,), dtype=torch.bool, device=dev)
+    zs = torch.empty((M * TABLE_SCRATCH_WORDS,), dtype=torch.int32,
+                     device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(pub_raw.data_ptr(), lenok.data_ptr(), M, tab.data_ptr(),
+                 zs.data_ptr(), ok.data_ptr(), stream)
+    kf._raise_on(err, "valset_table_build")
+    return tab, ok
+
+
 def valset_table_build(pub_raw: torch.Tensor, lenok: torch.Tensor):
     """(M, 32) uint8 key bytes (zero for dead or malformed slots) + (M,)
     bool (key had 32 bytes) -> (tab (M * 128, 3, 10) int32, ok (M,) bool).
 
-    CUDA tensors launch csrc/valset_table.cu; CPU tensors run
-    `valset_table_build_plain`."""
+    CUDA tensors launch csrc/valset_table.cu, the entry
+    `table_build_entry` names; CPU tensors run `valset_table_build_plain`."""
     M = pub_raw.shape[0]
     _check(pub_raw, "pub_raw", torch.uint8, (M, 32))
     _check(lenok, "lenok", torch.bool, (M,))
@@ -197,19 +248,10 @@ def valset_table_build(pub_raw: torch.Tensor, lenok: torch.Tensor):
     if dev.type == "cpu" and lenok.device == dev:
         return valset_table_build_plain(pub_raw, lenok)
     _kernel_device(dev, "valset_table_build", lenok)
-    from cometbft_tpu_torch.ops import _build
-
-    fn = _build.kernel_lib("valset_table.cu").cbt_valset_table_build
-    tab = torch.empty((M * ENT_PER_VAL, 3, 10), dtype=torch.int32,
-                      device=dev)
-    ok = torch.empty((M,), dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(pub_raw.data_ptr(), lenok.data_ptr(), M, tab.data_ptr(),
-                 ok.data_ptr(), stream)
-    kf._raise_on(err, "valset_table_build")
+    out = launch_valset_table_build(pub_raw, lenok,
+                                    table_build_entry(M, sm_count(dev)))
     valset_table_build.launches += 1
-    return tab, ok
+    return out
 
 
 valset_table_build.launches = 0
@@ -244,6 +286,26 @@ BUILD_NEEDED_FE_MULS = (_DEC_M + 32 * (NJ - 1) * _DBL_M + (NJ - 1)
                         + NJ * _ADDS_M + 3 * (_LIVE_ENT - 1) + _INV_M
                         + _LIVE_ENT * _NIELS_M)
 BUILD_NEEDED_FE_SQUARES = _DEC_S + 32 * (NJ - 1) * _DBL_S + _INV_S
+
+
+# What csrc/valset_table_quad.cuh runs for one validator, counted over the
+# four lanes of a quad (a lane's step is one product; the host build runs
+# all four): a doubling is 4S + 4M, an addition 8M, a cached form 4M (lane
+# 2's 2dT and three products by one), a Montgomery step 4M each way; x y
+# of -A is 1M. A base's 15 entries cost 4M for its cached form, then per
+# entry a forward step and, past the first, an addition and a cached form.
+_QDBL = 4
+_QBASE_FWD_M = 4 + 4 + (NENT - 2) * (8 + 4 + 4)
+# The quad program: one decompression, 224 chained doublings, one
+# inversion on the block's first warp over the 120 Z's, 120 backward steps.
+BUILD_QUAD_FE_MULS = (_DEC_M + 1 + 32 * (NJ - 1) * _QDBL + NJ * _QBASE_FWD_M
+                      + _INV_M + _LIVE_ENT * 4)
+BUILD_QUAD_FE_SQUARES = _DEC_S + 32 * (NJ - 1) * _QDBL + _INV_S
+# The warp program: one decompression; each of 8 quads runs all 224
+# doublings and its base's entries, and inverts its 15 Z's.
+BUILD_WARP_FE_MULS = _DEC_M + NJ * (1 + 32 * (NJ - 1) * _QDBL + _QBASE_FWD_M
+                                    + _INV_M + (NENT - 1) * 4)
+BUILD_WARP_FE_SQUARES = _DEC_S + NJ * (32 * (NJ - 1) * _QDBL + _INV_S)
 
 
 def build_products_per_validator() -> int:

@@ -683,3 +683,36 @@ def test_field_op_counts_behind_the_cached_bounds():
     assert s1.value - s0.value == ec.VERIFY_CACHED_FE_SQUARES
     assert 0 <= m1.value - m0.value - ec.VERIFY_CACHED_FE_MULS <= 1
     assert ec.verify_cached_products_per_signature() == 800 * 100 + 379 * 55
+
+
+@needs_cxx
+@pytest.mark.parametrize("program", ["quad", "warp"])
+def test_field_op_counts_of_the_table_lane_programs(program):
+    """The table kernel's lane programs (csrc/valset_table_quad.cuh, run by
+    the host with a quad's four lanes on one thread) perform, for one
+    validator, the field products ec.BUILD_QUAD_FE_* / BUILD_WARP_FE_*
+    count over the four lanes (one more multiplication where the
+    decompression takes the sqrt(-1) branch), and give the one-thread
+    build's table. The quad program squares exactly as often as the table
+    needs; the one-thread and the needed counts stay as pinned above."""
+    lib = _build.host_lib(count_ops=True)
+    m0, s0 = ctypes.c_longlong(), ctypes.c_longlong()
+    m1, s1 = ctypes.c_longlong(), ctypes.c_longlong()
+    raw = ec._pack_pub_arrays(_keys(1, 109), 1)[0]
+    ref = np.zeros((ec.ENT_PER_VAL, 3, 10), np.int32)
+    lib.cbt_host_table_build(raw.ctypes.data, 1, ref.ctypes.data,
+                             np.zeros(1, np.uint8).ctypes.data)
+    tab, ok = np.zeros_like(ref), np.zeros(1, np.uint8)
+    lib.cbt_host_op_counts(ctypes.byref(m0), ctypes.byref(s0))
+    getattr(lib, f"cbt_host_table_build_{program}")(
+        raw.ctypes.data, 1, tab.ctypes.data, ok.ctypes.data)
+    lib.cbt_host_op_counts(ctypes.byref(m1), ctypes.byref(s1))
+    assert ok[0] == 1 and np.array_equal(tab, ref)
+    muls, squares = {"quad": (ec.BUILD_QUAD_FE_MULS, ec.BUILD_QUAD_FE_SQUARES),
+                     "warp": (ec.BUILD_WARP_FE_MULS,
+                              ec.BUILD_WARP_FE_SQUARES)}[program]
+    assert s1.value - s0.value == squares
+    assert 0 <= m1.value - m0.value - muls <= 1
+    assert (ec.BUILD_QUAD_FE_MULS, ec.BUILD_QUAD_FE_SQUARES) == (3263, 1405)
+    assert (ec.BUILD_WARP_FE_MULS, ec.BUILD_WARP_FE_SQUARES) == (9619, 9455)
+    assert ec.BUILD_QUAD_FE_SQUARES == ec.BUILD_NEEDED_FE_SQUARES

@@ -218,6 +218,86 @@ def test_valset_table_build_kernel_equals_plain(card):
     assert torch.equal(tk, tp) and torch.equal(ok_k, ok_p)
 
 
+def _table_inputs(card, n, M, seed=7):
+    """(pub_raw, lenok) on the card: n keys (the edge keys last) in M
+    slots."""
+    a_raw, lenok = ec._pack_pub_arrays(_table_keys(seed, n - 4), M)
+    return (torch.from_numpy(a_raw).to(card),
+            torch.from_numpy(lenok).to(card))
+
+
+@pytest.mark.parametrize("entry", sorted(ec.TABLE_BUILD_ENTRIES))
+@pytest.mark.parametrize("n,M", [(124, 128), (37, 256), (1000, 1024)])
+def test_valset_table_build_entries_equal_plain(card, entry, n, M):
+    """Every entry of the table build equals the plain build byte for byte
+    (edge keys, live keys ending inside a block's group, the stream's
+    width), and launching one directly does not count as the wrapper's
+    launch."""
+    pub, lenok = _table_inputs(card, n, M)
+    want_tab, want_ok = ec.valset_table_build_plain(pub, lenok)
+    before = ec.valset_table_build.launches
+    tab, ok = ec.launch_valset_table_build(pub, lenok, entry)
+    torch.cuda.synchronize()
+    assert ec.valset_table_build.launches == before
+    assert torch.equal(tab, want_tab) and torch.equal(ok, want_ok)
+
+
+def test_valset_table_build_wrapper_launches_the_entry_it_names(
+        card, monkeypatch):
+    """At the crossover's last warp width and one validator above it, the
+    wrapper launches the entry table_build_entry names, once, and both
+    equal the plain build."""
+    cap = ec.WARP_MAX_VALS_PER_SM * ec.sm_count(card)
+    ran = []
+    real = ec.launch_valset_table_build
+
+    def spy(pub, lenok, entry):
+        ran.append(entry)
+        return real(pub, lenok, entry)
+
+    monkeypatch.setattr(ec, "launch_valset_table_build", spy)
+    for M in (cap, cap + 1):
+        pub, lenok = _table_inputs(card, 200, M)
+        before = ec.valset_table_build.launches
+        tab, ok = ec.valset_table_build(pub, lenok)
+        want_tab, want_ok = ec.valset_table_build_plain(pub, lenok)
+        torch.cuda.synchronize()
+        assert ec.valset_table_build.launches == before + 1
+        assert torch.equal(tab, want_tab) and torch.equal(ok, want_ok)
+    assert ran == ["warp", "quad"]
+
+
+def test_update_table_through_the_kernel_equals_a_cold_build(card):
+    """update_table builds its 128-slot delta through the kernel; the
+    patched table equals a cold build of the patched key set."""
+    pubs = _table_keys(8, 300)
+    table = ec.build_table(pubs, device=card)
+    rng = np.random.default_rng(8)
+    changes = [(i, ed.pubkey_from_seed(rng.bytes(32)))
+               for i in (0, 31, 32, 150, 299, 300, 400, 511)]
+    changes.append((77, b"\xff" * 32))
+    before = ec.valset_table_build.launches
+    patched = ec.update_table(table, changes)
+    torch.cuda.synchronize()
+    assert ec.valset_table_build.launches == before + 1
+    new = list(pubs) + [b""] * (table.n_vals - len(pubs))
+    for i, p in changes:
+        new[i] = p
+    cold = ec.build_table(new, device=card)
+    assert torch.equal(patched.tab, cold.tab)
+    assert torch.equal(patched.ok, cold.ok)
+
+
+def test_valset_table_build_gives_one_result_every_run(card):
+    pub, lenok = _table_inputs(card, 1000, 1024, seed=9)
+    before = ec.valset_table_build.launches
+    outs = [ec.valset_table_build(pub, lenok) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert ec.valset_table_build.launches == before + 2
+    assert all(torch.equal(t, outs[0][0]) and torch.equal(o, outs[0][1])
+               for t, o in outs)
+
+
 def test_ed25519_verify_cached_kernel_equals_plain(card):
     from cometbft_tpu_torch.ops import ed25519_cached as ec
 

@@ -162,7 +162,7 @@ def _batch(p):
     return pubs, msgs, sigs
 
 
-def test_breaker_falls_back_to_the_host_on_a_device_fault(monkeypatch):
+def test_breaker_raises_a_device_fault_and_trips_it(monkeypatch):
     """No host fallback hides a device fault: it is counted, trips the
     breaker and reaches the caller; only device="cpu" runs on the host."""
     p = Pair(seed=8, n_vals=4, invalid=(2,))
