@@ -32,14 +32,19 @@ Phases (any failure exits non-zero and prints no result line):
      exactly: valset_table_build at M = 128 (bad and edge keys included;
      the wrapper and each of its entries),
      ed25519_verify_cached on 256 columns (also against the oracle),
-     stamp_rows over every fuzzed timestamp width with two templates (also
-     against pack_rows_cached of a host pack) and tally_quorum_cached on 8
+     stamp_rows over every fuzzed timestamp width with two templates and
+     over every case of edge_cases.STAMP_CASES (chain ids of 0-80 bytes
+     under both block-id forms, rows of 1-3 SHA-512 blocks, keys that wrap,
+     dead lanes, two threshold rows, clamped template indices), each also
+     against pack_rows_cached of a host pack, and tally_quorum_cached on 8
      commits and on every case of edge_cases.TALLY_CASES;
   6. blocksync at BASELINE config 4's width: make_stream_verifier() over 80
      heights of a 1,000-validator set (64 under V0, 16 under V1 = V0 with 8
      rotated keys), one tampered signature and one commit short of quorum;
      outcomes must match the oracle, every chunk must be device-stamped,
-     launch counts exact; then each cached kernel at the stream's shapes
+     launch counts exact; then stamp_rows at both of its launches (65,536
+     and 16,384 columns) against its plain version and the host pack,
+     timed in device time; each cached kernel at the stream's shapes
      (B = 65,536 columns, M = 1,024) against its plain version, the tally
      also with 513 commits (above its shared-memory cap) and timed in
      device time beside index_add_; then both entries of
@@ -1086,6 +1091,27 @@ def phase_cached_kernels_vs_plain(dev, pool, rng):
     print(f"phase5 stamp_rows rows=200 cols={B} templates=2 "
           f"timestamps={len(FUZZ_SECS)}x{len(FUZZ_NANOS)} "
           "kernel==plain==host pack (bytes), all verify", flush=True)
+    # stamp_rows over the chain-id sweep and its twists (256 columns each)
+    for name in edge_cases.STAMP_CASES:
+        case = edge_cases.stamp_case(name)
+        ent = es.template_entry(case.sites, dev)
+        t_rows = case.ref.shape[0] - ec.V_THRESH
+        args = [torch.from_numpy(a).to(dev)
+                for a in (case.dsig, case.dts, case.dfl)]
+        pub = torch.from_numpy(case.pub_raw).to(dev)
+        thr = torch.from_numpy(case.thresh.astype(np.int32)).to(dev)
+        sk = es.stamp_rows(*args, ent, pub, thr, t_rows)
+        sp = es.stamp_rows_plain(*args, ent.pre_mat, ent.pre_len,
+                                 ent.suf_mat, ent.suf_len, ent.ts_tag, pub,
+                                 thr, ent.msg_max, t_rows)
+        torch.cuda.synchronize()
+        check(torch.equal(sk, sp), f"stamp_rows != plain on case {name}")
+        check(np.array_equal(sk.cpu().numpy(), case.ref),
+              f"stamp_rows != pack_rows_cached of a host pack on case {name}")
+    print(f"phase5 stamp_rows cases={list(edge_cases.STAMP_CASES)} cols=256 "
+          f"chain_ids=0-{max(edge_cases.STAMP_CHAIN_LENS)} bytes x 2 block "
+          "ids, sha512 blocks 1-3 kernel==plain==host pack (bytes)",
+          flush=True)
 
     # tally_quorum_cached on 8 commits
     M, C = 256, 8
@@ -1259,14 +1285,14 @@ def phase_stream(dev, pool, rng, kernel_stats):
         return real_pack(*a, **k)
 
     runs = []  # (seconds, launches, stats, host_ms)
-    captured = {}
+    captured = []  # the delta chunks of the first warm run, in order
     real_delta = es.verify_tally_delta_cached
 
     def capture_delta(sig, ts, flags, ent, table, n_commits, thresh=None):
-        if not captured:
-            captured.update(sig=sig.copy(), ts=ts.copy(), flags=flags.copy(),
-                            ent=ent, table=table, n_commits=n_commits,
-                            thresh=np.asarray(thresh).copy())
+        captured.append(dict(sig=sig.copy(), ts=ts.copy(),
+                             flags=flags.copy(), ent=ent, table=table,
+                             n_commits=n_commits,
+                             thresh=np.asarray(thresh).copy()))
         return real_delta(sig, ts, flags, ent, table, n_commits, thresh)
 
     ek.pack_batch = counting_pack
@@ -1349,43 +1375,55 @@ def phase_stream(dev, pool, rng, kernel_stats):
               f"{kern_ms:.3f} memcpy_ms={copy_ms:.3f} device_idle_share="
               f"{1 - (kern_ms + copy_ms) / wall_ms:.4f}", flush=True)
 
-    # the kernels at the stream's shapes, against their plain versions
-    table = captured["table"]
-    ent = captured["ent"]
-    cap = captured["n_commits"]
+    # the kernels at the stream's shapes, against their plain versions;
+    # stamp_rows at both of its launches
+    check(len(captured) == 2, f"{len(captured)} delta chunks captured")
+    stamps, first = [], 0
+    for chunk in captured:
+        tb, en, n_c = chunk["table"], chunk["ent"], chunk["n_commits"]
+        Bc = chunk["sig"].shape[0]
+        tr = ec.packed_rows_shape(Bc, n_c)[0] - ec.V_THRESH
+        args = [torch.from_numpy(chunk[k]).to(dev)
+                for k in ("sig", "ts", "flags")]
+        thr_t = torch.from_numpy(chunk["thresh"]).to(dev)
+        stamp = lambda: es.stamp_rows(  # noqa: E731
+            *args, en, tb.pub_raw, thr_t, tr)  # noqa: B023
+        sk = stamp()
+        t = time.perf_counter()
+        rows_p = es.stamp_rows_plain(*args, en.pre_mat, en.pre_len,
+                                     en.suf_mat, en.suf_len, en.ts_tag,
+                                     tb.pub_raw, thr_t, en.msg_max, tr)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        err = int((sk.to(torch.int64) - rows_p.to(torch.int64)).abs().max())
+        check(err == 0, f"stamp_rows != plain at {Bc} columns")
+        # the same chunk through the host pack: stamped rows are its bytes
+        check(np.array_equal(sk.cpu().numpy(), _host_pack_chunk(
+            jobs[first:first + n_c], tb.n_vals, Bc, chunk["thresh"])),
+            f"stamped chunk of {Bc} columns != pack_rows_cached of the "
+            "host pack")
+        live = int((chunk["flags"] & 1).sum())
+        blocks = sum(
+            es.sha512_blocks(len(m)) for job in jobs[first:first + n_c]
+            for m, cs in zip(job.commit.sign_bytes_rows(CHAIN_ID),
+                             job.commit.signatures) if cs.for_block())
+        st = dict(shape=f"B={Bc},live={live}", rows=sk, plain_ms=plain_ms,
+                  err=err, ops=blocks * es.SHA512_OPS_PER_BLOCK,
+                  ms=cuda_ms(stamp, 10),
+                  device_ms=dev_ms(stamp, f"stamp_rows_{Bc}_trace.json"))
+        stamps.append(st)
+        print(f"phase6 stamp_rows cols={Bc} live={live} sha512_blocks="
+              f"{blocks} kernel_ms={st['ms']:.4f} device_ms="
+              f"{fmt_ms(st['device_ms'])} plain_ms={plain_ms:.1f} "
+              "kernel==plain==host pack (bytes)", flush=True)
+        first += n_c
+    rows = stamps[0]["rows"]
+    chunk = captured[0]
+    table, cap = chunk["table"], chunk["n_commits"]
+    live = int((chunk["flags"] & 1).sum())
     M = table.n_vals
-    B = captured["sig"].shape[0]
+    B = chunk["sig"].shape[0]
     t_rows = ec.packed_rows_shape(B, cap)[0] - ec.V_THRESH
-    sig_t, ts_t, fl_t = (torch.from_numpy(captured[k]).to(dev)
-                         for k in ("sig", "ts", "flags"))
-    thr_t = torch.from_numpy(captured["thresh"]).to(dev)
-    stamp = lambda: es.stamp_rows(sig_t, ts_t, fl_t, ent,  # noqa: E731
-                                  table.pub_raw, thr_t, t_rows)
-    stamp_ms = cuda_ms(stamp, 10)
-    rows = stamp()
-    t = time.perf_counter()
-    rows_p = es.stamp_rows_plain(sig_t, ts_t, fl_t, ent.pre_mat, ent.pre_len,
-                                 ent.suf_mat, ent.suf_len, ent.ts_tag,
-                                 table.pub_raw, thr_t, ent.msg_max, t_rows)
-    torch.cuda.synchronize()
-    stamp_plain_ms = (time.perf_counter() - t) * 1e3
-    stamp_err = int((rows.to(torch.int64) - rows_p.to(torch.int64))
-                    .abs().max())
-    check(stamp_err == 0, "stamp_rows != plain at the stream's shape")
-    # the same chunk through the host pack: stamped rows are its bytes
-    check(np.array_equal(rows.cpu().numpy(), _host_pack_chunk(
-        jobs[:cap], M, B, captured["thresh"])),
-        "stamped chunk != pack_rows_cached of the host pack")
-    live = int((captured["flags"] & 1).sum())
-    blocks = sum(
-        es.sha512_blocks(len(m)) for job in jobs[:cap]
-        for m, cs in zip(job.commit.sign_bytes_rows(CHAIN_ID),
-                         job.commit.signatures) if cs.for_block())
-    stamp_dev = dev_ms(stamp, "stamp_rows_trace.json")
-    print(f"phase6 stamp_rows cols={B} live={live} sha512_blocks={blocks} "
-          f"kernel_ms={stamp_ms:.4f} device_ms={fmt_ms(stamp_dev)} "
-          f"plain_ms={stamp_plain_ms:.1f} "
-          "kernel==plain==host pack (bytes)", flush=True)
 
     vk = lambda: ec.ed25519_verify_cached(rows, table.tab,  # noqa: E731
                                           table.ok)
@@ -1539,10 +1577,12 @@ def phase_stream(dev, pool, rng, kernel_stats):
         library_device_ms=tally_lib_dev and tally_lib_dev[0])
     kernel_stats["stamp_rows"] = dict(
         launches_by_path={"stream": cold[1]["stamp_rows"]},
-        ms=stamp_ms, plain_ms=stamp_plain_ms, max_abs_err=stamp_err,
-        ops=blocks * es.SHA512_OPS_PER_BLOCK,
+        ms=stamps[0]["ms"], plain_ms=stamps[0]["plain_ms"],
+        max_abs_err=max(st["err"] for st in stamps), ops=stamps[0]["ops"],
         bytes=B * (64 + 12 + 4) + M * 32 + (ec.V_THRESH + t_rows) * B * 4,
-        library_ms=None, device_ms=stamp_dev)
+        library_ms=None, device_ms=stamps[0]["device_ms"],
+        **{f"{key}_by_shape": {st["shape"]: st[key] for st in stamps}
+           for key in ("device_ms", "ms", "ops")})
     return {"stream_blocks_per_s": STREAM_HEIGHTS / warm_s,
             "stream_sigs_per_s": n_sigs / warm_s}
 
@@ -2188,8 +2228,13 @@ def kernels_json(kernel_stats):
     }
     for name, (src, replaces) in sources.items():
         k = kernel_stats[name]
+        extra = {}
         ops_ms = k["ops"] / imad_per_s * 1e3
         bytes_ms = k["bytes"] / HBM_BYTES_PER_S * 1e3
+        if "ops_by_shape" in k:
+            extra["bound_ms_by_shape"] = {
+                shape: ops / imad_per_s * 1e3
+                for shape, ops in k["ops_by_shape"].items()}
         out.append(dict(
             name=name, route="cuda",
             source=f"cometbft_tpu_torch/csrc/{src}", replaces=replaces,
@@ -2201,9 +2246,10 @@ def kernels_json(kernel_stats):
             library_ms=k["library_ms"],
             device_ms=k["device_ms"],
             **{key: k[key] for key in ("library_device_ms",
-                                       "device_ms_by_shape",
+                                       "device_ms_by_shape", "ms_by_shape",
                                        "device_ms_by_live", "entry_by_shape",
                                        "sweep_device_ms") if key in k},
+            **extra,
         ))
     print(f"bound: {products} limb products/signature, clocks.max.sm={mhz} "
           f"MHz, {imad_per_s:.4e} INT32 multiply-adds/s", flush=True)

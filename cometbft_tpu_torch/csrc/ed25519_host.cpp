@@ -196,9 +196,10 @@ extern "C" void cbt_host_stamp(const uint8_t* sig, const int32_t* ts,
                                int32_t* out) {
   const cbt_stamp::StampTemplate tp{pre, pre_len, suf, suf_len, ts_tag,
                                     pm, sm, n_sites};
+  uint64_t staged[16];
   for (int b = 0; b < B; b++)
     cbt_stamp::stamp_column(b, B, sig, ts, flags, tp, pub_raw, M, thr, n_thr,
-                            t_rows, out);
+                            t_rows, out, staged, 1);
 }
 
 // The tally kernel (csrc/tally_quorum.cu) run one step at a time with its
@@ -250,8 +251,14 @@ extern "C" int cbt_host_tally(int cached, const int32_t* valid,
                     tally, quorum);
 }
 
+// The stamp's mod-L reduction on a 64-byte digest: in read as the digest's
+// big-endian state words, out the 32 little-endian bytes of (in mod L).
 extern "C" void cbt_host_sc_reduce(const uint8_t* in, uint8_t* out) {
-  cbt_stamp::sc_reduce(in, out);
+  uint64_t h[8];
+  for (int i = 0; i < 8; i++) h[i] = cbt_stamp::load_be64(in + 8 * i);
+  uint32_t w[8];
+  cbt_stamp::sc_reduce_digest(h, w);
+  for (int k = 0; k < 32; k++) out[k] = (uint8_t)(w[k >> 2] >> (8 * (k & 3)));
 }
 
 extern "C" void cbt_host_op_counts(long long* mul, long long* sq) {

@@ -229,3 +229,95 @@ def tally_edge_case(name: str, cached: bool = False):
     _, B, C, opts = TALLY_CASES[i]
     return tally_case(np.random.default_rng(1000 + 2 * i + int(cached)), B,
                       C, cached=cached, **opts)
+
+
+# The stamp kernel's cases: a sweep of chain ids of 0 to 80 bytes, one
+# template site for each under each block-id form (nil and full), at every
+# fuzzed timestamp, so that rows take 1, 2 and 3 SHA-512 blocks and land on
+# both sides of each block edge (sign-bytes of 47 / 48 and 175 / 176
+# bytes); then its twists: "wrap" (M = 40 keys, column b takes key
+# b mod M), "dead" (a third of the lanes dead, with junk in their other
+# flag bits), "thresholds" (50 commits: the thresholds fill one row and
+# part of a second) and "clamp" (4 sites, template indices up to 255,
+# which clamp to the last site as XLA's gather does).
+STAMP_CASES = ("sweep", "wrap", "dead", "thresholds", "clamp")
+STAMP_CHAIN_LENS = range(81)
+# timestamps that cross every varint width boundary, the zero-skipping
+# cases and the 10-byte two's-complement negatives
+STAMP_FUZZ_SECS = (0, 1, 127, 128, 16383, 16384, 1_700_000_000, 2**31 - 1,
+                   2**31, 2**40, 2**62, -1, -2**33)
+STAMP_FUZZ_NANOS = (0, 1, 127, 128, 999_999_999, 5, 42, -7)
+
+
+def stamp_case(name: str, B: int = 256):
+    """The stamp case `name` of STAMP_CASES over B columns, made from its
+    own seed: the template sites (`site_params`: (chain_id, height, round,
+    block id or None), `tmpls`, `sites`), the staged deltas (`dsig`,
+    `dts`, `dfl`), the (M, 32) keys `pub_raw`, the (C, 6) thresholds and
+    `ref`, the rows pack_rows_cached builds from a host pack of the same
+    votes (dead columns zero). `msg_lens` are the live rows' sign-bytes
+    lengths."""
+    from cometbft_tpu_torch.types import canonical
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.vote import sign_bytes_template
+
+    rng = np.random.default_rng(2000 + STAMP_CASES.index(name))
+    bid = BlockID(rng.bytes(32), PartSetHeader(7, rng.bytes(32)))
+    site_params = [
+        (bytes(rng.integers(97, 123, n, dtype=np.uint8)).decode(),
+         1000 + 2 * n + k, n % 3, (None, bid)[k])
+        for n in STAMP_CHAIN_LENS for k in range(2)]
+    if name == "clamp":
+        site_params = site_params[:4]
+    tmpls = [sign_bytes_template(c, canonical.PRECOMMIT_TYPE, h, r, b)
+             for c, h, r, b in site_params]
+    n_sites = len(site_params)
+    t_pad = 1 << (n_sites - 1).bit_length()
+    combos = [(s, ns) for s in STAMP_FUZZ_SECS for ns in STAMP_FUZZ_NANOS]
+    M = 40 if name == "wrap" else B
+    C = 50 if name == "thresholds" else 3
+    live = (rng.random(B) < 0.67 if name == "dead"
+            else np.ones(B, bool))
+    tidx = (rng.integers(0, 256, B) if name == "clamp"
+            else np.arange(B) % n_sites)
+    ts = [combos[(7 * b + b // n_sites) % len(combos)] for b in range(B)]
+    # the first rows sit on each side of each block edge that the sites
+    # can reach
+    lens = {}
+    for i, t in enumerate(tmpls):
+        for c in combos:
+            lens.setdefault(len(t.bytes_for(Timestamp(*c))), (i, c))
+    edges = [lens[n] for n in (47, 48, 175, 176) if n in lens]
+    for b, (i, c) in enumerate(edges[:B]):
+        tidx[b], ts[b], live[b] = i, c, True
+    site = np.minimum(tidx, t_pad - 1)
+    counted = rng.random(B) < 0.75
+    cids = rng.integers(0, C, B).astype(np.int32)
+    keys = rng.integers(0, 256, (M, 32), dtype=np.uint8)
+    sig = rng.integers(0, 256, (B, 64), dtype=np.uint8)
+    sig[1::2, 63] &= 0x0f  # S < 2^252 < L on every other row
+    for b, s in ((3, ed.L - 1), (5, ed.L), (7, 2**256 - 1)):
+        if b < B:
+            sig[b, 32:] = np.frombuffer(int.to_bytes(s, 32, "little"),
+                                        np.uint8)
+    msgs = [canonical.canonical_vote_bytes(
+        site_params[site[b]][0], canonical.PRECOMMIT_TYPE,
+        site_params[site[b]][1], site_params[site[b]][2],
+        site_params[site[b]][3], Timestamp(*ts[b])) for b in range(B)]
+    thresh = np.stack([ek.threshold_limbs(int(v))[0]
+                       for v in rng.integers(0, 2**40, C)])
+    pb = ek.pack_batch([keys[b % M].tobytes() for b in range(B)], msgs,
+                       [sig[b].tobytes() for b in range(B)], pad_to=B)
+    ref = ec.pack_rows_cached(pb, counted, cids, thresh)
+    ref[:ec.V_THRESH, ~live] = 0
+    dts = canonical.split_ts_words([t[0] for t in ts], [t[1] for t in ts])
+    junk = rng.integers(0, 2**20, B).astype(np.int32) << 1
+    dfl = np.where(live, 1 | (counted.astype(np.int32) << 1)
+                   | (tidx.astype(np.int32) << 2) | (cids << 10),
+                   junk).astype(np.int32)
+    return SimpleNamespace(
+        B=B, M=M, C=C, site_params=site_params, tmpls=tmpls,
+        sites=[t.stamp_site() for t in tmpls], dsig=sig, dts=dts, dfl=dfl,
+        pub_raw=keys, thresh=thresh, ref=ref,
+        msg_lens=[len(msgs[b]) for b in np.flatnonzero(live)])

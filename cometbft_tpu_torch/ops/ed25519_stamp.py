@@ -43,7 +43,7 @@ class TemplateEntry:
 MAX_TEMPLATE_SITES = 256  # the template id rides 8 bits of the flags
 
 # 32-bit integer instructions of one SHA-512 compression in
-# csrc/stamp_core.cuh `sha512_block`, the stamp kernel's bound, with
+# csrc/stamp_core.cuh `sha512_compress`, the stamp kernel's bound, with
 # three-input logic and adds (LOP3, IADD3) taken at their best: a 64-bit
 # rotate or shift is 2 funnel shifts, a 64-bit add of up to 3 operands 2
 # adds, a logic function of up to 3 words one LOP3 a half. A round:
@@ -464,8 +464,8 @@ def stamp_rows(sig: torch.Tensor, ts: torch.Tensor, flags: torch.Tensor,
     the (n_commits, 6) int32 thresholds -> (V_THRESH + t_rows, B) int32
     packed rows.
 
-    CUDA tensors launch csrc/stamp_rows.cu; CPU tensors run
-    `stamp_rows_plain`."""
+    CUDA tensors launch csrc/stamp_rows.cu, and a sig or pub_raw that is
+    not 16-byte aligned raises; CPU tensors run `stamp_rows_plain`."""
     B = sig.shape[0]
     _check = ec._check
     _check(sig, "sig", torch.uint8, (B, 64))
@@ -484,6 +484,13 @@ def stamp_rows(sig: torch.Tensor, ts: torch.Tensor, flags: torch.Tensor,
                                 ent.suf_mat, ent.suf_len, ent.ts_tag,
                                 pub_raw, thr, ent.msg_max, t_rows)
     ec._kernel_device(dev, "stamp_rows", *operands)
+    # the kernel reads sig and pub_raw with 16-byte loads and the template
+    # rows as 8-byte words
+    for t, name, q in ((sig, "sig", 16), (pub_raw, "pub_raw", 16),
+                       (ent.pre_mat, "pre_mat", 8),
+                       (ent.suf_mat, "suf_mat", 8)):
+        if (t.data_ptr() | t.stride(0)) % q:
+            raise ValueError(f"stamp_rows: {name} is not {q}-byte aligned")
     from cometbft_tpu_torch.ops import _build
 
     fn = _build.kernel_lib("stamp_rows.cu").cbt_stamp_rows

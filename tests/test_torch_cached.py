@@ -21,6 +21,7 @@ from cometbft_tpu.types import canonical as jcanon
 from cometbft_tpu.types import vote as jvote
 from cometbft_tpu.types.block_id import BlockID as JBlockID
 from cometbft_tpu.types.block_id import PartSetHeader as JPSH
+from cometbft_tpu_torch import edge_cases
 from cometbft_tpu_torch.crypto import ed25519_ref as ed
 from cometbft_tpu_torch.edge_cases import ed25519_zip215_cases
 from cometbft_tpu_torch.ops import _build
@@ -607,10 +608,14 @@ def test_cached_quad_lane_program_matches_host_plain_jax_and_oracle(
         assert quad.sum() >= 20 and not quad.all()
 
 
-def _host_stamp(lib, case) -> np.ndarray:
-    """The host build of stamp_core.cuh over a _stamp_case's deltas."""
-    ent = es.template_entry([t.stamp_site() for t in case.ttm], "cpu")
-    pr = ec._pack_pub_arrays(case.pubs, case.B)[0]
+def _host_stamp(lib, case, sites=None, pub_raw=None) -> np.ndarray:
+    """The host build of stamp_core.cuh over a case's deltas (a
+    _stamp_case's own templates and keys unless given)."""
+    ent = es.template_entry(
+        sites or [t.stamp_site() for t in case.ttm], "cpu")
+    pr = np.ascontiguousarray(
+        pub_raw if pub_raw is not None
+        else ec._pack_pub_arrays(case.pubs, case.B)[0])
     thr = np.ascontiguousarray(case.thresh, np.int32)
     out = np.zeros_like(case.ref)
     lib.cbt_host_stamp(
@@ -628,6 +633,45 @@ def _host_stamp(lib, case) -> np.ndarray:
 def test_host_build_of_the_stamp_matches_the_host_pack():
     case = _stamp_case()
     assert np.array_equal(_host_stamp(_build.host_lib(), case), case.ref)
+
+
+@needs_cxx
+@pytest.mark.parametrize("name", edge_cases.STAMP_CASES)
+def test_host_stamp_program_matches_plain_jax_and_host_pack(name):
+    """The kernel's per-thread program, built for the host, equals the
+    plain version, the JAX _stamp_rows_core and the host pack byte for
+    byte on each stamp case: chain ids of 0-80 bytes under both block-id
+    forms at every fuzzed timestamp (rows of 1, 2 and 3 SHA-512 blocks,
+    on both sides of each edge), keys that wrap (M < B), dead lanes,
+    thresholds over two rows and clamped template indices."""
+    import jax.numpy as jnp
+
+    case = edge_cases.stamp_case(name)
+    blocks = {es.sha512_blocks(n) for n in case.msg_lens}
+    if name == "clamp":
+        assert blocks == {1, 2} and {47, 48} <= set(case.msg_lens)
+    else:
+        assert blocks == {1, 2, 3}
+        assert {47, 48, 175, 176} <= set(case.msg_lens)
+    host = _host_stamp(_build.host_lib(), case, case.sites, case.pub_raw)
+    assert np.array_equal(host, case.ref)
+    ent = es.template_entry(case.sites, "cpu")
+    t_rows = case.ref.shape[0] - ec.V_THRESH
+    plain = es.stamp_rows(
+        *(torch.from_numpy(a) for a in (case.dsig, case.dts, case.dfl)),
+        ent, torch.from_numpy(case.pub_raw),
+        torch.from_numpy(case.thresh.astype(np.int32)), t_rows).numpy()
+    assert np.array_equal(plain, case.ref)
+    jtm = [jvote.sign_bytes_template(
+        c, jcanon.PRECOMMIT_TYPE, h, r, None if b is None else JBlockID(
+            b.hash, JPSH(b.part_set_header.total, b.part_set_header.hash)))
+        for c, h, r, b in case.site_params]
+    jent = jec.template_entry([t.stamp_site() for t in jtm])
+    want = np.asarray(jec.stamp_rows_cached(
+        case.dsig, case.dts, case.dfl, jent,
+        SimpleNamespace(pub_raw=jnp.asarray(case.pub_raw)), case.C,
+        case.thresh))
+    assert host.tobytes() == want.tobytes()
 
 
 @needs_cxx

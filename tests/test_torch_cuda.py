@@ -8,7 +8,8 @@ import pytest
 import torch
 
 from cometbft_tpu_torch.crypto import ed25519_ref as ed
-from cometbft_tpu_torch.edge_cases import TALLY_CASES, tally_edge_case
+from cometbft_tpu_torch.edge_cases import (STAMP_CASES, TALLY_CASES,
+                                          stamp_case, tally_edge_case)
 from cometbft_tpu_torch.ops import ed25519_cached as ec
 from cometbft_tpu_torch.ops import ed25519_fused as kf
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
@@ -497,6 +498,128 @@ def test_stamp_rows_kernel_equals_plain(card):
     torch.cuda.synchronize()
     assert es.stamp_rows.launches == before + 1
     assert torch.equal(got, want)
+
+
+def _stamp_both(card, dsig, dts, dfl, sites, pub_raw, thresh, t_rows):
+    """One stamp_rows launch (exactly one) and its plain version on the
+    same card tensors; -> (kernel rows, plain rows) on the host."""
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+
+    ent = es.template_entry(sites, card)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(card)
+            for a in (dsig, dts, dfl)]
+    pub = torch.from_numpy(np.ascontiguousarray(pub_raw)).to(card)
+    thr = torch.from_numpy(np.ascontiguousarray(thresh, np.int32)).to(card)
+    before = es.stamp_rows.launches
+    got = es.stamp_rows(*args, ent, pub, thr, t_rows)
+    want = es.stamp_rows_plain(*args, ent.pre_mat, ent.pre_len, ent.suf_mat,
+                               ent.suf_len, ent.ts_tag, pub, thr,
+                               ent.msg_max, t_rows)
+    torch.cuda.synchronize()
+    assert es.stamp_rows.launches == before + 1
+    return got.cpu().numpy(), want.cpu().numpy()
+
+
+@pytest.mark.parametrize("name,B", [(n, 256) for n in STAMP_CASES]
+                         + [("sweep", 200), ("sweep", 1000)])
+def test_stamp_rows_kernel_on_the_stamp_cases(card, name, B):
+    """The chain-id sweep and its twists (edge_cases.STAMP_CASES), also at
+    ragged widths: kernel == plain == the host pack, byte for byte."""
+    case = stamp_case(name, B)
+    got, want = _stamp_both(card, case.dsig, case.dts, case.dfl, case.sites,
+                            case.pub_raw, case.thresh,
+                            case.ref.shape[0] - ec.V_THRESH)
+    assert np.array_equal(got, want) and np.array_equal(got, case.ref)
+
+
+def _stream_stamp_input(B, seed):
+    """Deltas at the blocksync stream's stamp shape: a commit of 1,000
+    live precommits every 1,024 columns (its own height, so its own
+    template), keys of a 1,024-validator set, realistic timestamps."""
+    from cometbft_tpu_torch.types import canonical
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.vote import sign_bytes_template
+
+    rng = np.random.default_rng(seed)
+    C = B // 1024
+    tmpls = [sign_bytes_template(
+        "chip-smoke", canonical.PRECOMMIT_TYPE, 1 + c, 0,
+        BlockID(rng.bytes(32), PartSetHeader(1, rng.bytes(32))))
+        for c in range(C)]
+    col = np.arange(B)
+    live = col % 1024 < 1000
+    secs = 1_700_000_000 + col // 1024
+    nanos = rng.integers(0, 10**9, B)
+    dts = canonical.split_ts_words(secs, nanos)
+    dfl = np.where(live, 1 | ((rng.random(B) < 0.9).astype(np.int32) << 1)
+                   | ((col // 1024) << 2) | ((col // 1024) << 10),
+                   0).astype(np.int32)
+    dsig = rng.integers(0, 256, (B, 64), dtype=np.uint8)
+    dsig[:, 63] &= 0x0f
+    keys = rng.integers(0, 256, (1024, 32), dtype=np.uint8)
+    thresh = np.stack([ek.threshold_limbs(667_000 + c)[0] for c in range(C)])
+    t_rows = ec.packed_rows_shape(B, C)[0] - ec.V_THRESH
+    return (dsig, dts, dfl, [t.stamp_site() for t in tmpls], keys, thresh,
+            t_rows)
+
+
+@pytest.mark.parametrize("B", [65_536, 16_384])
+def test_stamp_rows_kernel_at_the_stream_shapes(card, B):
+    """The stream's two stamp launches: 64,000 live rows in 65,536 columns
+    and 16,000 in 16,384."""
+    got, want = _stamp_both(card, *_stream_stamp_input(B, 7))
+    assert np.array_equal(got, want)
+    assert (got[:ec.V_THRESH, np.arange(B) % 1024 >= 1000] == 0).all()
+
+
+def test_stamp_rows_kernel_repeated_launches(card):
+    """100 launches on one input: every one counted, every result equal
+    to plain."""
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+
+    case = stamp_case("dead")
+    ent = es.template_entry(case.sites, card)
+    args = [torch.from_numpy(a).to(card)
+            for a in (case.dsig, case.dts, case.dfl)]
+    pub = torch.from_numpy(case.pub_raw).to(card)
+    thr = torch.from_numpy(case.thresh.astype(np.int32)).to(card)
+    t_rows = case.ref.shape[0] - ec.V_THRESH
+    before = es.stamp_rows.launches
+    outs = [es.stamp_rows(*args, ent, pub, thr, t_rows) for _ in range(100)]
+    torch.cuda.synchronize()
+    assert es.stamp_rows.launches == before + 100
+    want = torch.from_numpy(case.ref).to(card)
+    assert all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.parametrize("operand", ["sig", "pub_raw"])
+def test_stamp_rows_refuses_a_misaligned_operand(card, operand):
+    """A view that is not 16-byte aligned raises before any launch."""
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+
+    case = stamp_case("sweep")
+    ent = es.template_entry(case.sites, card)
+    sig, ts, fl = (torch.from_numpy(a).to(card)
+                   for a in (case.dsig, case.dts, case.dfl))
+    pub = torch.from_numpy(case.pub_raw).to(card)
+
+    def shifted(t):  # the same bytes, 8 bytes into a fresh buffer
+        buf = torch.zeros(t.numel() + 8, dtype=t.dtype, device=card)
+        view = buf[8:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 8
+        return view
+
+    if operand == "sig":
+        sig = shifted(sig)
+    else:
+        pub = shifted(pub)
+    thr = torch.from_numpy(case.thresh.astype(np.int32)).to(card)
+    before = es.stamp_rows.launches
+    with pytest.raises(ValueError, match="aligned"):
+        es.stamp_rows(sig, ts, fl, ent, pub, thr,
+                      case.ref.shape[0] - ec.V_THRESH)
+    assert es.stamp_rows.launches == before
 
 
 def test_sr25519_verify_kernel_equals_plain(card):
