@@ -6,7 +6,9 @@
 Phases (any failure exits non-zero and prints no result line):
   1. card and build: the card's name and power limit, capability 9.0, and
      the nvcc build of every kernel from csrc/ (seconds printed, and each
-     kernel's ptxas registers, stack and spills, labelled by source);
+     kernel's ptxas registers, stack and spills, labelled by source), then
+     the host C++ build of the native host packer, csrc/hostaccel.cpp
+     (`native_build_s`);
   2. each kernel against its plain PyTorch version on the card, exactly:
      ed25519_verify on 256 columns (valid, flipped bit, tampered message,
      S >= L, garbage, ZIP-215 edge cases; both must equal the ed25519_ref
@@ -18,7 +20,10 @@ Phases (any failure exits non-zero and prints no result line):
      signed commit through verify_commit_light (6,667 signatures) and
      verify_commit (10,000), both padded to 16,384 columns, with
      device_batch_fn(); a tampered signature 4,321 must be blamed; prints
-     the VerifyCommitLight p50 and verify_commit sigs/s; then
+     the VerifyCommitLight p50 and verify_commit sigs/s, and both calls'
+     host pack p50 (the native pack) beside the plain pack's time (numpy,
+     once), whose rows must equal the native pack's at 6,667 and 10,000
+     rows; then
      ed25519_verify at both calls' shapes (10,000 and 6,667 live of
      16,384 columns) against its plain version, timed by device time;
   4. the fused verify + tally step on a blocksync-shaped chunk: 16 commits
@@ -41,9 +46,10 @@ Phases (any failure exits non-zero and prints no result line):
   6. blocksync at BASELINE config 4's width: make_stream_verifier() over 80
      heights of a 1,000-validator set (64 under V0, 16 under V1 = V0 with 8
      rotated keys), one tampered signature and one commit short of quorum;
-     outcomes must match the oracle, every chunk must be device-stamped,
-     launch counts exact; then stamp_rows at both of its launches (65,536
-     and 16,384 columns) against its plain version and the host pack,
+     outcomes must match the oracle, every chunk must be device-stamped
+     (no host pack runs), launch counts exact; then stamp_rows at both of
+     its launches (65,536 and 16,384 columns) against its plain version
+     and the native commit pack (the pipeline's host pack),
      timed in device time; each cached kernel at the stream's shapes
      (B = 65,536 columns, M = 1,024) against its plain version, the tally
      also with 513 commits (above its shared-memory cap) and timed in
@@ -57,6 +63,8 @@ Phases (any failure exits non-zero and prints no result line):
      build;
   7. verify_commit on phase 3's 10k commit with device_batch_fn(cached=True):
      a cold table build, then warm calls; tampered signature 4,321 blamed;
+     the path's host pack p50 (native) and the plain pack's time, the two
+     packs' rows equal to each other and to the rows the path verified;
      then ed25519_verify_cached on the rows that path verified (10,240
      columns, M = 16,384) and valset_table_build at M = 16,384 (the wrapper
      and each entry, also against the cached table) against their plain
@@ -69,14 +77,16 @@ Phases (any failure exits non-zero and prints no result line):
   9. BASELINE config 3 at full width: a 10,000-validator set, 5,000 ed25519
      and 5,000 sr25519, one signed commit through verify_commit_light and
      verify_commit with device_batch_fn() (two groups, two launches a call;
-     a tampered sr25519 signature must be blamed), then the fused form, each
-     group through its verify_tally_rows, tallies summed to the total power
-     exactly and each group's (tally, quorum) equal to tally_quorum_plain on
-     the same verdicts and rows; then ed25519_verify and sr25519_verify on
-     the rows the light and full calls launched them on (4,096 and 16,384
-     columns, clean and tampered) against plain, and sr25519_verify's
-     device time at both shapes (the light and the full call's live
-     counts);
+     a tampered sr25519 signature must be blamed), each group's host pack
+     p50 (native) beside its plain pack's time, the two packs' rows equal
+     for the 5,000 ed25519 and the 5,000 sr25519 rows; then the fused
+     form, each group through its verify_tally_rows, tallies summed to the
+     total power exactly and each group's (tally, quorum) equal to
+     tally_quorum_plain on the same verdicts and rows; then ed25519_verify
+     and sr25519_verify on the rows the light and full calls launched them
+     on (4,096 and 16,384 columns, clean and tampered) against plain, and
+     sr25519_verify's device time at both shapes (the light and the full
+     call's live counts);
  10. BASELINE config 5's verification core at full width: a 10,000-validator
      secp256k1 set, one signed commit through verify_commit_light_trusting
      (1/3) and verify_commit_light, the two calls verify_non_adjacent makes;
@@ -459,10 +469,26 @@ def merge_sweep(stats: dict, sweep: dict) -> None:
             entry, {}).update(times)
 
 
+def plain_pack_equals(what, pack, rows):
+    """Time `pack(native=False)`, the plain host pack, once and check its
+    rows equal `rows` (the native pack's) byte for byte; -> ms."""
+    import numpy as np
+
+    t = time.perf_counter()
+    plain = pack(native=False)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    check(np.asarray(plain).dtype == np.asarray(rows).dtype
+          and np.array_equal(plain, rows),
+          f"{what}: the native host pack != the plain pack")
+    return plain_ms
+
+
 def split_times(dev, vs, commit, n, runs):
     """Host pack ms (host clock) and device ms (CUDA events around upload,
     kernel and download) of `runs` verify batches of the commit's first n
-    signatures, through the same calls verify_batch makes."""
+    signatures, through the same calls verify_batch makes, with the share of
+    pack_rows in the host pack; then the plain host pack's ms, once, its
+    rows held equal to the native pack's."""
     import torch
 
     from cometbft_tpu_torch.ops import ed25519_fused as kf
@@ -472,12 +498,19 @@ def split_times(dev, vs, commit, n, runs):
     pubs = [vs.validators[i].pub_key.data for i in idxs]
     msgs = commit.sign_bytes_rows(CHAIN_ID, idxs)
     sigs = [commit.signatures[i].signature for i in idxs]
-    pack_ms, dev_ms = [], []
+
+    def pack(native=True):
+        return kf.pack_rows(ek.pack_batch(pubs, msgs, sigs, native=native,
+                                          pad_to=kf.pad_to_tile(n)))
+
+    pack_ms, rows_ms, dev_ms = [], [], []
     for _ in range(runs):
         t = time.perf_counter()
-        rows = kf.pack_rows(ek.pack_batch(pubs, msgs, sigs,
-                                          pad_to=kf.pad_to_tile(n)))
+        pb = ek.pack_batch(pubs, msgs, sigs, pad_to=kf.pad_to_tile(n))
+        t_rows = time.perf_counter()
+        rows = kf.pack_rows(pb)
         pack_ms.append((time.perf_counter() - t) * 1e3)
+        rows_ms.append((time.perf_counter() - t_rows) * 1e3)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -487,7 +520,8 @@ def split_times(dev, vs, commit, n, runs):
         dev_ms.append(a.elapsed_time(b))
         check(valid[:n].all() and not valid[n:].any(),
               f"split-time batch of {n} verified wrongly")
-    return pack_ms, dev_ms
+    return pack_ms, rows_ms, dev_ms, plain_pack_equals(
+        f"{n} ed25519 rows", pack, rows)
 
 
 # --------------------------------------------------------------------------
@@ -513,9 +547,13 @@ def phase_card_and_build():
                            if f"_{s.replace('.', '_')}_" in entry), "?")
         elif "registers" in line or "spill" in line or "bytes stack" in line:
             print(f"ptxas [{source}]: {entry}: {line.strip()}")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _build.native_lib()  # the native host packer (host C++ compiler)
+    native_s = time.perf_counter() - t0
     from cometbft_tpu_torch.crypto import secp256k1_ref
 
-    print(f"phase1 build_s={time.perf_counter() - t0:.3f} "
+    print(f"phase1 build_s={build_s:.3f} native_build_s={native_s:.3f} "
           f"device={torch.cuda.get_device_name(0)} kernel_sources="
           f"{len(_build.KERNELS)} ripemd160="
           f"{secp256k1_ref.ripemd160_source()}", flush=True)
@@ -693,8 +731,10 @@ def phase_main_path(dev, pool, rng, kernel_stats):
     full_p50 = statistics.median(full_ms)
     n_light = vs.total_voting_power() * 2 // 3 // VAL_POWER + 1
     saved = kf.ed25519_verify.launches
-    light_pack, light_dev = split_times(dev, vs, commit, n_light, LIGHT_RUNS)
-    full_pack, full_dev = split_times(dev, vs, commit, N_VALS, FULL_RUNS)
+    light_pack, light_rows, light_dev, light_plain = split_times(
+        dev, vs, commit, n_light, LIGHT_RUNS)
+    full_pack, full_rows, full_dev, full_plain = split_times(
+        dev, vs, commit, N_VALS, FULL_RUNS)
     kf.ed25519_verify.launches = saved
     print(f"phase3 launches {json.dumps(launches)} breaker_trips=0 faults=0 "
           f"blamed_idx={TAMPER_IDX}", flush=True)
@@ -702,13 +742,18 @@ def phase_main_path(dev, pool, rng, kernel_stats):
           f"padded={kf.pad_to_tile(n_light)} "
           f"p50_ms={statistics.median(light_ms):.3f} "
           f"host_pack_p50_ms={statistics.median(light_pack):.3f} "
+          f"of_which_pack_rows_p50_ms={statistics.median(light_rows):.3f} "
+          f"plain_host_pack_p50_ms={light_plain:.3f} "
           f"device_p50_ms={statistics.median(light_dev):.3f} "
           f"runs={LIGHT_RUNS} all_ms={[round(x, 3) for x in light_ms]}",
           flush=True)
     print(f"phase3 VerifyCommit n_sigs={N_VALS} p50_ms={full_p50:.3f} "
           f"sigs_per_s={N_VALS / (full_p50 / 1e3):.1f} "
           f"host_pack_p50_ms={statistics.median(full_pack):.3f} "
-          f"device_p50_ms={statistics.median(full_dev):.3f}", flush=True)
+          f"of_which_pack_rows_p50_ms={statistics.median(full_rows):.3f} "
+          f"plain_host_pack_p50_ms={full_plain:.3f} "
+          f"device_p50_ms={statistics.median(full_dev):.3f} "
+          "native pack == plain pack at both shapes", flush=True)
 
     # the kernel at the main path's shape (10,000 signatures in 16,384
     # columns), against its plain version on the same rows
@@ -1224,27 +1269,35 @@ def _outcome(err):
 
 
 def _host_pack_chunk(jobs, M, B, thresh):
-    """pack_rows_cached over a host pack of one cached stream chunk: the
-    for-block signature of validator i in commit c at column c * M + i,
-    dead columns zero."""
+    """pack_rows_cached over the native commit pack (the pipeline's host
+    pack: sign-bytes built in C from each commit's template and the row's
+    timestamp) of one cached stream chunk: the for-block signature of
+    validator i in commit c at column c * M + i, dead columns zero."""
     import numpy as np
 
+    from cometbft_tpu_torch import native
     from cometbft_tpu_torch.ops import ed25519_cached as ec
     from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.types import canonical
 
-    pubs, msgs, sigs, pos = [], [], [], []
+    pubs, sigs, pos, tmpl, secs, nanos = [], [], [], [], [], []
     for c, job in enumerate(jobs):
-        for i, (cs, m) in enumerate(zip(job.commit.signatures,
-                                        job.commit.sign_bytes_rows(
-                                            job.chain_id))):
+        for i, cs in enumerate(job.commit.signatures):
             if cs.for_block():
                 pubs.append(job.vals.validators[i].pub_key.data)
-                msgs.append(m)
                 sigs.append(cs.signature)
                 pos.append(c * M + i)
+                tmpl.append(c)
+                secs.append(cs.timestamp.seconds)
+                nanos.append(cs.timestamp.nanos)
+    templates = [canonical.CanonicalVoteEncoder(
+        job.chain_id, canonical.PRECOMMIT_TYPE, job.commit.height,
+        job.commit.round, job.commit.block_id).template for job in jobs]
     n = len(pos)
     pos = np.asarray(pos)
-    pb = ek.pack_batch(pubs, msgs, sigs, pad_to=n)
+    pb = ek.PackedBatch(n, n, *native.ed25519_pack_commits(
+        b"".join(pubs), b"".join(sigs), templates, np.asarray(tmpl, np.int32),
+        np.asarray(secs, np.int64), np.asarray(nanos, np.int64), n))
 
     def spread(a):
         a = np.asarray(a)
@@ -1264,6 +1317,7 @@ def phase_stream(dev, pool, rng, kernel_stats):
     import numpy as np
     import torch
 
+    from cometbft_tpu_torch import native
     from cometbft_tpu_torch.blocksync import pipeline as bp
     from cometbft_tpu_torch.crypto import batch as cbatch
     from cometbft_tpu_torch.ops import ed25519_cached as ec
@@ -1277,12 +1331,16 @@ def phase_stream(dev, pool, rng, kernel_stats):
           f"{time.perf_counter() - t0:.3f}", flush=True)
 
     brk = cbatch.device_breaker()
-    real_pack = ek.pack_batch
+    real_pack, real_commit_pack = ek.pack_batch, native.ed25519_pack_commits
     packs = []
 
     def counting_pack(*a, **k):
         packs.append(len(a[0]))
         return real_pack(*a, **k)
+
+    def counting_commit_pack(*a, **k):
+        packs.append(len(a[3]))
+        return real_commit_pack(*a, **k)
 
     runs = []  # (seconds, launches, stats, host_ms)
     captured = []  # the delta chunks of the first warm run, in order
@@ -1296,6 +1354,7 @@ def phase_stream(dev, pool, rng, kernel_stats):
         return real_delta(sig, ts, flags, ent, table, n_commits, thresh)
 
     ek.pack_batch = counting_pack
+    native.ed25519_pack_commits = counting_commit_pack
     try:
         for k in range(STREAM_RUNS):
             s0 = ec.table_cache_stats()
@@ -1311,6 +1370,7 @@ def phase_stream(dev, pool, rng, kernel_stats):
             es.verify_tally_delta_cached = real_delta
     finally:
         ek.pack_batch = real_pack
+        native.ed25519_pack_commits = real_commit_pack
         es.verify_tally_delta_cached = real_delta
     got = [_outcome(r) for r in results]
     want = [None] * STREAM_HEIGHTS
@@ -1323,7 +1383,7 @@ def phase_stream(dev, pool, rng, kernel_stats):
     oracle = pool.map(_oracle_outcome, [jobs[h - 1] for h in sample])
     check([got[h - 1] for h in sample] == oracle,
           f"stream != oracle on heights {sample}: {oracle}")
-    check(not packs, f"pack_batch ran on the stamped path ({packs})")
+    check(not packs, f"a host pack ran on the stamped path ({packs})")
     for name in ("ed25519_verify", "tally_quorum"):
         kernel_stats[name]["launches_by_path"]["stream"] = runs[0][1][name]
     cold, warm = runs[0], runs[1:]
@@ -1347,7 +1407,7 @@ def phase_stream(dev, pool, rng, kernel_stats):
     warm_s = statistics.median(r[0] for r in warm)
     host_ms = [round(x, 3) for r in runs for x in r[3]["host_ms"]]
     print(f"phase6 launches cold={json.dumps(cold[1])} chunks=2 stamped=2 "
-          f"pack_batch_calls=0 breaker_trips=0 faults=0 blamed_height="
+          f"host_packs=0 breaker_trips=0 faults=0 blamed_height="
           f"{TAMPER_HEIGHT} idx={TAMPER_VAL} short_height={SHORT_HEIGHT}",
           flush=True)
     print(f"phase6 stream cold_s={cold[0]:.3f} warm_s="
@@ -1588,10 +1648,12 @@ def phase_stream(dev, pool, rng, kernel_stats):
 
 
 def phase_cached_commit(dev, res, kernel_stats):
+    import numpy as np
     import torch
 
     from cometbft_tpu_torch.crypto import batch as cbatch
     from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
     from cometbft_tpu_torch.types import validation as val
 
     vs, bid, height, commit = res["fixture"]
@@ -1638,6 +1700,27 @@ def phase_cached_commit(dev, res, kernel_stats):
     p50 = statistics.median(warm_ms)
     check(len(captured) == CACHED_RUNS + 2,
           f"phase7 verify_rows_cached calls {len(captured)}")
+
+    # the path's host pack of the commit (10,000 rows in 10,240 columns):
+    # the native pack's p50, the plain pack once, held equal, and the rows
+    # of the path's clean call equal to them
+    pubs = [v.pub_key.data for v in vs.validators]
+    msgs = commit.sign_bytes_rows(CHAIN_ID)
+    sigs = [cs.signature for cs in commit.signatures]
+
+    def pack(native=True):
+        return ec.pack_rows_cached(ek.pack_batch(
+            pubs, msgs, sigs, pad_to=ec.pad_rows(N_VALS), native=native))
+
+    pack_ms = []
+    for _ in range(CACHED_RUNS):
+        t = time.perf_counter()
+        rows_n = pack()
+        pack_ms.append((time.perf_counter() - t) * 1e3)
+    plain_pack_ms = plain_pack_equals("the cached commit's rows", pack,
+                                      rows_n)
+    check(np.array_equal(rows_n, captured[0][0]),
+          "phase7: the path's rows != the native pack of the commit")
 
     # the kernels at this path's shapes, against their plain versions: the
     # verify kernel on the rows of the clean and the tampered call
@@ -1714,8 +1797,11 @@ def phase_cached_commit(dev, res, kernel_stats):
           "kernel==plain==cached table", flush=True)
     print(f"phase7 cached VerifyCommit n_sigs={N_VALS} M={M} "
           f"cold_ms={cold_ms:.3f} p50_ms={p50:.3f} sigs_per_s="
-          f"{N_VALS / (p50 / 1e3):.1f} runs={CACHED_RUNS} "
-          f"all_ms={[round(x, 3) for x in warm_ms]}", flush=True)
+          f"{N_VALS / (p50 / 1e3):.1f} "
+          f"host_pack_p50_ms={statistics.median(pack_ms):.3f} "
+          f"plain_host_pack_p50_ms={plain_pack_ms:.3f} runs={CACHED_RUNS} "
+          f"all_ms={[round(x, 3) for x in warm_ms]} native pack == plain "
+          "pack == the path's rows", flush=True)
     return {"cached_p50_ms": p50, "cached_sigs_per_s": N_VALS / (p50 / 1e3)}
 
 
@@ -1775,7 +1861,9 @@ def phase_new_kernels_vs_plain(dev, pool, rng):
 def group_split_times(dev, kind, pubs, msgs, sigs, runs):
     """Host pack ms (host clock) and device ms (CUDA events around upload,
     kernel and download) of `runs` batches of one key-type group, through
-    the calls its verify_batch makes."""
+    the calls its verify_batch makes; for an ed25519 or sr25519 group, also
+    the plain host pack's ms, once, its rows held equal to the native
+    pack's (None for secp256k1, whose pack has no native route)."""
     import torch
 
     from cometbft_tpu_torch.ops import ecdsa_fused as ef
@@ -1785,19 +1873,22 @@ def group_split_times(dev, kind, pubs, msgs, sigs, runs):
     from cometbft_tpu_torch.ops import sr25519_kernel as srk
 
     n = len(pubs)
+
+    def pack(native=True):
+        if kind == "sr25519":
+            return srk.pack_batch_sr(pubs, msgs, sigs, native=native)
+        if kind == "secp256k1":
+            return ef.pack_rows(eck.pack_batch(pubs, msgs, sigs,
+                                               pad_to=ef.pad_to_tile(n)))
+        return kf.pack_rows(ek.pack_batch(pubs, msgs, sigs, native=native,
+                                          pad_to=kf.pad_to_tile(n)))
+
+    verify = {"sr25519": srk.verify_rows,
+              "secp256k1": ef.verify_rows}.get(kind, kf.verify_rows)
     pack_ms, dev_ms = [], []
     for _ in range(runs):
         t = time.perf_counter()
-        if kind == "sr25519":
-            rows, verify = srk.pack_batch_sr(pubs, msgs, sigs), srk.verify_rows
-        elif kind == "secp256k1":
-            rows = ef.pack_rows(eck.pack_batch(pubs, msgs, sigs,
-                                               pad_to=ef.pad_to_tile(n)))
-            verify = ef.verify_rows
-        else:
-            rows = kf.pack_rows(ek.pack_batch(pubs, msgs, sigs,
-                                              pad_to=kf.pad_to_tile(n)))
-            verify = kf.verify_rows
+        rows = pack()
         pack_ms.append((time.perf_counter() - t) * 1e3)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -1808,7 +1899,9 @@ def group_split_times(dev, kind, pubs, msgs, sigs, runs):
         dev_ms.append(a.elapsed_time(b))
         check(valid[:n].all() and not valid[n:].any(),
               f"split-time {kind} batch of {n} verified wrongly")
-    return pack_ms, dev_ms, rows
+    plain_ms = (None if kind == "secp256k1" else
+                plain_pack_equals(f"{n} {kind} rows", pack, rows))
+    return pack_ms, dev_ms, rows, plain_ms
 
 
 class capture_verify_rows:
@@ -1926,13 +2019,22 @@ def phase_mixed_commit(dev, pool, rng, kernel_stats):
           f"all_ms={[round(x, 3) for x in full_ms]}", flush=True)
     msgs_all = commit.sign_bytes_rows(CHAIN_ID)
     for kind, idxs in groups.items():
-        pack, devt, rows = group_split_times(
-            dev, kind, [vs.validators[i].pub_key.data for i in idxs],
-            [msgs_all[i] for i in idxs],
-            [commit.signatures[i].signature for i in idxs], MIXED_RUNS)
+        pubs = [vs.validators[i].pub_key.data for i in idxs]
+        msgs = [msgs_all[i] for i in idxs]
+        sigs = [commit.signatures[i].signature for i in idxs]
+        pack, devt, rows, plain = group_split_times(dev, kind, pubs, msgs,
+                                                    sigs, MIXED_RUNS)
+        part = ""
+        if kind == "sr25519":  # the native merlin challenges' share, once
+            t = time.perf_counter()
+            srk.batch_challenges(msgs, pubs, [s[:32] for s in sigs])
+            part = ("of_which_challenges_ms="
+                    f"{(time.perf_counter() - t) * 1e3:.3f} ")
         print(f"phase9 group {kind} n_sigs={len(idxs)} padded="
               f"{rows.shape[1]} host_pack_p50_ms={statistics.median(pack):.3f}"
-              f" device_p50_ms={statistics.median(devt):.3f}", flush=True)
+              f" {part}plain_host_pack_p50_ms={plain:.3f} device_p50_ms="
+              f"{statistics.median(devt):.3f} native pack == plain pack",
+              flush=True)
     restore_launches(launches)
 
     # the fused form: each group's rows through its verify_tally_rows, the
@@ -2115,7 +2217,7 @@ def phase_light_secp(dev, pool, rng, kernel_stats):
     n_light = total * 2 // 3 // VAL_POWER + 1
     msgs_all = commit.sign_bytes_rows(CHAIN_ID)
     for name, n in (("trusting", n_trust), ("light", n_light)):
-        pack, devt, rows = group_split_times(
+        pack, devt, rows, _ = group_split_times(
             dev, "secp256k1", [v.pub_key.data for v in vs.validators[:n]],
             msgs_all[:n], [cs.signature for cs in commit.signatures[:n]],
             LC_RUNS)

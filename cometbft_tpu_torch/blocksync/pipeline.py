@@ -19,6 +19,12 @@ Two chunk branches:
   * general: mixed valsets; the host packs the rows and the general verify
     and tally kernels run (ops/ed25519_fused.py).
 
+A host pack builds each row's sign-bytes in C from its commit's template
+and its timestamp (native.ed25519_pack_commits); a chunk with a malformed
+key or signature goes through the numpy screen of
+ed25519_kernel.pack_batch, and `native=False` packs every chunk through
+the numpy plain version.
+
 Kernel launches return at once, so the host stages chunk k+1 while the
 device works on chunk k; at most 2 chunks are in flight, and fetching
 chunk k's results (`_collect`, the one synchronisation point) overlaps
@@ -32,6 +38,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from cometbft_tpu_torch import native as _native
 from cometbft_tpu_torch.device import resolve
 from cometbft_tpu_torch.libs.staging import StagingPool
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
@@ -79,13 +86,16 @@ class StreamVerifier:
     the reference's per-sig blame fallback, types/validation.go:243-250).
 
     `device` is where the kernels run (None: the CUDA card; "cpu": the
-    plain PyTorch versions). `stats` counts chunks by branch and records
-    the host wall time of staging and dispatching each chunk."""
+    plain PyTorch versions). `native=False` packs on the host with the
+    numpy plain version instead of the native host packer. `stats` counts
+    chunks by branch and records the host wall time of staging and
+    dispatching each chunk."""
 
     def __init__(self, max_sigs: int = 65536, device=None,
-                 min_device_sigs: int = 129):
+                 min_device_sigs: int = 129, native: bool = True):
         self.max_sigs = max_sigs
         self.device = resolve(device)
+        self.native = native
         self._vs_cache = {}
         # below this many rows the device pass loses to a host verify
         # loop (the shouldBatchVerify gate, types/validation.go:13-17,
@@ -110,6 +120,33 @@ class StreamVerifier:
             job = jobs[j][1]
             msgs += tv._commit_msgs(job.chain_id, job.commit, idxs)
         return msgs
+
+    @staticmethod
+    def _templates(jobs):
+        """(prefix, suffix) sign-bytes template of each job's for-block
+        precommit, in job order (the native pack's row_tmpl indexes it)."""
+        from cometbft_tpu_torch.types import canonical
+
+        return [canonical.CanonicalVoteEncoder(
+            job.chain_id, canonical.PRECOMMIT_TYPE, job.commit.height,
+            job.commit.round, job.commit.block_id).template
+            for _, job in jobs]
+
+    def _host_pack(self, jobs, job_idxs, pubs, sigs, row_job, row_ts,
+                   pad: int) -> ek.PackedBatch:
+        """The dense host pack of a chunk of well-formed rows, padded to
+        `pad`: the native commit pack, or with native=False the numpy
+        plain version over the template sign-bytes."""
+        if not self.native:
+            return ek.pack_batch(pubs, self._template_msgs(jobs, job_idxs),
+                                 sigs, pad_to=pad, native=False)
+        n = len(pubs)
+        packed = _native.ed25519_pack_commits(
+            b"".join(pubs), b"".join(sigs), self._templates(jobs),
+            np.asarray(row_job, np.int32),
+            np.fromiter((t for t, _ in row_ts), np.int64, n),
+            np.fromiter((t for _, t in row_ts), np.int64, n), pad)
+        return ek.PackedBatch(n, pad, *packed)
 
     def _valset_arrays(self, vs):
         """(pub_bytes tuple, power tuple, all_32B) per ValidatorSet, cached
@@ -164,7 +201,7 @@ class StreamVerifier:
         row_idx: List[int] = []
         row_pos: List[int] = []
         row_ts: List[tuple] = []
-        job_idxs: List[tuple] = []  # (j, idxs) for the host pack
+        job_idxs: List[tuple] = []  # (j, idxs) for the plain host pack
         keys, _, _ = self._valset_arrays(jobs[0][1].vals)
         nvals = len(keys)
         for j, (_, job) in enumerate(jobs):
@@ -201,9 +238,10 @@ class StreamVerifier:
             self.stats["stamped_chunks"] += 1
             return _Chunk(list(jobs), np.asarray(row_job),
                           np.asarray(row_idx), pending, row_pos=pos)
-        # dense numpy pack, then scatter to the strided layout
-        msgs = self._template_msgs(jobs, job_idxs)
-        pbd = ek.pack_batch(pubs, msgs, sigs, pad_to=n)
+        # dense pack (keys and signatures are well formed here), then
+        # scatter to the strided layout
+        pbd = self._host_pack(jobs, job_idxs, pubs, sigs, row_job, row_ts,
+                              n)
         pool = self._staging
         ry = pool.get("chunk.ry", (B, pbd.ry.shape[1]), pbd.ry.dtype)
         ry[pos] = pbd.ry[:n]
@@ -285,9 +323,11 @@ class StreamVerifier:
         row_job: List[int] = []
         row_idx: List[int] = []
         powers: List[int] = []
-        job_idxs: List[tuple] = []  # (j, idxs) for the sign-bytes
+        row_ts: List[tuple] = []
+        job_idxs: List[tuple] = []  # (j, idxs) for the plain host pack
+        well_formed = True
         for j, (_, job) in enumerate(jobs):
-            keys, vpowers, _ = self._valset_arrays(job.vals)
+            keys, vpowers, keys_ok = self._valset_arrays(job.vals)
             css = job.commit.signatures
             nvals = len(keys)
             idxs = [i for i, cs in enumerate(css)
@@ -296,18 +336,27 @@ class StreamVerifier:
                 continue
             pubs += [keys[i] for i in idxs]
             sigs += [css[i].signature for i in idxs]
+            row_ts += [(css[i].timestamp.seconds, css[i].timestamp.nanos)
+                       for i in idxs]
             row_job += [j] * len(idxs)
             row_idx += idxs
             powers += [vpowers[i] for i in idxs]
             job_idxs.append((j, idxs))
+            if not keys_ok or any(len(css[i].signature) != 64
+                                  for i in idxs):
+                well_formed = False  # the numpy screen takes bad rows
         if not pubs:
             return None
         from cometbft_tpu_torch.ops import ed25519_fused as kf
 
         n = len(pubs)
         pad = kf.pad_to_tile(n)
-        msgs = self._template_msgs(jobs, job_idxs)
-        pb = ek.pack_batch(pubs, msgs, sigs, pad_to=pad)
+        if well_formed:
+            pb = self._host_pack(jobs, job_idxs, pubs, sigs, row_job, row_ts,
+                                 pad)
+        else:
+            pb = ek.pack_batch(pubs, self._template_msgs(jobs, job_idxs),
+                               sigs, pad_to=pad, native=self.native)
         power5 = np.zeros((pad, ek.POWER_LIMBS), np.int32)
         power5[:n] = ek.power_limbs(np.asarray(powers, np.int64))
         counted = np.zeros((pad,), np.bool_)

@@ -1,7 +1,9 @@
 """STROBE-128 + merlin transcripts (scalar and numpy-batched).
 
-A copy of the JAX package's crypto/merlin.py without its native batched
-permutation: the port permutes with numpy (keccak.keccak_f1600_np).
+A copy of the JAX package's crypto/merlin.py. The batched classes permute
+through the native host packer (native.batch_keccak_f1600), as the
+reference does; with native=False they permute with numpy
+(keccak.keccak_f1600_np), the plain version.
 
 The sr25519 (schnorrkel) challenge scalar is a merlin transcript
 challenge; merlin is STROBE-128 instantiated on keccak-f[1600] with
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from cometbft_tpu_torch import native as _native
 from cometbft_tpu_torch.crypto.keccak import (
     bytes_to_state,
     keccak_f1600,
@@ -147,12 +150,15 @@ class BatchStrobe:
     """N STROBE-128 streams in lockstep (same ops/lengths, distinct data).
 
     States live in a (N, 200) uint8 array; permutations run through the
-    batched keccak. Seeded either fresh or from a scalar Strobe128 whose
-    prefix is shared by every stream (the cloned signing-context pattern).
+    batched keccak (native, or numpy with native=False). Seeded either
+    fresh or from a scalar Strobe128 whose prefix is shared by every
+    stream (the cloned signing-context pattern).
     """
 
-    def __init__(self, n: int, from_strobe: Strobe128):
+    def __init__(self, n: int, from_strobe: Strobe128, native: bool = True):
         self.n = n
+        self._permute = (_native.batch_keccak_f1600 if native
+                         else keccak_f1600_np)
         self.st = np.tile(
             np.frombuffer(bytes(from_strobe.st), np.uint8), (n, 1)
         ).copy()
@@ -165,7 +171,7 @@ class BatchStrobe:
         self.st[:, self.pos + 1] ^= 0x04
         self.st[:, R + 1] ^= 0x80
         lanes = self.st.view(np.uint64).reshape(self.n, 25)
-        permuted = keccak_f1600_np(lanes)
+        permuted = self._permute(lanes)
         self.st = permuted.view(np.uint8).reshape(self.n, 200).copy()
         self.pos = 0
         self.pos_begin = 0
@@ -228,8 +234,8 @@ class BatchStrobe:
 class BatchTranscript:
     """N merlin transcripts in lockstep, forked from a shared prefix."""
 
-    def __init__(self, n: int, prefix: Transcript):
-        self.strobe = BatchStrobe(n, prefix.strobe)
+    def __init__(self, n: int, prefix: Transcript, native: bool = True):
+        self.strobe = BatchStrobe(n, prefix.strobe, native)
 
     def append_message_batch(self, label: bytes, messages: np.ndarray):
         """messages (N, L) uint8 — equal length across the batch."""

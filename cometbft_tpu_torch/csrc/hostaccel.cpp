@@ -1,0 +1,633 @@
+// hostaccel: native host-side batch helpers for the device verify path.
+//
+// The reference gets its host-side speed from Go + assembly inside
+// curve25519-voi; here the host hot loop is staging work for the card.
+// This file removes the per-signature Python call overhead from packing:
+// one call hashes, reduces and decomposes every row of a commit.
+//
+// Self-contained FIPS 180-4 SHA-512 (no OpenSSL linkage: the build needs
+// only a host C++ compiler). The byte formats are the JAX package's
+// (cometbft_tpu/native/hostaccel.cpp), entry for entry; the numpy
+// packers of ops/ed25519_kernel.py, ops/sr25519_kernel.py and
+// crypto/merlin.py are the plain versions, and tests/test_torch_native.py
+// holds every entry to both.
+//
+// Build: c++ -std=c++17 -O3 -shared -fPIC (ops/_build.py native_lib, at
+// first use, into build/kernels/).
+
+#include <cstdint>
+#include <cstring>
+
+namespace {
+
+typedef uint64_t u64;
+typedef uint8_t u8;
+
+const u64 K[80] = {
+    0x428a2f98d728ae22ULL, 0x7137449123ef65cdULL, 0xb5c0fbcfec4d3b2fULL,
+    0xe9b5dba58189dbbcULL, 0x3956c25bf348b538ULL, 0x59f111f1b605d019ULL,
+    0x923f82a4af194f9bULL, 0xab1c5ed5da6d8118ULL, 0xd807aa98a3030242ULL,
+    0x12835b0145706fbeULL, 0x243185be4ee4b28cULL, 0x550c7dc3d5ffb4e2ULL,
+    0x72be5d74f27b896fULL, 0x80deb1fe3b1696b1ULL, 0x9bdc06a725c71235ULL,
+    0xc19bf174cf692694ULL, 0xe49b69c19ef14ad2ULL, 0xefbe4786384f25e3ULL,
+    0x0fc19dc68b8cd5b5ULL, 0x240ca1cc77ac9c65ULL, 0x2de92c6f592b0275ULL,
+    0x4a7484aa6ea6e483ULL, 0x5cb0a9dcbd41fbd4ULL, 0x76f988da831153b5ULL,
+    0x983e5152ee66dfabULL, 0xa831c66d2db43210ULL, 0xb00327c898fb213fULL,
+    0xbf597fc7beef0ee4ULL, 0xc6e00bf33da88fc2ULL, 0xd5a79147930aa725ULL,
+    0x06ca6351e003826fULL, 0x142929670a0e6e70ULL, 0x27b70a8546d22ffcULL,
+    0x2e1b21385c26c926ULL, 0x4d2c6dfc5ac42aedULL, 0x53380d139d95b3dfULL,
+    0x650a73548baf63deULL, 0x766a0abb3c77b2a8ULL, 0x81c2c92e47edaee6ULL,
+    0x92722c851482353bULL, 0xa2bfe8a14cf10364ULL, 0xa81a664bbc423001ULL,
+    0xc24b8b70d0f89791ULL, 0xc76c51a30654be30ULL, 0xd192e819d6ef5218ULL,
+    0xd69906245565a910ULL, 0xf40e35855771202aULL, 0x106aa07032bbd1b8ULL,
+    0x19a4c116b8d2d0c8ULL, 0x1e376c085141ab53ULL, 0x2748774cdf8eeb99ULL,
+    0x34b0bcb5e19b48a8ULL, 0x391c0cb3c5c95a63ULL, 0x4ed8aa4ae3418acbULL,
+    0x5b9cca4f7763e373ULL, 0x682e6ff3d6b2b8a3ULL, 0x748f82ee5defb2fcULL,
+    0x78a5636f43172f60ULL, 0x84c87814a1f0ab72ULL, 0x8cc702081a6439ecULL,
+    0x90befffa23631e28ULL, 0xa4506cebde82bde9ULL, 0xbef9a3f7b2c67915ULL,
+    0xc67178f2e372532bULL, 0xca273eceea26619cULL, 0xd186b8c721c0c207ULL,
+    0xeada7dd6cde0eb1eULL, 0xf57d4f7fee6ed178ULL, 0x06f067aa72176fbaULL,
+    0x0a637dc5a2c898a6ULL, 0x113f9804bef90daeULL, 0x1b710b35131c471bULL,
+    0x28db77f523047d84ULL, 0x32caab7b40c72493ULL, 0x3c9ebe0a15c9bebcULL,
+    0x431d67c49c100d4cULL, 0x4cc5d4becb3e42b6ULL, 0x597f299cfc657e2aULL,
+    0x5fcb6fab3ad6faecULL, 0x6c44198c4a475817ULL};
+
+inline u64 rotr(u64 x, int n) { return (x >> n) | (x << (64 - n)); }
+inline u64 load_be(const u8* p) {
+  u64 v = 0;
+  for (int i = 0; i < 8; i++) v = (v << 8) | p[i];
+  return v;
+}
+inline void store_be(u8* p, u64 v) {
+  for (int i = 7; i >= 0; i--) { p[i] = (u8)v; v >>= 8; }
+}
+
+struct Sha512 {
+  u64 h[8];
+  u8 buf[128];
+  u64 total;
+  size_t fill;
+
+  void init() {
+    static const u64 iv[8] = {
+        0x6a09e667f3bcc908ULL, 0xbb67ae8584caa73bULL,
+        0x3c6ef372fe94f82bULL, 0xa54ff53a5f1d36f1ULL,
+        0x510e527fade682d1ULL, 0x9b05688c2b3e6c1fULL,
+        0x1f83d9abfb41bd6bULL, 0x5be0cd19137e2179ULL};
+    memcpy(h, iv, sizeof(iv));
+    total = 0;
+    fill = 0;
+  }
+
+  void block(const u8* p) {
+    u64 w[80];
+    for (int i = 0; i < 16; i++) w[i] = load_be(p + 8 * i);
+    for (int i = 16; i < 80; i++) {
+      u64 s0 = rotr(w[i - 15], 1) ^ rotr(w[i - 15], 8) ^ (w[i - 15] >> 7);
+      u64 s1 = rotr(w[i - 2], 19) ^ rotr(w[i - 2], 61) ^ (w[i - 2] >> 6);
+      w[i] = w[i - 16] + s0 + w[i - 7] + s1;
+    }
+    u64 a = h[0], b = h[1], c = h[2], d = h[3];
+    u64 e = h[4], f = h[5], g = h[6], hh = h[7];
+    for (int i = 0; i < 80; i++) {
+      u64 S1 = rotr(e, 14) ^ rotr(e, 18) ^ rotr(e, 41);
+      u64 ch = (e & f) ^ (~e & g);
+      u64 t1 = hh + S1 + ch + K[i] + w[i];
+      u64 S0 = rotr(a, 28) ^ rotr(a, 34) ^ rotr(a, 39);
+      u64 maj = (a & b) ^ (a & c) ^ (b & c);
+      u64 t2 = S0 + maj;
+      hh = g; g = f; f = e; e = d + t1;
+      d = c; c = b; b = a; a = t1 + t2;
+    }
+    h[0] += a; h[1] += b; h[2] += c; h[3] += d;
+    h[4] += e; h[5] += f; h[6] += g; h[7] += hh;
+  }
+
+  void update(const u8* p, size_t n) {
+    total += n;
+    if (fill) {
+      size_t take = 128 - fill;
+      if (take > n) take = n;
+      memcpy(buf + fill, p, take);
+      fill += take;
+      p += take;
+      n -= take;
+      if (fill == 128) { block(buf); fill = 0; }
+    }
+    while (n >= 128) { block(p); p += 128; n -= 128; }
+    if (n) { memcpy(buf, p, n); fill = n; }
+  }
+
+  void final(u8* out) {
+    u64 bits = total * 8;
+    u8 pad = 0x80;
+    update(&pad, 1);
+    u8 zero = 0;
+    while (fill != 112) update(&zero, 1);
+    u8 len[16] = {0};
+    store_be(len + 8, bits);  // messages < 2^64 bits: high word zero
+    update(len, 16);
+    for (int i = 0; i < 8; i++) store_be(out + 8 * i, h[i]);
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// Hash n variable-length rows of one contiguous buffer.
+// data: concatenated rows; offs[i]/lens[i]: row i; out: n x 64 bytes.
+void batch_sha512(const u8* data, const u64* offs, const u64* lens,
+                  u64 n, u8* out) {
+  Sha512 s;
+  for (u64 i = 0; i < n; i++) {
+    s.init();
+    s.update(data + offs[i], lens[i]);
+    s.final(out + 64 * i);
+  }
+}
+
+// The ed25519 batch-digest shape: rows are (R[32] || A[32] || M_i),
+// where R/A come from fixed-stride arrays and M rows vary. Avoids
+// materializing the concatenated buffer in Python.
+void ed25519_batch_digest(const u8* r32, const u8* a32, const u8* msgs,
+                          const u64* moffs, const u64* mlens, u64 n,
+                          u8* out) {
+  Sha512 s;
+  for (u64 i = 0; i < n; i++) {
+    s.init();
+    s.update(r32 + 32 * i, 32);
+    s.update(a32 + 32 * i, 32);
+    s.update(msgs + moffs[i], mlens[i]);
+    s.final(out + 64 * i);
+  }
+}
+
+}  // extern "C"
+
+// ---- scalar reduction mod L = 2^252 + c ------------------------------
+// c = 27742317777372353535851937790883648493 (ed25519 group order tail).
+// Used to fold the 64-byte challenge digest into h mod L without a
+// Python bigint round trip per signature.
+
+namespace {
+
+// little-endian 4x64 add/sub helpers over 256-bit values
+struct U256 {
+  u64 w[4];
+};
+
+const U256 L_CONST = {{0x5812631a5cf5d3edULL, 0x14def9dea2f79cd6ULL,
+                       0x0000000000000000ULL, 0x1000000000000000ULL}};
+const U256 C_CONST = {{0x5812631a5cf5d3edULL, 0x14def9dea2f79cd6ULL, 0, 0}};
+
+inline void add256(U256& a, const U256& b) {
+  unsigned __int128 carry = 0;
+  for (int i = 0; i < 4; i++) {
+    unsigned __int128 t = (unsigned __int128)a.w[i] + b.w[i] + carry;
+    a.w[i] = (u64)t;
+    carry = t >> 64;
+  }
+}
+
+inline bool sub256(U256& a, const U256& b) {  // a -= b; returns borrow
+  unsigned __int128 borrow = 0;
+  for (int i = 0; i < 4; i++) {
+    unsigned __int128 t =
+        (unsigned __int128)a.w[i] - b.w[i] - borrow;
+    a.w[i] = (u64)t;
+    borrow = (t >> 64) ? 1 : 0;
+  }
+  return borrow != 0;
+}
+
+inline bool geq256(const U256& a, const U256& b) {
+  for (int i = 3; i >= 0; i--) {
+    if (a.w[i] != b.w[i]) return a.w[i] > b.w[i];
+  }
+  return true;
+}
+
+// r = (r * 2^32 + word) mod L, with r < L on entry and exit.
+// Split shifted = hi * 2^252 + lo; shifted mod L = lo - hi*c (+L).
+inline void muladd_mod_l(U256& r, u64 word32) {
+  // shifted = r << 32 | word32 as a 288-bit value in 5 words
+  u64 s[5];
+  s[0] = (r.w[0] << 32) | word32;
+  s[1] = (r.w[1] << 32) | (r.w[0] >> 32);
+  s[2] = (r.w[2] << 32) | (r.w[1] >> 32);
+  s[3] = (r.w[3] << 32) | (r.w[2] >> 32);
+  s[4] = r.w[3] >> 32;
+  // hi = shifted >> 252 (shifted < 2^285 so hi < 2^33); lo = low 252
+  // bits — bit 252 lives at position 60 of word 3 (252 - 3*64)
+  u64 hi = (s[4] << 4) | (s[3] >> 60);
+  U256 lo = {{s[0], s[1], s[2], s[3] & 0x0FFFFFFFFFFFFFFFULL}};
+  // hi * c: c < 2^126 (2 words), hi < 2^33 -> product < 2^159 (3 words)
+  U256 hc = {{0, 0, 0, 0}};
+  unsigned __int128 p0 = (unsigned __int128)hi * C_CONST.w[0];
+  unsigned __int128 p1 = (unsigned __int128)hi * C_CONST.w[1];
+  hc.w[0] = (u64)p0;
+  unsigned __int128 mid = (p0 >> 64) + (u64)p1;
+  hc.w[1] = (u64)mid;
+  hc.w[2] = (u64)((mid >> 64) + (p1 >> 64));
+  if (sub256(lo, hc)) add256(lo, L_CONST);  // went negative: one L fixes
+  if (geq256(lo, L_CONST)) sub256(lo, L_CONST);
+  r = lo;
+}
+
+inline void reduce512_mod_l(const u8* digest64, u8* out32) {
+  // digest is little-endian (RFC 8032); feed words from the top
+  U256 r = {{0, 0, 0, 0}};
+  for (int i = 15; i >= 0; i--) {
+    u64 w = (u64)digest64[4 * i] | ((u64)digest64[4 * i + 1] << 8) |
+            ((u64)digest64[4 * i + 2] << 16) |
+            ((u64)digest64[4 * i + 3] << 24);
+    muladd_mod_l(r, w);
+  }
+  for (int i = 0; i < 4; i++) {
+    u64 v = r.w[i];
+    for (int j = 0; j < 8; j++) {
+      out32[8 * i + j] = (u8)v;
+      v >>= 8;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// h_i = SHA512(R_i || A_i || M_i) mod L, 32 bytes little-endian each —
+// the full challenge-scalar staging for the ed25519 device batch.
+void ed25519_batch_challenge(const u8* r32, const u8* a32,
+                             const u8* msgs, const u64* moffs,
+                             const u64* mlens, u64 n, u8* out32) {
+  Sha512 s;
+  u8 digest[64];
+  for (u64 i = 0; i < n; i++) {
+    s.init();
+    s.update(r32 + 32 * i, 32);
+    s.update(a32 + 32 * i, 32);
+    s.update(msgs + moffs[i], mlens[i]);
+    s.final(digest);
+    reduce512_mod_l(digest, out32 + 32 * i);
+  }
+}
+
+// standalone reduction (differential-test surface)
+void batch_reduce_mod_l(const u8* digests64, u64 n, u8* out32) {
+  for (u64 i = 0; i < n; i++) {
+    reduce512_mod_l(digests64 + 64 * i, out32 + 32 * i);
+  }
+}
+
+}  // extern "C"
+
+namespace {
+
+// 32 LE bytes (top bit already masked) -> 20 x 13-bit int32 limbs
+// (ops/field.py LIMB_BITS=13 NLIMBS=20 layout)
+inline void limbs13(const u8* b, int32_t* out) {
+  for (int i = 0; i < 20; i++) {
+    int bit = 13 * i;
+    int byte = bit >> 3, sh = bit & 7;
+    u64 w = 0;
+    for (int k = 0; k < 4 && byte + k < 32; k++) {
+      w |= (u64)b[byte + k] << (8 * k);
+    }
+    out[i] = (int32_t)((w >> sh) & 0x1FFF);
+  }
+}
+
+// 32 bytes -> 64 base-16 digits little-endian (scalar_digits)
+inline void nibbles64(const u8* b, int32_t* out) {
+  for (int i = 0; i < 32; i++) {
+    out[2 * i] = b[i] & 0xF;
+    out[2 * i + 1] = b[i] >> 4;
+  }
+}
+
+inline bool below_l(const u8* s32) {
+  // lexicographic compare on the LE bytes of L, from the top
+  static const u8 LBYTES[32] = {
+      0xed, 0xd3, 0xf5, 0x5c, 0x1a, 0x63, 0x12, 0x58,
+      0xd6, 0x9c, 0xf7, 0xa2, 0xde, 0xf9, 0xde, 0x14,
+      0x00, 0x00, 0x00, 0x00, 0x00, 0x00, 0x00, 0x00,
+      0x00, 0x00, 0x00, 0x00, 0x00, 0x00, 0x00, 0x10};
+  for (int i = 31; i >= 0; i--) {
+    if (s32[i] != LBYTES[i]) return s32[i] < LBYTES[i];
+  }
+  return false;  // equal -> not below
+}
+
+}  // namespace
+
+extern "C" {
+
+// -- canonical sign-bytes templating (types/canonical.py
+// CanonicalVoteEncoder): within a commit only the timestamp varies, so
+// each row's message is
+//   uvarint(len(body)) || pre || 0x2a || uvarint(len(ts)) || ts || suf
+// with ts = f_varint(1, seconds) + f_varint(2, nanos) (zero fields
+// omitted; negatives as 64-bit two's-complement 10-byte varints —
+// libs/protoenc.py rules, byte-identical by differential test).
+
+namespace {
+
+inline int put_uvarint(u8* p, u64 v) {
+  int i = 0;
+  while (v >= 0x80) {
+    p[i++] = (u8)(v | 0x80);
+    v >>= 7;
+  }
+  p[i++] = (u8)v;
+  return i;
+}
+
+// f_varint(field, v) for int64 values (two's complement when negative)
+inline int put_field_varint(u8* p, int field, long long v) {
+  if (v == 0) return 0;
+  int i = put_uvarint(p, (u64)(field << 3));  // wire type 0
+  i += put_uvarint(p + i, (u64)v);
+  return i;
+}
+
+inline int put_ts_body(u8* p, long long secs, long long nanos) {
+  int i = put_field_varint(p, 1, secs);
+  i += put_field_varint(p + i, 2, nanos);
+  return i;
+}
+
+}  // namespace
+
+// Fused commit pack: per-row canonical sign-bytes from (template,
+// timestamp) + SHA-512 + mod-L + limb/nibble decomposition + S<L, one
+// call per streamed chunk (blocksync/pipeline.py). tmpl holds each
+// commit's pre/suf slices.
+void ed25519_pack_commits(
+    const u8* pubs /* n x 32 */, const u8* sigs /* n x 64 */,
+    const u8* tmpl, const u64* pre_off, const u64* pre_len,
+    const u64* suf_off, const u64* suf_len,
+    const int32_t* row_tmpl, const long long* row_secs,
+    const long long* row_nanos, u64 n,
+    int32_t* ay, int32_t* asign, int32_t* ry, int32_t* rsign,
+    int32_t* sdig, int32_t* hdig, u8* precheck) {
+  Sha512 sh;
+  u8 digest[64], hred[32], masked[32];
+  u8 tsbuf[24], head[16], lenbuf[10];
+  for (u64 i = 0; i < n; i++) {
+    const u8* pk = pubs + 32 * i;
+    const u8* r = sigs + 64 * i;
+    const u8* s = sigs + 64 * i + 32;
+    int t = row_tmpl[i];
+    const u8* pre = tmpl + pre_off[t];
+    const u8* suf = tmpl + suf_off[t];
+    u64 plen = pre_len[t], slen = suf_len[t];
+
+    int tslen = put_ts_body(tsbuf, row_secs[i], row_nanos[i]);
+    int hlen = 0;
+    head[hlen++] = 0x2a;  // tag(5, BYTES)
+    hlen += put_uvarint(head + hlen, (u64)tslen);
+    u64 body_len = plen + (u64)hlen + (u64)tslen + slen;
+    int dlen = put_uvarint(lenbuf, body_len);
+
+    sh.init();
+    sh.update(r, 32);
+    sh.update(pk, 32);
+    sh.update(lenbuf, dlen);
+    sh.update(pre, plen);
+    sh.update(head, hlen);
+    sh.update(tsbuf, tslen);
+    sh.update(suf, slen);
+    sh.final(digest);
+    reduce512_mod_l(digest, hred);
+
+    memcpy(masked, pk, 32);
+    masked[31] &= 0x7F;
+    limbs13(masked, ay + 20 * i);
+    asign[i] = pk[31] >> 7;
+    memcpy(masked, r, 32);
+    masked[31] &= 0x7F;
+    limbs13(masked, ry + 20 * i);
+    rsign[i] = r[31] >> 7;
+    nibbles64(s, sdig + 64 * i);
+    nibbles64(hred, hdig + 64 * i);
+    precheck[i] = below_l(s) ? 1 : 0;
+  }
+}
+
+// Full host pack for one ed25519 batch (ops/ed25519_kernel.pack_batch
+// fast path): digests + mod-L + limb/nibble decomposition + S<L
+// precheck, one call for the whole commit.
+void ed25519_pack(const u8* pubs /* n x 32 */, const u8* sigs /* n x 64 */,
+                  const u8* msgs, const u64* moffs, const u64* mlens,
+                  u64 n, int32_t* ay /* n x 20 */, int32_t* asign,
+                  int32_t* ry, int32_t* rsign, int32_t* sdig /* n x 64 */,
+                  int32_t* hdig /* n x 64 */, u8* precheck) {
+  Sha512 sh;
+  u8 digest[64], hred[32], masked[32];
+  for (u64 i = 0; i < n; i++) {
+    const u8* pk = pubs + 32 * i;
+    const u8* r = sigs + 64 * i;
+    const u8* s = sigs + 64 * i + 32;
+    sh.init();
+    sh.update(r, 32);
+    sh.update(pk, 32);
+    sh.update(msgs + moffs[i], mlens[i]);
+    sh.final(digest);
+    reduce512_mod_l(digest, hred);
+
+    memcpy(masked, pk, 32);
+    masked[31] &= 0x7F;
+    limbs13(masked, ay + 20 * i);
+    asign[i] = pk[31] >> 7;
+    memcpy(masked, r, 32);
+    masked[31] &= 0x7F;
+    limbs13(masked, ry + 20 * i);
+    rsign[i] = r[31] >> 7;
+    nibbles64(s, sdig + 64 * i);
+    nibbles64(hred, hdig + 64 * i);
+    precheck[i] = below_l(s) ? 1 : 0;
+  }
+}
+
+}  // extern "C"
+
+// ---- keccak-f[1600] ---------------------------------------------------
+// Batched permutation for the merlin/STROBE transcript host path
+// (crypto/keccak.py keccak_f1600_np): sr25519 challenge generation runs
+// thousands of lanes of STROBE, one numpy permutation call per block.
+
+namespace {
+
+const u64 KRC[24] = {
+    0x0000000000000001ULL, 0x0000000000008082ULL, 0x800000000000808aULL,
+    0x8000000080008000ULL, 0x000000000000808bULL, 0x0000000080000001ULL,
+    0x8000000080008081ULL, 0x8000000000008009ULL, 0x000000000000008aULL,
+    0x0000000000000088ULL, 0x0000000080008009ULL, 0x000000008000000aULL,
+    0x000000008000808bULL, 0x800000000000008bULL, 0x8000000000008089ULL,
+    0x8000000000008003ULL, 0x8000000000008002ULL, 0x8000000000000080ULL,
+    0x000000000000800aULL, 0x800000008000000aULL, 0x8000000080008081ULL,
+    0x8000000000008080ULL, 0x0000000080000001ULL, 0x8000000080008008ULL};
+
+inline u64 rotl64(u64 x, int n) {
+  return n ? (x << n) | (x >> (64 - n)) : x;
+}
+
+// rotation offsets indexed [x][y] (keccak.py _ROT layout)
+const int KROT[5][5] = {{0, 36, 3, 41, 18},
+                        {1, 44, 10, 45, 2},
+                        {62, 6, 43, 15, 61},
+                        {28, 55, 25, 21, 56},
+                        {27, 20, 39, 8, 14}};
+
+inline void f1600_one(u64* s /* 25 lanes, order x + 5y */) {
+  u64 a[5][5], b[5][5], c[5], d[5];
+  for (int y = 0; y < 5; y++)
+    for (int x = 0; x < 5; x++) a[x][y] = s[x + 5 * y];
+  for (int r = 0; r < 24; r++) {
+    for (int x = 0; x < 5; x++)
+      c[x] = a[x][0] ^ a[x][1] ^ a[x][2] ^ a[x][3] ^ a[x][4];
+    for (int x = 0; x < 5; x++)
+      d[x] = c[(x + 4) % 5] ^ rotl64(c[(x + 1) % 5], 1);
+    for (int x = 0; x < 5; x++)
+      for (int y = 0; y < 5; y++) a[x][y] ^= d[x];
+    for (int x = 0; x < 5; x++)
+      for (int y = 0; y < 5; y++)
+        b[y][(2 * x + 3 * y) % 5] = rotl64(a[x][y], KROT[x][y]);
+    for (int x = 0; x < 5; x++)
+      for (int y = 0; y < 5; y++)
+        a[x][y] = b[x][y] ^ (~b[(x + 1) % 5][y] & b[(x + 2) % 5][y]);
+    a[0][0] ^= KRC[r];
+  }
+  for (int y = 0; y < 5; y++)
+    for (int x = 0; x < 5; x++) s[x + 5 * y] = a[x][y];
+}
+
+}  // namespace
+
+// ---- STROBE-128 / merlin transcripts ----------------------------------
+// Full sr25519 challenge transcripts in native code
+// (crypto/merlin.py Strobe128 semantics, differential-tested in
+// tests/test_torch_native.py). The numpy BatchStrobe route pays Python
+// and numpy dispatch for every transcript op; one C call walks each
+// lane's whole transcript.
+
+namespace {
+
+constexpr int SR = 166;  // STROBE-128 rate: 200 - 2*16 - 2
+constexpr u8 SFLAG_I = 1, SFLAG_A = 2, SFLAG_C = 4, SFLAG_M = 16,
+             SFLAG_K = 32;
+
+struct Strobe {
+  u8 st[200];
+  int pos, pos_begin;
+  u8 cur_flags;
+
+  void run_f() {
+    st[pos] ^= (u8)pos_begin;
+    st[pos + 1] ^= 0x04;
+    st[SR + 1] ^= 0x80;
+    u64 lanes[25];
+    memcpy(lanes, st, 200);
+    f1600_one(lanes);
+    memcpy(st, lanes, 200);
+    pos = 0;
+    pos_begin = 0;
+  }
+
+  void absorb(const u8* data, u64 len) {
+    for (u64 i = 0; i < len; i++) {
+      st[pos] ^= data[i];
+      if (++pos == SR) run_f();
+    }
+  }
+
+  void squeeze(u8* out, u64 len) {
+    for (u64 i = 0; i < len; i++) {
+      out[i] = st[pos];
+      st[pos] = 0;
+      if (++pos == SR) run_f();
+    }
+  }
+
+  void begin_op(u8 flags, bool more) {
+    if (more) return;
+    u8 hdr[2] = {(u8)pos_begin, flags};
+    pos_begin = pos + 1;
+    cur_flags = flags;
+    absorb(hdr, 2);
+    if ((flags & (SFLAG_C | SFLAG_K)) && pos != 0) run_f();
+  }
+
+  void meta_ad(const u8* d, u64 n, bool more) {
+    begin_op(SFLAG_M | SFLAG_A, more);
+    absorb(d, n);
+  }
+  void ad(const u8* d, u64 n, bool more) {
+    begin_op(SFLAG_A, more);
+    absorb(d, n);
+  }
+  void prf(u8* out, u64 n) {
+    begin_op(SFLAG_I | SFLAG_A | SFLAG_C, false);
+    squeeze(out, n);
+  }
+
+  void append_message(const u8* label, u64 ll, const u8* msg, u64 ml) {
+    u8 len4[4] = {(u8)ml, (u8)(ml >> 8), (u8)(ml >> 16), (u8)(ml >> 24)};
+    meta_ad(label, ll, false);
+    meta_ad(len4, 4, true);
+    ad(msg, ml, false);
+  }
+
+  void challenge(const u8* label, u64 ll, u8* out, u64 n) {
+    u8 len4[4] = {(u8)n, (u8)(n >> 8), (u8)(n >> 16), (u8)(n >> 24)};
+    meta_ad(label, ll, false);
+    meta_ad(len4, 4, true);
+    prf(out, n);
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// In-place batched keccak-f[1600]: states is n x 25 little-endian u64
+// lanes (x + 5y order, matching keccak.py).
+void batch_keccak_f1600(u64* states, u64 n) {
+  for (u64 i = 0; i < n; i++) f1600_one(states + 25 * i);
+}
+
+// sr25519 (schnorrkel) batch challenge derivation: each lane clones the
+// signing-context prefix transcript and runs
+//   append_message("sign-bytes", msg)
+//   append_message("proto-name", "Schnorr-sig")
+//   append_message("sign:pk", pk)   append_message("sign:R", R)
+//   challenge_bytes("sign:c", 64)
+// (crypto/sr25519/batch.go:44-77 / sr25519_ref.challenge_scalar).
+// prefix: 200-byte STROBE state + pos/pos_begin/cur_flags of the shared
+// signing context; msgs is n x msg_len (caller groups rows by length).
+void sr25519_batch_challenges(const u8* prefix, int pos, int pos_begin,
+                              int cur_flags, const u8* msgs, u64 msg_len,
+                              const u8* pks /* n x 32 */,
+                              const u8* rs /* n x 32 */, u64 n,
+                              u8* out /* n x 64 */) {
+  for (u64 i = 0; i < n; i++) {
+    Strobe s;
+    memcpy(s.st, prefix, 200);
+    s.pos = pos;
+    s.pos_begin = pos_begin;
+    s.cur_flags = (u8)cur_flags;
+    s.append_message((const u8*)"sign-bytes", 10, msgs + i * msg_len,
+                     msg_len);
+    s.append_message((const u8*)"proto-name", 10,
+                     (const u8*)"Schnorr-sig", 11);
+    s.append_message((const u8*)"sign:pk", 7, pks + i * 32, 32);
+    s.append_message((const u8*)"sign:R", 6, rs + i * 32, 32);
+    s.challenge((const u8*)"sign:c", 6, out + i * 64, 64);
+  }
+}
+
+int hostaccel_abi_version() { return 1; }
+
+}  // extern "C"

@@ -8,9 +8,10 @@ The first call builds every kernel source at once, one nvcc process each,
 all started together; later calls in any process load the cached files.
 Nothing here runs at import time.
 
-The same directory holds the host build of the kernels' per-thread
-arithmetic (csrc/ed25519_host.cpp over the csrc/*.cuh headers, compiled
-with the system C++ compiler), which the CPU tests use.
+The same directory holds two host builds, compiled with the system C++
+compiler: the kernels' per-thread arithmetic (csrc/ed25519_host.cpp over
+the csrc/*.cuh headers), which the CPU tests use, and the native host
+packer (csrc/hostaccel.cpp), which the pack paths call on every commit.
 """
 from __future__ import annotations
 
@@ -22,11 +23,15 @@ import subprocess
 import threading
 from pathlib import Path
 
+import numpy as np
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+NATIVE_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+NATIVE_ABI = 1
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # source -> {C entry: argtypes}; every entry returns int (a cudaError_t)
@@ -69,6 +74,27 @@ _HOST_FNS = {
     "cbt_host_tally": ([_I, _P, _P, _I, _P, _I, _I, _P, _P], ctypes.c_int),
     "cbt_host_op_counts": ([ctypes.POINTER(ctypes.c_longlong)] * 2, None),
     "cbt_host_sha_blocks": ([], ctypes.c_longlong),
+}
+
+_U8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_U64 = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+_I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_N = ctypes.c_uint64
+_PACK_OUT = [_I32] * 6 + [_U8]  # ay, asign, ry, rsign, sdig, hdig, precheck
+# csrc/hostaccel.cpp's C entries (the JAX package's ABI, version NATIVE_ABI)
+_NATIVE_FNS = {
+    "batch_sha512": ([_U8, _U64, _U64, _N, _U8], None),
+    "ed25519_batch_digest": ([_U8, _U8, _U8, _U64, _U64, _N, _U8], None),
+    "ed25519_batch_challenge": ([_U8, _U8, _U8, _U64, _U64, _N, _U8], None),
+    "batch_reduce_mod_l": ([_U8, _N, _U8], None),
+    "ed25519_pack": ([_U8, _U8, _U8, _U64, _U64, _N] + _PACK_OUT, None),
+    "ed25519_pack_commits": ([_U8, _U8, _U8, _U64, _U64, _U64, _U64, _I32,
+                              _I64, _I64, _N] + _PACK_OUT, None),
+    "batch_keccak_f1600": ([_U64, _N], None),
+    "sr25519_batch_challenges": ([_U8, _I, _I, _I, _U8, _N, _U8, _U8, _N,
+                                  _U8], None),
+    "hostaccel_abi_version": ([], ctypes.c_int),
 }
 
 _lock = threading.Lock()
@@ -159,20 +185,41 @@ def kernel_lib(src: str) -> ctypes.CDLL:
         return lib
 
 
+def _host_build(src: str, flags, fns: dict, key) -> ctypes.CDLL:
+    """csrc/<src> built with the host C++ compiler (cached like the
+    kernels) and loaded with `fns` declared; the caller holds _lock."""
+    lib = _libs.get(key)
+    if lib is None:
+        out = _target(src, flags)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            cxx = shutil.which("c++") or shutil.which("g++")
+            if cxx is None:
+                raise BuildError("no C++ compiler on PATH")
+            _finish([_start(cxx, src, flags, out)])
+        lib = _load(out, fns)
+        _libs[key] = lib
+    return lib
+
+
 def host_lib(count_ops: bool = False) -> ctypes.CDLL:
     """The host build of csrc/ed25519_host.cpp (C++ compiler, no CUDA)."""
     flags = HOST_FLAGS + (("-DCBT_COUNT_OPS",) if count_ops else ())
-    key = ("host", count_ops)
     with _lock:
-        lib = _libs.get(key)
-        if lib is None:
-            out = _target("ed25519_host.cpp", flags)
-            if not out.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                cxx = shutil.which("c++") or shutil.which("g++")
-                if cxx is None:
-                    raise BuildError("no C++ compiler on PATH")
-                _finish([_start(cxx, "ed25519_host.cpp", flags, out)])
-            lib = _load(out, _HOST_FNS)
-            _libs[key] = lib
+        return _host_build("ed25519_host.cpp", flags, _HOST_FNS,
+                           ("host", count_ops))
+
+
+def native_lib() -> ctypes.CDLL:
+    """The native host packer, csrc/hostaccel.cpp (C++ compiler, no
+    CUDA), with its C entries declared; raises BuildError when there is
+    no compiler, the build fails or the library's ABI is not NATIVE_ABI."""
+    with _lock:
+        fresh = "native" not in _libs
+        lib = _host_build("hostaccel.cpp", NATIVE_FLAGS, _NATIVE_FNS,
+                          "native")
+        if fresh and lib.hostaccel_abi_version() != NATIVE_ABI:
+            del _libs["native"]
+            raise BuildError(f"hostaccel ABI {lib.hostaccel_abi_version()}"
+                             f", want {NATIVE_ABI}")
         return lib

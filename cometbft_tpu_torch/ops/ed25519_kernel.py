@@ -3,9 +3,11 @@ tally.
 
 Counterpart of the JAX package's ops/ed25519_kernel.py. The host side
 (SHA-512 challenge h = H(R||A||M) mod L, digit splits, the S < L
-precheck, 13-bit limbs) is the same numpy + hashlib pipeline, so a
-`PackedBatch` is byte-identical across the two packages. The curve work
-runs in ops/ed25519_fused.py.
+precheck, 13-bit limbs) runs in one call of the native host packer
+(native.ed25519_pack), as the reference's does; the numpy + hashlib
+pipeline stays as its plain version (`native=False`) and screens rows of
+bad lengths. A `PackedBatch` is byte-identical across the two packages and
+the two routes. The curve work runs in ops/ed25519_fused.py.
 
 Voting powers ride as 5 x 13-bit limbs so the tally stays int32 on the
 device: power < 2^63 and MaxTotalVotingPower = MaxInt64/8
@@ -20,6 +22,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from cometbft_tpu_torch import native as _native
 from cometbft_tpu_torch.crypto import ed25519_ref as ref
 from cometbft_tpu_torch.ops.field import from_bytes_le
 
@@ -138,12 +141,15 @@ def pack_batch(
     msgs: Sequence[bytes],
     sigs: Sequence[bytes],
     pad_to: Optional[int] = None,
+    native: bool = True,
 ) -> PackedBatch:
     """Stage (pubkey, msg, sig) triples into device-ready arrays.
 
     Malformed rows (bad lengths, S >= L) get precheck=False and zeroed
     payloads: they verify invalid without poisoning the batch. The batch is
     padded to `pad_to` (default: its bucket), padding rows precheck=False.
+    When every row has a 32-byte key and a 64-byte signature, one native
+    call packs the batch; `native=False` runs the numpy plain version.
     """
     n = len(pubkeys)
     assert len(msgs) == n and len(sigs) == n
@@ -156,9 +162,13 @@ def pack_batch(
     s_raw = np.zeros((padded, 32), np.uint8)
     sha512 = hashlib.sha512
     if all(lenok):
+        pub_cat, sig_cat_b = b"".join(pubkeys), b"".join(sigs)
+        if native:
+            return PackedBatch(n, padded, *_native.ed25519_pack(
+                pub_cat, sig_cat_b, msgs, padded))
         # one join + frombuffer per array
-        a_raw[:n] = np.frombuffer(b"".join(pubkeys), np.uint8).reshape(n, 32)
-        sig_cat = np.frombuffer(b"".join(sigs), np.uint8).reshape(n, 64)
+        a_raw[:n] = np.frombuffer(pub_cat, np.uint8).reshape(n, 32)
+        sig_cat = np.frombuffer(sig_cat_b, np.uint8).reshape(n, 64)
         r_raw[:n] = sig_cat[:, :32]
         s_raw[:n] = sig_cat[:, 32:]
         digests = [

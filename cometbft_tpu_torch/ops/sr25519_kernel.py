@@ -3,9 +3,12 @@ kernel.
 
 Counterpart of the JAX package's ops/sr25519_kernel.py (reference seam:
 crypto/sr25519/batch.go:44-77, voi's merlin-transcript batch verify). The
-merlin challenge k = H(transcript) is computed on the host with the
-numpy-batched STROBE (crypto/merlin.BatchTranscript) and reduced mod L
-with Python ints; the packed rows use the ed25519 ABI
+merlin challenge k = H(transcript) is computed on the host by the native
+host packer (native.sr25519_batch_challenges, one call a message length)
+and reduced mod L there too (native.batch_reduce_mod_l), as the
+reference does; with `native=False` the numpy-batched STROBE
+(crypto/merlin.BatchTranscript) and Python ints are the plain version.
+The packed rows use the ed25519 ABI
 (ops/ed25519_fused.py `C_*`), byte for byte the JAX package's:
 
   C_AY   A's ristretto encoding s (13-bit limb pairs)
@@ -29,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cometbft_tpu_torch import native as _native
 from cometbft_tpu_torch.crypto import merlin
 from cometbft_tpu_torch.crypto import ristretto_ref as rist
 from cometbft_tpu_torch.crypto import sr25519_ref as sr
@@ -171,14 +175,15 @@ _P_WORDS = np.frombuffer(int.to_bytes(fe.P, 32, "little"), np.uint8).view(
     "<u8")
 
 
-def batch_challenges(msgs, pubs, r_encs) -> np.ndarray:
+def batch_challenges(msgs, pubs, r_encs, native: bool = True) -> np.ndarray:
     """Merlin challenges for a batch: (n, 64) uint8 raw challenge bytes
     (the reduction mod L happens in the pack).
 
     Rows are grouped by len(msg): within a group the transcript's
-    operations are identical, so one BatchTranscript runs them in
-    lockstep. A commit's sign-bytes vary in length with the timestamp
-    varints, so a commit makes a few groups."""
+    operations are identical, so one native call (or, for empty messages
+    and with native=False, one BatchTranscript) runs them in lockstep. A
+    commit's sign-bytes vary in length with the timestamp varints, so a
+    commit makes a few groups."""
     n = len(msgs)
     out = np.zeros((n, 64), np.uint8)
     prefix = sr._signing_prefix()
@@ -193,7 +198,13 @@ def batch_challenges(msgs, pubs, r_encs) -> np.ndarray:
                              np.uint8).reshape(len(idxs), 32)
         rarr = np.frombuffer(b"".join(r_encs[i] for i in idxs),
                              np.uint8).reshape(len(idxs), 32)
-        bt = merlin.BatchTranscript(len(idxs), prefix)
+        if native and ln:
+            st = prefix.strobe
+            out[np.asarray(idxs)] = _native.sr25519_batch_challenges(
+                bytes(st.st), st.pos, st.pos_begin, st.cur_flags, marr,
+                parr, rarr)
+            continue
+        bt = merlin.BatchTranscript(len(idxs), prefix, native)
         bt.append_message_batch(b"sign-bytes", marr)
         bt.append_message_shared(b"proto-name", b"Schnorr-sig")
         bt.append_message_batch(b"sign:pk", parr)
@@ -203,11 +214,14 @@ def batch_challenges(msgs, pubs, r_encs) -> np.ndarray:
 
 
 def pack_batch_sr(pubkeys, msgs, sigs, pad_to=None,
-                  power5=None, counted=None, commit_ids=None, thresh=None):
+                  power5=None, counted=None, commit_ids=None, thresh=None,
+                  native: bool = True):
     """sr25519 rows -> compact packed (R, B) int32 array in the ed25519
     layout (`ed25519_fused.pack_rows`), byte for byte the JAX package's
     `pack_batch_sr`. A row whose key is not 32 bytes gets a zero key in
-    the transcript and fails the precheck."""
+    the transcript and fails the precheck. The challenges and k mod L run
+    in the native host packer; `native=False` runs the numpy plain
+    version."""
     n = len(pubkeys)
     pad = pad_to or kf.pad_to_tile(n)
     a_l = np.zeros((pad, NLIMBS), np.int32)
@@ -217,10 +231,12 @@ def pack_batch_sr(pubkeys, msgs, sigs, pad_to=None,
     precheck = np.zeros((pad,), np.int32)
 
     r_encs = [bytes(s[:32]) if len(s) == 64 else b"\x00" * 32 for s in sigs]
+    # the zero key of a short-key row goes in before the transcripts, so
+    # neither route ever sees a key that is not 32 bytes
     chal = batch_challenges(
         [bytes(m) for m in msgs],
         [bytes(p) if len(p) == 32 else b"\x00" * 32 for p in pubkeys],
-        r_encs)
+        r_encs, native)
     lenok = np.array(
         [len(pubkeys[i]) == 32 and len(sigs[i]) == 64
          and bool(sigs[i][63] & 0x80) for i in range(n)], np.bool_)
@@ -240,11 +256,14 @@ def pack_batch_sr(pubkeys, msgs, sigs, pad_to=None,
               & ek.below_words(r_arr, _P_WORDS)
               & ((pk_arr[:, 0] & 1) == 0) & ((r_arr[:, 0] & 1) == 0)
               & ek.s_below_l(s_arr))
-        # k = challenge mod L (Python ints)
-        from_b, to_b, L = int.from_bytes, int.to_bytes, sr.L
-        k_red = np.frombuffer(b"".join(
-            to_b(from_b(bytes(c), "little") % L, 32, "little")
-            for c in chal), np.uint8).reshape(n, 32).copy()
+        # k = challenge mod L (native, or Python ints)
+        if native:
+            k_red = _native.batch_reduce_mod_l(chal)
+        else:
+            from_b, to_b, L = int.from_bytes, int.to_bytes, sr.L
+            k_red = np.frombuffer(b"".join(
+                to_b(from_b(bytes(c), "little") % L, 32, "little")
+                for c in chal), np.uint8).reshape(n, 32).copy()
         # zeroing the inputs of failed rows zeroes every derived output
         bad = ~ok
         for arr in (pk_arr, r_arr, s_arr, k_red):

@@ -58,6 +58,49 @@ def _commit_msgs(chain_id: str, commit: Commit, idxs) -> List[bytes]:
     return commit.sign_bytes_rows(chain_id, idxs)
 
 
+def commit_packed_batch(chain_id: str, commit: Commit, keys, idxs=None,
+                        pad_to: Optional[int] = None, native: bool = True):
+    """A commit's signatures staged for the device verifier without
+    building per-row sign-bytes in Python.
+
+    keys[i] is validator i's 32-byte ed25519 key (valset order); idxs
+    (default: every for-block signature with a key) selects the rows. The
+    native host packer builds each row's sign-bytes from the commit's
+    for-block and for-nil templates (Commit.sign_bytes_template) and the
+    row's timestamp (native.ed25519_pack_commits). Rows of bad lengths,
+    and every row with native=False, go through pack_batch over
+    Commit.sign_bytes_rows. The JAX package's commit_packed_batch gives
+    the same bytes.
+
+    Returns (PackedBatch, idxs): row k of the batch is commit signature
+    idxs[k]."""
+    from cometbft_tpu_torch import native as _native
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+
+    css = commit.signatures
+    if idxs is None:
+        idxs = [i for i, cs in enumerate(css)
+                if cs.for_block() and i < len(keys)]
+    pubs = [keys[i] for i in idxs]
+    sigs = [css[i].signature for i in idxs]
+    n = len(idxs)
+    padded = pad_to if pad_to is not None else ek.bucket_size(max(n, 1))
+    if (native and n and all(len(p) == 32 for p in pubs)
+            and all(len(s) == 64 for s in sigs)):
+        tmpl_b, tmpl_n = commit.sign_bytes_template(chain_id)
+        packed = _native.ed25519_pack_commits(
+            b"".join(pubs), b"".join(sigs),
+            [tmpl_b.template, tmpl_n.template],
+            np.fromiter((not css[i].is_commit() for i in idxs), np.int32, n),
+            np.fromiter((css[i].timestamp.seconds for i in idxs), np.int64,
+                        n),
+            np.fromiter((css[i].timestamp.nanos for i in idxs), np.int64, n),
+            padded)
+        return ek.PackedBatch(n, padded, *packed), idxs
+    return ek.pack_batch(pubs, _commit_msgs(chain_id, commit, idxs), sigs,
+                         pad_to=padded, native=native), idxs
+
+
 def verify_commit(
     chain_id: str,
     vals: ValidatorSet,

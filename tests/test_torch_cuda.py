@@ -875,3 +875,22 @@ def test_ecdsa_verify_kernel_gives_one_result_every_run(card):
     torch.cuda.synchronize()
     assert ef.ecdsa_verify.launches == before + 100
     assert all(torch.equal(o, want) for o in outs)
+
+
+def test_native_pack_builds_here_and_equals_plain_at_16384_rows(card):
+    """The native host packer builds with this machine's C++ compiler, and
+    pack_batch through it equals the numpy plain version at a 10k commit's
+    padded width, 16,384 rows of 150-170-byte messages."""
+    from cometbft_tpu_torch.ops import _build
+
+    assert _build.native_lib().hostaccel_abi_version() == _build.NATIVE_ABI
+    rng = np.random.default_rng(40)
+    n = 16_384
+    pubs = [rng.bytes(32) for _ in range(n)]
+    sigs = [rng.bytes(64) for _ in range(n)]
+    msgs = [rng.bytes(int(k)) for k in rng.integers(150, 171, n)]
+    got = ek.pack_batch(pubs, msgs, sigs, pad_to=n)
+    want = ek.pack_batch(pubs, msgs, sigs, pad_to=n, native=False)
+    for a, b in zip(got, want):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and np.array_equal(a, b)

@@ -55,15 +55,17 @@ def test_source_imports_nothing_of_jax_or_the_jax_package(path):
 
 def test_the_checks_cover_every_module_and_kernel_source():
     """The import checks above walk every module of the port, the sr25519
-    and ECDSA slice's included; every kernel source has a build entry and
-    every header is in the host build the CPU tests check."""
+    and ECDSA slice's and the native host packer's included; every kernel
+    source has a build entry, every header is in the host build the CPU
+    tests check, and the native packer's C++ source includes only the C++
+    standard library."""
     from cometbft_tpu_torch.ops import _build
 
     mods = set(_modules())
     for m in ("crypto.keccak", "crypto.merlin", "crypto.ristretto_ref",
               "crypto.sr25519_ref", "crypto.secp256k1_ref", "edge_cases",
               "ops.sr25519_kernel", "ops.secp256k1", "ops.ecdsa_kernel",
-              "ops.ecdsa_fused"):
+              "ops.ecdsa_fused", "native"):
         assert f"cometbft_tpu_torch.{m}" in mods
     csrc = PKG / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(_build.KERNELS)
@@ -73,6 +75,9 @@ def test_the_checks_cover_every_module_and_kernel_source():
         for mod in re.findall(r'^#include\s+[<"]([\w./]+)[>"]',
                               h.read_text(), re.M):
             assert "jax" not in mod and "cometbft_tpu/" not in mod
+    assert re.findall(r'^#include\s+[<"]([\w./]+)[>"]',
+                      (csrc / "hostaccel.cpp").read_text(), re.M) == [
+        "cstdint", "cstring"]
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
