@@ -93,7 +93,31 @@ Phases (any failure exits non-zero and prints no result line):
      a tampered signature must be blamed; then ecdsa_verify on the rows both
      calls launched it on (4,096 and 16,384 columns, clean and tampered)
      against plain, and its device time at both shapes (the trusting and
-     the light call's live counts).
+     the light call's live counts);
+ 11. the verify plane: phase 3's commit (tampered signature 4,321) as
+     10,000 gossiped precommits, each a counted submission with its
+     validator index and device stamp (template, secs, nanos) as VoteSet
+     makes it, from 8 threads into a started VerifyPlane on the card with
+     the config's defaults (window 1.5 ms, max_batch 1,024), in a
+     QuorumGroup backed by the valset (2/3 + 1 of the power); 5 runs (the
+     first with a cold table): quorum fires, the tally equals the host
+     sum exactly, 4,321 is False, every flush is fused and device-stamped,
+     the first flush cold and the rest warm, no breaker fault, and one
+     stamp_rows, ed25519_verify_cached and tally_quorum_cached a flush
+     with one valset_table_build; one more run under the profiler (the
+     card's busy share); then the host-packed branch
+     (set_device_stamping(False)) and two flights (pipeline_flights=2),
+     each equal to the clean runs, and an in-flight fault on 1,024 of the
+     precommits (the `verifyplane.collect` failpoint, once): that flush
+     lands on device_fault, its futures fail with DeviceError (no host
+     fallback on the card) and its breaker counts one fault, the other
+     flushes give the oracle's verdicts, and the failed precommits
+     resubmitted give theirs on fused flushes; then the flush's three
+     kernels at its shape
+     (16,384 columns, 1,024 live, M = 16,384) against their plain
+     versions, timed by device time; prints flushes, rows a flush, the
+     quorum latency p50 (host clock) and the ledger's per-flush comp_ms,
+     h2d_ms and dev_ms medians with the card's name and power limit.
 Before the last line it prints the `kernels` JSON (launches on the main
 paths, in all and by path; times; bounds; for every kernel `device_ms`, from
 a profiler trace at its phase's shape, by live columns or by shape where a
@@ -154,6 +178,15 @@ TABLE_CROSS_SWEEP = (2048, 4096)
 FUZZ_SECS = [0, 1, 127, 128, 16383, 16384, 1_700_000_000, 2**31 - 1,
              2**31, 2**40, 2**62, -1, -2**33]
 FUZZ_NANOS = [0, 1, 127, 128, 999_999_999, 5, 42, -7]
+PLANE_RUNS = 5               # clean runs of the 10k precommits (one cold)
+PLANE_THREADS = 8            # submitting threads
+PLANE_WINDOW_MS = 1.5        # [verify_plane] defaults (config.py)
+PLANE_MAX_BATCH = 1024
+PLANE_MAX_QUEUE = 8192
+PLANE_FAULT_VALS = (4096, 5120)  # the fault run's validators
+PLANE_FAULT_BATCH = 256
+PLANE_TIMEOUT_S = 120.0
+PLANE_LEDGER = 16384         # flush ledger ring of the phase's planes
 H100_SMS = 132
 IMAD_PER_CLK = 64            # INT32 multiply-adds per SM per clock
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -2272,6 +2305,342 @@ def phase_light_secp(dev, pool, rng, kernel_stats):
     return {"lc_pair_p50_ms": p50}
 
 
+# --------------------------------------------------------------------------
+# phase 11: the verify plane on the card
+# --------------------------------------------------------------------------
+
+
+def plane_subs(vs, commit):
+    """Each CommitSig of phase 3's commit as the precommit submission a
+    VoteSet makes (types/vote_set.py in the JAX package): counted, with the
+    validator index and the device stamp (template, secs, nanos)."""
+    from cometbft_tpu_torch.types import canonical
+    from cometbft_tpu_torch.types.vote import sign_bytes_template
+
+    tpl = sign_bytes_template(CHAIN_ID, canonical.PRECOMMIT_TYPE,
+                              commit.height, commit.round, commit.block_id)
+    secs = [cs.timestamp.seconds for cs in commit.signatures]
+    nanos = [cs.timestamp.nanos for cs in commit.signatures]
+    msgs = tpl.patch_rows(secs, nanos).tolist()
+    check(msgs == commit.sign_bytes_rows(CHAIN_ID),
+          "phase11 template rows != the commit's sign-bytes")
+    return [dict(rows=[(v.pub_key, m, cs.signature)], power=v.voting_power,
+                 counted=True, vidx=[i], stamp=[(tpl, s, n)])
+            for i, (v, cs, m, s, n) in enumerate(zip(
+                vs.validators, commit.signatures, msgs, secs, nanos))]
+
+
+def plane_run(plane, subs, pubs, powers, quorum=True):
+    """Submit every submission to the running plane from PLANE_THREADS
+    threads into one fresh QuorumGroup; -> (verdicts, "DeviceError" for a
+    submission whose flush faulted, group, ms from the first submission to
+    the quorum event, or None when `quorum` is False or it never fired,
+    ledger records of the run's flushes)."""
+    import threading
+
+    from cometbft_tpu_torch.device import DeviceError
+    from cometbft_tpu_torch.verifyplane import QuorumGroup
+
+    def verdict(f):
+        try:
+            return f.result(PLANE_TIMEOUT_S)[0]
+        except DeviceError:
+            return "DeviceError"
+
+    group = QuorumGroup(sum(powers) * 2 // 3 + 1, "phase11",
+                        valset_pubs=pubs, valset_powers=powers)
+    futs = [None] * len(subs)
+    seq0 = len(plane.ledger.records())
+    go = threading.Event()
+
+    def worker(k):
+        go.wait()
+        for i in range(k, len(subs), PLANE_THREADS):
+            futs[i] = plane.submit_many(group=group, **subs[i])
+
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(PLANE_THREADS)]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    go.set()
+    reached = quorum and group.wait_quorum(PLANE_TIMEOUT_S)
+    quorum_ms = (time.perf_counter() - t0) * 1e3 if reached else None
+    for t in threads:
+        t.join(PLANE_TIMEOUT_S)
+    verdicts = [verdict(f) for f in futs]
+    # a flush resolves its futures just before its ledger record lands
+    deadline = time.perf_counter() + PLANE_TIMEOUT_S
+    while sum(r["rows"] for r in plane.ledger.records()[seq0:]) < len(subs):
+        check(time.perf_counter() < deadline, "phase11 ledger incomplete")
+        time.sleep(0.001)
+    return verdicts, group, quorum_ms, plane.ledger.records()[seq0:]
+
+
+def phase_plane(dev, res, kernel_stats):
+    """Phase 3's signed 10k commit as gossiped precommits through a started
+    VerifyPlane on the card: fused flushes (stamp_rows, the cached verify,
+    the cached tally), the quorum bit from the kernel, the tampered vote
+    blamed; then the host-packed branch, two flights, and one in-flight
+    fault."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.libs import failpoints as fp
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+    from cometbft_tpu_torch.ops import table_cache as tc
+    from cometbft_tpu_torch.verifyplane import (FlushLedger, QuorumGroup,
+                                                VerifyPlane)
+    from cometbft_tpu_torch.verifyplane import fused as fz
+    from cometbft_tpu_torch.verifyplane.plane import _Submission
+
+    def make_plane(**kw):
+        p = VerifyPlane(window_ms=PLANE_WINDOW_MS, max_queue=PLANE_MAX_QUEUE,
+                        **kw)
+        check(p.device == dev, f"phase11 plane device {p.device}")
+        # room for every flush of the phase in the ledger's ring
+        p.ledger = FlushLedger(capacity=PLANE_LEDGER)
+        return p
+
+    vs, bid, height, commit = res["fixture"]
+    good = commit.signatures[TAMPER_IDX].signature
+    commit.signatures[TAMPER_IDX].signature = flip(good, 40)
+    try:
+        subs = plane_subs(vs, commit)
+    finally:
+        commit.signatures[TAMPER_IDX].signature = good
+    pubs = tuple(v.pub_key.data for v in vs.validators)
+    powers = tuple(v.voting_power for v in vs.validators)
+    want = [i != TAMPER_IDX for i in range(N_VALS)]
+    want_tally = sum(powers) - powers[TAMPER_IDX]
+    brk = cbatch.device_breaker()
+    # the earlier phases cached this valset's table: start cold
+    tc.reset_for_tests()
+
+    def runs_check(name, out, stamp, cold_first):
+        verdicts, group, quorum_ms, recs = out
+        check(quorum_ms is not None, f"phase11 {name}: no quorum")
+        check(verdicts == want,
+              f"phase11 {name}: verdicts != the oracle's (tampered "
+              f"{TAMPER_IDX} False, the rest True)")
+        check(group.tally == want_tally,
+              f"phase11 {name}: tally {group.tally} != {want_tally}")
+        check({r["path"] for r in recs} == {"fused"},
+              f"phase11 {name}: paths {[r['path'] for r in recs]}")
+        check({r["stamp"] for r in recs} == {stamp},
+              f"phase11 {name}: stamps {[r['stamp'] for r in recs]}")
+        warm = [r["warm"] for r in recs]
+        check(warm == [0 if cold_first else 1] + [1] * (len(recs) - 1),
+              f"phase11 {name}: warm column {warm}")
+        return recs
+
+    def launches_check(name, flushes, stamped, builds):
+        got = read_launches()
+        want_l = {k: 0 for k in got}
+        want_l.update(stamp_rows=flushes if stamped else 0,
+                      ed25519_verify_cached=flushes,
+                      tally_quorum_cached=flushes,
+                      valset_table_build=builds)
+        check(got == want_l, f"phase11 {name} launches {got}, want {want_l}")
+        return got
+
+    # the clean runs: one plane, the config's defaults, the global breaker
+    plane = make_plane(max_batch=PLANE_MAX_BATCH)
+    plane.start()
+    clean, quorum_ms = [], []
+    try:
+        zero_launches()
+        for k in range(PLANE_RUNS):
+            out = plane_run(plane, subs, pubs, powers)
+            clean += runs_check(f"run {k}", out, "device", k == 0)
+            quorum_ms.append(out[2])
+        torch.cuda.synchronize()
+        launches = launches_check("clean", len(clean), True, 1)
+        # one more warm run under the profiler: the card's busy share
+        traced_out = []
+        busy = trace_device_ms(
+            lambda: traced_out.append(plane_run(plane, subs, pubs, powers)),
+            "plane_run_trace.json")
+        traced = runs_check("traced", traced_out[0], "device", False)
+        # the host-packed branch, on the same plane
+        zero_launches()
+        fz.set_device_stamping(False)
+        try:
+            out = plane_run(plane, subs, pubs, powers)
+        finally:
+            fz.set_device_stamping(True)
+        host = runs_check("host-packed", out, "host", False)
+        launches_check("host-packed", len(host), False, 0)
+    finally:
+        plane.stop()
+    check(brk.faults == 0 and brk.trips == 0,
+          f"phase11 breaker faults={brk.faults} trips={brk.trips}")
+
+    # two flights: flushes land by their CUDA events
+    plane2 = make_plane(max_batch=PLANE_MAX_BATCH, pipeline_flights=2)
+    plane2.start()
+    try:
+        zero_launches()
+        out = plane_run(plane2, subs, pubs, powers)
+        two = runs_check("two flights", out, "device", False)
+        launches_check("two flights", len(two), True, 0)
+        deck_peak = plane2.stats()["deck_peak"]
+    finally:
+        plane2.stop()
+    check(brk.faults == 0 and brk.trips == 0,
+          f"phase11 breaker faults={brk.faults} trips={brk.trips}")
+
+    # one in-flight fault: the first flush's fetch raises; its futures
+    # fail with DeviceError, and the caller's retry of those precommits
+    # goes through fused flushes
+    lo, hi = PLANE_FAULT_VALS
+    fault_brk = cbatch.CircuitBreaker(name="phase11-fault")
+    plane3 = make_plane(max_batch=PLANE_FAULT_BATCH, breaker=fault_brk)
+    plane3.start()
+    fp.arm("verifyplane.collect", "raise", count=1)
+    try:
+        zero_launches()
+        try:
+            verdicts, group, _, frecs = plane_run(plane3, subs[lo:hi], pubs,
+                                                  powers, quorum=False)
+        finally:
+            fp.reset()
+        failed = [lo + i for i, v in enumerate(verdicts)
+                  if v == "DeviceError"]
+        retry, rgroup, _, rrecs = plane_run(
+            plane3, [subs[i] for i in failed], pubs, powers, quorum=False)
+    finally:
+        plane3.stop()
+    fpaths = [r["path"] for r in frecs]
+    check(fpaths == ["device_fault"] + ["fused"] * (len(frecs) - 1),
+          f"phase11 fault run paths {fpaths}")
+    check(len(failed) == frecs[0]["rows"] > 0,
+          f"phase11 fault run: {len(failed)} DeviceError futures, the "
+          f"faulted flush held {frecs[0]['rows']} rows")
+    check(all(v == want[lo + i] for i, v in enumerate(verdicts)
+              if v != "DeviceError"), "phase11 fault run verdicts != oracle")
+    check(group.tally == sum(powers[lo + i] for i, v in enumerate(verdicts)
+                             if v is True),
+          f"phase11 fault run tally {group.tally}")
+    check(retry == [want[i] for i in failed]
+          and {r["path"] for r in rrecs} == {"fused"}
+          and rgroup.tally == sum(powers[i] for i in failed if want[i]),
+          "phase11 retry of the faulted flush: verdicts, paths or tally")
+    check(fault_brk.faults == 1 and fault_brk.state == "closed",
+          f"phase11 fault breaker faults={fault_brk.faults} "
+          f"state={fault_brk.state}")
+    launches_check("fault", len(frecs) + len(rrecs), True, 0)
+    restore_launches(launches)
+
+    # the flush's three kernels at the path's shape against their plain
+    # versions: one flush of PLANE_MAX_BATCH precommits
+    g = QuorumGroup(1, "phase11-check", valset_pubs=pubs,
+                    valset_powers=powers)
+    batch = [_Submission(s["rows"], g, s["power"], True, s["vidx"],
+                         stamp=s["stamp"]) for s in subs[:PLANE_MAX_BATCH]]
+    plan = fz.plan_fused(batch, device=dev)
+    table, warm = ec.table_for_pubs_info(pubs, powers, device=dev)
+    check(warm and plan.stamped, "phase11 kernel check: cold or unstamped")
+    ent = es.template_entry(plan.sites, device=dev)
+    sig_t, ts_t, fl_t = (torch.from_numpy(a).to(dev) for a in plan.delta)
+    thr = torch.from_numpy(plan.thresh).to(dev)
+    B = sig_t.shape[0]
+    M = table.n_vals
+    live = len(batch)
+    t_rows = ec.packed_rows_shape(B, plan.n_commits)[0] - ec.V_THRESH
+    stamp = lambda: es.stamp_rows(sig_t, ts_t, fl_t, ent,  # noqa: E731
+                                  table.pub_raw, thr, t_rows)
+    rows_k = stamp()
+    t = time.perf_counter()
+    rows_p = es.stamp_rows_plain(sig_t, ts_t, fl_t, ent.pre_mat,
+                                 ent.pre_len, ent.suf_mat, ent.suf_len,
+                                 ent.ts_tag, table.pub_raw, thr, ent.msg_max,
+                                 t_rows)
+    torch.cuda.synchronize()
+    stamp_plain_ms = (time.perf_counter() - t) * 1e3
+    stamp_err = int((rows_k.to(torch.int64)
+                     - rows_p.to(torch.int64)).abs().max())
+    check(stamp_err == 0, f"phase11 stamp_rows != plain at {B} columns")
+    vk = lambda: ec.ed25519_verify_cached(rows_k, table.tab,  # noqa: E731
+                                          table.ok)
+    v_k = vk()
+    v_p = ec.ed25519_verify_cached_plain(rows_k, table.tab, table.ok,
+                                         ec.kf.base_points(dev))
+    verify_err = int((v_k - v_p).abs().max())
+    check(verify_err == 0 and int(v_k.sum()) == live,
+          f"phase11 ed25519_verify_cached != plain at {B}x{M}")
+    tq = lambda: ec.tally_quorum_cached(v_k, rows_k,  # noqa: E731
+                                        table.power5, plan.n_commits)
+    t_k, q_k = tq()
+    t_p, q_p = ec.tally_quorum_cached_plain(v_k, rows_k, table.power5,
+                                            plan.n_commits)
+    tally_err = max(int((t_k - t_p).abs().max()), int((q_k != q_p).sum()))
+    check(tally_err == 0, f"phase11 tally_quorum_cached != plain at {B}")
+    stamp_dev = dev_ms(stamp, "stamp_rows_plane_trace.json")
+    verify_dev = dev_ms(vk, "ed25519_verify_cached_plane_trace.json")
+    tally_dev = dev_ms(tq, "tally_quorum_cached_plane_trace.json")
+    restore_launches(launches)
+    shape = f"plane B={B},live={live}"
+    k = kernel_stats["stamp_rows"]
+    k["launches_by_path"]["verify_plane"] = launches["stamp_rows"]
+    k["max_abs_err"] = max(k["max_abs_err"], stamp_err)
+    k["device_ms_by_shape"][shape] = stamp_dev
+    k = kernel_stats["ed25519_verify_cached"]
+    k["launches_by_path"]["verify_plane"] = launches["ed25519_verify_cached"]
+    k["max_abs_err"] = max(k["max_abs_err"], verify_err)
+    k["device_ms_by_shape"][f"plane {B}x{M},live={live}"] = verify_dev
+    k["entry_by_shape"][f"plane {B}x{M}"] = ec.verify_cached_entry(
+        B, ec.sm_count(dev))
+    k = kernel_stats["tally_quorum_cached"]
+    k["launches_by_path"]["verify_plane"] = launches["tally_quorum_cached"]
+    k["max_abs_err"] = max(k["max_abs_err"], tally_err)
+    k.setdefault("device_ms_by_shape", {})[shape] = tally_dev
+    kernel_stats["valset_table_build"]["launches_by_path"][
+        "verify_plane"] = launches["valset_table_build"]
+
+    rows = [r["rows"] for r in clean]
+    med = {c: statistics.median(r[c] for r in clean)
+           for c in ("comp_ms", "h2d_ms", "dev_ms", "pack_ms", "collect_ms")}
+    util = statistics.median(r["util"] for r in clean)
+    print(f"phase11 launches {json.dumps(launches)} (clean runs) "
+          f"breaker_faults=0 blamed_idx={TAMPER_IDX} tally={want_tally}",
+          flush=True)
+    print(f"phase11 kernels at the flush shape (cols={B} M={M} live={live}): "
+          f"stamp_rows device_ms={fmt_ms(stamp_dev)} plain_ms="
+          f"{stamp_plain_ms:.1f} ed25519_verify_cached device_ms="
+          f"{fmt_ms(verify_dev)} tally_quorum_cached device_ms="
+          f"{fmt_ms(tally_dev)}; kernel==plain for all three", flush=True)
+    print(f"phase11 VerifyPlane validators={N_VALS} runs={PLANE_RUNS} "
+          f"threads={PLANE_THREADS} window_ms={PLANE_WINDOW_MS} "
+          f"max_batch={PLANE_MAX_BATCH} flushes={len(clean)} "
+          f"flushes_per_run={len(clean) / PLANE_RUNS:.1f} rows_per_flush "
+          f"p50={statistics.median(rows)} min={min(rows)} max={max(rows)} "
+          f"util_p50={util} quorum_p50_ms={statistics.median(quorum_ms):.3f} "
+          f"quorum_ms={[round(x, 3) for x in quorum_ms]} (the first run "
+          f"cold) per-flush medians comp_ms={med['comp_ms']} "
+          f"h2d_ms={med['h2d_ms']} dev_ms={med['dev_ms']} "
+          f"pack_ms={med['pack_ms']} collect_ms={med['collect_ms']} "
+          f"card={smi('name,power.limit')}", flush=True)
+    if busy is None:
+        busy_line = "device busy share: not measured (no device events)"
+    else:
+        busy_line = (f"traced warm run: flushes={len(traced)} wall_ms="
+                     f"{busy[2]:.3f} kernel_ms={busy[0]:.3f} memcpy_ms="
+                     f"{busy[1]:.3f} device busy share="
+                     f"{(busy[0] + busy[1]) / busy[2]:.4f}")
+    print(f"phase11 {busy_line}", flush=True)
+    print(f"phase11 host-packed flushes={len(host)} two-flight flushes="
+          f"{len(two)} deck_peak={deck_peak} (verdicts and tallies equal the "
+          f"clean runs'); fault run validators={lo}-{hi - 1} "
+          f"flushes={len(frecs)} paths={fpaths} device_error_futures="
+          f"{len(failed)} breaker_faults=1 retry_flushes={len(rrecs)} (fused, "
+          f"the oracle's verdicts)", flush=True)
+    return {"plane_quorum_p50_ms": statistics.median(quorum_ms),
+            "plane_flushes_per_run": len(clean) / PLANE_RUNS}
+
+
 def int_ops_per_s() -> tuple:
     """(clocks.max.sm in MHz, INT32 multiply-adds per second of the card)."""
     mhz = smi("clocks.max.sm").split()[0]
@@ -2410,6 +2779,9 @@ def main() -> int:
         t = time.perf_counter()
         res.update(phase_light_secp(dev, pool, rng, kernel_stats))
         print(f"phase10 s={time.perf_counter() - t:.3f}", flush=True)
+    t = time.perf_counter()
+    res.update(phase_plane(dev, res, kernel_stats))
+    print(f"phase11 s={time.perf_counter() - t:.3f}", flush=True)
     brk = cbatch.device_breaker()
     check(brk.trips == 0 and brk.faults == 0, "breaker recorded a fault")
     print(json.dumps(kernels_json(kernel_stats)), flush=True)
@@ -2422,6 +2794,7 @@ def main() -> int:
           f"mixed_VerifyCommitLight_p50_ms={res['mixed_light_p50_ms']:.3f} "
           f"mixed_VerifyCommit_sigs_per_s={res['mixed_sigs_per_s']:.1f} "
           f"secp_light_pair_p50_ms={res['lc_pair_p50_ms']:.3f} "
+          f"plane_quorum_p50_ms={res['plane_quorum_p50_ms']:.3f} "
           f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print("nvidia-smi:", smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,11 +15,16 @@ the semantics of an unknown key, not a device fallback.
 
 Every kernel dispatch runs under a circuit breaker. A device fault is
 logged, counted and raised to the caller: the port never re-verifies on the
-host behind the caller's back (the liveness fallback is the verify plane's
-policy, not yet ported). After `failure_threshold` consecutive faults the
+host behind the caller's back, here or in the verify plane (a device
+plane's flush that faults fails its futures with `DeviceError`; the JAX
+package's host-verifies). After `failure_threshold` consecutive faults the
 breaker opens and batches fail fast with `DeviceError`; every `cooldown`
 seconds one batch probes the device again, and a success closes the
 breaker. `faults` counts every recorded fault.
+
+While a verify plane runs (verifyplane.set_global_plane), a default
+`verify_batch` call becomes a submission to it, so independent callers
+coalesce into shared device passes, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from cometbft_tpu_torch.crypto.keys import (
     PubKey,
 )
 from cometbft_tpu_torch.device import DeviceError
+from cometbft_tpu_torch.libs.staging import StagingPool
 
 _log = logging.getLogger(__name__)
 
@@ -119,6 +125,17 @@ def device_breaker() -> CircuitBreaker:
     return _DEVICE_BREAKER
 
 
+# One staging pool for THE device, mirroring the breaker: callers that pack
+# rows for upload without a pool of their own (fused.plan_fused without
+# the plane's private pool) rotate through the same two persistent host
+# buffers per shape (libs/staging.py).
+_STAGING = StagingPool(slots=2)
+
+
+def staging_pool() -> StagingPool:
+    return _STAGING
+
+
 # The cached-valset kernel keys its window table on the EXACT pubkey list,
 # so it pays off for whole-valset batches; below one lane tile the general
 # kernel serves (the JAX package's `device_batch_fn(cached=True)` gate).
@@ -165,6 +182,7 @@ def verify_batch_direct(
     device=None,
     breaker: CircuitBreaker = None,
     cached: bool = False,
+    kernels: dict = None,
 ) -> np.ndarray:
     """Group rows by key type and dispatch each group to its kernel under
     the circuit breaker; (n,) bool validity. Rows of a key type with no
@@ -176,7 +194,8 @@ def verify_batch_direct(
     cached-valset kernel. A device fault is recorded on the breaker and
     raised; while the breaker is open, groups raise `DeviceError` without
     touching the device. `breaker` overrides the global device breaker
-    (tests)."""
+    (tests); `kernels` ({key type: fn(pubs, msgs, sigs, device=...)})
+    overrides the kernel of a key type (tests)."""
     n = len(pubs)
     valid = np.zeros((n,), np.bool_)
     brk = breaker if breaker is not None else _DEVICE_BREAKER
@@ -184,7 +203,8 @@ def verify_batch_direct(
     for i, p in enumerate(pubs):
         groups[p.key_type].append(i)
     for kt, idxs in groups.items():
-        kernel = _cached_kernel_for(kt) if cached else _kernel_for(kt)
+        kernel = (kernels or {}).get(kt) or (
+            _cached_kernel_for(kt) if cached else _kernel_for(kt))
         if kernel is None:
             continue
         if not brk.allow():
@@ -211,6 +231,19 @@ def verify_batch_direct(
 def verify_batch(pubs, msgs, sigs, device=None,
                  breaker: CircuitBreaker = None,
                  cached: bool = False) -> np.ndarray:
-    """The batch_fn validation.py consumes. There is no verify plane in the
-    port yet, so every call goes direct."""
+    """The batch_fn validation.py consumes. While the verify plane runs,
+    a default call (no device, breaker or cached pinned) is a
+    submit-and-wait over the plane, so independent callers coalesce into
+    shared device passes; it goes direct when the plane stops, overflows
+    or sheds mid-call (PlaneError), and raises the plane's DeviceError
+    when its flush faults on the device. Pinned calls go direct."""
+    if device is None and breaker is None and not cached:
+        from cometbft_tpu_torch.verifyplane import plane as _vp
+
+        p = _vp.global_plane()
+        if p is not None:
+            try:
+                return p.submit_and_wait(pubs, msgs, sigs)
+            except _vp.PlaneError:
+                pass  # plane stopped/overflowed mid-call: go direct
     return verify_batch_direct(pubs, msgs, sigs, device, breaker, cached)

@@ -1,0 +1,761 @@
+"""Device observatory: the always-on compile ledger + HBM residency
+accounting for the plane the paper is actually about.
+
+The flush ledger (/dump_flushes) explains a FLUSH, the height ledger
+(/dump_heights) a BLOCK, the peer ledger (/dump_peers) the GOSSIP —
+but the device itself was a black box: compiles, device-resident
+bytes, and on-device time were invisible. Both device-plane
+post-mortems this repo has paid for were exactly that blindness: the
+round-5 multichip timeout (per-call shard_map REBUILDS — steady-state
+shapes recompiling every flush) and the r05 bench regression
+(cold-compile pollution of a streaming config). This module is the
+instrument that would have caught both live.
+
+Design rules (the FlushLedger discipline, restated for the device):
+
+  * ALWAYS ON and cheap: compile events are rare and ms-scale, so the
+    ledger's per-event cost is irrelevant — but the PER-FLUSH
+    attribution hooks (attr_begin/attr_end around a dispatch) ride the
+    verify plane's hot path and stay under the 10 us budget
+    (``bench.device_ledger_bookkeeping_us``, asserted in tier-1).
+  * ONE process-global compile source: the port compiles its kernels
+    with nvcc at first use (ops/_build.py), and while the listener is
+    armed (:func:`arm_compile_listener`) every such build is recorded
+    here with its wall seconds, attributed like a compile. A kernel
+    library loaded from the build cache is not a compile and is not
+    recorded. The build step writes through the module global —
+    ``install()`` swaps the ledger under it for test isolation (the
+    incidents pattern).
+  * Attribution is a thread-local context stack: the verify plane
+    wraps each fused dispatch in ``attr_begin("plane.flush", seq)``,
+    mesh step factories wrap their step builds, bench wraps each config —
+    whoever is innermost when the compile lands names the ledger
+    record's ``site``/``flush_seq``, and the accumulated ms bubbles to
+    every frame so the plane can stamp ``comp_ms`` into the flush
+    ledger (a post-rotation cold compile is attributed to the flush
+    that paid for it).
+  * STEADY-STATE flag: once the caller declares the shapes compiled
+    (the plane marks it after its second successful fused collect;
+    bench marks it after warmup), every further backend compile is
+    recorded ``steady=1`` and feeds the ``compile_storm`` incident
+    window (libs/incidents) — the round-5 regression class, caught
+    live instead of by timeout.
+  * The core never imports torch: the build step reports through
+    ``sys.modules``, and the residency samplers duck-type the cached
+    table objects / read torch-heavy modules through ``sys.modules``
+    only.
+
+HBM residency: per-device, per-family byte ledgers over the bounded
+table caches (ops/table_cache.py valset tables + sharded shard-tables),
+the registered staging pools (host memory), and the replicated base
+combs — with per-chip headroom against the 65536-valset-slot table
+budget. ``reconcile()`` cross-checks the per-device split against the
+caches' own incrementally-maintained ``resident_bytes`` (exact, not
+approximate — drift is a bug and tier-1 asserts zero).
+
+Served as GET ``/dump_devices`` + the ``dump_devices`` JSON-RPC route;
+counters and residency are sampled into /metrics at scrape time
+(``device_resident_bytes{family,dev}``, ``device_hbm_headroom_rows``);
+the compact ``tail()`` rides incident snapshots.
+
+The port's copy of the JAX package's libs/deviceledger.py. Two seams
+differ: compiles come from the kernel build step instead of a
+``jax.monitoring`` listener, and the module lookups by name read the
+port's modules. The ``combs`` family stays empty: the port keeps no
+replicated base comb upload.
+"""
+from __future__ import annotations
+
+import sys
+import threading
+from collections import deque
+from typing import Dict, List, Optional
+
+from cometbft_tpu_torch.libs import incidents, tracing
+
+COMPILE_RING_CAPACITY = 256
+# one chip's valset table budget (ops/ed25519_cached window table
+# slots): the ceiling the multichip plane shards past, and the
+# denominator of the per-device headroom gauge
+HBM_SLOT_BUDGET = 65536
+
+# Record-field indices. One list per compile event, FIELDS order —
+# built at event time (compiles are ms-scale and rare; unlike the
+# per-message ledgers there is no allocation budget to defend here,
+# only the read-side shape discipline).
+(_C_SEQ, _C_TS, _C_DUR, _C_PCACHE, _C_SITE, _C_FLUSH,
+ _C_STEADY) = range(7)
+
+
+class CompileLedger:
+    """Bounded ring of compile events + the monotone counters bench
+    and /metrics read. Lock-guarded: builds are recorded on whichever
+    thread first needed a kernel (dispatcher, warmer, main)."""
+
+    FIELDS = ("seq", "ts_ms", "dur_ms", "pcache_hit", "site",
+              "flush_seq", "steady")
+
+    __slots__ = ("_ring", "_lock", "_seq", "compiles", "compile_s",
+                 "pcache_hits", "steady_compiles", "steady")
+
+    def __init__(self, capacity: int = COMPILE_RING_CAPACITY):
+        self._ring: deque = deque(maxlen=max(16, int(capacity)))
+        self._lock = threading.Lock()
+        self._seq = 0
+        self.compiles = 0          # backend compiles (pcache misses)
+        self.compile_s = 0.0       # their total wall seconds
+        self.pcache_hits = 0       # persistent-cache absorbed compiles
+        self.steady_compiles = 0   # backend compiles AFTER mark_steady
+        self.steady = False
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._ring)
+
+    def record(self, dur_s: float, pcache_hit: bool, site: str,
+               flush_seq: int) -> bool:
+        """One compile event; returns True when it was a STEADY-STATE
+        backend compile (the caller feeds the compile_storm window)."""
+        t = tracing.monotonic_ns()
+        with self._lock:
+            seq = self._seq
+            self._seq += 1
+            steady = self.steady and not pcache_hit
+            if pcache_hit:
+                self.pcache_hits += 1
+            else:
+                self.compiles += 1
+                self.compile_s += float(dur_s)
+                if steady:
+                    self.steady_compiles += 1
+            self._ring.append([seq, round(t / 1e6, 3),
+                               round(dur_s * 1e3, 3),
+                               1 if pcache_hit else 0, site, flush_seq,
+                               1 if steady else 0])
+        return steady
+
+    def mark_steady(self) -> None:
+        """The shapes this process flushes are compiled: every further
+        backend compile is the round-5 regression class."""
+        with self._lock:
+            self.steady = True
+
+    def counters(self) -> dict:
+        with self._lock:
+            return {"compiles": self.compiles,
+                    "compile_s": round(self.compile_s, 3),
+                    "pcache_hits": self.pcache_hits,
+                    "steady_compiles": self.steady_compiles,
+                    "steady": self.steady}
+
+    def records(self) -> List[dict]:
+        """The ring as dicts, oldest first (read time only)."""
+        with self._lock:
+            recs = list(self._ring)
+        return [dict(zip(self.FIELDS, r)) for r in recs]
+
+    def tail(self, n: int = 8) -> List[str]:
+        """Compact compile lines — ride incident snapshots."""
+        with self._lock:
+            recs = list(self._ring)[-n:]
+        out = []
+        for r in recs:
+            out.append(
+                f"#{r[_C_SEQ]} {r[_C_SITE] or '?'} "
+                f"{r[_C_DUR]}ms"
+                + (" pcache" if r[_C_PCACHE] else "")
+                + (f" flush={r[_C_FLUSH]}" if r[_C_FLUSH] >= 0 else "")
+                + (" STEADY" if r[_C_STEADY] else "")
+            )
+        return out
+
+
+# --------------------------------------------------------------------------
+# the process-global ledger (compiles are process-global like the
+# incident recorder; install() swaps it for test isolation)
+# --------------------------------------------------------------------------
+
+_LEDGER = CompileLedger()
+
+
+def ledger() -> CompileLedger:
+    return _LEDGER
+
+
+def install(led: CompileLedger) -> CompileLedger:
+    """Swap the global ledger (tests); returns the previous one. The
+    armed build seam writes through the module global, so a swapped
+    ledger receives subsequent events."""
+    global _LEDGER
+    old = _LEDGER
+    _LEDGER = led
+    return old
+
+
+def mark_steady() -> None:
+    _LEDGER.mark_steady()
+
+
+def is_steady() -> bool:
+    return _LEDGER.steady
+
+
+def counters() -> dict:
+    return _LEDGER.counters()
+
+
+def ledger_tail(n: int = 8) -> List[str]:
+    return _LEDGER.tail(n)
+
+
+# --------------------------------------------------------------------------
+# attribution: a thread-local context stack. The innermost frame names
+# the compile's site/flush_seq; accumulated ms bubbles to EVERY frame
+# so an outer scope (a bench config) sees its nested compiles too.
+# --------------------------------------------------------------------------
+
+
+class _Attr:
+    __slots__ = ("site", "flush_seq", "ms", "n")
+
+    def __init__(self, site: str, flush_seq: int):
+        self.site = site
+        self.flush_seq = flush_seq
+        self.ms = 0.0   # backend-compile ms landed while active
+        self.n = 0      # backend compiles landed while active
+
+
+_TLS = threading.local()
+
+
+def attr_begin(site: str, flush_seq: int = -1) -> _Attr:
+    """Push an attribution frame on this thread; pair with attr_end.
+    Hot-path cheap: one small object + a list push (the verify plane
+    calls this once per fused dispatch, inside its <10 us budget)."""
+    fr = _Attr(site, flush_seq)
+    stack = getattr(_TLS, "stack", None)
+    if stack is None:
+        stack = _TLS.stack = []
+    stack.append(fr)
+    return fr
+
+
+def attr_end(fr: _Attr) -> _Attr:
+    """Pop `fr` (and anything an unbalanced caller left above it).
+    A frame already popped is a no-op — success and fault arms may
+    both call this without emptying an outer caller's frames."""
+    stack = getattr(_TLS, "stack", None)
+    if stack and fr in stack:
+        while stack and stack.pop() is not fr:
+            pass
+    return fr
+
+
+def attr_begin_fallback(site: str) -> Optional[_Attr]:
+    """Push a frame ONLY when this thread has no attribution active —
+    the fallback call-site label for seams (mesh step first-calls)
+    whose compiles should be named when nothing richer (the plane's
+    per-flush frame, a bench config) already claims them. Returns
+    None (and pushes nothing) when a frame is active."""
+    stack = getattr(_TLS, "stack", None)
+    if stack:
+        return None
+    return attr_begin(site)
+
+
+class attr_context:
+    """``with attr_context("site") as fr: ...`` sugar over begin/end."""
+
+    __slots__ = ("_site", "_seq", "_fr")
+
+    def __init__(self, site: str, flush_seq: int = -1):
+        self._site = site
+        self._seq = flush_seq
+
+    def __enter__(self) -> _Attr:
+        self._fr = attr_begin(self._site, self._seq)
+        return self._fr
+
+    def __exit__(self, *exc) -> None:
+        attr_end(self._fr)
+
+
+def record_compile(dur_s: float, pcache_hit: bool = False) -> None:
+    """The recording core (torch-free): attribute to this thread's
+    innermost frame,
+    append the ledger record, and feed the compile_storm window when
+    the process already declared steady state."""
+    stack = getattr(_TLS, "stack", None)
+    site, fseq = "", -1
+    if stack:
+        top = stack[-1]
+        site, fseq = top.site, top.flush_seq
+        if not pcache_hit:
+            d = dur_s * 1e3
+            for fr in stack:
+                fr.ms += d
+            top.n += 1
+    if _LEDGER.record(dur_s, pcache_hit, site, fseq):
+        incidents.note_compile(1)
+
+
+# --------------------------------------------------------------------------
+# the kernel build's seam: ops/_build.build_all hands each nvcc build
+# to its BUILD_LISTENERS, where arm_compile_listener puts record_compile
+# --------------------------------------------------------------------------
+
+_ARMED = False
+
+
+def _on_build(secs: float) -> None:
+    if _ARMED:
+        record_compile(secs)
+
+
+def arm_compile_listener() -> bool:
+    """Connect the kernel build's seam, once: from now on every nvcc
+    build of the kernels (ops/_build.build_all, the first kernel call of
+    a process on an empty build cache) is recorded as one compile of its
+    wall seconds, attributed to whatever frame is active on the thread
+    that needed the kernel. Always succeeds (True): there is no runtime
+    to wait for."""
+    global _ARMED
+    from cometbft_tpu_torch.ops import _build
+
+    if _on_build not in _build.BUILD_LISTENERS:
+        _build.BUILD_LISTENERS.append(_on_build)
+    _ARMED = True
+    return True
+
+
+def listener_armed() -> bool:
+    return _ARMED
+
+
+# --------------------------------------------------------------------------
+# HBM residency accounting: per-device, per-family byte ledgers over
+# the bounded caches. Exact by construction — every family reuses the
+# SAME size function its cache maintains resident_bytes with, so the
+# cross-check in reconcile() has no tolerance band.
+# --------------------------------------------------------------------------
+
+
+def _dev_ids(value) -> List[int]:
+    """Device ids a cached table occupies, duck-typed so the tests
+    attribute fake tables through a bare ``devs`` attribute: explicit
+    ``devs`` wins; else the CUDA index of the table tensor
+    (``tab.device``); else n_dev sequential; else device 0."""
+    devs = getattr(value, "devs", None)
+    if devs is not None:
+        return sorted(int(d) for d in devs)
+    tab = getattr(value, "tab", None)
+    dev = getattr(tab, "device", None)
+    if getattr(dev, "type", None) == "cuda":
+        return [int(dev.index or 0)]
+    n = getattr(value, "n_dev", None)
+    if n:
+        return list(range(int(n)))
+    return [0]
+
+
+def _split_exact(total: int, n: int) -> List[int]:
+    """Split `total` bytes over n devices with NO rounding loss (the
+    remainder rides the first shard) — reconcile() must sum back to
+    the cache's own resident_bytes exactly."""
+    base, rem = divmod(int(total), max(n, 1))
+    return [base + (rem if i == 0 else 0) for i in range(n)]
+
+
+def _add(fam: Dict, dev, nbytes: int, slots: int) -> None:
+    slot = fam.get(dev)
+    if slot is None:
+        slot = fam[dev] = {"bytes": 0, "slots": 0}
+    slot["bytes"] += int(nbytes)
+    slot["slots"] += int(slots)
+
+
+def residency(tables=None, shards=None) -> Dict[str, Dict]:
+    """{family: {dev: {bytes, slots}}} over everything device- or
+    staging-resident right now. ``tables``/``shards`` override the
+    global cache snapshots (the tests pass
+    fake entries; None samples ops/table_cache). ``dev`` keys are chip
+    ids (ints) or ``"host"`` for pinned host staging. Families:
+
+      * ``valset_tables`` — single-device window tables (ops/table_cache
+        TABLES; slots = the padded valset size each pins);
+      * ``shard_tables``  — per-mesh sharded tables (SHARDS; each
+        device pins m_shard slots of its shard);
+      * ``staging``       — registered StagingPool host buffers;
+      * ``combs``         — the replicated [S]B base comb uploads
+        (per-mesh replication counts once per device).
+
+    Per-flush transients (packed rows in flight) are deliberately NOT
+    a family: they live exactly one flight and are already measured by
+    the flush ledger's h2d_ms/bytes counters."""
+    from cometbft_tpu_torch.ops import table_cache as tc
+
+    fams: Dict[str, Dict] = {"valset_tables": {}, "shard_tables": {},
+                             "staging": {}, "combs": {}}
+    if tables is None:
+        tables = tc.snapshot_values("tables")
+    if shards is None:
+        shards = tc.snapshot_values("shard_tables")
+    sizes_t = [tc.default_size(v) for v in tables]
+    sizes_s = [tc.default_size(v) for v in shards]
+    for v, nb in zip(tables, sizes_t):
+        devs = _dev_ids(v)
+        slots = int(getattr(v, "n_vals", 0) or 0)
+        for d, b in zip(devs, _split_exact(nb, len(devs))):
+            _add(fams["valset_tables"], d, b,
+                 slots if d == devs[0] else 0)
+    for v, nb in zip(shards, sizes_s):
+        devs = _dev_ids(v)
+        m_s = int(getattr(v, "m_shard", 0) or 0)
+        for d, b in zip(devs, _split_exact(nb, len(devs))):
+            _add(fams["shard_tables"], d, b, m_s)
+    # host staging pools (libs/staging registry: global batch pool,
+    # plane-private pools, blocksync's — whoever allocated one)
+    try:
+        from cometbft_tpu_torch.libs import staging as st
+
+        for pool in st.live_pools():
+            nb = pool.nbytes()
+            if nb:
+                _add(fams["staging"], "host", nb, 0)
+    except Exception:  # noqa: BLE001 - sampling must never fault
+        pass
+    # replicated base combs (torch-heavy module: sys.modules only; the
+    # port's cached module keeps none, so this family stays empty)
+    ec = sys.modules.get("cometbft_tpu_torch.ops.ed25519_cached")
+    if ec is not None:
+        try:
+            base = getattr(ec, "_BASE60_DEV", None)
+            if base is not None:
+                try:
+                    devs = sorted(int(d.id) for d in base.devices())
+                except Exception:  # noqa: BLE001
+                    devs = [0]
+                for d, b in zip(devs,
+                                _split_exact(int(base.nbytes),
+                                             len(devs))):
+                    _add(fams["combs"], d, b, 0)
+            for arr in dict(getattr(ec, "_BASE60_REPL", {})).values():
+                try:
+                    devs = sorted(int(d.id) for d in arr.devices())
+                except Exception:  # noqa: BLE001
+                    devs = [0]
+                # replicated: a P(None, None) array pins one FULL copy
+                # per device — nbytes is the logical (single-copy)
+                # size, so each chip is charged the whole of it
+                for d in devs:
+                    _add(fams["combs"], d, int(arr.nbytes), 0)
+        except Exception:  # noqa: BLE001 - sampling must never fault
+            pass
+    return fams
+
+
+def headroom_rows(fams: Optional[Dict] = None) -> Dict[int, int]:
+    """Per-chip valset-slot headroom against the 65536-slot table
+    budget: budget minus the slots the resident tables already pin.
+    Negative means the caches hold more retired-epoch tables than one
+    chip could serve live — eviction pressure, not an error."""
+    if fams is None:
+        fams = residency()
+    used: Dict[int, int] = {}
+    for fam in ("valset_tables", "shard_tables"):
+        for dev, slot in fams.get(fam, {}).items():
+            if isinstance(dev, int):
+                used[dev] = used.get(dev, 0) + slot["slots"]
+    return {dev: HBM_SLOT_BUDGET - n for dev, n in sorted(used.items())}
+
+
+def reconcile(fams: Optional[Dict] = None) -> dict:
+    """Exact-accounting cross-check: the per-device table-family split
+    must sum to the caches' own incrementally-maintained
+    resident_bytes, and the staging family to the live pools' nbytes.
+    Zero drift is asserted in tier-1 — a drift means the per-device
+    attribution and the capacity accounting have diverged and NEITHER
+    number can be trusted."""
+    from cometbft_tpu_torch.ops import table_cache as tc
+
+    if fams is None:
+        # snapshot + truth under ONE lock hold (RLock: residency's
+        # own acquisition nests) so a concurrent insert between the
+        # two reads can't fabricate drift
+        with tc.LOCK:
+            fams = residency()
+            cache_truth = tc.resident_bytes()
+    else:
+        cache_truth = tc.resident_bytes()
+    table_split = sum(s["bytes"]
+                      for fam in ("valset_tables", "shard_tables")
+                      for s in fams.get(fam, {}).values())
+    staging_split = sum(s["bytes"]
+                        for s in fams.get("staging", {}).values())
+    try:
+        from cometbft_tpu_torch.libs import staging as st
+
+        staging_truth = sum(p.nbytes() for p in st.live_pools())
+    except Exception:  # noqa: BLE001
+        staging_truth = staging_split
+    return {
+        "table_bytes_split": table_split,
+        "table_bytes_cache": cache_truth,
+        "table_drift": table_split - cache_truth,
+        "staging_bytes_split": staging_split,
+        "staging_bytes_pools": staging_truth,
+        "staging_drift": staging_split - staging_truth,
+    }
+
+
+# --------------------------------------------------------------------------
+# kernel cost surfaces: an always-on bounded recorder that
+# buckets every flush observation into per-(jit family, rows-bucket,
+# n_dev) cost curves. The families are the flush ledger's path labels
+# (fused / fused_sharded / grouped / host ...), split by stamp origin
+# (":stamped" = the device-side sign-bytes path compiles a different
+# kernel than legacy full-row packing) — exactly the jit identity the
+# plane dispatches under. ROADMAP item 6's future multi-SLO arbiter
+# and item 3's EdDSA-vs-BLS curve chooser read cost_model(); operators
+# read the cost_surfaces table on /dump_devices.
+# --------------------------------------------------------------------------
+
+# bounded: a handful of path families x ~a dozen power-of-two rows
+# buckets x small n_dev set. 128 cells is generous headroom; FIFO
+# eviction past it (cells are cheap to re-learn).
+COST_CELLS_MAX = 128
+# per-cell sample window: enough for stable p50/p95, bounded memory
+COST_SAMPLES_PER_CELL = 64
+
+
+def rows_bucket(rows: int) -> int:
+    """The rows-bucket a flush observation lands in: the next power of
+    two >= rows (jit recompiles on shape, and the plane's padding
+    quantizes shapes the same way — observations inside one bucket hit
+    one compiled kernel)."""
+    rows = int(rows)
+    if rows <= 1:
+        return 1
+    return 1 << (rows - 1).bit_length()
+
+
+def _pct(sorted_vals: List[float], q: float) -> float:
+    """Nearest-rank percentile over an already-sorted list."""
+    if not sorted_vals:
+        return 0.0
+    i = min(len(sorted_vals) - 1, int(q * (len(sorted_vals) - 1) + 0.5))
+    return sorted_vals[i]
+
+
+class CostSurfaces:
+    """Bounded per-(family, rows_bucket, n_dev) flush-cost cells. The
+    observe path is the plane's per-flush hook (always on, inside the
+    10 us budget bench.cost_hooks_bookkeeping_us asserts); percentiles
+    and marginal-cost fits happen at READ time only."""
+
+    __slots__ = ("_cells", "_lock", "observed", "dropped_cells")
+
+    def __init__(self):
+        # (family, bucket, n_dev) -> [count, rows_total, comp_dq,
+        #                             h2d_dq, dev_dq]
+        self._cells: Dict = {}
+        self._lock = threading.Lock()
+        self.observed = 0
+        self.dropped_cells = 0
+
+    def observe(self, family: str, rows: int, n_dev: int,
+                comp_ms: float, h2d_ms: float, dev_ms: float) -> None:
+        key = (family, rows_bucket(rows), int(n_dev))
+        with self._lock:
+            cell = self._cells.get(key)
+            if cell is None:
+                if len(self._cells) >= COST_CELLS_MAX:
+                    # FIFO past the cap: drop the oldest-inserted cell
+                    self._cells.pop(next(iter(self._cells)))
+                    self.dropped_cells += 1
+                cell = self._cells[key] = [
+                    0, 0,
+                    deque(maxlen=COST_SAMPLES_PER_CELL),
+                    deque(maxlen=COST_SAMPLES_PER_CELL),
+                    deque(maxlen=COST_SAMPLES_PER_CELL)]
+            cell[0] += 1
+            cell[1] += int(rows)
+            cell[2].append(float(comp_ms))
+            cell[3].append(float(h2d_ms))
+            cell[4].append(float(dev_ms))
+            self.observed += 1
+
+    def surfaces(self) -> List[dict]:
+        """The cost_surfaces table: one row per live cell, sorted by
+        (family, n_dev, rows_bucket), with comp/h2d/dev percentiles
+        and the marginal dev-ms-per-row slope between this bucket and
+        the previous one in the same (family, n_dev) series — the
+        number a capacity planner multiplies rows by."""
+        with self._lock:
+            snap = {k: (c[0], c[1], list(c[2]), list(c[3]), list(c[4]))
+                    for k, c in self._cells.items()}
+        rows_out: List[dict] = []
+        prev: Dict = {}
+        for (fam, bucket, n_dev) in sorted(snap):
+            n, rows_total, comp, h2d, dev = snap[(fam, bucket, n_dev)]
+            comp.sort(), h2d.sort(), dev.sort()
+            dev_p50 = _pct(dev, 0.50)
+            row = {
+                "family": fam, "rows_bucket": bucket, "n_dev": n_dev,
+                "n": n, "rows_total": rows_total,
+                "comp_ms_p50": round(_pct(comp, 0.50), 3),
+                "comp_ms_p95": round(_pct(comp, 0.95), 3),
+                "h2d_ms_p50": round(_pct(h2d, 0.50), 3),
+                "h2d_ms_p95": round(_pct(h2d, 0.95), 3),
+                "dev_ms_p50": round(dev_p50, 3),
+                "dev_ms_p95": round(_pct(dev, 0.95), 3),
+                "marginal_ms_per_row": None,
+            }
+            last = prev.get((fam, n_dev))
+            if last is not None and bucket > last[0]:
+                row["marginal_ms_per_row"] = round(
+                    (dev_p50 - last[1]) / (bucket - last[0]), 6)
+            prev[(fam, n_dev)] = (bucket, dev_p50)
+            rows_out.append(row)
+        return rows_out
+
+    def counters(self) -> dict:
+        with self._lock:
+            return {"observed": self.observed,
+                    "cells": len(self._cells),
+                    "dropped_cells": self.dropped_cells}
+
+
+_SURFACES = CostSurfaces()
+
+
+def surfaces() -> CostSurfaces:
+    return _SURFACES
+
+
+def install_surfaces(s: CostSurfaces) -> CostSurfaces:
+    """Swap the global recorder (tests/bench isolation); returns the
+    previous one — the install() pattern, applied to cost cells."""
+    global _SURFACES
+    old = _SURFACES
+    _SURFACES = s
+    return old
+
+
+def observe_flush(path: str, stamp: str, rows: int, n_dev: int,
+                  comp_ms: float, h2d_ms: float, dev_ms: float) -> None:
+    """The plane's per-flush seam: derive the jit-family label from the
+    flush path + stamp origin and record one observation. Kept module-
+    level (not a method call off the plane) so bench and the torch-free
+    smoke drive the identical code the hot path runs."""
+    fam = path + ":stamped" if stamp == "device" else path
+    _SURFACES.observe(fam, rows, max(1, int(n_dev)),
+                      comp_ms, h2d_ms, dev_ms)
+
+
+class CostModel:
+    """Programmatic read API over one surfaces() snapshot: the
+    consumer-side object ROADMAP item 6's arbiter (may a loop touch
+    window_ms / lane quanta / mesh_min_rows?) and item 3's kernel
+    chooser interrogate. Snapshot semantics: build once, query many."""
+
+    __slots__ = ("_rows",)
+
+    def __init__(self, rows: List[dict]):
+        self._rows = rows
+
+    def families(self) -> List[str]:
+        return sorted({r["family"] for r in self._rows})
+
+    def curve(self, family: str, n_dev: int = 1) -> List[dict]:
+        """The (rows_bucket ascending) cost curve of one jit family."""
+        return [r for r in self._rows
+                if r["family"] == family and r["n_dev"] == int(n_dev)]
+
+    def estimate_dev_ms(self, family: str, rows: int,
+                        n_dev: int = 1) -> Optional[float]:
+        """p50 device-ms estimate for a flush of `rows`: the matching
+        bucket's p50, linearly extended by the last marginal slope when
+        `rows` lands past the learned range. None when the family has
+        no observations yet — the caller's cue that a knob may NOT be
+        touched (the item-6 contract: no cost model, no actuation)."""
+        curve = self.curve(family, n_dev)
+        if not curve:
+            return None
+        b = rows_bucket(rows)
+        for r in curve:
+            if r["rows_bucket"] >= b:
+                return r["dev_ms_p50"]
+        last = curve[-1]
+        slope = last["marginal_ms_per_row"] or 0.0
+        return round(last["dev_ms_p50"]
+                     + slope * (b - last["rows_bucket"]), 3)
+
+
+def cost_model() -> CostModel:
+    """Snapshot the live cost surfaces into a queryable CostModel."""
+    return CostModel(_SURFACES.surfaces())
+
+
+# --------------------------------------------------------------------------
+# the /dump_devices document
+# --------------------------------------------------------------------------
+
+
+def dump_devices() -> dict:
+    """The device observatory in one JSON document: compile counters +
+    ring, per-family/per-device residency, per-chip headroom, the
+    exact-accounting cross-check, and the flush ledger's device-time
+    summary when a plane has flushed (via sys.modules — a dump never
+    pays a cold import). Module-global, so it serves history after the
+    node stopped (the _LAST property for free)."""
+    from cometbft_tpu_torch.ops import table_cache as tc
+
+    # snapshot + cross-check under ONE lock hold: a table insert or
+    # eviction between the two reads (a rotation landing while an
+    # operator curls the dump) must not fabricate a drift that
+    # device_report would report as broken accounting
+    with tc.LOCK:
+        fams = residency()
+        rec = reconcile(fams)
+    doc = {
+        "summary": counters(),
+        "compiles": _LEDGER.records(),
+        "residency": {
+            fam: {str(dev): slot for dev, slot in sorted(
+                devs.items(), key=lambda kv: str(kv[0]))}
+            for fam, devs in fams.items()
+        },
+        "headroom_rows": {str(d): n
+                          for d, n in headroom_rows(fams).items()},
+        "hbm_slot_budget": HBM_SLOT_BUDGET,
+        "reconcile": rec,
+        "cost_surfaces": _SURFACES.surfaces(),
+        "cost_counters": _SURFACES.counters(),
+        "flushes": None,
+    }
+    doc["summary"]["resident_bytes"] = sum(
+        s["bytes"] for devs in fams.values() for s in devs.values())
+    doc["summary"]["families"] = {
+        fam: sum(s["bytes"] for s in devs.values())
+        for fam, devs in fams.items()
+    }
+    vp = sys.modules.get("cometbft_tpu_torch.verifyplane.plane")
+    plane = vp and (vp._GLOBAL or vp._LAST)
+    if plane is not None:
+        try:
+            doc["flushes"] = plane.ledger.summary().get("device")
+        except Exception:  # noqa: BLE001 - dump must never fault
+            pass
+    # the tenant dimension of the same residency truth: the tenancy
+    # registry attributes the live caches' bytes per hosted chain
+    # (verifyplane/tenants.py, read-time walk — no double entry).
+    # Absent until the tenants module loads, like the flushes block.
+    vt = sys.modules.get("cometbft_tpu_torch.verifyplane.tenants")
+    reg = vt and vt.last_registry()
+    if reg is not None:
+        try:
+            doc["residency_by_tenant"] = reg.residency_by_tenant()
+        except Exception:  # noqa: BLE001 - dump must never fault
+            pass
+    return doc

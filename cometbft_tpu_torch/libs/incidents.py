@@ -1,0 +1,616 @@
+"""Black-box incident flight recorder: freeze the evidence the moment
+something goes wrong, instead of scraping it too late.
+
+A production node's stall, round-escalation storm, breaker flap, or
+shed storm is usually diagnosed from metrics scraped MINUTES later —
+by which time the bounded rings (flush ledger, height ledger, trace
+ring) have rotated past the interesting window. This module is the
+aircraft flight recorder for that moment: a watchdog armed on the
+trigger conditions that, when it fires, freezes a snapshot bundle
+(height-ledger tail, flush-ledger tail, trace tail when tracing is on,
+a deterministic counter sample, the config fingerprint) into a bounded
+incident ring served at ``/dump_incidents``.
+
+Triggers (all evaluated on the LEDGER clock — virtual under simnet, so
+the same (seed, schedule) fires the same incidents at the same virtual
+instants and the snapshots replay byte-identically):
+
+  * ``commit_stall``  — no commit observed for ``commit_stall_s``.
+    Evaluation is POKE-driven (consensus step transitions), never a
+    polling thread: a wedged quorum keeps escalating rounds, and every
+    round transition pokes the watchdog — deterministic under simnet
+    where a background poller could not be.
+  * ``round_escalation`` — a height reached round >= ``round_limit``.
+  * ``breaker_flap``  — >= ``breaker_flaps`` device-breaker transitions
+    inside ``window_s`` (open/close thrash: the device is sick but not
+    dead, the worst operational state).
+  * ``shed_storm``    — >= ``shed_storm`` sheddable-lane sheds inside
+    ``window_s`` (the overload machinery is the only thing keeping the
+    node alive — an operator should know NOW, not at the next scrape).
+  * ``compile_storm`` — >= ``compile_storm`` STEADY-STATE backend
+    compiles inside ``window_s`` (fed by the device observatory,
+    libs/deviceledger: once the flush shapes are declared compiled,
+    recompiles are the round-5 regression class — per-call shard_map
+    rebuilds — and the snapshot freezes the compile tail naming the
+    triggering sites/flushes).
+  * ``peer_starvation`` — >= ``peer_starvation`` p2p send-queue stalls
+    (blocked puts + full-queue drops, counted by the peer ledger)
+    inside ``window_s``: gossip is backing up, so votes are about to
+    arrive late everywhere — the snapshot freezes the peer-ledger tail
+    naming WHICH peers' queues are starving.
+  * ``catchup_stall`` — a catch-up replay is ACTIVE but its ledger has
+    not advanced for ``catchup_stall_s`` (blocksync/catchup.py notes
+    progress per flush): the firehose is wedged — a hung history
+    source, a dead verifier, or a donor that stopped serving — and the
+    snapshot freezes the catch-up ledger tail showing exactly where
+    the cursor froze.
+  * ``forced``        — the ``incidents.force`` failpoint fired (tests
+    and drills; arm ``incidents.force=raise*1``).
+
+Each trigger kind re-arms only after ``cooldown_s`` so a persistent
+stall yields ONE incident per window, not a ring full of copies of the
+same event. The recorder is process-global and always on — zero
+configuration required; ``[incidents]`` config tunes the thresholds.
+
+The port's copy of the JAX package's libs/incidents.py; its
+process-global registry is separate from the JAX package's.
+"""
+from __future__ import annotations
+
+import sys
+import threading
+from collections import deque
+from typing import Dict, List, Optional
+
+from cometbft_tpu_torch.libs import failpoints as fp
+from cometbft_tpu_torch.libs import tracing
+
+fp.register("incidents.force",
+            "force one incident snapshot (arm raise*1: drills/tests)")
+
+INCIDENT_CAPACITY = 32
+
+TRIGGERS = ("commit_stall", "round_escalation", "breaker_flap",
+            "shed_storm", "peer_starvation", "compile_storm",
+            "catchup_stall", "forced")
+
+
+class IncidentRecorder:
+    """Bounded ring of frozen incident snapshots + the watchdog that
+    fills it. Poked from deterministic seams (consensus step
+    transitions, plane sheds); never runs a thread of its own."""
+
+    def __init__(self, commit_stall_s: float = 20.0,
+                 round_limit: int = 4, breaker_flaps: int = 4,
+                 shed_storm: int = 256, peer_starvation: int = 64,
+                 compile_storm: int = 3,
+                 catchup_stall_s: float = 30.0,
+                 window_s: float = 10.0,
+                 cooldown_s: float = 30.0,
+                 capacity: int = INCIDENT_CAPACITY):
+        self.commit_stall_s = float(commit_stall_s)
+        self.round_limit = int(round_limit)
+        self.breaker_flaps = int(breaker_flaps)
+        self.shed_storm = int(shed_storm)
+        self.peer_starvation = int(peer_starvation)
+        self.compile_storm = int(compile_storm)
+        self.catchup_stall_s = float(catchup_stall_s)
+        self.window_s = float(window_s)
+        self.cooldown_s = float(cooldown_s)
+        self._ring: deque = deque(maxlen=max(4, int(capacity)))
+        self._lock = threading.Lock()
+        self._seq = 0
+        self.fired: Dict[str, int] = {}
+        self._last_fire_ns: Dict[str, int] = {}
+        # watchdog state (ledger-clock ns)
+        self._last_commit_ns = 0
+        self._gen = tracing.clock_gen()
+        # breaker-flap window: (window start ns, transition count then)
+        self._brk_win = (0, -1)
+        # shed-storm window: (window start ns, sheds since)
+        self._shed_win = (0, 0)
+        # peer-starvation window: (window start ns, queue stalls since)
+        self._peer_win = (0, 0)
+        # compile-storm window: (window start ns, steady compiles since)
+        self._comp_win = (0, 0)
+        # catch-up stall watch: active flag + last ledger-progress ns
+        self._catchup_active = False
+        self._last_catchup_ns = 0
+        self._fingerprint: Optional[dict] = None
+        # real-clock watchdog ticker (production only): a quorumless
+        # partition wedges the step machine with NO transitions — the
+        # poke-driven seams go silent exactly when the stall happens.
+        # The ticker covers that on live nodes; under simnet it stays
+        # inert (module_clock_installed gate) so the deterministic
+        # poke-at-transition path is the only evaluator there.
+        self._watch_refs = 0
+        self._watch_thread: Optional[threading.Thread] = None
+        self._watch_stop = threading.Event()
+
+    # -- configuration -----------------------------------------------------
+
+    def set_fingerprint(self, fp_doc: Optional[dict]) -> None:
+        """A stable config summary frozen into every snapshot (what was
+        this node RUNNING when it happened)."""
+        self._fingerprint = fp_doc
+
+    def thresholds(self) -> dict:
+        return {"commit_stall_s": self.commit_stall_s,
+                "round_limit": self.round_limit,
+                "breaker_flaps": self.breaker_flaps,
+                "shed_storm": self.shed_storm,
+                "peer_starvation": self.peer_starvation,
+                "compile_storm": self.compile_storm,
+                "catchup_stall_s": self.catchup_stall_s,
+                "window_s": self.window_s,
+                "cooldown_s": self.cooldown_s}
+
+    # -- watchdog pokes (the deterministic seams) --------------------------
+
+    def note_commit(self, height: int) -> None:
+        """A block committed: re-arm the stall watchdog."""
+        self._last_commit_ns = tracing.monotonic_ns()
+        self._gen = tracing.clock_gen()
+
+    def note_shed(self, n: int = 1) -> None:
+        """Sheddable-lane sheds (verify plane / admission) — counted
+        into the storm window; the NEXT poke evaluates it (sheds happen
+        on submitter/dispatcher threads; the evaluation itself stays on
+        the poking seams). Lock-guarded: the counting threads race the
+        poking threads' window resets, and a lost reset would re-fire
+        a phantom storm off a stale count."""
+        with self._lock:
+            start, count = self._shed_win
+            self._shed_win = (start, count + n)
+
+    def note_peer_stall(self, n: int = 1) -> None:
+        """P2p send-queue stalls (blocked puts + full-queue drops,
+        counted by the peer ledger on its send seams) — accumulated
+        into the starvation window; the NEXT poke evaluates it. Same
+        lock discipline as the shed window: the MConnection send
+        threads race the poking threads' resets."""
+        with self._lock:
+            start, count = self._peer_win
+            self._peer_win = (start, count + n)
+
+    def note_compile(self, n: int = 1) -> None:
+        """STEADY-STATE backend compiles (the device observatory's
+        compile ledger calls this for every recompile after the
+        process declared its shapes compiled) — accumulated into the
+        storm window; the NEXT poke evaluates it. Unlike the shed/peer
+        windows this one anchors at NOTE time (first count of an
+        accumulation run), not at poke time: a compile storm is a
+        short burst (a few rebuilds inside one flush), and a stale
+        poke-time anchor would expire-and-discard exactly that burst.
+        Compiles land on whichever thread compiled (dispatcher,
+        warmer, bench), so the same lock discipline applies."""
+        t = tracing.monotonic_ns()
+        with self._lock:
+            start, count = self._comp_win
+            if not count:
+                start = t
+            self._comp_win = (start, count + n)
+
+    def note_catchup(self, active: bool = True) -> None:
+        """Catch-up replay progress (blocksync/catchup.py): each flush
+        re-arms the stall watch; ``active=False`` disarms it (run done
+        or failed — a node that STOPPED catching up is not stalled)."""
+        self._catchup_active = bool(active)
+        self._last_catchup_ns = tracing.monotonic_ns()
+
+    def poke(self, height: int = 0, round_: int = 0) -> None:
+        """Evaluate every trigger. Called on each consensus step
+        transition — cheap when nothing is wrong: a clock read and a
+        few integer compares."""
+        now = tracing.monotonic_ns()
+        gen = tracing.clock_gen()
+        if gen != self._gen:
+            # clock domain changed (simnet install/restore, tracing
+            # toggle): every armed window is garbage — re-arm
+            self._gen = gen
+            self._last_commit_ns = now
+            self._last_catchup_ns = now
+            with self._lock:
+                self._brk_win = (0, -1)
+                self._shed_win = (0, 0)
+                self._peer_win = (0, 0)
+                self._comp_win = (0, 0)
+            return
+        try:
+            fp.fail_point("incidents.force")
+        except fp.FailpointError:
+            self._fire("forced", now, height, round_, {})
+        if round_ >= self.round_limit:
+            self._fire("round_escalation", now, height, round_,
+                       {"round": round_, "limit": self.round_limit})
+        if self._last_commit_ns == 0:
+            self._last_commit_ns = now  # arm on first sight
+        elif self.commit_stall_s > 0 and \
+                now - self._last_commit_ns > self.commit_stall_s * 1e9:
+            self._fire(
+                "commit_stall", now, height, round_,
+                {"stalled_s": round(
+                    (now - self._last_commit_ns) / 1e9, 3),
+                 "limit_s": self.commit_stall_s})
+        if self._catchup_active and self.catchup_stall_s > 0 and \
+                self._last_catchup_ns and \
+                now - self._last_catchup_ns > self.catchup_stall_s * 1e9:
+            self._fire(
+                "catchup_stall", now, height, round_,
+                {"stalled_s": round(
+                    (now - self._last_catchup_ns) / 1e9, 3),
+                 "limit_s": self.catchup_stall_s})
+        self._check_breaker(now, height, round_)
+        self._check_sheds(now, height, round_)
+        self._check_peer_stalls(now, height, round_)
+        self._check_compiles(now, height, round_)
+
+    def _check_breaker(self, now: int, height: int, round_: int) -> None:
+        # read the device breaker only when its module already loaded —
+        # this module must never pull crypto (and transitively jax)
+        # into a process that never used it
+        cb = sys.modules.get("cometbft_tpu_torch.crypto.batch")
+        if cb is None:
+            return
+        try:
+            brk = cb.device_breaker()
+            trans = int(brk.trips) + int(brk.closes)
+        except Exception:  # noqa: BLE001 - watchdog must never fault
+            return
+        # lock-guarded like the shed window: the consensus receive
+        # thread and the watchdog ticker both poke
+        with self._lock:
+            start, base = self._brk_win
+            if base < 0 or now - start > self.window_s * 1e9:
+                self._brk_win = (now, trans)
+                return
+            if trans - base < self.breaker_flaps:
+                return
+            self._brk_win = (now, trans)
+        self._fire("breaker_flap", now, height, round_,
+                   {"transitions": trans - base,
+                    "window_s": self.window_s,
+                    "state": brk.state})
+
+    def _check_sheds(self, now: int, height: int, round_: int) -> None:
+        with self._lock:
+            start, count = self._shed_win
+            if not count:
+                return
+            if not start:
+                # first sheds seen: anchor the storm window now
+                self._shed_win = (now, count)
+                return
+            if now - start > self.window_s * 1e9:
+                # the window EXPIRED: whatever accumulated arrived over
+                # longer than window_s — a drip, not a storm. Checked
+                # BEFORE the threshold: a wedged poker (quorumless
+                # partition, no watchdog) must not wake up and report
+                # a minute of slow sheds as a 10-second storm.
+                self._shed_win = (now, 0)
+                return
+            if count < self.shed_storm:
+                return
+            self._shed_win = (now, 0)
+        self._fire("shed_storm", now, height, round_,
+                   {"sheds": count, "window_s": self.window_s})
+
+    def _check_peer_stalls(self, now: int, height: int,
+                           round_: int) -> None:
+        # the shed-storm window semantics verbatim: expiry checked
+        # BEFORE the threshold so a wedged poker waking late reports a
+        # drip as a drip, not a starvation burst
+        with self._lock:
+            start, count = self._peer_win
+            if not count:
+                return
+            if not start:
+                self._peer_win = (now, count)
+                return
+            if now - start > self.window_s * 1e9:
+                self._peer_win = (now, 0)
+                return
+            if count < self.peer_starvation:
+                return
+            self._peer_win = (now, 0)
+        self._fire("peer_starvation", now, height, round_,
+                   {"stalls": count, "window_s": self.window_s})
+
+    def _check_compiles(self, now: int, height: int,
+                        round_: int) -> None:
+        # expiry BEFORE the threshold, like the shed window (a wedged
+        # poker waking late must report a slow drip of recompiles as a
+        # drip, not a storm); the anchor is the run's FIRST note, so a
+        # genuine burst fires on the first poke after it regardless of
+        # how long the system sat quiet before
+        with self._lock:
+            start, count = self._comp_win
+            if not count:
+                return
+            if now - start > self.window_s * 1e9:
+                self._comp_win = (0, 0)
+                return
+            if count < self.compile_storm:
+                return
+            self._comp_win = (0, 0)
+        self._fire("compile_storm", now, height, round_,
+                   {"steady_compiles": count, "window_s": self.window_s})
+
+    # -- the real-clock watchdog ticker (node lifecycle) -------------------
+
+    def start_watchdog(self) -> None:
+        """Refcounted: each running node holds one reference; the
+        ticker thread lives while any node runs."""
+        with self._lock:
+            self._watch_refs += 1
+            if self._watch_thread is not None:
+                return
+            self._watch_stop.clear()
+            self._watch_thread = threading.Thread(
+                target=self._watch_loop, name="incident-watchdog",
+                daemon=True)
+            self._watch_thread.start()
+
+    def stop_watchdog(self) -> None:
+        with self._lock:
+            self._watch_refs = max(0, self._watch_refs - 1)
+            if self._watch_refs:
+                return
+            t = self._watch_thread
+            self._watch_thread = None
+        if t is not None:
+            self._watch_stop.set()
+            t.join(timeout=2.0)
+
+    def _watch_loop(self) -> None:
+        while not self._watch_stop.wait(
+                min(1.0, max(0.25, self.commit_stall_s / 4))):
+            if tracing.module_clock_installed():
+                continue  # virtual clock: simnet owns evaluation
+            try:
+                self.poke()
+            except Exception:  # noqa: BLE001 - watchdog never faults
+                pass
+
+    # -- the freeze --------------------------------------------------------
+
+    def _fire(self, kind: str, now: int, height: int, round_: int,
+              detail: dict) -> None:
+        with self._lock:
+            last = self._last_fire_ns.get(kind)
+            if last is not None and now - last < self.cooldown_s * 1e9:
+                return  # same-kind cooldown: one incident per window
+            self._last_fire_ns[kind] = now
+            seq = self._seq
+            self._seq += 1
+            self.fired[kind] = self.fired.get(kind, 0) + 1
+        snap = self._snapshot(kind, seq, now, height, round_, detail)
+        with self._lock:
+            self._ring.append(snap)
+        tracing.instant("incident", cat="incidents", trigger=kind,
+                        height=height, round=round_)
+
+    def _snapshot(self, kind: str, seq: int, now: int, height: int,
+                  round_: int, detail: dict) -> dict:
+        """Freeze the bundle. Every field is either frozen state or a
+        deterministic counter — an incident stream must replay
+        byte-identically under simnet, so no wall-clock or psutil-style
+        host truth rides in here."""
+        snap = {
+            "seq": seq,
+            "trigger": kind,
+            "at_ms": round(now / 1e6, 3),
+            "height": height,
+            "round": round_,
+            "detail": detail,
+            "flush_tail": [],
+            "height_tail": [],
+            "peer_tail": [],
+            "device_tail": [],
+            "controller_tail": [],
+            "catchup_tail": [],
+            "trace_tail": tracing.tail(24),
+            "counters": self._counters(),
+            "fingerprint": self._fingerprint,
+        }
+        vp = sys.modules.get("cometbft_tpu_torch.verifyplane")
+        if vp is not None:
+            try:
+                snap["flush_tail"] = vp.ledger_tail(8)
+            except Exception:  # noqa: BLE001 - snapshot must not fault
+                pass
+        hl = sys.modules.get("cometbft_tpu_torch.consensus.heightledger")
+        if hl is not None:
+            try:
+                snap["height_tail"] = hl.ledger_tail(8)
+            except Exception:  # noqa: BLE001
+                pass
+        pl = sys.modules.get("cometbft_tpu_torch.p2p.peerledger")
+        if pl is not None:
+            try:
+                # the peer-ledger tail names WHICH peers' queues were
+                # starving / which links were eating messages at the
+                # instant the trigger fired
+                snap["peer_tail"] = pl.ledger_tail(8)
+            except Exception:  # noqa: BLE001
+                pass
+        dl = sys.modules.get("cometbft_tpu_torch.libs.deviceledger")
+        if dl is not None:
+            try:
+                # the compile tail names WHICH sites/flushes paid the
+                # recompiles a compile_storm fired on
+                snap["device_tail"] = dl.ledger_tail(8)
+            except Exception:  # noqa: BLE001
+                pass
+        ctl = sys.modules.get("cometbft_tpu_torch.libs.controller")
+        if ctl is not None:
+            try:
+                # a controller move inside the incident's window rides
+                # the snapshot: did the loop react before the trigger,
+                # and in which direction?
+                snap["controller_tail"] = ctl.controller_tail(8)
+            except Exception:  # noqa: BLE001
+                pass
+        cu = sys.modules.get("cometbft_tpu_torch.blocksync.catchup")
+        if cu is not None:
+            try:
+                # a catchup_stall's tail shows exactly where the replay
+                # cursor froze (last flushes before the wedge)
+                snap["catchup_tail"] = cu.ledger_tail(8)
+            except Exception:  # noqa: BLE001
+                pass
+        return snap
+
+    def _counters(self) -> dict:
+        """The /metrics-equivalent sample: the deterministic counters
+        an operator would scrape first (breaker, plane lanes/sheds,
+        height-ledger size). Sampled through sys.modules so a frozen
+        snapshot never pays a cold import."""
+        out: dict = {}
+        cb = sys.modules.get("cometbft_tpu_torch.crypto.batch")
+        if cb is not None:
+            try:
+                brk = cb.device_breaker()
+                out["breaker"] = {"state": brk.state,
+                                  "trips": int(brk.trips),
+                                  "closes": int(brk.closes)}
+            except Exception:  # noqa: BLE001
+                pass
+        vp = sys.modules.get("cometbft_tpu_torch.verifyplane.plane")
+        plane = vp and (vp._GLOBAL or vp._LAST)
+        if plane is not None:
+            try:
+                out["plane"] = {"rows": plane.rows_verified,
+                                "batches": plane.batches,
+                                "sheds": dict(plane.sheds),
+                                "lane_rows": dict(plane.lane_rows)}
+            except Exception:  # noqa: BLE001
+                pass
+        hl = sys.modules.get("cometbft_tpu_torch.consensus.heightledger")
+        led = hl and hl.global_ledger()
+        if led is not None:
+            out["heights_recorded"] = len(led)
+        pl = sys.modules.get("cometbft_tpu_torch.p2p.peerledger")
+        pled = pl and pl.global_ledger()
+        if pled is not None:
+            try:
+                s = pled.summary()
+                out["peers"] = {"live": s["peers_live"],
+                                "blocked_puts": s["blocked_puts"],
+                                "full_drops": s["full_drops"],
+                                "link_drops": s["link_drops"]}
+            except Exception:  # noqa: BLE001
+                pass
+        dl = sys.modules.get("cometbft_tpu_torch.libs.deviceledger")
+        if dl is not None:
+            try:
+                out["device"] = dl.counters()
+            except Exception:  # noqa: BLE001
+                pass
+        return out
+
+    # -- readers -----------------------------------------------------------
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._ring)
+
+    def incidents(self) -> List[dict]:
+        with self._lock:
+            return list(self._ring)
+
+    def tail(self, n: int = 4) -> List[str]:
+        """Compact trigger lines — rides simnet replay blobs."""
+        with self._lock:
+            snaps = list(self._ring)[-n:]
+        return [f"#{s['seq']} {s['trigger']} h={s['height']} "
+                f"r={s['round']} at={s['at_ms']}ms" for s in snaps]
+
+    def mark(self) -> tuple:
+        with self._lock:
+            return (id(self), self._seq)
+
+    def advanced(self, mark: tuple) -> bool:
+        return self.mark() != mark
+
+    def dump(self) -> dict:
+        """The /dump_incidents document."""
+        with self._lock:
+            snaps = list(self._ring)
+            fired = dict(self.fired)
+        return {"incidents": snaps, "fired": fired,
+                "thresholds": self.thresholds()}
+
+
+# --------------------------------------------------------------------------
+# the process-global recorder — always on, swappable for tests (the
+# failpoints swap_registry pattern)
+# --------------------------------------------------------------------------
+
+_RECORDER = IncidentRecorder()
+
+
+def recorder() -> IncidentRecorder:
+    return _RECORDER
+
+
+def install(rec: IncidentRecorder) -> IncidentRecorder:
+    """Swap the global recorder (tests/simnet isolation); returns the
+    previous one so callers can restore it."""
+    global _RECORDER
+    old = _RECORDER
+    _RECORDER = rec
+    return old
+
+
+def configure(**kw) -> None:
+    """Tune the global recorder's thresholds ([incidents] config)."""
+    rec = _RECORDER
+    for k, v in kw.items():
+        if k == "fingerprint":
+            rec.set_fingerprint(v)
+        elif hasattr(rec, k):
+            setattr(rec, k, type(getattr(rec, k))(v))
+
+
+# convenience module-level seam hooks (what call sites use — one
+# global load + a method call when nothing is wrong)
+
+def poke(height: int = 0, round_: int = 0) -> None:
+    _RECORDER.poke(height, round_)
+
+
+def note_commit(height: int) -> None:
+    _RECORDER.note_commit(height)
+
+
+def note_shed(n: int = 1) -> None:
+    _RECORDER.note_shed(n)
+
+
+def note_peer_stall(n: int = 1) -> None:
+    _RECORDER.note_peer_stall(n)
+
+
+def note_compile(n: int = 1) -> None:
+    _RECORDER.note_compile(n)
+
+
+def note_catchup(active: bool = True) -> None:
+    _RECORDER.note_catchup(active)
+
+
+def dump_incidents() -> dict:
+    return _RECORDER.dump()
+
+
+def incident_tail(n: int = 4) -> List[str]:
+    return _RECORDER.tail(n)
+
+
+def incident_mark() -> tuple:
+    return _RECORDER.mark()
+
+
+def incident_advanced(mark: tuple) -> bool:
+    return _RECORDER.advanced(mark)

@@ -1,0 +1,31 @@
+"""One nearest-rank percentile picker for every latency report.
+
+The plane's lane waits, the flush ledger's stage summary, and the
+loadtime generator all summarize bounded latency windows; a single
+picker keeps their rank rounding identical, so a soak-test p99
+assertion and a cfg9 report can never disagree about what "p99"
+means.
+
+The port's copy of the JAX package's libs/quantiles.py.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+
+def nearest_rank(xs_sorted: Sequence[float], q: float) -> float:
+    """Nearest-rank pick over an ALREADY-SORTED non-empty sequence."""
+    return xs_sorted[min(len(xs_sorted) - 1,
+                         int(round(q * (len(xs_sorted) - 1))))]
+
+
+def wait_summary_ms(xs: Sequence[float]) -> dict:
+    """The {n, p50_ms, p99_ms, max_ms} shape shared by lane-wait stats
+    and loadtime reports; {"n": 0} for an empty window."""
+    s = sorted(xs)
+    if not s:
+        return {"n": 0}
+    return {"n": len(s),
+            "p50_ms": round(nearest_rank(s, 0.5), 3),
+            "p99_ms": round(nearest_rank(s, 0.99), 3),
+            "max_ms": round(s[-1], 3)}

@@ -19,9 +19,21 @@ each copy's CUDA event before reusing the slot. Device-resident caches
 from __future__ import annotations
 
 import threading
-from typing import Dict, Tuple
+import weakref
+from typing import Dict, List, Tuple
 
 import numpy as np
+
+# every live pool, weakly held: the device observatory's residency
+# sampler (libs/deviceledger) attributes ALL host staging bytes —
+# the global crypto.batch pool, plane-private pools, blocksync's —
+# without each owner having to register anywhere
+_POOLS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def live_pools() -> List["StagingPool"]:
+    """Snapshot of every StagingPool still alive in this process."""
+    return list(_POOLS)
 
 
 class StagingPool:
@@ -32,11 +44,15 @@ class StagingPool:
         self._lock = threading.Lock()
         self._bufs: Dict[tuple, list] = {}
         self._next: Dict[tuple, int] = {}
+        self.hits = 0
+        self.misses = 0
+        _POOLS.add(self)
 
-    def get(self, name: str, shape: Tuple[int, ...], dtype) -> np.ndarray:
-        """The next zeroed staging buffer for (name, shape, dtype). Callers
-        must be done with a buffer before asking for `slots` more of the
-        same key (the rotation contract)."""
+    def get(self, name: str, shape: Tuple[int, ...], dtype,
+            zero: bool = True) -> np.ndarray:
+        """The next staging buffer for (name, shape, dtype); zeroed by
+        default. Callers must be done writing a buffer before asking
+        for `slots` more of the same key (the rotation contract)."""
         key = (name, tuple(int(s) for s in shape), np.dtype(dtype).str)
         with self._lock:
             bufs = self._bufs.get(key)
@@ -46,9 +62,33 @@ class StagingPool:
                 buf = np.zeros(key[1], dtype)
                 bufs.append(buf)
                 self._next[key] = len(bufs) % self.slots
+                self.misses += 1
                 return buf
             i = self._next[key]
             self._next[key] = (i + 1) % self.slots
             buf = bufs[i]
-        buf.fill(0)
+            self.hits += 1
+        if zero:
+            buf.fill(0)
         return buf
+
+    def nbytes(self) -> int:
+        with self._lock:
+            return sum(b.nbytes for bufs in self._bufs.values()
+                       for b in bufs)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "hits": self.hits,
+                "misses": self.misses,
+                "shapes": len(self._bufs),
+                "resident_bytes": sum(
+                    b.nbytes for bufs in self._bufs.values() for b in bufs
+                ),
+            }
+
+    def clear(self) -> None:
+        with self._lock:
+            self._bufs.clear()
+            self._next.clear()

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -150,6 +151,11 @@ def _finish(jobs) -> str:
     return "".join(logs)
 
 
+# callables run with the wall seconds of every build_all that built
+# something (libs/deviceledger.arm_compile_listener adds one)
+BUILD_LISTENERS: list = []
+
+
 def build_all() -> None:
     """Build every kernel source that has no cached library."""
     global build_log
@@ -158,8 +164,12 @@ def build_all() -> None:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
+    t0 = time.perf_counter()
     build_log = _finish([_start(nvcc, s, NVCC_FLAGS, _target(s, NVCC_FLAGS))
                          for s in todo])
+    secs = time.perf_counter() - t0
+    for fn in list(BUILD_LISTENERS):
+        fn(secs)
 
 
 def _load(path: Path, fns: dict) -> ctypes.CDLL:

@@ -117,6 +117,11 @@ class BoundedLRU:
             self._bytes += self._size_fn(value)
         self._trim()
 
+    def pop(self, key) -> None:
+        v = self._od.pop(key, None)
+        if v is not None and self._size_fn is not None:
+            self._bytes -= self._size_fn(v)
+
     def values(self) -> Iterator:
         return self._od.values()
 
@@ -167,6 +172,19 @@ _CACHES = {"tables": TABLES, "key_memo": KEY_MEMO,
 def stats() -> dict:
     with LOCK:
         return dict(STATS)
+
+
+def snapshot_values(kind: str) -> list:
+    """The entries of one cache, snapshotted under :data:`LOCK`
+    WITHOUT refreshing recency — the device observatory's residency
+    sampler (libs/deviceledger) walks these to attribute per-device
+    bytes/slots; a scrape must never perturb eviction order. The JAX
+    package's "shard_tables" cache has no counterpart until the
+    multi-device slice, so it snapshots empty."""
+    with LOCK:
+        if kind == "shard_tables":
+            return []
+        return list(_CACHES[kind]._od.values())
 
 
 def resident_bytes() -> int:

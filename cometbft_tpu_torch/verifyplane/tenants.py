@@ -1,0 +1,510 @@
+"""Multi-tenant verify plane: the tenancy registry.
+
+ROADMAP item 7's appchain-hosting story: ONE device plane serving the
+signature work of MANY small chains at the cost of one. Committee
+verification dominates small-committee chains (PAPERS.md arXiv
+2302.00418) — exactly the workload that wastes a dedicated accelerator
+per chain — and the FPGA verification engines for permissioned chains
+(arXiv 2112.02229) already multiplex one shared hardware verifier
+across clients. The plane's flush path needs almost nothing to join
+them: commit ids are flush-local and the tally psum never cared which
+chain a QuorumGroup came from, so a fused flush can carry rows from K
+chains as long as something OWNS the fairness and capacity questions.
+That something is this module:
+
+  * every submission is keyed by ``(chain_id, lane)`` — the plane's
+    submit paths thread ``chain_id`` through and tag the submission
+    with its tenant;
+  * a :class:`TenantRegistry` holds per-tenant quotas (pending-row
+    quota over the sheddable lanes, HBM residency budget over the
+    valset tables the tenant's chains pin) and the per-tenant
+    accounting surfaces (/dump_tenants, /metrics top-K);
+  * the dispatcher's sheddable drain consults :meth:`drain_order` for
+    a deterministic fair-share rotation: when several tenants queue in
+    one lane, each gets an equal slice of the flush budget and the
+    rotation cursor advances every drain cycle, so no tenant parks at
+    the head of the FIFO forever;
+  * noisy-neighbor overflow follows the existing overload contract —
+    a tenant past its row quota sheds its GATEWAY/BULK work with an
+    explicit retry-hinted :class:`TenantOverloaded` verdict (a
+    subclass of PlaneOverloaded, so every existing isinstance arm —
+    the mempool's explicit-verdict dispatch, lightgate's overload
+    reply — keeps working unchanged) and gets its COLD tables evicted
+    first; CONSENSUS is structurally out of reach of every tenant
+    gate, exactly like the lane wall.
+
+Residency attribution: the bounded table caches (ops/table_cache) key
+tables by valset content digest, which says nothing about chains — so
+the registry keeps a bounded ``owner`` map (content key -> chain_id)
+written by whoever builds or warms a table for a known tenant, and
+:func:`residency_by_tenant` walks the live cache under the cache's own
+LOCK attributing each resident table's bytes to its owner (unowned
+tables fall to the ``default`` tenant). Attribution is computed at
+READ time from the cache's truth, never double-entry bookkeeping — an
+LRU eviction can't leak a stale per-tenant charge.
+
+No torch import anywhere: the registry, the quota gates, and the cold
+eviction all run on the host.
+
+The port's copy of the JAX package's verifyplane/tenants.py.
+"""
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict, deque
+from typing import Dict, List, Optional
+
+from cometbft_tpu_torch.verifyplane.plane import (
+    DEFAULT_TENANT, LANES, PlaneOverloaded, ms_to_us)
+
+# per-tenant submit-to-result samples kept for the wait percentiles
+TENANT_WAIT_WINDOW = 1024
+# bounded (content key -> chain_id) owner map: table_cache caps TABLES
+# at a handful of entries, so 64 owners comfortably covers every live
+# key plus churn headroom without growing with chain count
+OWNER_MAP_MAX = 64
+# top-K tenants sampled into /metrics by activity (the ping_rtt_ms
+# cardinality discipline: hundreds of chains must not mint hundreds of
+# label sets per scrape)
+METRICS_TOP_K = 8
+# window-table residency estimate for the warm budget gate: the
+# device-side per-validator cost of one cached window table (tab rows
+# + ok/power columns), rounded up — the gate only needs the right
+# order of magnitude to refuse a warm that would blow the budget
+EST_TABLE_BYTES_PER_VAL = 2048
+
+
+class TenantOverloaded(PlaneOverloaded):
+    """Explicit per-tenant quota shed verdict: the tenant is past its
+    pending-row quota on a sheddable lane. Subclasses PlaneOverloaded
+    so the existing overload arms (mempool's OVERLOADED CheckTx code,
+    lightgate's 503) handle it unchanged; carries the tenant so shed
+    storms attribute to the neighbor that caused them."""
+
+    def __init__(self, msg: str, retry_after_ms: float = 0.0,
+                 tenant: str = ""):
+        super().__init__(msg, retry_after_ms=retry_after_ms)
+        self.tenant = tenant
+
+
+class _Tenant:
+    """One registered chain: quotas + the per-tenant accounting the
+    dump and /metrics read. Mutated under the registry lock only."""
+
+    __slots__ = ("chain_id", "row_quota", "residency_budget",
+                 "lane_rows", "lane_sheds", "warm_skips",
+                 "cold_evictions", "waits", "registered_ms",
+                 "device_us", "comp_us", "h2d_us", "delta_bytes")
+
+    def __init__(self, chain_id: str, row_quota: int = 0,
+                 residency_budget: int = 0, registered_ms: float = 0.0):
+        self.chain_id = chain_id
+        # 0 = unlimited (the single-tenant plane behaves exactly as
+        # before this subsystem existed)
+        self.row_quota = max(0, int(row_quota))
+        self.residency_budget = max(0, int(residency_budget))
+        self.lane_rows = {lane: 0 for lane in LANES}
+        self.lane_sheds = {lane: 0 for lane in LANES}
+        self.warm_skips = 0
+        self.cold_evictions = 0
+        self.waits: deque = deque(maxlen=TENANT_WAIT_WINDOW)
+        self.registered_ms = registered_ms
+        # device-time chargeback: integer MICROseconds so
+        # the conservation cross-check (reconcile_device) is exact
+        # integer equality against the flush ledger — the ledger's ms
+        # columns are rounded to 3 decimals, so ms_to_us is lossless
+        self.device_us = 0
+        self.comp_us = 0
+        self.h2d_us = 0
+        self.delta_bytes = 0
+
+    @property
+    def rows_total(self) -> int:
+        return sum(self.lane_rows.values())
+
+    @property
+    def sheds_total(self) -> int:
+        return sum(self.lane_sheds.values())
+
+
+class TenantRegistry:
+    """The tenancy control surface one plane owns: registration (auto
+    on first submission, explicit for quota-carrying tenants), the
+    fair-share rotation cursor, per-tenant accounting, the bounded
+    table-owner map, and eviction with a retired-totals accumulator so
+    the /metrics counters stay monotone after a tenant leaves (the
+    drop-ring lesson, applied before it bites)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._tenants: "OrderedDict[str, _Tenant]" = OrderedDict()
+        self._owners: "OrderedDict" = OrderedDict()  # key -> chain_id
+        self._cursor = 0
+        self.evicted = 0
+        # totals folded in when a tenant is evicted from the registry:
+        # the scrape's tenant="_retired" series accumulates these, so
+        # sum(tenant_rows_total) never regresses across an eviction
+        self.retired = {"rows": 0, "sheds": 0, "warm_skips": 0,
+                        "cold_evictions": 0, "device_us": 0,
+                        "comp_us": 0, "h2d_us": 0, "delta_bytes": 0}
+
+    # -- registration ------------------------------------------------------
+
+    def register(self, chain_id: str, row_quota: Optional[int] = None,
+                 residency_budget: Optional[int] = None) -> None:
+        """Register (or retune) a tenant. Quotas left None keep their
+        current value; a never-seen tenant starts unlimited (0)."""
+        from cometbft_tpu_torch.libs import tracing
+
+        chain_id = str(chain_id)
+        with self._lock:
+            t = self._tenants.get(chain_id)
+            if t is None:
+                t = self._tenants[chain_id] = _Tenant(
+                    chain_id,
+                    registered_ms=round(tracing.monotonic_ns() / 1e6, 3))
+            if row_quota is not None:
+                t.row_quota = max(0, int(row_quota))
+            if residency_budget is not None:
+                t.residency_budget = max(0, int(residency_budget))
+
+    def _touch(self, chain_id: str) -> _Tenant:
+        """Lock held: the auto-registration seam every accounting path
+        rides — the first submission from a chain creates its tenant."""
+        t = self._tenants.get(chain_id)
+        if t is None:
+            from cometbft_tpu_torch.libs import tracing
+
+            t = self._tenants[chain_id] = _Tenant(
+                chain_id,
+                registered_ms=round(tracing.monotonic_ns() / 1e6, 3))
+        return t
+
+    def evict(self, chain_id: str) -> bool:
+        """Drop a tenant from the registry, folding its counted totals
+        into the retired accumulator (monotone /metrics across the
+        eviction) and releasing its owner-map entries."""
+        with self._lock:
+            t = self._tenants.pop(chain_id, None)
+            if t is None:
+                return False
+            self.evicted += 1
+            self.retired["rows"] += t.rows_total
+            self.retired["sheds"] += t.sheds_total
+            self.retired["warm_skips"] += t.warm_skips
+            self.retired["cold_evictions"] += t.cold_evictions
+            self.retired["device_us"] += t.device_us
+            self.retired["comp_us"] += t.comp_us
+            self.retired["h2d_us"] += t.h2d_us
+            self.retired["delta_bytes"] += t.delta_bytes
+            for key in [k for k, c in self._owners.items()
+                        if c == chain_id]:
+                del self._owners[key]
+        return True
+
+    def tenants(self) -> List[str]:
+        with self._lock:
+            return list(self._tenants)
+
+    def row_quota(self, chain_id: str) -> int:
+        """The tenant's pending-row quota (0 = unlimited). Read-only:
+        an UNKNOWN chain is unlimited and is NOT auto-registered here
+        — the hot submit path must not take a registration write for
+        every probe."""
+        with self._lock:
+            t = self._tenants.get(chain_id)
+            return t.row_quota if t is not None else 0
+
+    # -- fair-share rotation ----------------------------------------------
+
+    def drain_order(self, names) -> List[str]:
+        """Deterministic fair-share order for one drain cycle: the
+        (sorted) tenant names rotated by a cursor that advances every
+        call — with K tenants queued, each spends 1/K of the cycles at
+        the head, so the tenant drained first (and the one whose tail
+        rows wait for the next flush) rotates instead of being
+        whichever chain_id sorts lowest forever."""
+        names = sorted(names)
+        if not names:
+            return names
+        with self._lock:
+            off = self._cursor % len(names)
+            self._cursor += 1
+        return names[off:] + names[:off]
+
+    # -- accounting (the plane's settle/shed paths) ------------------------
+
+    def note_served(self, chain_id: str, lane: str, rows: int,
+                    wait_ms: float) -> None:
+        with self._lock:
+            t = self._touch(chain_id)
+            t.lane_rows[lane] = t.lane_rows.get(lane, 0) + int(rows)
+            t.waits.append(float(wait_ms))
+
+    def note_shed(self, chain_id: str, lane: str, n: int = 1) -> None:
+        with self._lock:
+            t = self._touch(chain_id)
+            t.lane_sheds[lane] = t.lane_sheds.get(lane, 0) + int(n)
+
+    def note_warm_skip(self, chain_id: str) -> None:
+        with self._lock:
+            self._touch(chain_id).warm_skips += 1
+
+    def note_device(self, chain_id: str, comp_us: int, h2d_us: int,
+                    dev_us: int, delta_bytes: int) -> None:
+        """Charge one flush's (split) device-time share to a tenant,
+        with integer microseconds from split_device_columns, so the sum
+        over tenants equals the ledger record exactly (no float fold)."""
+        self.note_device_shares(
+            ((chain_id, comp_us, h2d_us, dev_us, delta_bytes),))
+
+    def note_device_shares(self, shares) -> None:
+        """Batched note_device over one flush's split shares — ONE lock
+        acquisition for the whole fused batch. This is the plane's
+        _charge_flush path, bound by the per-flush hook budget
+        (bench.cost_hooks_bookkeeping_us, tier-1-asserted < 10 us)."""
+        with self._lock:
+            for chain_id, comp_us, h2d_us, dev_us, delta_bytes in shares:
+                t = self._touch(chain_id)
+                t.comp_us += int(comp_us)
+                t.h2d_us += int(h2d_us)
+                t.device_us += int(dev_us)
+                t.delta_bytes += int(delta_bytes)
+
+    def device_totals(self) -> dict:
+        """Registry-wide device-time totals, live + retired, in the
+        accumulators' native integer microseconds. The conservation
+        invariant: these equal the flush ledger's column sums over the
+        same window (reconcile_device asserts it, cfg20 embeds it)."""
+        with self._lock:
+            tot = {"comp_us": self.retired["comp_us"],
+                   "h2d_us": self.retired["h2d_us"],
+                   "device_us": self.retired["device_us"],
+                   "delta_bytes": self.retired["delta_bytes"]}
+            for t in self._tenants.values():
+                tot["comp_us"] += t.comp_us
+                tot["h2d_us"] += t.h2d_us
+                tot["device_us"] += t.device_us
+                tot["delta_bytes"] += t.delta_bytes
+            return tot
+
+    # -- residency ---------------------------------------------------------
+
+    def note_table_owner(self, key, chain_id: str) -> None:
+        """Record that the cached table under `key` belongs to
+        `chain_id` (the warmer and any tenant-aware table build call this
+        when they build for a known chain). Bounded latest-wins."""
+        with self._lock:
+            self._owners[key] = str(chain_id)
+            self._owners.move_to_end(key)
+            while len(self._owners) > OWNER_MAP_MAX:
+                self._owners.popitem(last=False)
+
+    def table_owner(self, key) -> str:
+        with self._lock:
+            return self._owners.get(key, DEFAULT_TENANT)
+
+    def residency_by_tenant(self) -> Dict[str, dict]:
+        """{tenant: {bytes, tables}} over the LIVE table caches,
+        attributed through the owner map at read time (never
+        double-entry: the cache's own contents are the truth, so an
+        LRU eviction can't strand a stale charge). The device ledger's
+        family x device accounting was pre-plumbed for exactly this
+        walk — /dump_devices grows the same block."""
+        from cometbft_tpu_torch.ops import table_cache as tc
+
+        with self._lock:
+            owners = dict(self._owners)
+        out: Dict[str, dict] = {}
+        # the port keys its tables by (content key, device); there is no
+        # sharded-table cache until the multi-device slice
+        with tc.LOCK:
+            items = [(k[0], v) for k, v in tc.TABLES._od.items()]
+            sizes = [(k, tc.default_size(v)) for k, v in items]
+        for key, nb in sizes:
+            chain = owners.get(key, DEFAULT_TENANT)
+            slot = out.setdefault(chain, {"bytes": 0, "tables": 0})
+            slot["bytes"] += nb
+            slot["tables"] += 1
+        return out
+
+    def warm_allowed(self, chain_id: str, est_bytes: int) -> bool:
+        """The warmer's budget gate: would a build of `est_bytes` push
+        this tenant past its residency budget? Unbudgeted (0) tenants
+        always pass. A refused warm is counted (note_warm_skip is the
+        caller's job — the gate itself is a pure read) and the
+        tenant's cold tables are evicted first so the NEXT warm can
+        fit."""
+        with self._lock:
+            t = self._tenants.get(chain_id)
+            budget = t.residency_budget if t is not None else 0
+        if not budget:
+            return True
+        used = self.residency_by_tenant().get(
+            chain_id, {"bytes": 0})["bytes"]
+        return used + max(0, int(est_bytes)) <= budget
+
+    def evict_cold_tables(self, chain_id: str) -> int:
+        """Evict this tenant's COLD cached tables — every owned entry
+        except the most-recently-used one (the live epoch a flush may
+        be using right now; the LRU order is the coldness order). The
+        noisy-neighbor contract's 'cold tables evicted first': an
+        over-budget tenant loses its own retired epochs before any
+        other tenant loses anything."""
+        from cometbft_tpu_torch.ops import table_cache as tc
+
+        with self._lock:
+            owned = {k for k, c in self._owners.items()
+                     if c == chain_id}
+        if not owned:
+            return 0
+        evicted = 0
+        with tc.LOCK:
+            # oldest-first walk over (content key, device) keys; keep
+            # the newest owned table
+            mine = [k for k in tc.TABLES._od if k[0] in owned]
+            for key in mine[:-1]:
+                tc.TABLES.pop(key)
+                evicted += 1
+        if evicted:
+            with self._lock:
+                self._touch(chain_id).cold_evictions += evicted
+        return evicted
+
+    # -- surfaces ----------------------------------------------------------
+
+    def dump(self) -> dict:
+        """The /dump_tenants document: registry + quotas + per-tenant
+        rows/sheds/residency/wait percentiles + the retired totals."""
+        from cometbft_tpu_torch.libs.quantiles import wait_summary_ms
+
+        res = self.residency_by_tenant()
+        with self._lock:
+            rows = {}
+            for name, t in self._tenants.items():
+                rows[name] = {
+                    "row_quota": t.row_quota,
+                    "residency_budget": t.residency_budget,
+                    "lane_rows": dict(t.lane_rows),
+                    "rows": t.rows_total,
+                    "lane_sheds": dict(t.lane_sheds),
+                    "sheds": t.sheds_total,
+                    "warm_skips": t.warm_skips,
+                    "cold_evictions": t.cold_evictions,
+                    "wait_ms": wait_summary_ms(t.waits),
+                    "registered_ms": t.registered_ms,
+                    # device-time chargeback columns (ms rendered from
+                    # the exact integer-us accumulators)
+                    "device_ms": round(t.device_us / 1000.0, 3),
+                    "comp_ms": round(t.comp_us / 1000.0, 3),
+                    "h2d_ms": round(t.h2d_us / 1000.0, 3),
+                    "delta_bytes": t.delta_bytes,
+                }
+            doc = {
+                "tenants": rows,
+                "registry_size": len(self._tenants),
+                "evicted": self.evicted,
+                "retired": dict(self.retired),
+                "owner_keys": len(self._owners),
+            }
+        for name, slot in res.items():
+            doc["tenants"].setdefault(name, {})["residency"] = slot
+        return doc
+
+    def metrics_rows(self, k: int = METRICS_TOP_K) -> dict:
+        """The scrape-time sample: top-K tenants by CUMULATIVE rows
+        (cumulative ranking keeps counter series stable — a tenant's
+        series appears when it earns top-K and starts at its true
+        running total, which is monotone) plus the retired totals the
+        ``_retired`` series accumulates."""
+        with self._lock:
+            ranked = sorted(self._tenants.values(),
+                            key=lambda t: (-t.rows_total, t.chain_id))
+            top = {t.chain_id: {"rows": t.rows_total,
+                                "sheds": t.sheds_total,
+                                "device_ms": round(t.device_us / 1000.0,
+                                                   3)}
+                   for t in ranked[:max(1, int(k))]}
+            return {"top": top, "retired": dict(self.retired),
+                    "registry_size": len(self._tenants)}
+
+
+# --------------------------------------------------------------------------
+# the process-global registry: mirrors the global plane (plane.py's
+# set_global_plane installs the mounted plane's registry here), with
+# the same _LAST survival contract every other dump surface honors —
+# /dump_tenants serves history after the node stopped.
+# --------------------------------------------------------------------------
+
+_GLOBAL: Optional[TenantRegistry] = None
+_LAST: Optional[TenantRegistry] = None
+_LOCK = threading.Lock()
+
+
+def set_global_registry(reg: Optional[TenantRegistry]) -> None:
+    global _GLOBAL, _LAST
+    with _LOCK:
+        _GLOBAL = reg
+        if reg is not None:
+            _LAST = reg
+
+
+def clear_global_registry(reg: TenantRegistry) -> None:
+    """Unregister `reg` iff it is the current global — a stopping node
+    must not tear down another node's tenancy registry."""
+    global _GLOBAL
+    with _LOCK:
+        if _GLOBAL is reg:
+            _GLOBAL = None
+
+
+def global_registry() -> Optional[TenantRegistry]:
+    return _GLOBAL
+
+
+def last_registry() -> Optional[TenantRegistry]:
+    return _GLOBAL or _LAST
+
+
+def dump_tenants() -> dict:
+    """The registry of the current global plane — or, after a stop,
+    of the LAST one (the registry is history, like the flush ledger)."""
+    reg = _GLOBAL or _LAST
+    if reg is None:
+        return {"tenants": {}, "registry_size": 0, "evicted": 0,
+                "retired": {"rows": 0, "sheds": 0, "warm_skips": 0,
+                            "cold_evictions": 0, "device_us": 0,
+                            "comp_us": 0, "h2d_us": 0,
+                            "delta_bytes": 0},
+                "owner_keys": 0}
+    return reg.dump()
+
+
+def reconcile_device(records, registry: TenantRegistry) -> dict:
+    """Exact-accounting cross-check (the HBM reconcile() discipline,
+    applied to time): sum the flush ledger's device columns over
+    `records` (dicts from FlushLedger.records()) and compare against
+    the registry's live+retired per-tenant accumulators. While the
+    ledger ring still holds every charged flush (and no other plane
+    fed the registry), every drift is EXACTLY zero — integer us, no
+    tolerance band. cfg20 embeds this; a unit test drives it across
+    evict()/retirement."""
+    led = {"comp_us": 0, "h2d_us": 0, "device_us": 0, "delta_bytes": 0}
+    for r in records:
+        if not r.get("tenants"):
+            continue  # tenantless record: nothing was charged
+        led["comp_us"] += ms_to_us(r["comp_ms"])
+        led["h2d_us"] += ms_to_us(r["h2d_ms"])
+        led["device_us"] += ms_to_us(r["dev_ms"])
+        led["delta_bytes"] += int(r["delta_bytes"])
+    reg = registry.device_totals()
+    return {
+        "ledger": led,
+        "registry": reg,
+        "drift": {k: reg[k] - led[k] for k in led},
+    }
+
+
+def estimate_table_bytes(n_vals: int) -> int:
+    """The warm gate's size estimate for an n-validator window table."""
+    return max(0, int(n_vals)) * EST_TABLE_BYTES_PER_VAL

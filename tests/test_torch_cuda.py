@@ -894,3 +894,188 @@ def test_native_pack_builds_here_and_equals_plain_at_16384_rows(card):
     for a, b in zip(got, want):
         a, b = np.asarray(a), np.asarray(b)
         assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the verify plane on the card (-k plane)
+# ---------------------------------------------------------------------------
+
+PLANE_VALS = 40
+
+
+def _plane_stream():
+    """PLANE_VALS precommits of one height, signed with the port's oracle
+    (one tampered, one not counted), as VoteSet submits them: counted, with
+    the validator index and the device stamp metadata, in one QuorumGroup
+    backed by the valset. Returns (submit_many kwargs, group, verdicts,
+    power of the counted valid votes)."""
+    from cometbft_tpu_torch.crypto.keys import PubKey
+    from cometbft_tpu_torch.types import canonical
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.vote import sign_bytes_template
+    from cometbft_tpu_torch.verifyplane import QuorumGroup
+
+    rng = np.random.default_rng(50)
+    seeds = [rng.bytes(32) for _ in range(PLANE_VALS)]
+    pubs = tuple(ed.sign_many(s, [])[0] for s in seeds)
+    powers = tuple(int(p) for p in rng.integers(1, 1000, PLANE_VALS))
+    bid = BlockID(rng.bytes(32), PartSetHeader(1, rng.bytes(32)))
+    tpl = sign_bytes_template("plane-card", canonical.PRECOMMIT_TYPE, 9, 0,
+                              bid)
+    secs = [1_700_000_000 + i for i in range(PLANE_VALS)]
+    nanos = [i * 7919 for i in range(PLANE_VALS)]
+    msgs = tpl.patch_rows(secs, nanos).tolist()
+    group = QuorumGroup(sum(powers) * 2 // 3 + 1, "h9",
+                        valset_pubs=pubs, valset_powers=powers)
+    subs, exp, power = [], [], 0
+    for v, (seed, m) in enumerate(zip(seeds, msgs)):
+        sig = ed.sign_many(seed, [m])[1][0]
+        if v == 11:
+            sig = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
+        subs.append(dict(rows=[(PubKey(pubs[v]), m, sig)],
+                         power=powers[v], group=group, counted=v != 17,
+                         vidx=[v], stamp=[(tpl, secs[v], nanos[v])]))
+        ok = ed.verify(pubs[v], m, sig)
+        exp.append((ok,))
+        power += powers[v] if ok and v != 17 else 0
+    return subs, group, exp, power
+
+
+def _plane_launches():
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+
+    return (es.stamp_rows.launches, ec.valset_table_build.launches,
+            ec.ed25519_verify_cached.launches,
+            ec.tally_quorum_cached.launches)
+
+
+def _drive_plane(plane, subs):
+    plane.start()
+    try:
+        with plane._cv:
+            futs = [plane.submit_many(**s) for s in subs]
+        return [f.result(120.0) for f in futs]
+    finally:
+        plane.stop()
+
+
+@pytest.mark.parametrize("stamping", [True, False],
+                         ids=["device_stamped", "host_packed"])
+def test_plane_fused_flush_on_the_card(card, stamping):
+    """One flush of a height's precommits through a plane on the card: the
+    oracle's verdicts, the exact tally, the quorum bit, path fused, the
+    stamp column, and one launch of each kernel of the flush."""
+    from cometbft_tpu_torch.crypto.batch import CircuitBreaker
+    from cometbft_tpu_torch.ops import table_cache as tc
+    from cometbft_tpu_torch.verifyplane import VerifyPlane
+    from cometbft_tpu_torch.verifyplane import fused as fz
+
+    tc.reset_for_tests()
+    subs, group, exp, power = _plane_stream()
+    brk = CircuitBreaker()
+    plane = VerifyPlane(window_ms=1.0, max_batch=4096, breaker=brk)
+    assert plane.device == card
+    before = _plane_launches()
+    fz.set_device_stamping(stamping)
+    try:
+        got = _drive_plane(plane, subs)
+    finally:
+        fz.set_device_stamping(True)
+    torch.cuda.synchronize()
+    after = _plane_launches()
+    assert got == exp
+    assert group.tally == power
+    assert group.quorum_reached == (power >= group.threshold)
+    rec, = plane.ledger.records()
+    assert (rec["path"], rec["stamp"], rec["warm"]) == (
+        "fused", "device" if stamping else "host", 0)
+    assert rec["dev_ms"] > 0
+    assert [a - b for a, b in zip(after, before)] == [int(stamping), 1, 1, 1]
+    assert brk.faults == 0
+
+
+def test_plane_readiness_is_the_flush_event(card):
+    """plan_ready probes the CUDA event recorded after the flush's last
+    launch: False while the stream is busy behind it, True once the work
+    is done; plan_device_ms then reads the two events."""
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+    from cometbft_tpu_torch.verifyplane import fused as fz
+    from cometbft_tpu_torch.verifyplane.plane import _Submission
+
+    subs, group, exp, power = _plane_stream()
+    batch = [_Submission(s["rows"], s["group"], s["power"], s["counted"],
+                         s["vidx"], stamp=s["stamp"]) for s in subs]
+    plan = fz.plan_fused(batch)
+    assert plan.device == card
+    real = es.verify_tally_delta_cached
+
+    def busy(*a, **kw):
+        out = real(*a, **kw)
+        torch.cuda._sleep(1 << 30)  # the stream is busy past the launches
+        return out
+
+    es.verify_tally_delta_cached = busy
+    try:
+        fz.dispatch_fused(plan)
+    finally:
+        es.verify_tally_delta_cached = real
+    assert plan.event is not None and not fz.plan_ready(plan)
+    assert fz.plan_device_ms(plan) is None
+    verdicts, tallies = fz.collect_fused(plan)
+    torch.cuda.synchronize()
+    assert fz.plan_ready(plan) and fz.plan_device_ms(plan) > 0
+    assert verdicts == [v for (v,) in exp]
+    assert tallies == {group: power}
+
+
+def test_plane_two_flights_land_by_event(card):
+    """pipeline_flights=2: flushes fly while the next one packs, land by
+    their events, and give the single-flight results."""
+    from cometbft_tpu_torch.crypto.batch import CircuitBreaker
+    from cometbft_tpu_torch.verifyplane import VerifyPlane
+
+    subs, group, exp, power = _plane_stream()
+    plane = VerifyPlane(window_ms=1.0, max_batch=8, pipeline_flights=2,
+                        breaker=CircuitBreaker())
+    got = _drive_plane(plane, subs)
+    assert got == exp and group.tally == power
+    recs = plane.ledger.records()
+    assert len(recs) == PLANE_VALS // 8
+    assert {r["path"] for r in recs} == {"fused"}
+    assert plane.stats()["deck_peak"] >= 1
+
+
+def test_plane_in_flight_fault_on_the_card(card):
+    """A fault where the flush's results are fetched (the
+    `verifyplane.collect` failpoint) fails that flush's futures with
+    DeviceError (no host fallback on the card), counts one fault on the
+    breaker, and the next flush is fused with the oracle's verdicts."""
+    from cometbft_tpu_torch.crypto.batch import CircuitBreaker
+    from cometbft_tpu_torch.device import DeviceError
+    from cometbft_tpu_torch.libs import failpoints as fp
+    from cometbft_tpu_torch.verifyplane import VerifyPlane
+
+    subs, group, exp, power = _plane_stream()
+    brk = CircuitBreaker()
+    plane = VerifyPlane(window_ms=1.0, max_batch=4096, breaker=brk)
+    fp.arm("verifyplane.collect", "raise", count=1)
+    try:
+        plane.start()
+        got = []
+        for half in (subs[:20], subs[20:]):
+            with plane._cv:
+                futs = [plane.submit_many(**s) for s in half]
+            for f in futs:
+                try:
+                    got.append(f.result(120.0))
+                except DeviceError:
+                    got.append("DeviceError")
+    finally:
+        plane.stop()
+        fp.reset()
+    assert got == ["DeviceError"] * 20 + exp[20:]
+    assert group.tally == sum(s["power"] for s, v in zip(subs[20:], exp[20:])
+                              if s["counted"] and all(v))
+    assert [r["path"] for r in plane.ledger.records()] == [
+        "device_fault", "fused"]
+    assert brk.faults == 1 and brk.state == "closed"

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither jax nor any module of
 the JAX package, and it never picks the host silently."""
+import ast
 import os
 import re
 import subprocess
@@ -53,9 +54,29 @@ def test_source_imports_nothing_of_jax_or_the_jax_package(path):
         assert top != "cometbft_tpu", f"{path}: imports {mod}"
 
 
+def _strings(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield node.lineno, node.value
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [
+    ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_names_no_jax_package_module_in_a_string(path):
+    """A module looked up by name (sys.modules.get("cometbft_tpu.x"), as
+    the device ledger, the incident recorder and the controller do) would
+    read the JAX package's module whenever both are loaded, which the
+    import checks cannot see: every dotted name in a string literal,
+    docstrings included, must be the port's."""
+    for line, text in _strings(path):
+        assert not re.search(r"\bcometbft_tpu\.", text), (
+            f"{path}:{line}: names a module of the JAX package: {text!r}")
+
+
 def test_the_checks_cover_every_module_and_kernel_source():
     """The import checks above walk every module of the port, the sr25519
-    and ECDSA slice's and the native host packer's included; every kernel
+    and ECDSA slice's, the native host packer's and the verify plane's
+    with its host libs included; every kernel
     source has a build entry, every header is in the host build the CPU
     tests check, and the native packer's C++ source includes only the C++
     standard library."""
@@ -65,7 +86,11 @@ def test_the_checks_cover_every_module_and_kernel_source():
     for m in ("crypto.keccak", "crypto.merlin", "crypto.ristretto_ref",
               "crypto.sr25519_ref", "crypto.secp256k1_ref", "edge_cases",
               "ops.sr25519_kernel", "ops.secp256k1", "ops.ecdsa_kernel",
-              "ops.ecdsa_fused", "native"):
+              "ops.ecdsa_fused", "native", "libs.quantiles", "libs.bits",
+              "libs.tracing", "libs.failpoints", "libs.incidents",
+              "libs.controller", "libs.deviceledger", "libs.staging",
+              "verifyplane", "verifyplane.plane", "verifyplane.tenants",
+              "verifyplane.fused"):
         assert f"cometbft_tpu_torch.{m}" in mods
     csrc = PKG / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(_build.KERNELS)
