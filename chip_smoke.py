@@ -118,6 +118,42 @@ Phases (any failure exits non-zero and prints no result line):
      versions, timed by device time; prints flushes, rows a flush, the
      quorum latency p50 (host clock) and the ledger's per-flush comp_ms,
      h2d_ms and dev_ms medians with the card's name and power limit.
+ 12. VoteSet and the table warmer (the north star's `VoteSet.AddVote`
+     entry, config 3's width): phase 3's commit as 10,000 precommit Votes
+     (Commit.get_vote; 4,321 tampered) added from 8 threads to a port
+     VoteSet, with a card VerifyPlane mounted as the global plane and a
+     card TableWarmer as the global warmer; 3 VoteSets over epoch e (the
+     first with a cold table): vote 4,321 raises the invalid-signature
+     VoteSetError, every other vote is admitted, the majority is the
+     commit's block from the fused tally, make_commit() is the commit
+     without 4,321, the plane verified every vote (none took the serial
+     path), every flush fused and device-stamped, launches exact; then
+     the rotation to epoch e+1 (the last 100 validators' powers halved,
+     keys and order kept): notify_next_valset warms its table (one
+     incremental build), e+1's VoteSet over the same votes gives the same
+     commit, its first flush is warm with one warmed hit and no table
+     build; the flush's three kernels on the warmed table against plain;
+     then the rotation to epoch e+2 (those 100 validators replaced by 100
+     new keys at twice the power, so every slot moves): the warmer's full
+     valset_table_build (counted from the notify to the warmer's idle,
+     under its own path), e+2's VoteSet over the votes re-indexed and the
+     new keys' signed votes gives the expected commit, its first flush
+     warm with one warmed hit, and the flush kernels on that table against
+     plain; then a host-plane VoteSet (use_device=False) over 1,024 of the
+     votes (4,321 among them) gives each vote the card's outcome; prints
+     the quorum p50, the first flush's dev_ms cold and warmed, the
+     warmer's build ms for each rotation, the launches;
+ 13. the light client (config 5 as a whole): light_plan's chain of 8
+     heights over 10,000 secp256k1 validators (era A signs 1-4, era B,
+     which keeps just under 30 % of A's power, 5-8; each height signed
+     when first fetched), a skipping light Client with batch_fn=None from
+     trusted height 1 to 8 through a card VerifyPlane (its grouped path:
+     ecdsa_verify): the heights stored and the verification count equal
+     the 16-validator copy's under the oracle, a target commit with a
+     tampered signature is refused with ErrInvalidHeader blaming it, one
+     ecdsa_verify a flush, the kernel against plain on the rows the path
+     launched it on; prints the verification's ms net of the signing and
+     each flush's work ms.
 Before the last line it prints the `kernels` JSON (launches on the main
 paths, in all and by path; times; bounds; for every kernel `device_ms`, from
 a profiler trace at its phase's shape, by live columns or by shape where a
@@ -187,6 +223,15 @@ PLANE_FAULT_VALS = (4096, 5120)  # the fault run's validators
 PLANE_FAULT_BATCH = 256
 PLANE_TIMEOUT_S = 120.0
 PLANE_LEDGER = 16384         # flush ledger ring of the phase's planes
+VS_ROTATED = 100             # phase 12: validators whose power rotates
+VS_THREADS = 8               # phase 12: threads adding votes
+VS_RUNS = 3                  # phase 12: VoteSets over epoch e's votes
+VS_HOST_VOTES = (4096, 5120)  # phase 12: the host plane's slice of votes
+LCC_VALS = 10_000            # phase 13: BASELINE config 5's width
+LCC_COPY_VALS = 16           # phase 13: the plan's copy the CPU test runs
+LCC_SEED = 13                # phase 13: the plan's seed
+LCC_TAMPER_IDX = 0           # phase 13: the tampered target's signature
+LCC_T0 = 1_700_300_000       # phase 13: height h's header time is T0 + h
 H100_SMS = 132
 IMAD_PER_CLK = 64            # INT32 multiply-adds per SM per clock
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -303,6 +348,31 @@ def make_valset(pool, rng, n, powers):
     vs = ValidatorSet(vals)
     by_addr = {v.address: s for v, s in zip(vals, seeds)}
     return vs, by_addr
+
+
+def light_plan(n, seed=LCC_SEED):
+    """Phase 13's chain plan (config 5 as a whole): era A, n secp256k1
+    validators from seeded keys with seeded powers in 1-1,000, signs
+    heights 1-4; era B signs 5-8. Era B keeps A's validators, taken in a
+    seeded order, while their power stays within 30 % of A's total, and
+    replaces the rest with new seeded keys and powers, so a jump from an
+    era A height to an era B height fails the 1/3 trust check and the
+    skipping client bisects across the adjacent link 4 -> 5. Returns
+    {height: [(key seed, power)]}, each height's validators in plan order;
+    tests/test_torch_light.py runs the same plan at LCC_COPY_VALS."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    era_a = [(seed_bytes(rng), int(p)) for p in rng.integers(1, 1001, n)]
+    total = sum(p for _, p in era_a)
+    kept, power = [], 0
+    for i in rng.permutation(n):
+        if (power + era_a[i][1]) * 10 <= total * 3:
+            kept.append(era_a[i])
+            power += era_a[i][1]
+    era_b = kept + [(seed_bytes(rng), int(p))
+                    for p in rng.integers(1, 1001, n - len(kept))]
+    return {h: era_a if h < 5 else era_b for h in range(1, 9)}
 
 
 def block_id(rng):
@@ -2377,24 +2447,86 @@ def plane_run(plane, subs, pubs, powers, quorum=True):
     return verdicts, group, quorum_ms, plane.ledger.records()[seq0:]
 
 
+def flush_kernels_vs_plain(dev, subs, pubs, powers, phase):
+    """One fused flush of `subs` (plane_subs submissions) planned as the
+    plane plans it, on the valset's cached (warm) table: stamp_rows,
+    ed25519_verify_cached and tally_quorum_cached against their plain
+    versions on the flush's inputs, exactly. Returns the shape (B, M,
+    live), the three launches as closures (stamp, vk, tq), their errors
+    and the plain stamp's ms. Every submission's signature must be
+    valid."""
+    import types
+
+    import torch
+
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+    from cometbft_tpu_torch.verifyplane import QuorumGroup
+    from cometbft_tpu_torch.verifyplane import fused as fz
+    from cometbft_tpu_torch.verifyplane.plane import _Submission
+
+    g = QuorumGroup(1, f"{phase}-check", valset_pubs=pubs,
+                    valset_powers=powers)
+    batch = [_Submission(s["rows"], g, s["power"], True, s["vidx"],
+                         stamp=s["stamp"]) for s in subs]
+    plan = fz.plan_fused(batch, device=dev)
+    table, warm = ec.table_for_pubs_info(pubs, powers, device=dev)
+    check(warm and plan.stamped, f"{phase} kernel check: cold or unstamped")
+    ent = es.template_entry(plan.sites, device=dev)
+    sig_t, ts_t, fl_t = (torch.from_numpy(a).to(dev) for a in plan.delta)
+    thr = torch.from_numpy(plan.thresh).to(dev)
+    B = sig_t.shape[0]
+    M = table.n_vals
+    live = len(batch)
+    t_rows = ec.packed_rows_shape(B, plan.n_commits)[0] - ec.V_THRESH
+    stamp = lambda: es.stamp_rows(sig_t, ts_t, fl_t, ent,  # noqa: E731
+                                  table.pub_raw, thr, t_rows)
+    rows_k = stamp()
+    t = time.perf_counter()
+    rows_p = es.stamp_rows_plain(sig_t, ts_t, fl_t, ent.pre_mat,
+                                 ent.pre_len, ent.suf_mat, ent.suf_len,
+                                 ent.ts_tag, table.pub_raw, thr, ent.msg_max,
+                                 t_rows)
+    torch.cuda.synchronize()
+    stamp_plain_ms = (time.perf_counter() - t) * 1e3
+    stamp_err = int((rows_k.to(torch.int64)
+                     - rows_p.to(torch.int64)).abs().max())
+    check(stamp_err == 0, f"{phase} stamp_rows != plain at {B} columns")
+    vk = lambda: ec.ed25519_verify_cached(rows_k, table.tab,  # noqa: E731
+                                          table.ok)
+    v_k = vk()
+    v_p = ec.ed25519_verify_cached_plain(rows_k, table.tab, table.ok,
+                                         ec.kf.base_points(dev))
+    verify_err = int((v_k - v_p).abs().max())
+    check(verify_err == 0 and int(v_k.sum()) == live,
+          f"{phase} ed25519_verify_cached != plain at {B}x{M}")
+    tq = lambda: ec.tally_quorum_cached(v_k, rows_k,  # noqa: E731
+                                        table.power5, plan.n_commits)
+    t_k, q_k = tq()
+    t_p, q_p = ec.tally_quorum_cached_plain(v_k, rows_k, table.power5,
+                                            plan.n_commits)
+    tally_err = max(int((t_k - t_p).abs().max()), int((q_k != q_p).sum()))
+    check(tally_err == 0, f"{phase} tally_quorum_cached != plain at {B}")
+    return types.SimpleNamespace(
+        B=B, M=M, live=live, stamp=stamp, vk=vk, tq=tq,
+        errs=(stamp_err, verify_err, tally_err),
+        stamp_plain_ms=stamp_plain_ms)
+
+
 def phase_plane(dev, res, kernel_stats):
     """Phase 3's signed 10k commit as gossiped precommits through a started
     VerifyPlane on the card: fused flushes (stamp_rows, the cached verify,
     the cached tally), the quorum bit from the kernel, the tampered vote
     blamed; then the host-packed branch, two flights, and one in-flight
     fault."""
-    import numpy as np
     import torch
 
     from cometbft_tpu_torch.crypto import batch as cbatch
     from cometbft_tpu_torch.libs import failpoints as fp
     from cometbft_tpu_torch.ops import ed25519_cached as ec
-    from cometbft_tpu_torch.ops import ed25519_stamp as es
     from cometbft_tpu_torch.ops import table_cache as tc
-    from cometbft_tpu_torch.verifyplane import (FlushLedger, QuorumGroup,
-                                                VerifyPlane)
+    from cometbft_tpu_torch.verifyplane import FlushLedger, VerifyPlane
     from cometbft_tpu_torch.verifyplane import fused as fz
-    from cometbft_tpu_torch.verifyplane.plane import _Submission
 
     def make_plane(**kw):
         p = VerifyPlane(window_ms=PLANE_WINDOW_MS, max_queue=PLANE_MAX_QUEUE,
@@ -2536,48 +2668,12 @@ def phase_plane(dev, res, kernel_stats):
 
     # the flush's three kernels at the path's shape against their plain
     # versions: one flush of PLANE_MAX_BATCH precommits
-    g = QuorumGroup(1, "phase11-check", valset_pubs=pubs,
-                    valset_powers=powers)
-    batch = [_Submission(s["rows"], g, s["power"], True, s["vidx"],
-                         stamp=s["stamp"]) for s in subs[:PLANE_MAX_BATCH]]
-    plan = fz.plan_fused(batch, device=dev)
-    table, warm = ec.table_for_pubs_info(pubs, powers, device=dev)
-    check(warm and plan.stamped, "phase11 kernel check: cold or unstamped")
-    ent = es.template_entry(plan.sites, device=dev)
-    sig_t, ts_t, fl_t = (torch.from_numpy(a).to(dev) for a in plan.delta)
-    thr = torch.from_numpy(plan.thresh).to(dev)
-    B = sig_t.shape[0]
-    M = table.n_vals
-    live = len(batch)
-    t_rows = ec.packed_rows_shape(B, plan.n_commits)[0] - ec.V_THRESH
-    stamp = lambda: es.stamp_rows(sig_t, ts_t, fl_t, ent,  # noqa: E731
-                                  table.pub_raw, thr, t_rows)
-    rows_k = stamp()
-    t = time.perf_counter()
-    rows_p = es.stamp_rows_plain(sig_t, ts_t, fl_t, ent.pre_mat,
-                                 ent.pre_len, ent.suf_mat, ent.suf_len,
-                                 ent.ts_tag, table.pub_raw, thr, ent.msg_max,
-                                 t_rows)
-    torch.cuda.synchronize()
-    stamp_plain_ms = (time.perf_counter() - t) * 1e3
-    stamp_err = int((rows_k.to(torch.int64)
-                     - rows_p.to(torch.int64)).abs().max())
-    check(stamp_err == 0, f"phase11 stamp_rows != plain at {B} columns")
-    vk = lambda: ec.ed25519_verify_cached(rows_k, table.tab,  # noqa: E731
-                                          table.ok)
-    v_k = vk()
-    v_p = ec.ed25519_verify_cached_plain(rows_k, table.tab, table.ok,
-                                         ec.kf.base_points(dev))
-    verify_err = int((v_k - v_p).abs().max())
-    check(verify_err == 0 and int(v_k.sum()) == live,
-          f"phase11 ed25519_verify_cached != plain at {B}x{M}")
-    tq = lambda: ec.tally_quorum_cached(v_k, rows_k,  # noqa: E731
-                                        table.power5, plan.n_commits)
-    t_k, q_k = tq()
-    t_p, q_p = ec.tally_quorum_cached_plain(v_k, rows_k, table.power5,
-                                            plan.n_commits)
-    tally_err = max(int((t_k - t_p).abs().max()), int((q_k != q_p).sum()))
-    check(tally_err == 0, f"phase11 tally_quorum_cached != plain at {B}")
+    fk = flush_kernels_vs_plain(dev, subs[:PLANE_MAX_BATCH], pubs, powers,
+                                "phase11")
+    B, M, live = fk.B, fk.M, fk.live
+    stamp, vk, tq = fk.stamp, fk.vk, fk.tq
+    stamp_err, verify_err, tally_err = fk.errs
+    stamp_plain_ms = fk.stamp_plain_ms
     stamp_dev = dev_ms(stamp, "stamp_rows_plane_trace.json")
     verify_dev = dev_ms(vk, "ed25519_verify_cached_plane_trace.json")
     tally_dev = dev_ms(tq, "tally_quorum_cached_plane_trace.json")
@@ -2639,6 +2735,551 @@ def phase_plane(dev, res, kernel_stats):
           f"the oracle's verdicts)", flush=True)
     return {"plane_quorum_p50_ms": statistics.median(quorum_ms),
             "plane_flushes_per_run": len(clean) / PLANE_RUNS}
+
+
+# --------------------------------------------------------------------------
+# phase 12: VoteSet and the table warmer on the card
+# --------------------------------------------------------------------------
+
+
+def voteset_run(vs, votes, height, quorum=True):
+    """Add `votes` (precommits of one block, each True or raising) to a
+    fresh VoteSet over `vs` from VS_THREADS threads, through the mounted
+    plane and warmer; -> (VoteSet, the outcome of each add: its return
+    value or the exception, ms from the first add to the quorum event of
+    the block's QuorumGroup, or None when `quorum` is False (the votes
+    hold too little power to wait for it) or it never fired)."""
+    import threading
+
+    from cometbft_tpu_torch.types import canonical
+    from cometbft_tpu_torch.types.vote_set import VoteSet
+
+    vset = VoteSet(CHAIN_ID, height, 0, canonical.PRECOMMIT_TYPE, vs)
+    outs = [None] * len(votes)
+    go = threading.Event()
+
+    def worker(k):
+        go.wait()
+        for i in range(k, len(votes), VS_THREADS):
+            try:
+                outs[i] = vset.add_vote(votes[i])
+            except Exception as e:  # noqa: BLE001 - checked by the caller
+                outs[i] = e
+
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(VS_THREADS)]
+    for t in threads:
+        t.start()
+    key = votes[0].block_id.key()
+    deadline = time.perf_counter() + PLANE_TIMEOUT_S
+    t0 = time.perf_counter()
+    go.set()
+    group = None
+    while quorum and group is None and time.perf_counter() < deadline:
+        group = vset._plane_groups.get(key)
+        time.sleep(0.0002)
+    reached = group is not None and group.wait_quorum(PLANE_TIMEOUT_S)
+    quorum_ms = (time.perf_counter() - t0) * 1e3 if reached else None
+    for t in threads:
+        t.join(PLANE_TIMEOUT_S)
+        check(not t.is_alive(), "phase12 a VoteSet thread hung")
+    return vset, outs, quorum_ms
+
+
+def voteset_check(name, vset, outs, want_commit, bad_idx=TAMPER_IDX):
+    """Vote `bad_idx` raised the invalid-signature VoteSetError, every
+    other vote was admitted, the majority is the commit's block and
+    make_commit() is `want_commit`, the commit with that signature
+    absent."""
+    from cometbft_tpu_torch.types.vote_set import VoteSetError
+
+    bad = outs[bad_idx]
+    check(isinstance(bad, VoteSetError)
+          and str(bad) == "invalid vote: invalid signature",
+          f"phase12 {name}: vote {bad_idx} gave {bad!r}")
+    others = [o for i, o in enumerate(outs) if i != bad_idx]
+    check(all(o is True for o in others),
+          f"phase12 {name}: {sum(o is not True for o in others)} valid "
+          f"votes not admitted, e.g. "
+          f"{next((o for o in others if o is not True), None)!r}")
+    check(vset.two_thirds_majority() == want_commit.block_id,
+          f"phase12 {name}: majority {vset.two_thirds_majority()}")
+    got = vset.make_commit()
+    check(got.signatures == want_commit.signatures
+          and got.hash() == want_commit.hash(),
+          f"phase12 {name}: make_commit() != the commit without "
+          f"signature {bad_idx}")
+    return got
+
+
+def rotated_commit(pool, rng, vs, commit):
+    """Epoch e+2's valset and commit: `vs` without its last VS_ROTATED
+    validators, plus VS_ROTATED new keys at twice VAL_POWER (they sort
+    first, so every slot of the table moves: a full build). The kept
+    validators' signatures are the commit's (a precommit's sign-bytes
+    hold no validator index); the new keys sign theirs. -> (valset,
+    commit, the tampered vote's index in it)."""
+    from cometbft_tpu_torch.types.commit import (BLOCK_ID_FLAG_COMMIT,
+                                                 Commit, CommitSig)
+    from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+
+    new, seed_of = make_valset(pool, rng, VS_ROTATED,
+                               [2 * VAL_POWER] * VS_ROTATED)
+    kept = vs.validators[:N_VALS - VS_ROTATED]
+    vs3 = ValidatorSet([Validator(v.pub_key, v.voting_power)
+                        for v in kept + new.validators])
+    check(vs3.validators[0].address in seed_of
+          and vs3.validators[VS_ROTATED].address == kept[0].address,
+          "phase12 e+2's new keys do not sort first")
+    by_addr = {cs.validator_address: cs for cs in commit.signatures}
+    ts = commit.signatures[0].timestamp
+    commit3 = Commit(commit.height, commit.round, commit.block_id, [
+        by_addr.get(v.address)
+        or CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, ts, b"")
+        for v in vs3.validators])
+    fresh = [i for i, v in enumerate(vs3.validators) if v.address in seed_of]
+    jobs = [(seed_of[vs3.validators[i].address],
+             [commit3.vote_sign_bytes(CHAIN_ID, i)]) for i in fresh]
+    for i, (_, (sig,)) in zip(fresh, sign_all(pool, jobs)):
+        commit3.signatures[i].signature = sig
+    bad = [v.address for v in vs3.validators].index(
+        vs.validators[TAMPER_IDX].address)
+    return vs3, commit3, bad
+
+
+def phase_voteset(dev, pool, rng, res, kernel_stats):
+    """The consensus entry of the main path: phase 3's commit as 10,000
+    precommit Votes added to a port VoteSet from 8 threads, with a card
+    VerifyPlane and a card TableWarmer mounted; then two rotations, each
+    warmed by the warmer before its first flush: e+1 changes 100
+    validators' powers (a power patch of the live table), e+2 replaces
+    those 100 validators with new keys (a full table build)."""
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.ops import table_cache as tc
+    from cometbft_tpu_torch.types.commit import Commit, CommitSig
+    from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+    from cometbft_tpu_torch.verifyplane import (FlushLedger, TableWarmer,
+                                                VerifyPlane,
+                                                notify_next_valset,
+                                                set_global_plane,
+                                                set_global_warmer)
+
+    vs, bid, height, commit = res["fixture"]
+    votes = [commit.get_vote(i) for i in range(len(commit.signatures))]
+    votes[TAMPER_IDX].signature = flip(votes[TAMPER_IDX].signature, 40)
+    want = Commit(commit.height, commit.round, commit.block_id,
+                  [CommitSig.absent() if i == TAMPER_IDX else cs
+                   for i, cs in enumerate(commit.signatures)])
+    brk = cbatch.device_breaker()
+    # e+1, a rotation that keeps every key and the valset's order: the
+    # last VS_ROTATED validators (equal powers sort by address) lose half
+    # their power, so the content key changes and the warm is a power
+    # patch of the live table
+    vs2 = ValidatorSet([
+        Validator(v.pub_key, VAL_POWER // 2 if i >= N_VALS - VS_ROTATED
+                  else v.voting_power) for i, v in enumerate(vs.validators)])
+    check([v.pub_key for v in vs2.validators]
+          == [v.pub_key for v in vs.validators],
+          "phase12 the rotated valset changed the validators' order")
+    # e+2, a rotation that brings in new keys
+    t = time.perf_counter()
+    vs3, commit3, bad3 = rotated_commit(pool, rng, vs, commit)
+    sign3_s = time.perf_counter() - t
+    votes3 = [commit3.get_vote(i) for i in range(N_VALS)]
+    votes3[bad3].signature = flip(votes3[bad3].signature, 40)
+    want3 = Commit(commit3.height, commit3.round, commit3.block_id,
+                   [CommitSig.absent() if i == bad3 else cs
+                    for i, cs in enumerate(commit3.signatures)])
+
+    plane = VerifyPlane(window_ms=PLANE_WINDOW_MS, max_batch=PLANE_MAX_BATCH,
+                        max_queue=PLANE_MAX_QUEUE)
+    check(plane.device == dev, f"phase12 plane device {plane.device}")
+    plane.ledger = FlushLedger(capacity=PLANE_LEDGER)
+    warmer = TableWarmer()
+    check(warmer.device == dev, f"phase12 warmer device {warmer.device}")
+    tc.reset_for_tests()  # epoch e starts cold
+    plane.start()
+    warmer.start()
+    set_global_plane(plane)
+    set_global_warmer(warmer)
+
+    def epoch(name, vals, vs_votes, want_commit, bad_idx):
+        """One VoteSet over `vs_votes` on the mounted plane: the checks
+        every epoch shares; -> (VoteSet, outcomes, quorum ms, ledger
+        records of its flushes, launches)."""
+        zero_launches()
+        n0 = len(plane.ledger.records())
+        rows0 = plane.rows_verified
+        vset, outs, q = voteset_run(vals, vs_votes, height)
+        recs = plane.ledger.records()[n0:]
+        launches = read_launches()
+        check(q is not None, f"phase12 {name}: no quorum")
+        voteset_check(name, vset, outs, want_commit, bad_idx)
+        group = vset._plane_groups[bid.key()]
+        check(group.quorum_reached
+              and group.tally == sum(v.voting_power for v in vals.validators)
+              - vals.validators[bad_idx].voting_power,
+              f"phase12 {name}: group tally {group.tally}")
+        check(plane.rows_verified - rows0 == N_VALS,
+              f"phase12 {name}: the plane verified "
+              f"{plane.rows_verified - rows0} rows of {N_VALS} votes "
+              f"(a vote left the plane)")
+        paths = sorted({r["path"] for r in recs})
+        check(paths == ["fused"] and {r["stamp"] for r in recs} == {"device"},
+              f"phase12 {name}: paths {paths}")
+        return vset, outs, q, recs, launches
+
+    def rotate(name, vals):
+        """notify_next_valset(vals) as state/execution.py makes it, and
+        the warmer's build to its idle: -> (its launches, warmer stats,
+        table_cache's warmed hits before the next epoch)."""
+        zero_launches()
+        notify_next_valset(vals)
+        check(warmer.wait_idle(PLANE_TIMEOUT_S),
+              f"phase12 {name}: warmer not idle")
+        return read_launches(), warmer.stats(), tc.STATS["warmed_hits"]
+
+    def flush_launches(name, launches, n, table_builds=0):
+        want_l = dict.fromkeys(launches, 0)
+        want_l.update(stamp_rows=n, ed25519_verify_cached=n,
+                      tally_quorum_cached=n, valset_table_build=table_builds)
+        check(launches == want_l,
+              f"phase12 {name} launches {launches}, want {want_l}")
+
+    try:
+        runs, quorum_ms, launches_e = [], [], {}
+        for k in range(VS_RUNS):
+            vset, outs, q, recs, lk = epoch(f"epoch e run {k}", vs, votes,
+                                            want, TAMPER_IDX)
+            warm = [r["warm"] for r in recs]
+            check(warm == [0 if k == 0 else 1] + [1] * (len(recs) - 1),
+                  f"phase12 run {k}: warm column {warm}")
+            flush_launches(f"epoch e run {k}", lk, len(recs),
+                           1 if k == 0 else 0)
+            launches_e = {n: launches_e.get(n, 0) + c for n, c in lk.items()}
+            runs.append(recs)
+            quorum_ms.append(q)
+        check(warmer.builds_ok == 0, "phase12 the warmer built in epoch e")
+
+        # rotation to e+1: the warmer patches V''s powers in
+        warm_l1, wst1, hits1 = rotate("e+1", vs2)
+        check(wst1["builds_ok"] == 1 and wst1["builds_failed"] == 0
+              and wst1["builds_incremental"] == 1,
+              f"phase12 warmer after e+1 {wst1}")
+        flush_launches("e+1 warmer", warm_l1, 0)  # a power patch: none
+        vset2, _, q2, recs2, launches_r = epoch("epoch e+1", vs2, votes,
+                                                want, TAMPER_IDX)
+        check(tc.STATS["warmed_hits"] - hits1 == 1,
+              f"phase12 e+1 warmed_hits {tc.STATS['warmed_hits'] - hits1}")
+        check([r["warm"] for r in recs2] == [1] * len(recs2),
+              f"phase12 e+1 warm column {[r['warm'] for r in recs2]}")
+        flush_launches("epoch e+1", launches_r, len(recs2))
+        fk = flush_kernels_vs_plain(dev, plane_subs(vs2, commit)[
+            :PLANE_MAX_BATCH], tuple(v.pub_key.data for v in vs2.validators),
+            tuple(v.voting_power for v in vs2.validators), "phase12 e+1")
+
+        # rotation to e+2: new keys, every slot moved, the warmer's full
+        # table build
+        warm_l2, wst2, hits2 = rotate("e+2", vs3)
+        check(wst2["builds_ok"] == 2 and wst2["builds_failed"] == 0
+              and wst2["builds_incremental"] == 1,
+              f"phase12 warmer after e+2 {wst2} (want a full build)")
+        flush_launches("e+2 warmer", warm_l2, 0, table_builds=1)
+        _, _, q3, recs3, launches_3 = epoch("epoch e+2", vs3, votes3,
+                                            want3, bad3)
+        check(tc.STATS["warmed_hits"] - hits2 == 1,
+              f"phase12 e+2 warmed_hits {tc.STATS['warmed_hits'] - hits2}")
+        check([r["warm"] for r in recs3] == [1] * len(recs3),
+              f"phase12 e+2 warm column {[r['warm'] for r in recs3]}")
+        flush_launches("epoch e+2", launches_3, len(recs3))
+        fk3 = flush_kernels_vs_plain(dev, plane_subs(vs3, commit3)[
+            :PLANE_MAX_BATCH], tuple(v.pub_key.data for v in vs3.validators),
+            tuple(v.voting_power for v in vs3.validators), "phase12 e+2")
+    finally:
+        set_global_plane(None)
+        set_global_warmer(None)
+        warmer.stop()
+        plane.stop()
+    check(brk.faults == 0 and brk.trips == 0,
+          f"phase12 breaker faults={brk.faults} trips={brk.trips}")
+
+    # a slice of epoch e's votes through a VoteSet on a host plane: each
+    # vote's outcome and the admitted bits equal the card's last run's
+    lo, hi = VS_HOST_VOTES
+    host = VerifyPlane(window_ms=PLANE_WINDOW_MS, max_batch=PLANE_MAX_BATCH,
+                       max_queue=PLANE_MAX_QUEUE, use_device=False)
+    host.start()
+    set_global_plane(host)
+    try:
+        t = time.perf_counter()
+        hset, houts, _ = voteset_run(vs, votes[lo:hi], height,
+                                     quorum=False)
+        host_s = time.perf_counter() - t
+    finally:
+        set_global_plane(None)
+        host.stop()
+
+    def kind(o):
+        return o if o is True else (type(o).__name__, str(o))
+
+    check([kind(o) for o in houts] == [kind(o) for o in outs[lo:hi]]
+          and [hset.get_by_index(i) is not None for i in range(lo, hi)]
+          == [vset.get_by_index(i) is not None for i in range(lo, hi)]
+          and hset.sum == VAL_POWER * (hi - lo - 1),
+          f"phase12 the host plane's VoteSet over votes {lo}-{hi - 1} != "
+          f"the card's")
+
+    launches = {k: launches_e[k] + launches_r[k] + launches_3[k]
+                for k in launches_e}
+    warmer_l = {k: warm_l1[k] + warm_l2[k] for k in warm_l1}
+    for name in ("stamp_rows", "ed25519_verify_cached",
+                 "tally_quorum_cached", "valset_table_build"):
+        kernel_stats[name]["launches_by_path"]["vote_set"] = launches[name]
+    kernel_stats["valset_table_build"]["launches_by_path"]["warmer"] = (
+        warmer_l["valset_table_build"])
+    for name, e1, e3 in zip(("stamp_rows", "ed25519_verify_cached",
+                             "tally_quorum_cached"), fk.errs, fk3.errs):
+        kernel_stats[name]["max_abs_err"] = max(
+            kernel_stats[name]["max_abs_err"], e1, e3)
+    cold, warm1, warm3 = runs[0][0], recs2[0], recs3[0]
+    n_e = sum(len(r) for r in runs)
+    print(f"phase12 launches {json.dumps(launches)} warmer_launches "
+          f"{json.dumps(warmer_l)} epoch_e_flushes={n_e} "
+          f"epoch_e1_flushes={len(recs2)} epoch_e2_flushes={len(recs3)} "
+          f"blamed_idx={TAMPER_IDX} (e+2: {bad3}) breaker_faults=0",
+          flush=True)
+    print(f"phase12 VoteSet validators={N_VALS} threads={VS_THREADS} "
+          f"runs={VS_RUNS} quorum_p50_ms={statistics.median(quorum_ms):.3f} "
+          f"quorum_ms={[round(x, 3) for x in quorum_ms]} (the first cold) "
+          f"e+1 quorum_ms={q2:.3f} e+2 quorum_ms={q3:.3f}; first flush of "
+          f"epoch e (cold) rows={cold['rows']} dev_ms={cold['dev_ms']} "
+          f"comp_ms={cold['comp_ms']} h2d_ms={cold['h2d_ms']}; first flush "
+          f"of e+1 (warm) rows={warm1['rows']} dev_ms={warm1['dev_ms']} "
+          f"h2d_ms={warm1['h2d_ms']}; first flush of e+2 (warm) rows="
+          f"{warm3['rows']} dev_ms={warm3['dev_ms']} h2d_ms="
+          f"{warm3['h2d_ms']}; card={smi('name,power.limit')}", flush=True)
+    print(f"phase12 warmer e+1 (power patch) last_build_ms="
+          f"{wst1['last_build_ms']}; e+2 ({VS_ROTATED} new keys, full build) "
+          f"last_build_ms={wst2['last_build_ms']}; builds_ok="
+          f"{wst2['builds_ok']} builds_incremental="
+          f"{wst2['builds_incremental']} tmpl_warms={wst2['tmpl_warms']} "
+          f"superseded={wst2['superseded']} warmed_hits=1 a rotation (each "
+          f"first flush warm, no table build in e+1 or e+2); e+2 keys signed "
+          f"s={sign3_s:.3f}; flush kernels on both warmed tables == plain "
+          f"(B={fk.B} M={fk.M} live={fk.live}); host-plane VoteSet over "
+          f"votes {lo}-{hi - 1} s={host_s:.1f} (same outcomes and bits)",
+          flush=True)
+    return {"vs_quorum_p50_ms": statistics.median(quorum_ms)}
+
+
+# --------------------------------------------------------------------------
+# phase 13: the light client on the card
+# --------------------------------------------------------------------------
+
+
+class PlanChain:
+    """light_plan's chain for the port's light client: each height's
+    header carries its era's validators hash and the next height's;
+    a height's commit (every validator for the block, at T0 + h) is
+    signed on the pool the first time the provider is asked for it."""
+
+    def __init__(self, pool, plan):
+        from cometbft_tpu_torch.crypto.keys import PubKey
+        from cometbft_tpu_torch.types.block import Header
+        from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+        from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+
+        self.pool = pool
+        seeds = list(dict.fromkeys(s for vals in plan.values()
+                                   for s, _ in vals))
+        pubs = dict(zip(seeds, (p for p, _ in sign_typed(
+            pool, [("secp256k1", s, []) for s in seeds]))))
+        sets = {}
+        for vals in plan.values():
+            if id(vals) not in sets:
+                sets[id(vals)] = ValidatorSet([
+                    Validator(PubKey(pubs[s], "secp256k1"), w)
+                    for s, w in vals])
+        self.vals = {h: sets[id(vals)] for h, vals in plan.items()}
+        self.key_of = {PubKey(pubs[s], "secp256k1").address():
+                       ("secp256k1", s) for s in seeds}
+        self.headers = {}
+        prev = BlockID()
+        for h in sorted(plan):
+            vs = self.vals[h]
+            header = Header(
+                chain_id=CHAIN_ID, height=h,
+                time=_ts(LCC_T0 + h), last_block_id=prev,
+                validators_hash=vs.hash(),
+                next_validators_hash=self.vals.get(h + 1, vs).hash(),
+                proposer_address=vs.validators[0].address,
+                app_hash=b"\x01" * 32)
+            prev = BlockID(header.hash(), PartSetHeader(1, header.hash()))
+            self.headers[h] = (header, prev)
+        self.blocks = {}
+        self.sign_s = 0.0
+
+    def block(self, h):
+        from cometbft_tpu_torch.light.verifier import LightBlock, SignedHeader
+        from cometbft_tpu_torch.types.commit import (BLOCK_ID_FLAG_COMMIT,
+                                                     Commit, CommitSig)
+
+        if h not in self.headers:
+            return None
+        if h not in self.blocks:
+            t = time.perf_counter()
+            header, bid = self.headers[h]
+            ts = _ts(LCC_T0 + h, 42)
+            commit = Commit(h, 0, bid, [
+                CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, ts, b"")
+                for v in self.vals[h].validators])
+            sign_commit_typed(self.pool, commit, self.key_of)
+            self.blocks[h] = LightBlock(SignedHeader(header, commit),
+                                        self.vals[h])
+            self.sign_s += time.perf_counter() - t
+        return self.blocks[h]
+
+    def provider(self, blocks=None):
+        from cometbft_tpu_torch.light.client import Provider
+
+        over = blocks or {}
+        return Provider(CHAIN_ID, lambda h: over.get(h) or self.block(h))
+
+
+def _ts(secs, nanos=0):
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+
+    return Timestamp(secs, nanos)
+
+
+def light_run(chain, batch_fn):
+    """The skipping client from trusted height 1 to 8; -> (heights stored,
+    verifications, ms of the verification net of the provider's
+    signing)."""
+    from cometbft_tpu_torch.light.client import Client
+
+    c = Client(CHAIN_ID, chain.provider(), trusting_period=1e6,
+               batch_fn=batch_fn)
+    c.trust_light_block(chain.block(1))
+    s0 = chain.sign_s
+    t = time.perf_counter()
+    lb = c.verify_light_block_at_height(8, now=_ts(LCC_T0 + 1000))
+    ms = ((time.perf_counter() - t) - (chain.sign_s - s0)) * 1e3
+    check(lb.height == 8 and lb.signed_header.header.hash()
+          == chain.headers[8][0].hash(), "phase13 verified a wrong block")
+    return c, c.store.heights(), c.verifications, ms
+
+
+def phase_light_client(dev, pool, kernel_stats):
+    """BASELINE config 5 as a whole: a port light Client, skipping, from
+    trusted height 1 to 8 over a 10,000-validator secp256k1 chain whose
+    validators change at height 5, with batch_fn=None so its commits go
+    through a card VerifyPlane (its grouped path: ecdsa_verify)."""
+    import torch
+
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.light.client import Client
+    from cometbft_tpu_torch.light.verifier import (ErrInvalidHeader,
+                                                   LightBlock, SignedHeader)
+    from cometbft_tpu_torch.ops import ecdsa_fused as ef
+    from cometbft_tpu_torch.types.commit import Commit, CommitSig
+    from cometbft_tpu_torch.types.validation import (InvalidSignatureError,
+                                                     oracle_batch_fn)
+    from cometbft_tpu_torch.verifyplane import (FlushLedger, VerifyPlane,
+                                                set_global_plane)
+
+    t0 = time.perf_counter()
+    chain = PlanChain(pool, light_plan(LCC_VALS))
+    keys_s = time.perf_counter() - t0
+    # the copy the CPU test runs, under the oracle: the path to match
+    copy = PlanChain(pool, light_plan(LCC_COPY_VALS))
+    _, want_heights, want_verifs, _ = light_run(copy, oracle_batch_fn())
+    check(want_heights == [1, 4, 5, 6, 8],
+          f"phase13 the {LCC_COPY_VALS}-validator copy stored "
+          f"{want_heights}")
+    era_a, era_b = chain.vals[1], chain.vals[5]
+    kept = sum(v.voting_power for v in era_a.validators
+               if era_b.has_address(v.address))
+    print(f"phase13 fixtures validators={LCC_VALS} secp256k1 eras A/B "
+          f"kept={sum(era_b.has_address(v.address) for v in era_a.validators)}"
+          f" holding {kept / era_a.total_voting_power():.4f} of A's power "
+          f"keys_s={keys_s:.3f}", flush=True)
+
+    plane = VerifyPlane(window_ms=PLANE_WINDOW_MS, max_batch=PLANE_MAX_BATCH,
+                        max_queue=PLANE_MAX_QUEUE)
+    check(plane.device == dev, f"phase13 plane device {plane.device}")
+    plane.ledger = FlushLedger(capacity=PLANE_LEDGER)
+    brk = cbatch.device_breaker()
+    plane.start()
+    set_global_plane(plane)
+    try:
+        with capture_verify_rows(secp256k1=ef) as path_rows:
+            zero_launches()
+            c, heights, verifs, wall_ms = light_run(chain, None)
+            n_main = len(plane.ledger.records())
+            # a target whose commit carries a tampered signature, from
+            # the trusted height 6
+            lb8 = chain.block(8)
+            sigs = list(lb8.signed_header.commit.signatures)
+            cs = sigs[LCC_TAMPER_IDX]
+            sigs[LCC_TAMPER_IDX] = CommitSig(
+                cs.flag, cs.validator_address, cs.timestamp,
+                flip(cs.signature, 40))
+            bad = LightBlock(SignedHeader(lb8.signed_header.header, Commit(
+                8, 0, lb8.signed_header.commit.block_id, sigs)),
+                lb8.validator_set)
+            c2 = Client(CHAIN_ID, chain.provider({8: bad}),
+                        trusting_period=1e6)
+            c2.trust_light_block(c.store.get(6))
+            err = None
+            try:
+                c2.verify_light_block_at_height(8, now=_ts(LCC_T0 + 1000))
+            except ErrInvalidHeader as e:
+                err = e
+            torch.cuda.synchronize()
+            launches = read_launches()
+    finally:
+        set_global_plane(None)
+        plane.stop()
+    recs = plane.ledger.records()
+    check(heights == want_heights and verifs == want_verifs,
+          f"phase13 heights {heights} verifications {verifs}, the copy's "
+          f"{want_heights} {want_verifs}")
+    check(err is not None and isinstance(err.__cause__,
+                                         InvalidSignatureError)
+          and err.__cause__.idx == LCC_TAMPER_IDX,
+          f"phase13 the tampered target gave {err!r}")
+    check({r["path"] for r in recs} == {"grouped"},
+          f"phase13 flush paths {sorted({r['path'] for r in recs})}")
+    want_l = dict.fromkeys(launches, 0)
+    want_l.update(ecdsa_verify=len(recs))
+    check(launches == want_l and len(recs) == n_main + 1,
+          f"phase13 launches {launches}, want {want_l}; flushes "
+          f"{len(recs)} (main {n_main})")
+    check(brk.trips == 0 and brk.faults == 0,
+          f"phase13 breaker trips={brk.trips} faults={brk.faults}")
+    points = ef.base_points(dev)
+    err_k, cols = hold_shapes_against_plain(
+        dev, ef.ecdsa_verify, lambda r: ef.ecdsa_verify_plain(r, points),
+        path_rows["secp256k1"])
+    check(err_k == 0, f"phase13 ecdsa_verify != plain at {cols} cols")
+    restore_launches(launches)
+    k = kernel_stats["ecdsa_verify"]
+    k["launches_by_path"]["light_client"] = launches["ecdsa_verify"]
+    k["max_abs_err"] = max(k["max_abs_err"], err_k)
+    work = [round(r["pack_ms"] + r["flight_ms"] + r["collect_ms"]
+                  + r["settle_ms"], 3) for r in recs[:n_main]]
+    print(f"phase13 launches {json.dumps(launches)} breaker_faults=0 "
+          f"tampered target: {type(err).__name__} blamed_idx="
+          f"{err.__cause__.idx}; ecdsa_verify == plain at cols={cols}",
+          flush=True)
+    print(f"phase13 light client skipping 1 -> 8: heights={heights} "
+          f"verifications={verifs} (the {LCC_COPY_VALS}-validator copy's) "
+          f"verify_ms={wall_ms:.3f} (net of signing; signing_s="
+          f"{chain.sign_s:.3f}) flushes={n_main} rows="
+          f"{[r['rows'] for r in recs[:n_main]]} flush_work_ms={work} "
+          f"sum={sum(work):.3f}; card={smi('name,power.limit')}", flush=True)
+    return {"lc_client_ms": wall_ms}
 
 
 def int_ops_per_s() -> tuple:
@@ -2779,9 +3420,15 @@ def main() -> int:
         t = time.perf_counter()
         res.update(phase_light_secp(dev, pool, rng, kernel_stats))
         print(f"phase10 s={time.perf_counter() - t:.3f}", flush=True)
-    t = time.perf_counter()
-    res.update(phase_plane(dev, res, kernel_stats))
-    print(f"phase11 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        res.update(phase_plane(dev, res, kernel_stats))
+        print(f"phase11 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        res.update(phase_voteset(dev, pool, rng, res, kernel_stats))
+        print(f"phase12 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        res.update(phase_light_client(dev, pool, kernel_stats))
+        print(f"phase13 s={time.perf_counter() - t:.3f}", flush=True)
     brk = cbatch.device_breaker()
     check(brk.trips == 0 and brk.faults == 0, "breaker recorded a fault")
     print(json.dumps(kernels_json(kernel_stats)), flush=True)
@@ -2795,6 +3442,8 @@ def main() -> int:
           f"mixed_VerifyCommit_sigs_per_s={res['mixed_sigs_per_s']:.1f} "
           f"secp_light_pair_p50_ms={res['lc_pair_p50_ms']:.3f} "
           f"plane_quorum_p50_ms={res['plane_quorum_p50_ms']:.3f} "
+          f"voteset_quorum_p50_ms={res['vs_quorum_p50_ms']:.3f} "
+          f"light_client_1_to_8_ms={res['lc_client_ms']:.3f} "
           f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print("nvidia-smi:", smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,7 @@ verifier exploits (all sign-bytes share structure, SURVEY.md §2.2).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 from cometbft_tpu_torch.crypto import tmhash
@@ -198,3 +198,67 @@ class Commit:
             body += pe.f_bytes(4, cs.signature)
             leaves.append(body)
         return merkle.hash_from_byte_slices(leaves)
+
+
+@dataclass
+class ExtendedCommitSig:
+    """CommitSig + the validator's vote extension
+    (types/block.go:714-722 ExtendedCommitSig)."""
+
+    commit_sig: CommitSig = field(default_factory=CommitSig)
+    extension: bytes = b""
+    extension_signature: bytes = b""
+
+    def validate_basic(self, extensions_enabled: bool) -> None:
+        self.commit_sig.validate_basic()
+        if extensions_enabled and self.commit_sig.is_commit():
+            if not self.extension_signature:
+                raise CommitError(
+                    "vote extension signature missing on commit sig"
+                )
+        elif self.extension or self.extension_signature:
+            if not extensions_enabled or not self.commit_sig.is_commit():
+                raise CommitError("unexpected vote extension")
+
+
+@dataclass
+class ExtendedCommit:
+    """A Commit that retains each precommit's vote extension
+    (types/block.go:646-768 ExtendedCommit) — persisted as the seen
+    commit when extensions are enabled so the next proposer can hand
+    them to PrepareProposal (store/store.go:254)."""
+
+    height: int
+    round: int
+    block_id: BlockID
+    extended_signatures: List[ExtendedCommitSig]
+
+    def to_commit(self) -> Commit:
+        """StripExtensions (block.go:700)."""
+        return Commit(
+            self.height, self.round, self.block_id,
+            [e.commit_sig for e in self.extended_signatures],
+        )
+
+    def get_extended_vote(self, val_idx: int) -> Vote:
+        e = self.extended_signatures[val_idx]
+        cs = e.commit_sig
+        return Vote(
+            vote_type=canonical.PRECOMMIT_TYPE,
+            height=self.height,
+            round=self.round,
+            block_id=cs.block_id(self.block_id),
+            timestamp=cs.timestamp,
+            validator_address=cs.validator_address,
+            validator_index=val_idx,
+            signature=cs.signature,
+            extension=e.extension,
+            extension_signature=e.extension_signature,
+        )
+
+    def validate_basic(self, extensions_enabled: bool = True) -> None:
+        """block.go ExtendedCommit.ValidateBasic: structural commit
+        checks + per-sig extension discipline."""
+        self.to_commit().validate_basic()
+        for e in self.extended_signatures:
+            e.validate_basic(extensions_enabled)

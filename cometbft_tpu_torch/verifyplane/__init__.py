@@ -6,9 +6,7 @@ submits items to one always-on scheduler that coalesces them into padded
 bucket batches, flushes on a micro-batch deadline or a full bucket, and
 fuses per-group voting-power tallies into the same pass.
 
-The port's copy of the JAX package's verifyplane/__init__.py, without the
-next-epoch table warmer (verifyplane/warmer.py is not ported yet, so
-TableWarmer and its global accessors are not exported).
+The port's copy of the JAX package's verifyplane/__init__.py.
 """
 from cometbft_tpu_torch.verifyplane.plane import (
     DEFAULT_TENANT,
@@ -42,6 +40,13 @@ from cometbft_tpu_torch.verifyplane.tenants import (
     global_registry,
     last_registry,
 )
+from cometbft_tpu_torch.verifyplane.warmer import (
+    TableWarmer,
+    clear_global_warmer,
+    global_warmer,
+    notify_next_valset,
+    set_global_warmer,
+)
 
 __all__ = [
     "DEFAULT_TENANT",
@@ -56,11 +61,16 @@ __all__ = [
     "PlaneQueueFull",
     "PlaneStopped",
     "QuorumGroup",
+    "TableWarmer",
     "TenantOverloaded",
     "TenantRegistry",
     "VerifyFuture",
     "VerifyPlane",
     "clear_global_plane",
+    "clear_global_warmer",
+    "global_warmer",
+    "notify_next_valset",
+    "set_global_warmer",
     "dump_flushes",
     "dump_tenants",
     "flush_stats_for_seqs",

@@ -77,7 +77,9 @@ where the JAX plane re-verifies a faulting flush there (an in-flight
 fault, a faulting key-type group, an open breaker), the port's fails the
 flush's futures with DeviceError, counts the fault on the breaker and
 records the flush as PATH_DEVICE_FAULT; the caller decides what to do.
-The host oracle runs only on a plane built with use_device=False.
+A device plane's future that times out raises DeviceError too (a wedged
+device pass), where a host plane's raises PlaneError. The host oracle
+runs only on a plane built with use_device=False.
 """
 from __future__ import annotations
 
@@ -509,7 +511,8 @@ STOP_DRAIN_MAX_ROWS = 2048
 
 
 class PlaneError(Exception):
-    """Base for plane-side failures; callers fall back to host verify."""
+    """Base for plane-side failures: a host plane's callers fall back to
+    host verify, a device plane's verify directly on its device."""
 
 
 class PlaneQueueFull(PlaneError):
@@ -542,10 +545,13 @@ class VerifyFuture:
     The consensus height ledger joins it against /dump_flushes to
     attribute per-height verify-plane milliseconds."""
 
-    __slots__ = ("_ev", "_verdicts", "_err", "flush_seq")
+    __slots__ = ("_ev", "_verdicts", "_err", "flush_seq", "_on_device")
 
-    def __init__(self):
+    def __init__(self, on_device: bool = False):
         self.flush_seq: Optional[int] = None
+        # a device plane's future: a verdict that never comes is a
+        # wedged device pass, so its timeout is a DeviceError
+        self._on_device = on_device
         self._ev = threading.Event()
         self._verdicts: Optional[Tuple[bool, ...]] = None
         self._err: Optional[BaseException] = None
@@ -564,6 +570,9 @@ class VerifyFuture:
     def result(self, timeout: Optional[float] = None) -> Tuple[bool, ...]:
         if not self._ev.wait(DEFAULT_RESULT_TIMEOUT
                              if timeout is None else timeout):
+            if self._on_device:
+                raise DeviceError("verify plane result timed out on the "
+                                  "device")
             raise PlaneError("verify plane result timed out")
         if self._err is not None:
             if isinstance(self._err, (PlaneError, DeviceError)):
@@ -646,9 +655,10 @@ class _Submission:
                  "lane", "tenant", "stamp")
 
     def __init__(self, rows, group, power, counted, vidx=None,
-                 lane=LANE_CONSENSUS, tenant=None, stamp=None):
+                 lane=LANE_CONSENSUS, tenant=None, stamp=None,
+                 on_device=False):
         self.rows = rows                      # [(PubKey, msg, sig), ...]
-        self.future = VerifyFuture()
+        self.future = VerifyFuture(on_device)
         self.group = group
         self.power = int(power)
         self.counted = bool(counted)
@@ -1043,7 +1053,8 @@ class VerifyPlane:
         if not self._running or self.in_dispatcher():
             raise PlaneStopped("verify plane not accepting submissions")
         sub = _Submission(rows, group, power, counted, vidx, lane=lane,
-                          tenant=chain_id, stamp=stamp)
+                          tenant=chain_id, stamp=stamp,
+                          on_device=self.device is not None)
         limit = self.lane_limit[lane]
         quota = (self.tenants.row_quota(sub.tenant)
                  if lane in SHEDDABLE_LANES else 0)

@@ -1079,3 +1079,229 @@ def test_plane_in_flight_fault_on_the_card(card):
     assert [r["path"] for r in plane.ledger.records()] == [
         "device_fault", "fused"]
     assert brk.faults == 1 and brk.state == "closed"
+
+
+# ---------------------------------------------------------------------------
+# the main path's entry and the light client on the card (-k "voteset or
+# warmer or light_client")
+# ---------------------------------------------------------------------------
+
+VS_VALS = 64
+VS_TAMPERED = 13
+
+
+def _voteset_fixture():
+    """VS_VALS ed25519 validators (seeded keys and powers) and the
+    precommit Vote of each for one block, signed with the port's oracle;
+    VS_TAMPERED's signature has a flipped bit. Returns (valset, votes,
+    block id)."""
+    from cometbft_tpu_torch.crypto.keys import PubKey
+    from cometbft_tpu_torch.types import canonical
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+    from cometbft_tpu_torch.types.vote import Vote
+
+    rng = np.random.default_rng(64)
+    seeds = [rng.bytes(32) for _ in range(VS_VALS)]
+    pubs = [ed.sign_many(s, [])[0] for s in seeds]
+    powers = [int(p) for p in rng.integers(100, 121, VS_VALS)]
+    vs = ValidatorSet([Validator(PubKey(p), w)
+                       for p, w in zip(pubs, powers)])
+    seed_of = {PubKey(p).address(): s for p, s in zip(pubs, seeds)}
+    bid = BlockID(rng.bytes(32), PartSetHeader(1, rng.bytes(32)))
+    votes = []
+    for i, v in enumerate(vs.validators):
+        vo = Vote(vote_type=canonical.PRECOMMIT_TYPE, height=7, round=0,
+                  block_id=bid, timestamp=Timestamp(1_700_000_000 + i,
+                                                    i * 7919),
+                  validator_address=v.address, validator_index=i)
+        sig = ed.sign_many(seed_of[v.address], [vo.sign_bytes("vs-card")])
+        vo.signature = sig[1][0]
+        if i == VS_TAMPERED:
+            vo.signature = vo.signature[:40] + bytes(
+                [vo.signature[40] ^ 1]) + vo.signature[41:]
+        votes.append(vo)
+    return vs, votes, bid
+
+
+def _add_all(vs, votes, plane, threads=4):
+    """The votes into a fresh VoteSet on `plane` from `threads` threads;
+    -> (VoteSet, outcome of each add)."""
+    import threading
+
+    from cometbft_tpu_torch.types import canonical
+    from cometbft_tpu_torch.types.vote_set import VoteSet
+
+    vset = VoteSet("vs-card", 7, 0, canonical.PRECOMMIT_TYPE, vs)
+    vset.verify_plane = plane
+    outs = [None] * len(votes)
+
+    def add(k):
+        for i in range(k, len(votes), threads):
+            try:
+                outs[i] = vset.add_vote(votes[i])
+            except Exception as e:  # noqa: BLE001 - asserted below
+                outs[i] = (type(e).__name__, str(e))
+
+    ts = [threading.Thread(target=add, args=(k,)) for k in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(120.0)
+        assert not t.is_alive()
+    return vset, outs
+
+
+def test_voteset_reaches_quorum_through_a_card_plane(card):
+    """64 precommits into a VoteSet on a card plane: every valid vote
+    admitted, the tampered one refused, the quorum from the fused tally,
+    no vote on the serial path, and the commit the serial VoteSet
+    makes."""
+    from cometbft_tpu_torch.crypto.batch import CircuitBreaker
+    from cometbft_tpu_torch.ops import table_cache as tc
+    from cometbft_tpu_torch.verifyplane import VerifyPlane
+
+    tc.reset_for_tests()
+    vs, votes, bid = _voteset_fixture()
+    brk = CircuitBreaker()
+    plane = VerifyPlane(window_ms=1.0, breaker=brk)
+    before = _plane_launches()
+    plane.start()
+    try:
+        vset, outs = _add_all(vs, votes, plane)
+    finally:
+        plane.stop()
+    torch.cuda.synchronize()
+    after = _plane_launches()
+    assert outs[VS_TAMPERED] == ("VoteSetError",
+                                 "invalid vote: invalid signature")
+    assert all(o is True for i, o in enumerate(outs) if i != VS_TAMPERED)
+    group = vset._plane_groups[bid.key()]
+    assert group.quorum_reached and vset.two_thirds_majority() == bid
+    assert group.tally == vset.sum
+    assert plane.rows_verified == VS_VALS  # no vote took the serial path
+    recs = plane.ledger.records()
+    assert {r["path"] for r in recs} == {"fused"}
+    n = len(recs)
+    assert [a - b for a, b in zip(after, before)] == [n, 1, n, n]
+    serial, souts = _add_all(vs, votes, None, threads=1)
+    assert souts == outs
+    assert serial.make_commit().hash() == vset.make_commit().hash()
+    assert serial.bit_array() == vset.bit_array()
+    assert brk.faults == 0
+
+
+def test_warmer_build_makes_the_first_post_rotation_flush_warm(card):
+    """A card TableWarmer builds epoch e+1's table (a new key set: a full
+    valset_table_build) before its first flush; that flush is warm, the
+    cache counts one warmed hit, and no table build runs inside it."""
+    from cometbft_tpu_torch.crypto.batch import CircuitBreaker
+    from cometbft_tpu_torch.ops import table_cache as tc
+    from cometbft_tpu_torch.verifyplane import TableWarmer, VerifyPlane
+
+    tc.reset_for_tests()
+    vs, votes, bid = _voteset_fixture()
+    w = TableWarmer(breaker=CircuitBreaker())
+    assert w.device == card
+    w.start()
+    try:
+        b0 = ec.valset_table_build.launches
+        w.request_valset(vs)
+        assert w.wait_idle(120.0)
+        assert ec.valset_table_build.launches == b0 + 1
+        st = w.stats()
+        assert (st["builds_ok"], st["builds_incremental"],
+                st["builds_failed"]) == (1, 0, 0)
+    finally:
+        w.stop()
+    hits0 = tc.STATS["warmed_hits"]
+    plane = VerifyPlane(window_ms=1.0, breaker=CircuitBreaker())
+    before = _plane_launches()
+    plane.start()
+    try:
+        vset, outs = _add_all(vs, votes, plane)
+    finally:
+        plane.stop()
+    torch.cuda.synchronize()
+    after = _plane_launches()
+    recs = plane.ledger.records()
+    assert [r["warm"] for r in recs] == [1] * len(recs)
+    assert tc.STATS["warmed_hits"] - hits0 == 1
+    assert after[1] == before[1]  # no table build in the flushes
+    assert vset.two_thirds_majority() == bid
+
+
+def test_light_client_bisects_a_secp256k1_chain_through_a_card_plane(card):
+    """chip_smoke phase 13's plan at 16 secp256k1 validators: the skipping
+    client (batch_fn=None) bisects 1 -> 8 through a card plane, its commits
+    on the plane's grouped path (one ecdsa_verify a commit check), with
+    the heights and count the CPU test pins."""
+    import importlib.util
+    from pathlib import Path
+
+    from cometbft_tpu_torch.crypto.batch import CircuitBreaker
+    from cometbft_tpu_torch.crypto.keys import Secp256k1PrivKey
+    from cometbft_tpu_torch.light.client import Client, Provider
+    from cometbft_tpu_torch.light.verifier import LightBlock, SignedHeader
+    from cometbft_tpu_torch.ops import ecdsa_fused as ef
+    from cometbft_tpu_torch.types import canonical
+    from cometbft_tpu_torch.types.block import Header
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.commit import (BLOCK_ID_FLAG_COMMIT,
+                                                 Commit, CommitSig)
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+    from cometbft_tpu_torch.verifyplane import VerifyPlane, set_global_plane
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    plan = cs.light_plan(cs.LCC_COPY_VALS)
+    keys = {s: Secp256k1PrivKey.generate(s) for vals in plan.values()
+            for s, _ in vals}
+    blocks, prev = {}, BlockID()
+    sets = {h: ValidatorSet([Validator(keys[s].pub_key(), w)
+                             for s, w in vals]) for h, vals in plan.items()}
+    by_addr = {k.pub_key().address(): k for k in keys.values()}
+    for h in sorted(plan):
+        vs = sets[h]
+        header = Header(chain_id=cs.CHAIN_ID, height=h,
+                        time=Timestamp(cs.LCC_T0 + h, 0), last_block_id=prev,
+                        validators_hash=vs.hash(),
+                        next_validators_hash=sets.get(h + 1, vs).hash(),
+                        proposer_address=vs.validators[0].address,
+                        app_hash=b"\x01" * 32)
+        bid = BlockID(header.hash(), PartSetHeader(1, header.hash()))
+        ts = Timestamp(cs.LCC_T0 + h, 42)
+        sb = canonical.canonical_vote_bytes(cs.CHAIN_ID,
+                                            canonical.PRECOMMIT_TYPE, h, 0,
+                                            bid, ts)
+        sigs = [CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, ts,
+                          by_addr[v.address].sign(sb))
+                for v in vs.validators]
+        blocks[h] = LightBlock(SignedHeader(header, Commit(h, 0, bid,
+                                                           sigs)), vs)
+        prev = bid
+    brk = CircuitBreaker()
+    plane = VerifyPlane(window_ms=1.0, breaker=brk)
+    plane.start()
+    set_global_plane(plane)
+    b0 = ef.ecdsa_verify.launches
+    try:
+        c = Client(cs.CHAIN_ID, Provider(cs.CHAIN_ID, blocks.get),
+                   trusting_period=1e6)
+        c.trust_light_block(blocks[1])
+        lb = c.verify_light_block_at_height(
+            8, now=Timestamp(cs.LCC_T0 + 1000, 0))
+    finally:
+        set_global_plane(None)
+        plane.stop()
+    torch.cuda.synchronize()
+    assert lb.height == 8
+    assert c.store.heights() == [1, 4, 5, 6, 8] and c.verifications == 7
+    recs = plane.ledger.records()
+    assert len(recs) == 6 and {r["path"] for r in recs} == {"grouped"}
+    assert ef.ecdsa_verify.launches - b0 == 6
+    assert brk.faults == 0

@@ -79,7 +79,8 @@ def test_the_checks_cover_every_module_and_kernel_source():
     with its host libs included; every kernel
     source has a build entry, every header is in the host build the CPU
     tests check, and the native packer's C++ source includes only the C++
-    standard library."""
+    standard library. They also walk the main path's entry and the light
+    client: the warmer, VoteSet, the block types and light/."""
     from cometbft_tpu_torch.ops import _build
 
     mods = set(_modules())
@@ -90,7 +91,10 @@ def test_the_checks_cover_every_module_and_kernel_source():
               "libs.tracing", "libs.failpoints", "libs.incidents",
               "libs.controller", "libs.deviceledger", "libs.staging",
               "verifyplane", "verifyplane.plane", "verifyplane.tenants",
-              "verifyplane.fused"):
+              "verifyplane.fused", "verifyplane.warmer", "types.vote_set",
+              "types.block", "types.part_set", "types.serde",
+              "types.evidence", "state.state", "light", "light.verifier",
+              "light.client", "light.store"):
         assert f"cometbft_tpu_torch.{m}" in mods
     csrc = PKG / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(_build.KERNELS)
