@@ -153,7 +153,36 @@ Phases (any failure exits non-zero and prints no result line):
      tampered signature is refused with ErrInvalidHeader blaming it, one
      ecdsa_verify a flush, the kernel against plain on the rows the path
      launched it on; prints the verification's ms net of the signing and
-     each flush's work ms.
+     each flush's work ms;
+ 14. the catch-up engine (blocksync/catchup.py, config 4's width): 80 real
+     Blocks over phase 6's 1,000 keys and powers (V0 for 1-64, V1 with 8
+     rotated keys for 65-80, every commit fully signed), replayed from a
+     cold table cache by a CatchupEngine with its default verifier (the
+     card's StreamVerifier) and a card TableWarmer as the global warmer:
+     two segments (1-64, 65-80), warm-ahead of V1 once, while height 63 is
+     applied (the script waits for the warmer between the segments), the
+     65-80 segment on the warmed table (one warmed hit, no table build);
+     launches exact (stamp_rows, ed25519_verify_cached and
+     tally_quorum_cached 2 each, valset_table_build 2: V0's cold build and
+     the warmer's delta for V1); a kill at the catchup.read_ahead
+     failpoint once 1-64 are applied and a resume from the persisted
+     cursor that verifies only 65-80; a history with one tampered
+     signature at height 20 raises CatchupError naming it; each captured
+     chunk's three kernels against their plain versions; prints blocks/s
+     and each segment's verify_ms and apply_ms;
+ 15. the light-client gateway and evidence (lightgate/, evidence/, config
+     5's width): a LightGateway (its default batch_fn, the plane's GATEWAY
+     lane) and an EvidencePool (batch_fn=None) over phase 13's chain and a
+     card VerifyPlane; 64 clients asking verify(1, 8) at once cost one
+     verification (the others coalesced or LRU hits) with phase 13's
+     heights and verification count, one ecdsa_verify a flush on GATEWAY
+     rows; the same 64 again are LRU hits with no flush; 8 clients on the
+     era-B pair (6, 8), 4 handed a header that era B's 10,000 validators
+     signed with another app hash: 4 verified, 4 divergent, one
+     LightClientAttackEvidence in the pool, verified on the card (the
+     named rows in one batch, then the trusting check); ecdsa_verify
+     against plain on the rows the path launched it on; prints each
+     wave's ms, the flushes and their rows.
 Before the last line it prints the `kernels` JSON (launches on the main
 paths, in all and by path; times; bounds; for every kernel `device_ms`, from
 a profiler trace at its phase's shape, by live columns or by shape where a
@@ -233,6 +262,9 @@ LCC_SEED = 13                # phase 13: the plan's seed
 LCC_TAMPER_IDX = 0           # phase 13: the tampered target's signature
 LCC_T0 = 1_700_300_000       # phase 13: height h's header time is T0 + h
 H100_SMS = 132
+GW_THREADS = 64              # phase 15: clients asking verify(1, 8) at once
+GW_DIVERGENT_THREADS = 8     # phase 15: era-B pair clients, half lied to
+GW_ERA_B_PAIR = (6, 8)       # phase 15: trusted and target heights in era B
 IMAD_PER_CLK = 64            # INT32 multiply-adds per SM per clock
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 
@@ -1347,7 +1379,7 @@ def _stream_fixture(pool, rng):
             n_sigs += 1
     cs = jobs[TAMPER_HEIGHT - 1].commit.signatures[TAMPER_VAL]
     cs.signature = flip(cs.signature, 50)
-    return jobs, sets, n_sigs, np.asarray(powers)
+    return jobs, sets, n_sigs, np.asarray(powers), seed_of
 
 
 def _oracle_outcome(job):
@@ -1428,7 +1460,7 @@ def phase_stream(dev, pool, rng, kernel_stats):
     from cometbft_tpu_torch.ops import ed25519_stamp as es
 
     t0 = time.perf_counter()
-    jobs, sets, n_sigs, powers = _stream_fixture(pool, rng)
+    jobs, sets, n_sigs, powers, seed_of = _stream_fixture(pool, rng)
     print(f"phase6 fixtures validators={STREAM_VALS} heights="
           f"{STREAM_HEIGHTS} signatures={n_sigs} keys+signatures_s="
           f"{time.perf_counter() - t0:.3f}", flush=True)
@@ -1747,7 +1779,8 @@ def phase_stream(dev, pool, rng, kernel_stats):
         **{f"{key}_by_shape": {st["shape"]: st[key] for st in stamps}
            for key in ("device_ms", "ms", "ops")})
     return {"stream_blocks_per_s": STREAM_HEIGHTS / warm_s,
-            "stream_sigs_per_s": n_sigs / warm_s}
+            "stream_sigs_per_s": n_sigs / warm_s,
+            "stream_sets": sets, "stream_seed_of": seed_of}
 
 
 def phase_cached_commit(dev, res, kernel_stats):
@@ -3279,7 +3312,584 @@ def phase_light_client(dev, pool, kernel_stats):
           f"{chain.sign_s:.3f}) flushes={n_main} rows="
           f"{[r['rows'] for r in recs[:n_main]]} flush_work_ms={work} "
           f"sum={sum(work):.3f}; card={smi('name,power.limit')}", flush=True)
-    return {"lc_client_ms": wall_ms}
+    return {"lc_client_ms": wall_ms, "lc_chain": chain,
+            "lc_heights": heights, "lc_verifs": verifs}
+
+
+# --------------------------------------------------------------------------
+# phase 14: archival catch-up (blocksync/catchup.py) at config 4's width
+# --------------------------------------------------------------------------
+
+
+class CatchupState:
+    """The state the catch-up engine replays into: the height applied and
+    the validators of the next two heights."""
+
+    __slots__ = ("chain_id", "last_block_height", "validators",
+                 "next_validators")
+
+    def __init__(self, h, vals_at):
+        self.chain_id = CHAIN_ID
+        self.last_block_height = h
+        self.validators = vals_at(h + 1)
+        self.next_validators = vals_at(h + 2)
+
+
+class HistorySource:
+    """An in-memory archive: {height: (Block, Commit)}."""
+
+    def __init__(self, items):
+        self.items = items
+
+    def tip(self):
+        return max(self.items)
+
+    def load(self, h):
+        from cometbft_tpu_torch.blocksync.catchup import CatchupError
+
+        if h not in self.items:
+            raise CatchupError(f"history missing block {h}")
+        return self.items[h]
+
+
+def catchup_history(pool, sets, seed_of):
+    """STREAM_HEIGHTS real Blocks over phase 6's keys and powers (V0 for
+    heights 1-64, V1 after), each header carrying its validators hash and
+    the next height's, each commit signed by every validator; -> (items,
+    vals_at, signatures)."""
+    from cometbft_tpu_torch.types.block import Block, Data, Header
+
+    def vals_at(h):
+        return sets[0] if h <= V0_HEIGHTS else sets[1]
+
+    hashes = {id(vs): vs.hash() for vs in sets}
+    items, per_seed, prev = {}, {}, None
+    for h in range(1, STREAM_HEIGHTS + 1):
+        vs = vals_at(h)
+        hdr = Header(chain_id=CHAIN_ID, height=h,
+                     time=_ts(1_700_000_000 + h),
+                     validators_hash=hashes[id(vs)],
+                     next_validators_hash=hashes[id(vals_at(h + 1))],
+                     proposer_address=vs.validators[0].address)
+        if prev is not None:
+            hdr.last_block_id = prev
+        blk = Block(hdr, Data())
+        blk.fill_header()
+        prev = blk.block_id()
+        commit = unsigned_commit(vs, h, prev, 1_700_000_000 + h)
+        for i, (cs, m) in enumerate(zip(commit.signatures,
+                                        commit.sign_bytes_rows(CHAIN_ID))):
+            per_seed.setdefault(seed_of[cs.validator_address],
+                                []).append((h, i, m))
+        items[h] = (blk, commit)
+    order = list(per_seed)
+    n_sigs = 0
+    for s, (_, sigs) in zip(order, sign_all(
+            pool, [(s, [m for _, _, m in per_seed[s]]) for s in order])):
+        for (h, i, _), sig in zip(per_seed[s], sigs):
+            items[h][1].signatures[i].signature = sig
+            n_sigs += 1
+    return items, vals_at, n_sigs
+
+
+def tampered_history(items, height, val):
+    """A copy of `items` whose commit at `height` carries validator
+    `val`'s signature with one bit flipped."""
+    import copy
+
+    out = dict(items)
+    blk, commit = items[height]
+    commit = copy.copy(commit)
+    commit.signatures = list(commit.signatures)
+    cs = copy.copy(commit.signatures[val])
+    cs.signature = flip(cs.signature, 50)
+    commit.signatures[val] = cs
+    out[height] = (blk, commit)
+    return out
+
+
+def catchup_engine(items, vals_at, cursor_path, start=0, on_apply=None,
+                   **kw):
+    """A CatchupEngine from height `start` with its default verifier (the
+    card's StreamVerifier) and the global warmer; on_apply(h) runs as each
+    height is applied."""
+    from cometbft_tpu_torch.blocksync.catchup import CatchupEngine
+
+    def apply_fn(st, blk, commit):
+        if on_apply is not None:
+            on_apply(blk.header.height)
+        return CatchupState(blk.header.height, vals_at)
+
+    return CatchupEngine(HistorySource(items), CatchupState(start, vals_at),
+                         apply_fn=apply_fn, cursor_path=cursor_path, **kw)
+
+
+def hold_delta_chunks(dev, chunks, phase):
+    """Each captured delta chunk's stamp_rows, ed25519_verify_cached and
+    tally_quorum_cached on the card against their plain versions; ->
+    (max |kernel - plain|, [columns])."""
+    import torch
+
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+
+    err, cols = 0, []
+    for chunk in chunks:
+        tb, en, n_c = chunk["table"], chunk["ent"], chunk["n_commits"]
+        Bc = chunk["sig"].shape[0]
+        tr = ec.packed_rows_shape(Bc, n_c)[0] - ec.V_THRESH
+        args = [torch.from_numpy(chunk[k]).to(dev)
+                for k in ("sig", "ts", "flags")]
+        thr = torch.from_numpy(chunk["thresh"]).to(dev)
+        rows = es.stamp_rows(*args, en, tb.pub_raw, thr, tr)
+        rows_p = es.stamp_rows_plain(*args, en.pre_mat, en.pre_len,
+                                     en.suf_mat, en.suf_len, en.ts_tag,
+                                     tb.pub_raw, thr, en.msg_max, tr)
+        v = ec.ed25519_verify_cached(rows, tb.tab, tb.ok)
+        v_p = ec.ed25519_verify_cached_plain(rows, tb.tab, tb.ok,
+                                             ec.kf.base_points(dev))
+        t, q = ec.tally_quorum_cached(v, rows, tb.power5, n_c)
+        t_p, q_p = ec.tally_quorum_cached_plain(v, rows, tb.power5, n_c)
+        err = max(err,
+                  int((rows.to(torch.int64) - rows_p.to(torch.int64))
+                      .abs().max()),
+                  int((v - v_p).abs().max()),
+                  int((t.to(torch.int64) - t_p.to(torch.int64)).abs().max()),
+                  int((q.to(torch.int64) - q_p.to(torch.int64)).abs().max()))
+        cols.append(Bc)
+    check(err == 0, f"{phase} a catch-up chunk's kernels != plain at {cols}")
+    return err, cols
+
+
+def phase_catchup(dev, pool, res, kernel_stats):
+    """ROADMAP A5's catch-up engine at config 4's width: 80 real Blocks of
+    phase 6's 1,000 validators (V0 for 1-64, V1 with 8 rotated keys for
+    65-80), replayed by a CatchupEngine with its default verifier (the
+    card's StreamVerifier) and a card TableWarmer mounted as the global
+    warmer: two segments, warm-ahead of V1 at height 63, the 65-80 segment
+    on the warmed table; then a kill at the read-ahead failpoint and a
+    resume that re-verifies nothing, and a tampered history."""
+    import tempfile
+
+    import torch
+
+    from cometbft_tpu_torch.blocksync import catchup as cu
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.libs import failpoints as fp
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+    from cometbft_tpu_torch.ops import table_cache as tcache
+    from cometbft_tpu_torch.verifyplane.warmer import (TableWarmer,
+                                                       clear_global_warmer,
+                                                       set_global_warmer)
+
+    t0 = time.perf_counter()
+    items, vals_at, n_sigs = catchup_history(pool, res["stream_sets"],
+                                             res["stream_seed_of"])
+    print(f"phase14 fixtures blocks={STREAM_HEIGHTS} validators="
+          f"{STREAM_VALS} signatures={n_sigs} keys+signatures_s="
+          f"{time.perf_counter() - t0:.3f}", flush=True)
+    brk = cbatch.device_breaker()
+    # phase 6 left V0's and V1's tables in the cache: start cold
+    tcache.reset_for_tests()
+    warmer = TableWarmer()
+    check(warmer.device == dev, f"phase14 warmer device {warmer.device}")
+    warmer.start()
+    set_global_warmer(warmer)
+    chunks = []
+    real_delta = es.verify_tally_delta_cached
+
+    def capture_delta(sig, ts, flags, ent, table, n_commits, thresh=None):
+        import numpy as np
+
+        chunks.append(dict(sig=sig.copy(), ts=ts.copy(), flags=flags.copy(),
+                           ent=ent, table=table, n_commits=n_commits,
+                           thresh=np.asarray(thresh).copy()))
+        return real_delta(sig, ts, flags, ent, table, n_commits, thresh)
+
+    cursors = tempfile.TemporaryDirectory(prefix="catchup-")
+    td = cursors.name
+    try:
+        es.verify_tally_delta_cached = capture_delta
+        at_boundary, applied, warm_at = {}, [0], []
+        real_request = warmer.request_valset
+
+        def request_valset(vals, chain_id=None):
+            warm_at.append(applied[0])
+            real_request(vals, chain_id=chain_id)
+
+        warmer.request_valset = request_valset
+
+        def on_apply(h):
+            applied[0] = h
+            # the last height before V1: hold its apply until the warm
+            # that height 63 started is idle, so the 65-80 segment is
+            # measured on the warmed table every run (the wait is printed)
+            if h == V0_HEIGHTS:
+                t = time.perf_counter()
+                check(warmer.wait_idle(120.0), "phase14 warmer never idled")
+                at_boundary.update(
+                    wait_ms=(time.perf_counter() - t) * 1e3,
+                    launches=read_launches(),
+                    stats=ec.table_cache_stats(),
+                    verified=eng.cursor.verified)
+
+        zero_launches()
+        s0 = ec.table_cache_stats()
+        eng = catchup_engine(items, vals_at, os.path.join(td, "main.json"),
+                             on_apply=on_apply)
+        check(eng.verifier.device == dev,
+              f"phase14 default verifier on {eng.verifier.device}")
+        t = time.perf_counter()
+        eng.run()
+        wall_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches = read_launches()
+        s2 = ec.table_cache_stats()
+        warmer.request_valset = real_request
+        es.verify_tally_delta_cached = real_delta
+        wstats = warmer.stats()
+
+        # a kill at the read-ahead seam once 1-64 are applied, then a
+        # resume from the persisted cursor
+        cpath = os.path.join(td, "kill.json")
+        fp.set_crash_handler(fp.simulated_crash)
+        eng_k = catchup_engine(items, vals_at, cpath, read_ahead=V0_HEIGHTS)
+        eng_k.run(until=V0_HEIGHTS)
+        fp.arm("catchup.read_ahead", "crash", count=1)
+        crashed = None
+        try:
+            eng_k.run()
+        except fp.SimulatedCrash as e:
+            crashed = e
+        finally:
+            fp.reset()
+            fp.set_crash_handler(None)
+        cursor_k = dict(eng_k.cursor.as_dict())
+        zero_launches()
+        eng_r = catchup_engine(items, vals_at, cpath,
+                               start=cursor_k["applied"],
+                               read_ahead=V0_HEIGHTS)
+        check(eng_r.cursor.resumed and eng_r.cursor.verified == V0_HEIGHTS,
+              f"phase14 resume cursor {eng_r.cursor.as_dict()}")
+        eng_r.run()
+        torch.cuda.synchronize()
+        launches_resume = read_launches()
+
+        # a tampered signature at height TAMPER_HEIGHT
+        bad_items = tampered_history(items, TAMPER_HEIGHT, TAMPER_VAL)
+        eng_t = catchup_engine(bad_items, vals_at,
+                               os.path.join(td, "tamper.json"))
+        tamper_err = None
+        try:
+            eng_t.run()
+        except cu.CatchupError as e:
+            tamper_err = e
+    finally:
+        es.verify_tally_delta_cached = real_delta
+        fp.reset()
+        fp.set_crash_handler(None)
+        clear_global_warmer(warmer)
+        warmer.stop()
+        cursors.cleanup()
+
+    recs = eng.ledger.records()
+    c = eng.ledger.counters
+    check(eng.state.last_block_height == STREAM_HEIGHTS,
+          f"phase14 replay stopped at {eng.state.last_block_height}")
+    # the first segment ends at the epoch boundary, or at MAX_RUN first
+    # (the card's 64 heights fill it, so the pre-scan never reaches 65)
+    check([(r["first"], r["last"], r["boundary"], r["warmed"])
+           for r in recs] == [(1, V0_HEIGHTS, V0_HEIGHTS < cu.MAX_RUN, True),
+                              (V0_HEIGHTS + 1, STREAM_HEIGHTS, False, False)],
+          f"phase14 segments {recs}")
+    check(c["blocks_verified"] == STREAM_HEIGHTS and c["warm_requests"] == 1
+          and c["sigs_verified"] == n_sigs and warm_at == [V0_HEIGHTS - 1],
+          f"phase14 counters {c}, warm-ahead at heights {warm_at}")
+    want_seg1 = dict.fromkeys(launches, 0)
+    want_seg1.update(stamp_rows=1, ed25519_verify_cached=1,
+                     tally_quorum_cached=1, valset_table_build=1)
+    launches_seg1, s1 = at_boundary["launches"], at_boundary["stats"]
+    check(at_boundary["verified"] == V0_HEIGHTS
+          and launches_seg1 == dict(want_seg1, valset_table_build=2),
+          f"phase14 segment 1-64 with the warm: {at_boundary}")
+    want = dict(want_seg1, stamp_rows=2, ed25519_verify_cached=2,
+                tally_quorum_cached=2, valset_table_build=2)
+    check(launches == want, f"phase14 launches {launches}, want {want}")
+    check(s1["misses"] - s0["misses"] == 2
+          and wstats["builds_incremental"] == 1,
+          f"phase14 cold build and warm: table stats {s0} -> {s1}, "
+          f"warmer {wstats}")
+    check(s2["warmed_hits"] - s1["warmed_hits"] == 1
+          and s2["misses"] == s1["misses"],
+          f"phase14 the 65-80 segment's table lookups {s1} -> {s2}")
+    check(isinstance(crashed, fp.SimulatedCrash)
+          and cursor_k["verified"] == cursor_k["applied"] == V0_HEIGHTS,
+          f"phase14 kill: {crashed!r} cursor {cursor_k}")
+    cr = eng_r.ledger.counters
+    check(eng_r.state.last_block_height == STREAM_HEIGHTS
+          and cr["blocks_verified"] == STREAM_HEIGHTS - V0_HEIGHTS
+          and cr["blocks_skipped"] == 0 and cr["resumes"] == 1
+          and eng_r.ledger.records()[0]["first"] == V0_HEIGHTS + 1,
+          f"phase14 resume {cr} {eng_r.ledger.records()}")
+    check(launches_resume == dict(want_seg1, valset_table_build=0),
+          f"phase14 resume launches {launches_resume}")
+    check(tamper_err is not None
+          and f"height {TAMPER_HEIGHT}:" in str(tamper_err)
+          and f"#{TAMPER_VAL}" in str(tamper_err)
+          and eng_t.cursor.verified == 0,
+          f"phase14 tampered history gave {tamper_err!r}, cursor "
+          f"{eng_t.cursor.as_dict()}")
+    check(brk.trips == 0 and brk.faults == 0,
+          f"phase14 breaker trips={brk.trips} faults={brk.faults}")
+    err, cols = hold_delta_chunks(dev, chunks, "phase14")
+    restore_launches(launches)
+    for name in ("stamp_rows", "ed25519_verify_cached",
+                 "tally_quorum_cached", "valset_table_build"):
+        kernel_stats[name]["launches_by_path"]["catchup"] = launches[name]
+        kernel_stats[name]["max_abs_err"] = max(
+            kernel_stats[name]["max_abs_err"], err)
+    wait_ms = at_boundary["wait_ms"]
+    replay_s = wall_s - wait_ms / 1e3
+    print(f"phase14 launches {json.dumps(launches)} (to height "
+          f"{V0_HEIGHTS}, with the warmer's delta build: "
+          f"{json.dumps(launches_seg1)}) warmed_hits=1 misses_in_"
+          f"{V0_HEIGHTS + 1}_{STREAM_HEIGHTS}=0 "
+          f"warmer={json.dumps(wstats)} wait_for_the_warmer_ms={wait_ms:.3f};"
+          f" kernels == plain at cols={cols}", flush=True)
+    print(f"phase14 catch-up 1 -> {STREAM_HEIGHTS}: wall_ms="
+          f"{wall_s * 1e3:.3f} blocks_per_s={STREAM_HEIGHTS / replay_s:.1f} "
+          f"sigs_per_s={n_sigs / replay_s:.1f} (net of the wait) "
+          f"segments=" + json.dumps([
+              {k: r[k] for k in ("first", "last", "blocks", "sigs",
+                                 "read_ms", "verify_ms", "apply_ms",
+                                 "boundary", "warmed")} for r in recs])
+          + f" card={smi('name,power.limit')}", flush=True)
+    print(f"phase14 kill at read {V0_HEIGHTS + 1}: cursor={cursor_k}, "
+          f"resume verified {cr['blocks_verified']} re-verified 0 launches "
+          f"{json.dumps(launches_resume)}; tampered height {TAMPER_HEIGHT}: "
+          f"{type(tamper_err).__name__}: {tamper_err}", flush=True)
+    return {"catchup_blocks_per_s": STREAM_HEIGHTS / replay_s}
+
+
+# --------------------------------------------------------------------------
+# phase 15: the light-client gateway and evidence at config 5's width
+# --------------------------------------------------------------------------
+
+
+def forged_claim(header, vals, sign_commit):
+    """A lying primary's view of `header`'s height (tests/test_lightgate.py
+    _forged_claim): the same header with another app hash, sealed by every
+    validator of `vals` (sign_commit fills the commit's signatures); ->
+    the {"header", "commit"} claim a client hands the gateway."""
+    from cometbft_tpu_torch.types import serde
+    from cometbft_tpu_torch.types.block import Header
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.commit import (BLOCK_ID_FLAG_COMMIT,
+                                                 Commit, CommitSig)
+
+    forged = Header(
+        chain_id=header.chain_id, height=header.height, time=header.time,
+        last_block_id=header.last_block_id,
+        validators_hash=header.validators_hash,
+        next_validators_hash=header.next_validators_hash,
+        proposer_address=header.proposer_address, app_hash=b"\x66" * 32)
+    hh = forged.hash()
+    commit = Commit(header.height, 0, BlockID(hh, PartSetHeader(1, hh)), [
+        CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, header.time, b"")
+        for v in vals.validators])
+    sign_commit(commit)
+    return {"header": serde.header_to_j(forged),
+            "commit": serde.commit_to_j(commit)}
+
+
+def storm(n, fn):
+    """n threads released together, thread k calling fn(k); -> ({k:
+    result}, [error], wall ms)."""
+    import threading
+
+    barrier = threading.Barrier(n + 1)
+    out, errs = {}, []
+    lock = threading.Lock()
+
+    def worker(k):
+        barrier.wait()
+        try:
+            v = fn(k)
+            with lock:
+                out[k] = v
+        except Exception as e:  # noqa: BLE001 - reported by the caller
+            with lock:
+                errs.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(n)]
+    for th in threads:
+        th.start()
+    barrier.wait()
+    t = time.perf_counter()
+    for th in threads:
+        th.join(300.0)
+        check(not th.is_alive(), "a gateway client never returned")
+    return out, errs, (time.perf_counter() - t) * 1e3
+
+
+def gateway_waves(gw, claim, now, threads, divergent_threads, after_wave):
+    """The gateway's three waves: `threads` clients asking verify(1, 8) at
+    once, the same again, then `divergent_threads` clients on the era-B
+    pair, the odd ones handing over `claim`; after_wave() runs after each;
+    -> [(results, errors, ms)] (tests/test_torch_lightgate.py runs these
+    waves at LCC_COPY_VALS on the CPU)."""
+    t_h, g_h = GW_ERA_B_PAIR
+    waves = []
+    for w in range(3):
+        if w < 2:
+            waves.append(storm(threads,
+                               lambda k: gw.verify(1, g_h, now=now)))
+        else:
+            waves.append(storm(divergent_threads, lambda k: gw.verify(
+                t_h, g_h, claimed=claim if k % 2 else None, now=now)))
+        after_wave()
+    return waves
+
+
+def phase_gateway(dev, pool, res, kernel_stats):
+    """ROADMAP A5's light-client gateway and evidence at config 5's width:
+    a port LightGateway (default batch_fn: the GATEWAY lane) over a card
+    VerifyPlane and phase 13's 10,000-validator secp256k1 chain, with a
+    port EvidencePool (batch_fn=None); 64 clients coalesce into one
+    verification, repeat as LRU hits, and 8 clients on the era-B pair, 4
+    of them lied to by their primary, give one verified attack evidence."""
+    import torch
+
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.evidence.pool import EvidencePool
+    from cometbft_tpu_torch.lightgate import LightGateway
+    from cometbft_tpu_torch.ops import ecdsa_fused as ef
+    from cometbft_tpu_torch.types.evidence import LightClientAttackEvidence
+    from cometbft_tpu_torch.verifyplane import (FlushLedger, VerifyPlane,
+                                                set_global_plane)
+
+    chain = res["lc_chain"]
+    t_h, g_h = GW_ERA_B_PAIR
+    era_b = chain.vals[g_h]
+    t0 = time.perf_counter()
+    claim = forged_claim(chain.headers[g_h][0], era_b,
+                         lambda c: sign_commit_typed(pool, c, chain.key_of))
+    print(f"phase15 fixtures the era-B forged claim at height {g_h}: "
+          f"{len(era_b)} secp256k1 signatures in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    ev_pool = EvidencePool(CHAIN_ID, lambda h: chain.vals.get(h))
+    ev_pool.height, ev_pool.time_s = g_h, LCC_T0 + g_h
+    plane = VerifyPlane(window_ms=PLANE_WINDOW_MS, max_batch=PLANE_MAX_BATCH,
+                        max_queue=PLANE_MAX_QUEUE)
+    check(plane.device == dev, f"phase15 plane device {plane.device}")
+    plane.ledger = FlushLedger(capacity=PLANE_LEDGER)
+    brk = cbatch.device_breaker()
+    gw = LightGateway(CHAIN_ID, chain.provider(), evidence_pool=ev_pool,
+                      trusting_period=1e6)
+    gw.client.trust_light_block(chain.block(1))
+    gw.start(register=False)
+    now = _ts(LCC_T0 + 1000)
+    plane.start()
+    set_global_plane(plane)
+    try:
+        with capture_verify_rows(secp256k1=ef) as path_rows:
+            zero_launches()
+            marks, stats, launch_marks = [], [], []
+
+            def mark():
+                torch.cuda.synchronize()
+                marks.append(len(plane.ledger.records()))
+                stats.append(gw.stats())
+                launch_marks.append(read_launches())
+
+            waves = gateway_waves(gw, claim, now, GW_THREADS,
+                                  GW_DIVERGENT_THREADS, mark)
+            launches = launch_marks[-1]
+    finally:
+        set_global_plane(None)
+        plane.stop()
+        gw.stop()
+    recs = plane.ledger.records()
+    want_hash = chain.headers[g_h][0].hash().hex()
+    (w1, e1, ms1), (w2, e2, ms2), (w3, e3, ms3) = waves
+    check(not e1 and not e2 and not e3, f"phase15 errors {e1 + e2 + e3}")
+    check(len(w1) == GW_THREADS and all(
+        v["status"] == "verified" and v["target_hash"] == want_hash
+        for v in w1.values()), "phase15 wave 1 verdicts")
+    st1, st2, st3 = stats
+    check(st1["verifies"] == 1
+          and st1["coalesced"] + st1["cache"]["hits"] == GW_THREADS - 1,
+          f"phase15 wave 1 stats {st1}")
+    check(gw.client.store.heights() == res["lc_heights"]
+          and st1["client_verifications"] == res["lc_verifs"],
+          f"phase15 store {gw.client.store.heights()} verifications "
+          f"{st1['client_verifications']}, phase 13's {res['lc_heights']} "
+          f"{res['lc_verifs']}")
+    w1_recs = recs[:marks[0]]
+    check(w1_recs and all(r["path"] == "grouped" and r["g_rows"] == r["rows"]
+                          for r in w1_recs),
+          "phase15 wave 1 flushes "
+          f"{[(r['path'], r['rows'], r['g_rows']) for r in w1_recs]}")
+    check(launch_marks[0]["ecdsa_verify"] == len(w1_recs)
+          and sum(launch_marks[0].values()) == len(w1_recs),
+          f"phase15 wave 1 launches {launch_marks[0]}, "
+          f"{len(w1_recs)} flushes")
+    check(len(w2) == GW_THREADS and all(v["cached"] for v in w2.values())
+          and marks[1] == marks[0] and launch_marks[1] == launch_marks[0]
+          and st2["verifies"] == 1
+          and st2["cache"]["hits"] - st1["cache"]["hits"] == GW_THREADS,
+          f"phase15 wave 2: flushes {marks}, stats {st2}")
+    divergent = sorted(k for k, v in w3.items() if v["status"] == "divergent")
+    check(len(w3) == GW_DIVERGENT_THREADS
+          and divergent == list(range(1, GW_DIVERGENT_THREADS, 2))
+          and all(v["status"] == "verified" and v["target_hash"] == want_hash
+                  for k, v in w3.items() if k % 2 == 0),
+          "phase15 wave 3 verdicts "
+          f"{[(k, v['status']) for k, v in sorted(w3.items())]}")
+    evs = ev_pool.pending_evidence()
+    check(ev_pool.size() == 1 and isinstance(evs[0], LightClientAttackEvidence)
+          and len(evs[0].byzantine_validators) == len(era_b)
+          and evs[0].common_height == t_h
+          and st3["evidence_submitted"] == 1
+          and st3["divergences"] == GW_DIVERGENT_THREADS // 2,
+          f"phase15 evidence pool size {ev_pool.size()} stats {st3}")
+    w3_recs = recs[marks[1]:]
+    check(w3_recs and all(r["path"] == "grouped" and r["c_rows"] == r["rows"]
+                          for r in w3_recs)
+          and max(r["rows"] for r in w3_recs) >= len(era_b),
+          "phase15 wave 3 flushes "
+          f"{[(r['path'], r['rows'], r['c_rows']) for r in w3_recs]}")
+    want_l = dict.fromkeys(launches, 0)
+    want_l.update(ecdsa_verify=len(recs))
+    check(launches == want_l, f"phase15 launches {launches}, want {want_l}")
+    check(brk.trips == 0 and brk.faults == 0,
+          f"phase15 breaker trips={brk.trips} faults={brk.faults}")
+    err_k, cols = hold_shapes_against_plain(
+        dev, ef.ecdsa_verify,
+        lambda r: ef.ecdsa_verify_plain(r, ef.base_points(dev)),
+        path_rows["secp256k1"])
+    check(err_k == 0, f"phase15 ecdsa_verify != plain at {cols} cols")
+    restore_launches(launches)
+    k = kernel_stats["ecdsa_verify"]
+    k["launches_by_path"]["lightgate"] = launches["ecdsa_verify"]
+    k["max_abs_err"] = max(k["max_abs_err"], err_k)
+    print(f"phase15 launches {json.dumps(launches)} breaker_faults=0; "
+          f"ecdsa_verify == plain at cols={cols}", flush=True)
+    print(f"phase15 gateway wave 1: {GW_THREADS} clients verify(1, {g_h}) "
+          f"ms={ms1:.3f} verifies={st1['verifies']} coalesced="
+          f"{st1['coalesced']} lru_hits={st1['cache']['hits']} flushes="
+          f"{marks[0]} rows={[r['rows'] for r in w1_recs]} heights="
+          f"{gw.client.store.heights()} verifications="
+          f"{st1['client_verifications']}; wave 2: ms={ms2:.3f} flushes="
+          f"{marks[1] - marks[0]} lru_hits="
+          f"{st2['cache']['hits'] - st1['cache']['hits']}; wave 3: "
+          f"{GW_DIVERGENT_THREADS} clients verify({t_h}, {g_h}), "
+          f"{len(divergent)} lied to: ms={ms3:.3f} divergent={divergent} "
+          f"evidence=1 byzantine={len(evs[0].byzantine_validators)} "
+          f"flushes={len(w3_recs)} rows={[r['rows'] for r in w3_recs]}; "
+          f"card={smi('name,power.limit')}", flush=True)
+    return {"gw_wave1_ms": ms1, "gw_wave3_ms": ms3}
 
 
 def int_ops_per_s() -> tuple:
@@ -3429,6 +4039,12 @@ def main() -> int:
         t = time.perf_counter()
         res.update(phase_light_client(dev, pool, kernel_stats))
         print(f"phase13 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        res.update(phase_catchup(dev, pool, res, kernel_stats))
+        print(f"phase14 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        res.update(phase_gateway(dev, pool, res, kernel_stats))
+        print(f"phase15 s={time.perf_counter() - t:.3f}", flush=True)
     brk = cbatch.device_breaker()
     check(brk.trips == 0 and brk.faults == 0, "breaker recorded a fault")
     print(json.dumps(kernels_json(kernel_stats)), flush=True)
@@ -3444,6 +4060,8 @@ def main() -> int:
           f"plane_quorum_p50_ms={res['plane_quorum_p50_ms']:.3f} "
           f"voteset_quorum_p50_ms={res['vs_quorum_p50_ms']:.3f} "
           f"light_client_1_to_8_ms={res['lc_client_ms']:.3f} "
+          f"catchup_blocks_per_s={res['catchup_blocks_per_s']:.1f} "
+          f"gateway_64_clients_ms={res['gw_wave1_ms']:.3f} "
           f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print("nvidia-smi:", smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,493 @@
+"""Catch-up firehose: replay archival history as a streaming dataset.
+
+Live blocksync (blocksync/reactor.py) is shaped by gossip: blocks
+dribble in from peers, runs are short, and the valset is assumed
+stable per run. Catch-up from an ARCHIVE is a different workload — the
+history is already on disk (ours after statesync, or a donor's), so
+the bottleneck is how fast commits can be packed, verified, and
+applied. This engine treats that history like an input pipeline:
+
+  * **Read-ahead.** Blocks are prefetched from the history source into
+    a bounded buffer ahead of the replay cursor (``read_ahead`` deep),
+    so store reads overlap verify/apply instead of serializing with
+    them. The ``catchup.read_ahead`` failpoint sits on this seam.
+  * **Maximal fused flushes.** Commit signatures are packed via
+    ``validation.commit_packed_batch`` into cross-HEIGHT fused verify
+    flushes (the StreamVerifier pipeline and its pinned staging pool),
+    bounded only by ``max_run`` and valset-change boundaries.
+  * **Boundary pre-scan + warm-ahead.** The buffer is scanned for
+    ``validators_hash`` changes so epoch boundaries bound each fused
+    segment exactly, and the moment a NEW next-valset becomes known
+    (one height before the boundary) it is handed to the table warmer
+    (verifyplane/warmer.py) — the epoch table builds AHEAD of the
+    replay cursor, so the first flush after a rotation packs against a
+    warm table instead of paying a cold build.
+  * **Crash-resumable cursor.** A persisted :class:`CatchupCursor`
+    (atomic JSON) records the verified high-water mark separately from
+    the applied one. A kill mid-replay resumes without re-verifying a
+    single already-applied block: heights at or below the verified
+    mark skip signature verification entirely (they were verified
+    against the same immutable commits before the crash), and heights
+    at or below the applied state are never replayed at all.
+
+Evidence rides the always-on :class:`CatchupLedger` — a bounded ring
+of per-flush records on the LEDGER clock (virtual under simnet, so a
+chaos soak's catch-up ledger replays byte-identically) served at
+``/dump_catchup`` and diffed across rounds by tools/catchup_report.py.
+A frozen ledger while catch-up is active fires the ``catchup_stall``
+incident (libs/incidents.py).
+
+The port's copy of the JAX package's blocksync/catchup.py. The default
+verifier is the pipeline's StreamVerifier on the card (device stamping,
+the cached-valset verify and the fused tally), and warm-ahead asks the
+port's table warmer, which builds into the same table cache the stream
+reads. HostCommitVerifier is the explicit host path (the counterpart of a
+plane's use_device=False), never a fallback.
+"""
+from __future__ import annotations
+
+import json
+import os
+import threading
+from collections import deque
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple
+
+from cometbft_tpu_torch.libs import failpoints as fp
+from cometbft_tpu_torch.libs import incidents, tracing
+
+fp.register("catchup.read_ahead",
+            "catch-up history read-ahead seam (before each block is "
+            "prefetched from the history source)")
+
+# one fused verify segment: bounded like the live reactor's MAX_RUN so
+# a verification failure localizes, and further bounded at valset
+# boundaries (a segment never packs across two epochs)
+MAX_RUN = 64
+
+LEDGER_CAPACITY = 256
+
+
+class CatchupError(Exception):
+    pass
+
+
+@dataclass
+class CatchupJob:
+    """One block's commit to verify — field-compatible with the
+    pipeline's CommitJob (duck-typed on purpose: this module does not
+    import blocksync/pipeline at module load, so host-only runs never
+    load the kernels' modules)."""
+
+    vals: object
+    block_id: object
+    height: int
+    commit: object
+    chain_id: str
+
+
+class HostCommitVerifier:
+    """Host verify path: verify_commit_light per job on the host. The
+    explicit choice for host-only runs (tests, soaks); a device run
+    never falls back to it."""
+
+    def verify(self, jobs) -> List[Optional[Exception]]:
+        from cometbft_tpu_torch.types import validation as tv
+
+        out: List[Optional[Exception]] = []
+        for job in jobs:
+            try:
+                tv.verify_commit_light(job.chain_id, job.vals,
+                                       job.block_id, job.height,
+                                       job.commit, batch_fn=None)
+                out.append(None)
+            except tv.VerificationError as e:
+                out.append(e)
+        return out
+
+
+class CatchupCursor:
+    """Crash-resumable replay cursor, atomically persisted.
+
+    ``verified`` is the signature-verification high-water mark;
+    ``applied`` trails it (state application). Both are monotone. The
+    file is written tmp+rename so a kill mid-save leaves the previous
+    cursor intact — resume never trusts a torn write."""
+
+    def __init__(self, path: Optional[str] = None):
+        self.path = path
+        self.verified = 0
+        self.applied = 0
+        self.resumed = False
+        if path and os.path.exists(path):
+            try:
+                with open(path, "r", encoding="utf-8") as f:
+                    doc = json.load(f)
+                self.verified = int(doc.get("verified", 0))
+                self.applied = int(doc.get("applied", 0))
+                self.resumed = True
+            except (OSError, ValueError):
+                pass  # corrupt cursor: resume conservatively from 0
+
+    def save(self) -> None:
+        if not self.path:
+            return
+        tmp = self.path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump({"verified": self.verified,
+                       "applied": self.applied}, f)
+        os.replace(tmp, self.path)
+
+    def as_dict(self) -> dict:
+        return {"verified": self.verified, "applied": self.applied,
+                "resumed": self.resumed}
+
+
+class CatchupLedger:
+    """Always-on bounded ring of per-flush catch-up records.
+
+    Every fused verify+apply segment appends one record; counters are
+    cumulative for the engine run(s) feeding this ledger. All stamps
+    ride the ledger clock (tracing.monotonic_ns) — byte-identical
+    under simnet replay."""
+
+    def __init__(self, capacity: int = LEDGER_CAPACITY):
+        self._ring: deque = deque(maxlen=max(8, int(capacity)))
+        self._lock = threading.Lock()
+        self._seq = 0
+        self.counters = {
+            "flushes": 0, "blocks_applied": 0, "blocks_verified": 0,
+            "blocks_skipped": 0, "sigs_verified": 0, "boundaries": 0,
+            "warm_requests": 0, "resumes": 0,
+        }
+
+    def record(self, first: int, last: int, blocks: int, sigs: int,
+               skipped: int, read_ms: float, verify_ms: float,
+               apply_ms: float, boundary: bool, warmed: bool) -> dict:
+        rec = {
+            "seq": 0,  # patched under the lock
+            "at_ms": round(tracing.monotonic_ns() / 1e6, 3),
+            "first": first, "last": last, "blocks": blocks,
+            "sigs": sigs, "skipped": skipped,
+            "read_ms": round(read_ms, 3),
+            "verify_ms": round(verify_ms, 3),
+            "apply_ms": round(apply_ms, 3),
+            "boundary": bool(boundary), "warmed": bool(warmed),
+        }
+        with self._lock:
+            rec["seq"] = self._seq
+            self._seq += 1
+            self._ring.append(rec)
+            c = self.counters
+            c["flushes"] += 1
+            c["blocks_applied"] += blocks
+            c["blocks_verified"] += blocks - skipped
+            c["blocks_skipped"] += skipped
+            c["sigs_verified"] += sigs
+            if boundary:
+                c["boundaries"] += 1
+            if warmed:
+                c["warm_requests"] += 1
+        return rec
+
+    def note_resume(self) -> None:
+        with self._lock:
+            self.counters["resumes"] += 1
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._ring)
+
+    def records(self) -> List[dict]:
+        with self._lock:
+            return list(self._ring)
+
+    def tail(self, n: int = 8) -> List[dict]:
+        with self._lock:
+            return list(self._ring)[-n:]
+
+    def mark(self) -> tuple:
+        with self._lock:
+            return (id(self), self._seq)
+
+    def advanced(self, mark: tuple) -> bool:
+        return self.mark() != mark
+
+    def summary(self) -> dict:
+        with self._lock:
+            recs = list(self._ring)
+            c = dict(self.counters)
+        out = dict(c)
+        out["window_flushes"] = len(recs)
+        if recs:
+            span_ms = recs[-1]["at_ms"] - recs[0]["at_ms"]
+            blocks = sum(r["blocks"] for r in recs)
+            sigs = sum(r["sigs"] for r in recs)
+            out["window_span_ms"] = round(span_ms, 3)
+            if span_ms > 0:
+                out["blocks_per_s"] = round(blocks / span_ms * 1000.0, 1)
+                out["sigs_per_s"] = round(sigs / span_ms * 1000.0, 1)
+            out["verify_ms_total"] = round(
+                sum(r["verify_ms"] for r in recs), 3)
+            out["apply_ms_total"] = round(
+                sum(r["apply_ms"] for r in recs), 3)
+            out["read_ms_total"] = round(
+                sum(r["read_ms"] for r in recs), 3)
+        return out
+
+
+class StoreHistorySource:
+    """History = a block store (ours post-statesync, or a donor's).
+
+    ``load(h)`` returns ``(block, commit_for_h)`` — the commit comes
+    from h+1's LastCommit with a seen-commit fallback at the tip
+    (store/blockstore.py load_block_commit)."""
+
+    def __init__(self, block_store):
+        self.store = block_store
+
+    def base(self) -> int:
+        return self.store.base()
+
+    def tip(self) -> int:
+        return self.store.height()
+
+    def load(self, h: int) -> Tuple[object, object]:
+        blk = self.store.load_block(h)
+        if blk is None:
+            raise CatchupError(f"history missing block {h}")
+        commit = self.store.load_block_commit(h)
+        if commit is None:
+            raise CatchupError(f"history missing commit for height {h}")
+        return blk, commit
+
+
+class CatchupEngine:
+    """Drive state from ``state.last_block_height`` to the history tip.
+
+    ``source`` is any object with ``tip()``/``load(h)`` (see
+    :class:`StoreHistorySource`); ``apply_fn(state, block, commit) ->
+    state`` applies one verified block (defaults to the execution
+    stack when ``block_exec`` is given, mirroring the live reactor's
+    save -> validate -> apply sequence). ``verifier`` is any object
+    with ``verify(jobs)``: the pipeline's StreamVerifier for fused
+    device flushes through the pinned staging pool (the default, on
+    the card — built lazily so the import only happens on nodes that
+    verify), or :class:`HostCommitVerifier` for host runs."""
+
+    def __init__(self, source, state, *,
+                 apply_fn: Optional[Callable] = None,
+                 block_exec=None, block_store=None,
+                 verifier=None,
+                 cursor_path: Optional[str] = None,
+                 read_ahead: int = 128, max_run: int = MAX_RUN,
+                 warm_ahead: bool = True, warmer=None,
+                 ledger: Optional[CatchupLedger] = None):
+        if apply_fn is None and block_exec is None:
+            raise ValueError("need apply_fn or block_exec")
+        self.source = source
+        self.state = state
+        self.block_exec = block_exec
+        self.block_store = block_store
+        self.apply_fn = apply_fn or self._apply_via_exec
+        if verifier is None:
+            from cometbft_tpu_torch.blocksync.pipeline import (
+                make_stream_verifier,
+            )
+
+            verifier = make_stream_verifier()
+        self.verifier = verifier
+        self.cursor = CatchupCursor(cursor_path)
+        self.read_ahead = max(1, int(read_ahead))
+        self.max_run = max(1, int(max_run))
+        self.warm_ahead = bool(warm_ahead)
+        self.warmer = warmer
+        # explicit None test: an EMPTY caller ledger is falsy (__len__)
+        # but must still be the one the run records into
+        self.ledger = ledger if ledger is not None else CatchupLedger()
+        self._buf: deque = deque()  # (height, block, commit), ordered
+        self._next_read = 0
+        self._warmed_hash: Optional[bytes] = None
+        if self.cursor.resumed:
+            self.ledger.note_resume()
+
+    # -- default apply path (the live reactor's sequence) ------------------
+
+    def _apply_via_exec(self, state, block, commit):
+        self.block_exec.validate_block(state, block)
+        return self.block_exec.apply_block(state, block.block_id(),
+                                           block)
+
+    # -- the loop ----------------------------------------------------------
+
+    def run(self, until: Optional[int] = None):
+        """Replay to the history tip (or ``until``); returns the final
+        state. Raises :class:`CatchupError` on a verification or
+        history gap — and lets a failpoint crash propagate with the
+        cursor already persisted, which is the whole point."""
+        tip = self.source.tip() if until is None else int(until)
+        start = self.state.last_block_height
+        self._next_read = max(self._next_read, start + 1)
+        if self.ledger is not None:
+            _install_ledger(self.ledger)
+        incidents.note_catchup(True)
+        try:
+            with tracing.span("catchup.run", cat="catchup",
+                              from_height=start, to_height=tip):
+                while self.state.last_block_height < tip:
+                    self._step(tip)
+        finally:
+            incidents.note_catchup(False)
+            self.cursor.save()
+        return self.state
+
+    def _refill(self, tip: int) -> float:
+        # drop anything the cursor already passed (a resumed engine's
+        # buffer starts empty, but a retried run may hold stale heads)
+        h = self.state.last_block_height
+        while self._buf and self._buf[0][0] <= h:
+            self._buf.popleft()
+        t0 = tracing.monotonic_ns()
+        while len(self._buf) < self.read_ahead and self._next_read <= tip:
+            fp.fail_point("catchup.read_ahead")
+            blk, commit = self.source.load(self._next_read)
+            self._buf.append((self._next_read, blk, commit))
+            self._next_read += 1
+        return (tracing.monotonic_ns() - t0) / 1e6
+
+    def _step(self, tip: int) -> None:
+        read_ms = self._refill(tip)
+        if not self._buf:
+            raise CatchupError(
+                f"history exhausted at {self.state.last_block_height} "
+                f"before tip {tip}"
+            )
+        # pre-scan: one fused segment = consecutive buffered blocks
+        # under the CURRENT valset, bounded at the first hash change
+        vals = self.state.validators
+        vhash = vals.hash()
+        seg: List[tuple] = []
+        boundary = False
+        for (h, blk, commit) in self._buf:
+            if blk.header.validators_hash != vhash:
+                boundary = True
+                break
+            seg.append((h, blk, commit))
+            if len(seg) >= self.max_run:
+                break
+        if not seg:
+            h0, blk0, _ = self._buf[0]
+            raise CatchupError(
+                f"block {h0} validators_hash does not match the state "
+                f"valset at {self.state.last_block_height} — corrupt "
+                f"history or wrong resume state"
+            )
+        # verify: one cross-height fused flush, skipping heights the
+        # persisted cursor already verified (resume re-verifies ZERO)
+        jobs = [CatchupJob(vals=vals, block_id=blk.block_id(),
+                           height=h, commit=commit,
+                           chain_id=self.state.chain_id)
+                for (h, blk, commit) in seg
+                if h > self.cursor.verified]
+        skipped = len(seg) - len(jobs)
+        sigs = 0
+        t0 = tracing.monotonic_ns()
+        if jobs:
+            with tracing.span("catchup.verify", cat="catchup",
+                              blocks=len(jobs),
+                              from_height=jobs[0].height):
+                errs = self.verifier.verify(jobs)
+            for job, err in zip(jobs, errs):
+                if err is not None:
+                    raise CatchupError(
+                        f"commit verification failed at height "
+                        f"{job.height}: {err}"
+                    )
+            sigs = sum(
+                sum(1 for s in job.commit.signatures
+                    if getattr(s, "signature", None))
+                for job in jobs)
+            self.cursor.verified = max(self.cursor.verified, seg[-1][0])
+        verify_ms = (tracing.monotonic_ns() - t0) / 1e6
+        # apply in order; warm-ahead fires the moment the next epoch's
+        # valset becomes known (state.next_validators changes), which
+        # is one height BEFORE the boundary the pre-scan found
+        warmed = False
+        t0 = tracing.monotonic_ns()
+        for (h, blk, commit) in seg:
+            if self.block_store is not None:
+                self.block_store.save_block(blk, commit)
+            self.state = self.apply_fn(self.state, blk, commit)
+            if self.warm_ahead and self._maybe_warm_ahead():
+                warmed = True
+            self._buf.popleft()
+        apply_ms = (tracing.monotonic_ns() - t0) / 1e6
+        self.cursor.applied = self.state.last_block_height
+        self.cursor.save()
+        self.ledger.record(
+            first=seg[0][0], last=seg[-1][0], blocks=len(seg),
+            sigs=sigs, skipped=skipped, read_ms=read_ms,
+            verify_ms=verify_ms, apply_ms=apply_ms,
+            boundary=boundary, warmed=warmed,
+        )
+        incidents.note_catchup(True)  # progress: re-arm the stall watch
+
+    def _maybe_warm_ahead(self) -> bool:
+        nv = self.state.next_validators
+        try:
+            nh = nv.hash()
+        except Exception:  # noqa: BLE001 - exotic test valsets
+            return False
+        if nh == self.state.validators.hash() or nh == self._warmed_hash:
+            return False
+        self._warmed_hash = nh
+        w = self.warmer
+        if w is None:
+            from cometbft_tpu_torch.verifyplane import warmer as warmer_mod
+
+            w = warmer_mod.global_warmer()
+        if w is None:
+            return False
+        w.request_valset(nv, chain_id=self.state.chain_id)
+        return True
+
+
+# --------------------------------------------------------------------------
+# the process-global ledger: whichever engine ran last owns the dump
+# (the verify plane's _GLOBAL/_LAST discipline) — /dump_catchup and the
+# incident snapshot tail read through these
+# --------------------------------------------------------------------------
+
+_GLOBAL: Optional[CatchupLedger] = None
+_LAST: Optional[CatchupLedger] = None
+
+
+def _install_ledger(led: CatchupLedger) -> None:
+    global _GLOBAL, _LAST
+    _GLOBAL = led
+    _LAST = led
+
+
+def set_global_ledger(led: Optional[CatchupLedger]) -> None:
+    global _GLOBAL, _LAST
+    if led is not None:
+        _LAST = led
+    _GLOBAL = led
+
+
+def global_ledger() -> Optional[CatchupLedger]:
+    return _GLOBAL or _LAST
+
+
+def ledger_tail(n: int = 8) -> List[dict]:
+    led = global_ledger()
+    return [] if led is None else led.tail(n)
+
+
+def dump_catchup() -> dict:
+    """The /dump_catchup document."""
+    led = global_ledger()
+    if led is None:
+        return {"records": [], "summary": {}, "counters": {}}
+    return {"records": led.records(), "summary": led.summary(),
+            "counters": dict(led.counters)}

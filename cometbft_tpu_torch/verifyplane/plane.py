@@ -738,6 +738,22 @@ def _host_verdicts(rows) -> List[bool]:
     return out
 
 
+def verify_off_plane(plane: Optional["VerifyPlane"], pubs, msgs,
+                     sigs) -> np.ndarray:
+    """(n,) bool verdicts of rows that `plane` could not take (it raised
+    a PlaneError), verified where the plane would have verified them: a
+    device plane's on its device (crypto/batch.verify_batch_direct; a
+    DeviceError propagates), a host plane's with the host reference;
+    with no plane, on the card (ROADMAP C1)."""
+    if plane is not None and plane.device is None:
+        return np.asarray(_host_verdicts(list(zip(pubs, msgs, sigs))),
+                          np.bool_)
+    from cometbft_tpu_torch.crypto import batch as cbatch
+
+    return cbatch.verify_batch_direct(
+        pubs, msgs, sigs, device=None if plane is None else plane.device)
+
+
 def _device_fault(led, exc: BaseException):
     """A device plane's flush whose device pass faulted: record it on
     the flush's ledger record and raise the DeviceError its futures

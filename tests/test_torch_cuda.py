@@ -1305,3 +1305,248 @@ def test_light_client_bisects_a_secp256k1_chain_through_a_card_plane(card):
     assert len(recs) == 6 and {r["path"] for r in recs} == {"grouped"}
     assert ef.ecdsa_verify.launches - b0 == 6
     assert brk.faults == 0
+
+
+# ---------------------------------------------------------------------------
+# catch-up, the light-client gateway and evidence on the card (-k "catchup
+# or gateway")
+# ---------------------------------------------------------------------------
+
+CU_VALS = 24          # 8 commits x 24 rows: above the stream's host-loop gate
+CU_HEIGHTS = 16       # V0 signs 1-8, V1 (2 keys rotated) 9-16
+
+
+def _catchup_history():
+    """CU_HEIGHTS real Blocks over CU_VALS ed25519 validators, V0 for
+    heights 1-8 and V1 (V0 with 2 keys rotated, same powers) for 9-16;
+    -> ({height: (block, commit)}, vals_at)."""
+    from cometbft_tpu_torch.crypto.keys import PubKey
+    from cometbft_tpu_torch.types import canonical
+    from cometbft_tpu_torch.types.block import Block, Data, Header
+    from cometbft_tpu_torch.types.commit import (BLOCK_ID_FLAG_COMMIT,
+                                                 Commit, CommitSig)
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+
+    rng = np.random.default_rng(16)
+    seeds0 = [rng.bytes(32) for _ in range(CU_VALS)]
+    seeds1 = list(seeds0)
+    seeds1[3], seeds1[11] = rng.bytes(32), rng.bytes(32)
+    powers = [1000 - 7 * i for i in range(CU_VALS)]
+    seed_of, sets = {}, []
+    for seeds in (seeds0, seeds1):
+        pubs = [ed.sign_many(s, [])[0] for s in seeds]
+        sets.append(ValidatorSet([Validator(PubKey(p), w)
+                                  for p, w in zip(pubs, powers)]))
+        seed_of.update({PubKey(p).address(): s
+                        for p, s in zip(pubs, seeds)})
+
+    def vals_at(h):
+        return sets[0] if h <= CU_HEIGHTS // 2 else sets[1]
+
+    items, prev = {}, None
+    for h in range(1, CU_HEIGHTS + 1):
+        vs = vals_at(h)
+        hdr = Header(chain_id="cu-card", height=h,
+                     time=Timestamp(1_700_000_000 + h, 0),
+                     validators_hash=vs.hash(),
+                     next_validators_hash=vals_at(h + 1).hash(),
+                     proposer_address=vs.validators[0].address)
+        if prev is not None:
+            hdr.last_block_id = prev
+        blk = Block(hdr, Data())
+        blk.fill_header()
+        prev = blk.block_id()
+        sigs = []
+        for i, v in enumerate(vs.validators):
+            ts = Timestamp(1_700_000_000 + h, i * 7919)
+            sb = canonical.canonical_vote_bytes(
+                "cu-card", canonical.PRECOMMIT_TYPE, h, 0, prev, ts)
+            sigs.append(CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, ts,
+                                  ed.sign_many(seed_of[v.address],
+                                               [sb])[1][0]))
+        items[h] = (blk, Commit(h, 0, prev, sigs))
+    return items, vals_at
+
+
+def _catchup_run(items, vals_at, on_apply=None):
+    from cometbft_tpu_torch.blocksync.catchup import CatchupEngine, \
+        CatchupError
+
+    class State:
+        def __init__(self, h):
+            self.chain_id = "cu-card"
+            self.last_block_height = h
+            self.validators = vals_at(h + 1)
+            self.next_validators = vals_at(h + 2)
+
+    class Source:
+        def tip(self):
+            return max(items)
+
+        def load(self, h):
+            if h not in items:
+                raise CatchupError(f"history missing block {h}")
+            return items[h]
+
+    def apply_fn(st, blk, commit):
+        if on_apply is not None:
+            on_apply(blk.header.height)
+        return State(blk.header.height)
+
+    return CatchupEngine(Source(), State(0), apply_fn=apply_fn)
+
+
+def test_catchup_replays_a_history_on_the_card(card):
+    """16 heights through a CatchupEngine with its default verifier (the
+    card's StreamVerifier) and a card TableWarmer mounted: two segments,
+    warm-ahead of V1 at height 7 builds its table (a delta) before the
+    9-16 segment, which hits it; a tampered signature at height 5 raises
+    CatchupError naming it."""
+    import copy
+
+    from cometbft_tpu_torch.blocksync.catchup import CatchupError
+    from cometbft_tpu_torch.crypto.batch import device_breaker
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+    from cometbft_tpu_torch.ops import table_cache as tc
+    from cometbft_tpu_torch.verifyplane import warmer as vw
+
+    tc.reset_for_tests()
+    items, vals_at = _catchup_history()
+    faults = device_breaker().faults
+    w = vw.TableWarmer()
+    w.start()
+    vw.set_global_warmer(w)
+    launches = lambda: (es.stamp_rows.launches,  # noqa: E731
+                        ec.ed25519_verify_cached.launches,
+                        ec.tally_quorum_cached.launches,
+                        ec.valset_table_build.launches)
+
+    def on_apply(h):
+        if h == CU_HEIGHTS // 2:
+            assert w.wait_idle(120.0)
+
+    before = launches()
+    try:
+        eng = _catchup_run(items, vals_at, on_apply)
+        assert eng.verifier.device == card
+        hits0 = tc.STATS["warmed_hits"]
+        eng.run()
+        torch.cuda.synchronize()
+        after = launches()
+        bad = dict(items)
+        blk, commit = items[5]
+        commit = copy.copy(commit)
+        commit.signatures = list(commit.signatures)
+        cs = copy.copy(commit.signatures[2])
+        cs.signature = cs.signature[:9] + bytes([cs.signature[9] ^ 1]) \
+            + cs.signature[10:]
+        commit.signatures[2] = cs
+        bad[5] = (blk, commit)
+        with pytest.raises(CatchupError, match=r"height 5: .*#2"):
+            _catchup_run(bad, vals_at).run()
+    finally:
+        vw.clear_global_warmer(w)
+        w.stop()
+    assert eng.state.last_block_height == CU_HEIGHTS
+    recs = eng.ledger.records()
+    assert [(r["first"], r["last"], r["boundary"], r["warmed"])
+            for r in recs] == [(1, 8, True, True), (9, 16, False, False)]
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2, 2]
+    assert tc.STATS["warmed_hits"] - hits0 == 1
+    assert w.stats()["builds_incremental"] == 1
+    assert device_breaker().faults == faults
+
+
+def test_gateway_coalesces_and_takes_attack_evidence_on_the_card(card):
+    """chip_smoke phase 15's waves at LCC_COPY_VALS secp256k1 validators
+    through a card plane: one verification for 8 clients, LRU hits for
+    the next 8, and on the era-B pair one LightClientAttackEvidence
+    verified on the card; one ecdsa_verify a flush."""
+    import importlib.util
+    from pathlib import Path
+
+    from cometbft_tpu_torch.crypto.batch import CircuitBreaker
+    from cometbft_tpu_torch.crypto.keys import Secp256k1PrivKey
+    from cometbft_tpu_torch.evidence.pool import EvidencePool
+    from cometbft_tpu_torch.light.client import Provider
+    from cometbft_tpu_torch.light.verifier import LightBlock, SignedHeader
+    from cometbft_tpu_torch.lightgate import LightGateway
+    from cometbft_tpu_torch.ops import ecdsa_fused as ef
+    from cometbft_tpu_torch.types.block import Header
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.commit import (BLOCK_ID_FLAG_COMMIT,
+                                                 Commit, CommitSig)
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+    from cometbft_tpu_torch.verifyplane import VerifyPlane, set_global_plane
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    plan = cs.light_plan(cs.LCC_COPY_VALS)
+    keys = {s: Secp256k1PrivKey.generate(s) for vals in plan.values()
+            for s, _ in vals}
+    by_addr = {k.pub_key().address(): k for k in keys.values()}
+    sets = {h: ValidatorSet([Validator(keys[s].pub_key(), w)
+                             for s, w in vals]) for h, vals in plan.items()}
+
+    def sign_commit(commit):
+        for sig, m in zip(commit.signatures,
+                          commit.sign_bytes_rows(cs.CHAIN_ID)):
+            sig.signature = by_addr[sig.validator_address].sign(m)
+
+    blocks, headers, prev = {}, {}, BlockID()
+    for h in sorted(plan):
+        vs = sets[h]
+        headers[h] = Header(
+            chain_id=cs.CHAIN_ID, height=h, time=Timestamp(cs.LCC_T0 + h, 0),
+            last_block_id=prev, validators_hash=vs.hash(),
+            next_validators_hash=sets.get(h + 1, vs).hash(),
+            proposer_address=vs.validators[0].address, app_hash=b"\x01" * 32)
+        prev = BlockID(headers[h].hash(), PartSetHeader(1, headers[h].hash()))
+        ts = Timestamp(cs.LCC_T0 + h, 42)
+        commit = Commit(h, 0, prev, [CommitSig(BLOCK_ID_FLAG_COMMIT,
+                                               v.address, ts, b"")
+                                     for v in vs.validators])
+        sign_commit(commit)
+        blocks[h] = LightBlock(SignedHeader(headers[h], commit), vs)
+    t_h, g_h = cs.GW_ERA_B_PAIR
+    claim = cs.forged_claim(headers[g_h], sets[g_h], sign_commit)
+    pool = EvidencePool(cs.CHAIN_ID, sets.get)
+    pool.height, pool.time_s = g_h, cs.LCC_T0 + g_h
+    gw = LightGateway(cs.CHAIN_ID, Provider(cs.CHAIN_ID, blocks.get),
+                      evidence_pool=pool, trusting_period=1e6,
+                      coalesce_timeout=120.0)
+    gw.client.trust_light_block(blocks[1])
+    gw.start(register=False)
+    brk = CircuitBreaker()
+    plane = VerifyPlane(window_ms=1.0, breaker=brk)
+    plane.start()
+    set_global_plane(plane)
+    b0 = ef.ecdsa_verify.launches
+    marks, stats = [], []
+
+    def mark():
+        marks.append(len(plane.ledger.records()))
+        stats.append(gw.stats())
+
+    try:
+        waves = cs.gateway_waves(gw, claim, Timestamp(cs.LCC_T0 + 1000, 0),
+                                 8, 4, mark)
+    finally:
+        set_global_plane(None)
+        plane.stop()
+    torch.cuda.synchronize()
+    recs = plane.ledger.records()
+    assert not any(w[1] for w in waves), [w[1][:2] for w in waves]
+    assert stats[0]["verifies"] == 1
+    assert gw.client.store.heights() == [1, 4, 5, 6, 8]
+    assert marks[1] == marks[0]
+    assert sorted(k for k, v in waves[2][0].items()
+                  if v["status"] == "divergent") == [1, 3]
+    assert pool.size() == 1 and stats[2]["evidence_submitted"] == 1
+    assert {r["path"] for r in recs} == {"grouped"}
+    assert ef.ecdsa_verify.launches - b0 == len(recs) > marks[1]
+    assert brk.faults == 0

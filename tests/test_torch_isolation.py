@@ -80,7 +80,9 @@ def test_the_checks_cover_every_module_and_kernel_source():
     source has a build entry, every header is in the host build the CPU
     tests check, and the native packer's C++ source includes only the C++
     standard library. They also walk the main path's entry and the light
-    client: the warmer, VoteSet, the block types and light/."""
+    client: the warmer, VoteSet, the block types and light/; and the
+    catch-up engine, the evidence verifiers and pool, the light-client
+    gateway, the light proxy and what it imports."""
     from cometbft_tpu_torch.ops import _build
 
     mods = set(_modules())
@@ -94,7 +96,11 @@ def test_the_checks_cover_every_module_and_kernel_source():
               "verifyplane.fused", "verifyplane.warmer", "types.vote_set",
               "types.block", "types.part_set", "types.serde",
               "types.evidence", "state.state", "light", "light.verifier",
-              "light.client", "light.store"):
+              "light.client", "light.store", "types.tx",
+              "crypto.proof_ops", "rpc", "rpc.client", "evidence",
+              "evidence.verify", "evidence.pool", "lightgate",
+              "lightgate.cache", "lightgate.gateway", "light.proxy",
+              "blocksync.catchup"):
         assert f"cometbft_tpu_torch.{m}" in mods
     csrc = PKG / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(_build.KERNELS)

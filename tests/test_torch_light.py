@@ -14,7 +14,7 @@ skipping client bisects 1 -> 8 across the era change with the same
 heights and verification count on both packages (oracle batch_fn), and on
 the port with its commits routed through a running verify plane
 (batch_fn=None, as phase 13 runs it on the card). The proxy and gateway
-scenarios (:316-371, :467) wait for their modules."""
+scenarios (:316-407, :467) run in tests/test_torch_proxy.py."""
 import copy
 import importlib.util
 import json
