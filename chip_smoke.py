@@ -182,7 +182,33 @@ Phases (any failure exits non-zero and prints no result line):
      LightClientAttackEvidence in the pool, verified on the card (the
      named rows in one batch, then the trusting check); ecdsa_verify
      against plain on the rows the path launched it on; prints each
-     wave's ms, the flushes and their rows.
+     wave's ms, the flushes and their rows;
+ 16. the application boundary and block execution (mempool/, abci/,
+     state/execution.py, BASELINE config 2's width, config 1's kvstore):
+     a port Mempool(KVStoreApplication(), verify_sigs=True) with an
+     AdmissionController wired to the device breaker, a card VerifyPlane
+     as the global plane and a card TableWarmer as the global warmer; 64
+     threads send 5,000 CheckTx (4,000 valid sigtx envelopes of 1,000
+     client keys, 500 with a flipped signature byte, 250 malformed, 250
+     unsigned), a tx answered OVERLOADED sent again after its hint: every
+     code is the one the tx was built for, 256 signed ones agree with
+     ed25519_ref, the pool holds the OK txs, the BULK lane took every
+     signed row on grouped flushes (one ed25519_verify each); then a
+     BlockExecutor (batch_fn=None: the plane's CONSENSUS lane) over a
+     StateStore and a BlockStore from a GenesisDoc of phase 6's 1,000
+     validators proposes 8 blocks with create_proposal_block (the block
+     size spreads the pool over them), each signed by its 1,000
+     validators and applied with validate=True: each LastCommit after
+     height 1 one grouped flush and one ed25519_verify, height 3's 16
+     val: txs rotate 8 validators (the warmer's one valset_table_build,
+     its table equal to plain; the new set signs from height 5); the
+     pool ends empty, the app hash is its state's, the stores hold what
+     was applied; then a tampered LastCommit refused (nothing changes), a
+     dispatch fault answered by verify_batch_direct on the card, and a
+     BULK lane of one row answering OVERLOADED with a hint; ed25519_verify
+     against plain on the rows both paths launched it on and timed by
+     device time at both shapes; prints CheckTx/s and each height's
+     validate, apply, update and LastCommit flush ms.
 Before the last line it prints the `kernels` JSON (launches on the main
 paths, in all and by path; times; bounds; for every kernel `device_ms`, from
 a profiler trace at its phase's shape, by live columns or by shape where a
@@ -265,6 +291,18 @@ H100_SMS = 132
 GW_THREADS = 64              # phase 15: clients asking verify(1, 8) at once
 GW_DIVERGENT_THREADS = 8     # phase 15: era-B pair clients, half lied to
 GW_ERA_B_PAIR = (6, 8)       # phase 15: trusted and target heights in era B
+APP_CLIENTS = 1000           # phase 16: client keys signing txs
+APP_MIX = (4000, 500, 250, 250)  # phase 16: valid, flipped, malformed, unsigned
+APP_THREADS = 64             # phase 16: broadcast_tx clients at once
+APP_RESENDS = 8              # phase 16: sends of a tx answered OVERLOADED
+APP_SPOT = 256               # phase 16: signed txs checked by ed25519_ref
+APP_HEIGHTS = 8              # phase 16: blocks produced and applied
+APP_ROTATE_AT = 3            # phase 16: the height carrying the val: txs
+APP_ROTATED = 8              # phase 16: validators removed, keys added
+APP_TAMPER_IDX = 321         # phase 16: the tampered LastCommit signature
+APP_T0 = 1_700_400_000       # phase 16: genesis time; commit h at T0 + h
+APP_SQUEEZE_TXS = 32         # phase 16: txs into the one-row BULK lane
+APP_SQUEEZE_THREADS = 8
 IMAD_PER_CLK = 64            # INT32 multiply-adds per SM per clock
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 
@@ -3729,7 +3767,7 @@ def storm(n, fn):
     t = time.perf_counter()
     for th in threads:
         th.join(300.0)
-        check(not th.is_alive(), "a gateway client never returned")
+        check(not th.is_alive(), "a storm client never returned")
     return out, errs, (time.perf_counter() - t) * 1e3
 
 
@@ -3892,6 +3930,535 @@ def phase_gateway(dev, pool, res, kernel_stats):
     return {"gw_wave1_ms": ms1, "gw_wave3_ms": ms3}
 
 
+# --------------------------------------------------------------------------
+# phase 16: the application boundary and block execution at config 2's width
+# --------------------------------------------------------------------------
+
+
+def app_txs(pool, rng):
+    """Phase 16's CheckTx mix over APP_CLIENTS client keys (not
+    validators), shuffled: valid sigtx envelopes, envelopes with a flipped
+    signature byte, malformed envelopes (the magic and a short frame) and
+    unsigned key=value txs, APP_MIX of each; -> [(tx, expected code, (pub,
+    msg, sig) or None)]."""
+    from cometbft_tpu_torch.abci import types as abci
+    from cometbft_tpu_torch.mempool import sigtx
+
+    clients = APP_CLIENTS
+    n_valid, n_flip, n_bad, n_plain = APP_MIX
+    seeds = [seed_bytes(rng) for _ in range(clients)]
+    per: dict = {}
+    for j in range(n_valid + n_flip):
+        per.setdefault(j % clients, []).append(j)
+
+    def payload(j):
+        return b"c%d-tx%d=%d" % (j % clients, j, j * 7919 % 100_003)
+
+    order = list(per)
+    signed = sign_all(pool, [(seeds[c], [sigtx.sign_bytes(payload(j))
+                                         for j in per[c]]) for c in order])
+    txs = []
+    for c, (pub, sigs) in zip(order, signed):
+        for j, sig in zip(per[c], sigs):
+            code = abci.CODE_TYPE_OK
+            if j >= n_valid:
+                sig, code = flip(sig, 5), abci.CODE_TYPE_BAD_SIGNATURE
+            msg = sigtx.sign_bytes(payload(j))
+            txs.append((sigtx.MAGIC + pub + sig + payload(j), code,
+                        (pub, msg, sig)))
+    txs += [(sigtx.MAGIC + b"short-%d" % i, abci.CODE_TYPE_BAD_SIGNATURE,
+             None) for i in range(n_bad)]
+    txs += [(b"u%d=%d" % (i, i), abci.CODE_TYPE_OK, None)
+            for i in range(n_plain)]
+    return [txs[i] for i in rng.permutation(len(txs))]
+
+
+def checktx_wave(mp, txs, threads):
+    """`threads` clients released together, client k sending txs[k::threads]
+    through mp.check_tx and sending a tx answered OVERLOADED again after
+    its retry hint (as a client of broadcast_tx backs off); -> ({tx: final
+    response}, OVERLOADED answers, [error], wall ms)."""
+    import threading
+
+    from cometbft_tpu_torch.abci import types as abci
+
+    out, sheds, lock = {}, [0], threading.Lock()
+
+    def client(k):
+        for tx in txs[k::threads]:
+            for _ in range(APP_RESENDS):
+                r = mp.check_tx(tx)
+                if r.code != abci.CODE_TYPE_OVERLOADED:
+                    break
+                with lock:
+                    sheds[0] += 1
+                time.sleep(r.retry_after_ms / 1e3)
+            with lock:
+                out[tx] = r
+
+    _, errs, ms = storm(threads, client)
+    return out, sheds[0], errs, ms
+
+
+def app_genesis(vs, max_bytes):
+    """A GenesisDoc of `vs`'s validators and powers whose block size
+    spreads the mempool over the heights."""
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from cometbft_tpu_torch.types.params import ConsensusParams
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+
+    return GenesisDoc(
+        chain_id=CHAIN_ID, genesis_time=Timestamp(APP_T0, 0),
+        validators=[GenesisValidator(v.pub_key, v.voting_power)
+                    for v in vs.validators],
+        consensus_params=ConsensusParams.from_j(
+            {"block": {"max_bytes": max_bytes}}))
+
+
+def signed_commit(pool, vs, bid, h, seed_of):
+    """Height h's commit for `bid`, every validator of `vs` signing (on
+    the pool)."""
+    commit = unsigned_commit(vs, h, bid, APP_T0 + h)
+    rows = commit.sign_bytes_rows(CHAIN_ID)
+    for cs, (_, (sig,)) in zip(commit.signatures, sign_all(pool, [
+            (seed_of[cs.validator_address], [m])
+            for cs, m in zip(commit.signatures, rows)])):
+        cs.signature = sig
+    return commit
+
+
+def time_calls(obj, name, sink):
+    """Wrap obj.name so each call appends its ms to `sink`."""
+    real = getattr(obj, name)
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            sink.append((time.perf_counter() - t) * 1e3)
+
+    setattr(obj, name, timed)
+
+
+def state_row(st) -> str:
+    """The JSON a StateStore persists for `st`."""
+    from cometbft_tpu_torch.state.state import StateStore
+
+    s = StateStore(":memory:")
+    s.save(st)
+    row = s._db.execute("SELECT v FROM state WHERE k='state'").fetchone()[0]
+    s.close()
+    return row
+
+
+def val_txs(gone, added):
+    """`val:` txs removing the validators `gone` (power 0) and adding
+    `added` [(pub, power)]."""
+    import base64
+
+    return ([b"val:" + base64.b64encode(v.pub_key.data) + b"!0"
+             for v in gone]
+            + [b"val:" + base64.b64encode(p) + b"!%d" % w
+               for p, w in added])
+
+
+def phase_app(dev, pool, rng, res, kernel_stats):
+    """ROADMAP A6 and the execution half of A7a at BASELINE config 2's
+    width: a port Mempool over the kvstore app (node-side sigtx checks on
+    a card VerifyPlane's BULK lane, admission wired to the device breaker)
+    takes a wave of CheckTx from 64 threads, then a BlockExecutor with
+    batch_fn=None (the plane's CONSENSUS lane) proposes and applies 8
+    blocks of phase 6's 1,000 validators from a GenesisDoc, each
+    LastCommit verified on the card, height 3 rotating 8 validators
+    (the card TableWarmer builds the next set); then a tampered LastCommit,
+    a dispatch fault and a squeezed BULK lane."""
+    import copy
+
+    import torch
+
+    from cometbft_tpu_torch.abci import types as abci
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.crypto.keys import PubKey
+    from cometbft_tpu_torch.libs import failpoints as fp
+    from cometbft_tpu_torch.mempool import sigtx
+    from cometbft_tpu_torch.mempool.admission import AdmissionController
+    from cometbft_tpu_torch.mempool.mempool import Mempool
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+    from cometbft_tpu_torch.ops import table_cache as tcache
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.state import StateStore
+    from cometbft_tpu_torch.store.blockstore import BlockStore
+    from cometbft_tpu_torch.types import serde
+    from cometbft_tpu_torch.types.validation import InvalidSignatureError
+    from cometbft_tpu_torch.verifyplane import (FlushLedger, TableWarmer,
+                                                VerifyPlane,
+                                                clear_global_warmer,
+                                                set_global_plane,
+                                                set_global_warmer)
+
+    # -- fixtures ----------------------------------------------------------
+    t0 = time.perf_counter()
+    v0 = res["stream_sets"][0]
+    seed_of = dict(res["stream_seed_of"])
+    txs = app_txs(pool, rng)
+    new_seeds = [seed_bytes(rng) for _ in range(APP_ROTATED)]
+    gone = v0.validators[-APP_ROTATED:]
+    added = [(pub, v.voting_power) for (pub, _), v in zip(
+        sign_all(pool, [(s, []) for s in new_seeds]), gone)]
+    new_addrs = set()
+    for (pub, _), s in zip(added, new_seeds):
+        new_addrs.add(PubKey(pub).address())
+        seed_of[PubKey(pub).address()] = s
+    rot_txs = val_txs(gone, added)
+    # the fault runs' envelopes: one client, fresh payloads
+    fault_payloads = [b"fault-%d=v" % i for i in range(2 + APP_SQUEEZE_TXS)]
+    (fpub, fsigs), = sign_all(pool, [(seed_bytes(rng), [
+        sigtx.sign_bytes(p) for p in fault_payloads])])
+    fault_txs = [sigtx.MAGIC + fpub + s + p
+                 for s, p in zip(fsigs, fault_payloads)]
+    fault_txs[1] = sigtx.MAGIC + fpub + flip(fsigs[1], 9) + fault_payloads[1]
+    ok_txs = [tx for tx, code, _ in txs if code == abci.CODE_TYPE_OK]
+    signed_rows = [row for _, _, row in txs if row is not None]
+    ok_bytes = sum(len(tx) for tx in ok_txs) + sum(len(t) for t in rot_txs)
+    max_bytes = -(-ok_bytes // APP_HEIGHTS) + 1024
+    doc = app_genesis(v0, max_bytes)
+    print(f"phase16 fixtures validators={len(v0)} clients={APP_CLIENTS} "
+          f"txs={len(txs)} (valid, flipped, malformed, unsigned = "
+          f"{list(APP_MIX)}) signed_rows={len(signed_rows)} "
+          f"block_max_bytes={max_bytes} keys+signatures_s="
+          f"{time.perf_counter() - t0:.3f}", flush=True)
+
+    brk = cbatch.device_breaker()
+    tcache.reset_for_tests()
+    plane = VerifyPlane(window_ms=PLANE_WINDOW_MS, max_batch=PLANE_MAX_BATCH,
+                        max_queue=PLANE_MAX_QUEUE)
+    check(plane.device == dev, f"phase16 plane device {plane.device}")
+    plane.ledger = FlushLedger(capacity=PLANE_LEDGER)
+    warmer = TableWarmer()
+    check(warmer.device == dev, f"phase16 warmer device {warmer.device}")
+    app = KVStoreApplication()
+    adm = AdmissionController(
+        breaker_open_fn=lambda: brk.state == "open")
+    mp_ = Mempool(app, verify_sigs=True, admission=adm)
+    adm._fill_fn = mp_.fill_fraction
+    store, blocks = StateStore(":memory:"), BlockStore(":memory:")
+    ex = BlockExecutor(app, store, batch_fn=None, mempool=mp_)
+    validate_ms, update_ms = [], []
+    time_calls(ex, "validate_block", validate_ms)
+    time_calls(mp_, "update", update_ms)
+    notified = []
+    real_request = warmer.request_valset
+
+    def request_valset(vals, chain_id=None):
+        notified.append(len(vals))
+        real_request(vals, chain_id=chain_id)
+
+    warmer.request_valset = request_valset
+    plane.start()
+    set_global_plane(plane)
+    warmer.start()
+    set_global_warmer(warmer)
+    heights, applied = [], {}
+    try:
+        # -- the CheckTx wave ----------------------------------------------
+        with capture_verify_rows(ed25519=kf) as wave_rows:
+            zero_launches()
+            got, sheds, errs, wave_ms = checktx_wave(
+                mp_, [tx for tx, _, _ in txs], APP_THREADS)
+            torch.cuda.synchronize()
+            wave_l = read_launches()
+        wave_recs = plane.ledger.records()
+        lanes = plane.stats()["lane_rows"]
+        check(not errs, f"phase16 CheckTx errors {errs[:3]}")
+        wrong = [(tx[:12], got[tx].code, code) for tx, code, _ in txs
+                 if got[tx].code != code]
+        check(not wrong, f"phase16 {len(wrong)} CheckTx codes differ from "
+              f"the built ones: {wrong[:3]}")
+        spot = [signed_rows[i] for i in rng.choice(
+            len(signed_rows), min(APP_SPOT, len(signed_rows)),
+            replace=False)]
+        oracle = oracle_verdicts(pool, "ed25519", *zip(*spot))
+        by_row = {row: got[tx].code == abci.CODE_TYPE_OK
+                  for tx, _, row in txs if row is not None}
+        check([by_row[r] for r in spot] == list(oracle),
+              "phase16 a signed tx's verdict differs from ed25519_ref")
+        check(mp_.size() == mp_.gas_entries() == len(ok_txs),
+              f"phase16 pool {mp_.size()} gas {mp_.gas_entries()}, want "
+              f"{len(ok_txs)}")
+        check(lanes["bulk"] == len(signed_rows) and lanes["consensus"] == 0,
+              f"phase16 lane rows {lanes}, want bulk {len(signed_rows)}")
+        paths = sorted({r["path"] for r in wave_recs})
+        flushes = [r for r in wave_recs if r["path"] != "shed_only"]
+        check(paths in (["grouped"], ["grouped", "shed_only"]),
+              f"phase16 the wave's flush paths {paths}")
+        want_l = dict.fromkeys(wave_l, 0)
+        want_l.update(ed25519_verify=len(flushes))
+        check(wave_l == want_l, f"phase16 wave launches {wave_l}, want "
+              f"{want_l}")
+        print(f"phase16 CheckTx wave: {len(txs)} txs from {APP_THREADS} "
+              f"threads in {wave_ms:.3f} ms = "
+              f"{len(txs) / wave_ms * 1e3:.1f} CheckTx/s; OK "
+              f"{len(ok_txs)}, bad signature "
+              f"{len(txs) - len(ok_txs)}, resent after OVERLOADED {sheds}; "
+              f"spot-checked {len(spot)} against ed25519_ref; bulk rows "
+              f"{lanes['bulk']} in {len(flushes)} flushes (paths {paths}), "
+              f"rows a flush p50={statistics.median(r['rows'] for r in flushes)}"
+              f" max={max(r['rows'] for r in flushes)}; ed25519_verify "
+              f"launches {wave_l['ed25519_verify']}; admission "
+              f"{json.dumps(adm.stats()['counts'])}", flush=True)
+
+        # -- block production ----------------------------------------------
+        state = doc.make_state()
+        store.save(state)
+        last_commit = None
+        with capture_verify_rows(ed25519=kf) as block_rows:
+            zero_launches()
+            for h in range(1, APP_HEIGHTS + 1):
+                t = time.perf_counter()
+                extra = None
+                if h == APP_ROTATE_AT:
+                    for tx in rot_txs:
+                        r = mp_.check_tx(tx)
+                        check(r.code == 0, f"phase16 val tx refused: {r}")
+                    room = max_bytes - sum(len(tx) for tx in rot_txs)
+                    extra = rot_txs + mp_.reap(max_bytes=room)
+                block = ex.create_proposal_block(
+                    h, state, last_commit,
+                    state.validators.get_proposer().address, txs=extra)
+                bid = block.block_id()
+                propose_ms = (time.perf_counter() - t) * 1e3
+                t = time.perf_counter()
+                commit = signed_commit(pool, state.validators, bid, h,
+                                       seed_of)
+                sign_s = time.perf_counter() - t
+                n0 = len(plane.ledger.records())
+                l0 = kf.ed25519_verify.launches
+                t = time.perf_counter()
+                state = ex.apply_block(state, bid, block, validate=True)
+                apply_ms = (time.perf_counter() - t) * 1e3
+                recs = plane.ledger.records()[n0:]
+                blocks.save_block(block, commit)
+                applied[h] = (block, commit)
+                want_flush = [] if h == 1 else [("grouped", len(
+                    block.last_commit.signatures))]
+                check([(r["path"], r["rows"]) for r in recs] == want_flush
+                      and kf.ed25519_verify.launches - l0 == len(want_flush),
+                      f"phase16 height {h} flushes "
+                      f"{[(r['path'], r['rows']) for r in recs]}, want "
+                      f"{want_flush}")
+                if h == APP_ROTATE_AT:
+                    check(warmer.wait_idle(120.0),
+                          "phase16 the warmer never idled")
+                heights.append(dict(
+                    height=h, txs=len(block.data.txs),
+                    validate_ms=round(validate_ms[-1], 3),
+                    apply_ms=round(apply_ms, 3),
+                    update_ms=round(update_ms[-1], 3),
+                    propose_ms=round(propose_ms, 3),
+                    sign_s=round(sign_s, 3),
+                    flush=recs[0]["path"] if recs else None,
+                    flush_ms=round(sum(recs[0][k] for k in (
+                        "queued_ms", "pack_ms", "flight_ms", "collect_ms",
+                        "settle_ms")), 3) if recs else None))
+                last_commit = commit
+            torch.cuda.synchronize()
+            exec_l = read_launches()
+        wstats = warmer.stats()
+    finally:
+        set_global_plane(None)
+        clear_global_warmer(warmer)
+        warmer.stop()
+    check(not any(r.get("path") == "device_fault" for r in
+                  plane.ledger.records()), "phase16 a flush faulted")
+    want_exec = dict.fromkeys(exec_l, 0)
+    want_exec.update(ed25519_verify=APP_HEIGHTS - 1, valset_table_build=1)
+    check(exec_l == want_exec,
+          f"phase16 block production launches {exec_l}, want {want_exec}")
+    check(notified == [len(v0)] and wstats["builds_ok"] == 1
+          and wstats["builds_failed"] == 0,
+          f"phase16 warmer told of {notified}, stats {wstats}")
+    check(state.last_block_height == APP_HEIGHTS
+          and state.last_height_validators_changed == APP_ROTATE_AT + 2,
+          f"phase16 final height {state.last_block_height} lhvc "
+          f"{state.last_height_validators_changed}")
+    for h in range(2, APP_HEIGHTS + 1):
+        signers = {cs.validator_address
+                   for cs in applied[h][0].last_commit.signatures}
+        check(bool(signers & new_addrs) == (h > APP_ROTATE_AT + 2),
+              f"phase16 block {h}'s LastCommit signed by the new set: "
+              f"{bool(signers & new_addrs)}")
+    committed = {tx for b, _ in applied.values() for tx in b.data.txs}
+    check(not committed & set(mp_.reap()),
+          "phase16 the mempool still holds committed txs")
+    check(committed >= set(ok_txs) and mp_.size() == 0,
+          f"phase16 {len(set(ok_txs) - committed)} OK txs never committed, "
+          f"pool {mp_.size()}")
+    check(app._compute_app_hash(app.height) == app.app_hash == state.app_hash,
+          "phase16 the app hash is not its state's")
+    check(state_row(store.load()) == state_row(state),
+          "phase16 StateStore.load() != the final state")
+    for h, (b, c) in applied.items():
+        check(serde.block_to_json(blocks.load_block(h))
+              == serde.block_to_json(b)
+              and serde.commit_to_j(blocks.load_seen_commit(h))
+              == serde.commit_to_j(c)
+              and serde.commit_to_j(blocks.load_block_commit(h))
+              == serde.commit_to_j(c),
+              f"phase16 BlockStore height {h} != what was applied")
+    check(brk.trips == 0 and brk.faults == 0,
+          f"phase16 breaker trips={brk.trips} faults={brk.faults}")
+    # the warmer's table against the plain build on the same keys (a
+    # cache hit: no build)
+    b0 = ec.valset_table_build.launches
+    table = ec.table_for_valset(state.validators)
+    check(ec.valset_table_build.launches == b0,
+          "phase16 the rotated set's table was not the warmer's")
+    M = table.pub_raw.shape[0]
+    lenok = torch.zeros((M,), dtype=torch.bool, device=dev)
+    lenok[:len(state.validators)] = True
+    tab_p, ok_p = ec.valset_table_build_plain(table.pub_raw, lenok)
+    check(torch.equal(table.tab, tab_p),
+          f"phase16 the warmer's table != plain at M={M}")
+    points = kf.base_points(dev)
+    err_k, cols = hold_shapes_against_plain(
+        dev, kf.ed25519_verify, lambda r: kf.ed25519_verify_plain(r, points),
+        wave_rows["ed25519"] + block_rows["ed25519"])
+    check(err_k == 0, f"phase16 ed25519_verify != plain at {cols} cols")
+    # device time at both paths' shapes: the fullest BULK flush and a
+    # LastCommit
+    wave_i = max(range(len(flushes)), key=lambda i: flushes[i]["rows"])
+    shapes = {flushes[wave_i]["rows"]: wave_rows["ed25519"][wave_i],
+              len(last_commit.signatures): block_rows["ed25519"][-1]}
+    v_dev = {}
+    for live, rows_np in shapes.items():
+        rows = torch.as_tensor(rows_np).to(dev)
+        v_dev[live] = dev_ms(lambda: kf.ed25519_verify(rows),  # noqa: B023
+                             f"ed25519_verify_{live}_app_trace.json")
+        print(f"phase16 ed25519_verify cols={rows.shape[1]} live={live} "
+              f"device_ms={fmt_ms(v_dev[live])} kernel==plain", flush=True)
+    print(f"phase16 blocks 1-{APP_HEIGHTS}: launches {json.dumps(exec_l)} "
+          f"(one grouped ed25519_verify a LastCommit after height 1, the "
+          f"warmer's valset_table_build after the rotation at "
+          f"{APP_ROTATE_AT}: warmer={json.dumps(wstats)}; its table == plain "
+          f"at M={M}); ed25519_verify == plain at cols={cols}; mempool "
+          f"size 0, app_hash {state.app_hash.hex()[:16]}.. == recompute, "
+          f"StateStore and BlockStore equal to what was applied; per height "
+          + json.dumps(heights) + f" card={smi('name,power.limit')}",
+          flush=True)
+
+    # -- faults -------------------------------------------------------------
+    # a tampered LastCommit signature: refused, nothing changes
+    bad = copy.deepcopy(last_commit)
+    bad.signatures[APP_TAMPER_IDX].signature = flip(
+        bad.signatures[APP_TAMPER_IDX].signature, 17)
+    before = (state_row(store.load()), blocks.height(), app.app_hash,
+              app.height)
+    set_global_plane(plane)
+    try:
+        blk = ex.create_proposal_block(
+            APP_HEIGHTS + 1, state, bad,
+            state.validators.get_proposer().address)
+        tamper_err = None
+        try:
+            ex.apply_block(state, blk.block_id(), blk)
+        except InvalidSignatureError as e:
+            tamper_err = e
+    finally:
+        set_global_plane(None)
+        plane.stop()
+    check(tamper_err is not None and tamper_err.idx == APP_TAMPER_IDX,
+          f"phase16 the tampered LastCommit gave {tamper_err!r}")
+    check((state_row(store.load()), blocks.height(), app.app_hash,
+           app.height) == before, "phase16 a refused block changed state")
+
+    # a dispatch fault on a card plane: the row goes to verify_batch_direct
+    # on the card (ROADMAP C1), with the verdict the oracle gives
+    direct = []
+    real_direct = cbatch.verify_batch_direct
+
+    def spy(pubs, msgs, sigs, device=None, **kw):
+        direct.append((len(pubs), str(device)))
+        return real_direct(pubs, msgs, sigs, device=device, **kw)
+
+    fplane = VerifyPlane(window_ms=PLANE_WINDOW_MS,
+                         breaker=cbatch.CircuitBreaker(name="phase16-fault"))
+    fplane.start()
+    set_global_plane(fplane)
+    fmp = Mempool(KVStoreApplication(), verify_sigs=True)
+    cbatch.verify_batch_direct = spy
+    fault_codes = []
+    try:
+        for tx in fault_txs[:2]:
+            fp.arm("verifyplane.dispatch", "raise", count=1)
+            try:
+                fault_codes.append(fmp.check_tx(tx).code)
+            finally:
+                fp.reset()
+    finally:
+        cbatch.verify_batch_direct = real_direct
+        set_global_plane(None)
+        fplane.stop()
+    frecs = fplane.ledger.records()
+    check(fault_codes == [0, abci.CODE_TYPE_BAD_SIGNATURE]
+          and [r["path"] for r in frecs] == ["device_fault"] * 2
+          and direct == [(1, str(dev))] * 2 and brk.faults == 0,
+          f"phase16 dispatch fault: codes {fault_codes}, paths "
+          f"{[r['path'] for r in frecs]}, direct calls {direct}, breaker "
+          f"faults {brk.faults}")
+
+    # a BULK lane squeezed to one row: OVERLOADED with a retry hint, and
+    # the shed tx is accepted when it is sent again
+    splane = VerifyPlane(window_ms=60.0, bulk_window_ms=60.0,
+                         bulk_max_queue=1, bulk_deadline_ms=500.0,
+                         breaker=cbatch.CircuitBreaker(name="phase16-squeeze"))
+    splane.start()
+    set_global_plane(splane)
+    smp = Mempool(KVStoreApplication(), verify_sigs=True)
+    squeeze = fault_txs[2:]
+    try:
+        sq, sq_errs, sq_ms = storm(
+            APP_SQUEEZE_THREADS,
+            lambda k: [(tx, smp.check_tx(tx))
+                       for tx in squeeze[k::APP_SQUEEZE_THREADS]])
+        answers = dict(pair for v in sq.values() for pair in v)
+        shed = [tx for tx, r in answers.items()
+                if r.code == abci.CODE_TYPE_OVERLOADED]
+        hints = {answers[tx].retry_after_ms for tx in shed}
+        again = smp.check_tx(shed[0]).code if shed else None
+        sheds = splane.stats()["sheds"]
+    finally:
+        set_global_plane(None)
+        splane.stop()
+    check(not sq_errs and shed and len(shed) < len(squeeze)
+          and all("retry_after_ms=" in answers[tx].log for tx in shed)
+          and all(answers[tx].code == 0 for tx in squeeze if tx not in shed)
+          and hints == {500.0} and again == 0
+          and sheds["bulk"] >= len(shed) and sheds["consensus"] == 0,
+          f"phase16 squeezed lane: errors {sq_errs[:2]}, shed {len(shed)} "
+          f"of {len(squeeze)}, hints {hints}, resent {again}, sheds {sheds}")
+    print(f"phase16 faults: tampered LastCommit #{APP_TAMPER_IDX} -> "
+          f"{type(tamper_err).__name__}: {tamper_err} (state, stores and "
+          f"app unchanged); dispatch fault -> verify_batch_direct on "
+          f"{direct[0][1]} x{len(direct)}, codes {fault_codes}; squeezed "
+          f"BULK lane: {len(shed)} of {len(squeeze)} OVERLOADED (hint "
+          f"{sorted(hints)} ms), the shed tx resent -> {again}", flush=True)
+
+    restore_launches(exec_l)
+    k = kernel_stats["ed25519_verify"]
+    k["launches_by_path"]["mempool"] = wave_l["ed25519_verify"]
+    k["launches_by_path"]["execution"] = exec_l["ed25519_verify"]
+    k["max_abs_err"] = max(k["max_abs_err"], err_k)
+    k["device_ms_by_live"].update(v_dev)
+    kernel_stats["valset_table_build"]["launches_by_path"]["execution"] = (
+        exec_l["valset_table_build"])
+    return {"app_checktx_per_s": len(txs) / wave_ms * 1e3,
+            "app_validate_p50_ms": statistics.median(
+                r["validate_ms"] for r in heights[1:])}
+
+
 def int_ops_per_s() -> tuple:
     """(clocks.max.sm in MHz, INT32 multiply-adds per second of the card)."""
     mhz = smi("clocks.max.sm").split()[0]
@@ -4045,6 +4612,9 @@ def main() -> int:
         t = time.perf_counter()
         res.update(phase_gateway(dev, pool, res, kernel_stats))
         print(f"phase15 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        res.update(phase_app(dev, pool, rng, res, kernel_stats))
+        print(f"phase16 s={time.perf_counter() - t:.3f}", flush=True)
     brk = cbatch.device_breaker()
     check(brk.trips == 0 and brk.faults == 0, "breaker recorded a fault")
     print(json.dumps(kernels_json(kernel_stats)), flush=True)
@@ -4062,6 +4632,8 @@ def main() -> int:
           f"light_client_1_to_8_ms={res['lc_client_ms']:.3f} "
           f"catchup_blocks_per_s={res['catchup_blocks_per_s']:.1f} "
           f"gateway_64_clients_ms={res['gw_wave1_ms']:.3f} "
+          f"checktx_per_s={res['app_checktx_per_s']:.1f} "
+          f"lastcommit_validate_p50_ms={res['app_validate_p50_ms']:.3f} "
           f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print("nvidia-smi:", smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,19 +38,9 @@ def evidence_batch_fn(batch_fn: Optional[Callable] = None) -> Callable:
     plane (use_device=False) on the host; a DeviceError propagates."""
     if batch_fn is not None:
         return batch_fn
+    from cometbft_tpu_torch.verifyplane.plane import consensus_batch_fn
 
-    def fn(pubs, msgs, sigs):
-        from cometbft_tpu_torch.verifyplane import plane as vp
-
-        p = vp.global_plane()
-        if p is not None:
-            try:
-                return p.submit_and_wait(pubs, msgs, sigs)
-            except vp.PlaneError:
-                pass
-        return vp.verify_off_plane(p, pubs, msgs, sigs)
-
-    return fn
+    return consensus_batch_fn()
 
 
 def verify_duplicate_vote(

@@ -1,2 +1,2 @@
-"""Chain state (the port's counterpart of the JAX package's state/): only
-the validator-set serde the light store needs so far."""
+"""Chain state (the port's counterpart of the JAX package's state/):
+`State` and its sqlite store, and the block executor."""

@@ -1,0 +1,441 @@
+"""BlockExecutor: proposal creation, validation, and block application.
+
+Reference: state/execution.go — CreateProposalBlock (:109: mempool reap +
+PrepareProposal), ProcessProposal (:169), ApplyBlock (:211: FinalizeBlock
+-> validate updates -> save state -> Commit -> prune mempool),
+validateBlock / state/validation.go (header-vs-state checks :14-150 incl.
+the LastValidators.VerifyCommit full-power check :92).
+
+The port's copy of the JAX package's state/execution.py. One seam
+differs: with batch_fn=None, the JAX executor single-verifies every
+LastCommit signature on the host; the port's verifies them on the running
+verify plane's CONSENSUS lane, or on the card when no plane runs
+(verifyplane.consensus_batch_fn, as evidence verification does; a
+DeviceError propagates). Tests pass validation.device_batch_fn(device=
+"cpu"). A validator rotation hands the next set to the port's table
+warmer (verifyplane/warmer.py), a no-op when none is registered.
+"""
+from __future__ import annotations
+
+import logging
+from dataclasses import replace
+from typing import Callable, List, Optional
+
+from cometbft_tpu_torch.abci import types as abci
+from cometbft_tpu_torch.crypto import merkle
+from cometbft_tpu_torch.crypto.keys import PubKey
+from cometbft_tpu_torch.libs import protoenc as pe
+from cometbft_tpu_torch.state.state import State
+from cometbft_tpu_torch.types import validation
+from cometbft_tpu_torch.types.bft_time import median_time
+from cometbft_tpu_torch.types.block import Block, Data, Header
+from cometbft_tpu_torch.types.block_id import BlockID
+from cometbft_tpu_torch.types.commit import Commit
+from cometbft_tpu_torch.types.timestamp import Timestamp
+from cometbft_tpu_torch.types.validator import Validator
+from cometbft_tpu_torch.verifyplane import warmer as vp_warmer
+from cometbft_tpu_torch.verifyplane.plane import consensus_batch_fn
+
+_log = logging.getLogger(__name__)
+
+
+class ExecutionError(Exception):
+    pass
+
+
+def build_last_commit_info(last_commit, last_validators, height: int):
+    """execution.go:443 buildLastCommitInfo, shared by the live apply
+    path and handshake replay — the app MUST see identical CommitInfo on
+    both or replay diverges (consensus/replay.go:285's bug class)."""
+    if last_commit is None or not last_commit.signatures or \
+            last_validators is None:
+        return None
+    if len(last_commit.signatures) != len(last_validators):
+        # commit rows and the validator set they signed for must be
+        # 1:1; a mismatch means store/valset corruption, and feeding
+        # the app zero-power rows would silently corrupt incentive
+        # logic (execution.go:449 panics here too)
+        raise ExecutionError(
+            f"commit has {len(last_commit.signatures)} signatures but "
+            f"last_validators has {len(last_validators)} validators "
+            f"(height {height})"
+        )
+    votes = []
+    for i, cs in enumerate(last_commit.signatures):
+        val = last_validators.validators[i]
+        votes.append(abci.VoteInfo(
+            validator_address=val.address,
+            power=val.voting_power,
+            block_id_flag=cs.flag,
+        ))
+    return abci.CommitInfo(round=last_commit.round, votes=votes)
+
+
+def build_misbehavior(block) -> list:
+    """Evidence -> abci.Misbehavior (execution.go extended info)."""
+    out = []
+    for ev in block.evidence:
+        is_dup = hasattr(ev, "vote_a")
+        addr = (ev.vote_a.validator_address if is_dup else b"")
+        out.append(abci.Misbehavior(
+            type="duplicate_vote" if is_dup else "light_client_attack",
+            validator_address=addr,
+            height=ev.height,
+            time_seconds=ev.timestamp.seconds,
+            total_voting_power=ev.total_voting_power,
+        ))
+    return out
+
+
+def responses_to_j(resp: abci.ResponseFinalizeBlock) -> dict:
+    """JSON form of a FinalizeBlock response for the state store
+    (block_results RPC + reindexing read this back)."""
+    return {
+        "tx_results": [
+            {"code": r.code, "data": r.data.hex(), "log": r.log,
+             "gas_wanted": r.gas_wanted, "gas_used": r.gas_used,
+             "events": getattr(r, "events", None) or {}}
+            for r in resp.tx_results
+        ],
+        "validator_updates": [
+            {"pub_key": u.pub_key.hex(), "power": u.power,
+             "key_type": u.key_type}
+            for u in resp.validator_updates
+        ],
+        "app_hash": resp.app_hash.hex(),
+        "events": getattr(resp, "events", None) or {},
+    }
+
+
+def results_hash(tx_results: List[abci.ExecTxResult]) -> bytes:
+    """Merkle of deterministic ExecTxResult proto encodings
+    (abci/types/types.go TxResultsHash; only code/data/gas fields are
+    deterministic)."""
+    leaves = []
+    for r in tx_results:
+        body = pe.f_varint(1, r.code)
+        body += pe.f_bytes(2, r.data)
+        body += pe.f_varint(5, r.gas_wanted)
+        body += pe.f_varint(6, r.gas_used)
+        leaves.append(body)
+    return merkle.hash_from_byte_slices(leaves)
+
+
+class BlockExecutor:
+    """Drives blocks through the ABCI app and persists results.
+
+    The app connection is a direct Application reference (the in-process
+    local client, proxy/multi_app_conn.go's consensus conn analog).
+    `batch_fn` verifies each LastCommit; None is the running plane's
+    CONSENSUS lane, else the card (consensus_batch_fn).
+    """
+
+    def __init__(self, app: abci.Application, state_store,
+                 batch_fn: Optional[Callable] = None,
+                 mempool=None, evidence_pool=None, event_bus=None):
+        self.app = app
+        self.state_store = state_store
+        self.batch_fn = (batch_fn if batch_fn is not None
+                         else consensus_batch_fn())
+        self.mempool = mempool
+        self.evidence_pool = evidence_pool
+        self.event_bus = event_bus
+        # pruner hook: called with ResponseCommit.retain_height when the
+        # app requests pruning (state/pruner.go seam)
+        self.on_retain_height = None
+
+    # -- proposal ------------------------------------------------------------
+
+    def create_proposal_block(
+        self, height: int, state: State, last_commit: Optional[Commit],
+        proposer_address: bytes, txs: Optional[List[bytes]] = None,
+        block_time: Optional[Timestamp] = None,
+        extended_commit=None,
+    ) -> Block:
+        """execution.go:109 — reap txs, let the app reorder via
+        PrepareProposal, assemble the block. `extended_commit` (the
+        previous height's ExtendedCommit, when extensions are enabled)
+        surfaces the extensions to the app as local_last_commit
+        (execution.go:472 buildExtendedCommitInfo)."""
+        if txs is None:
+            txs = self.mempool.reap(
+                max_bytes=state.consensus_params.block.max_bytes,
+                max_gas=state.consensus_params.block.max_gas,
+            ) if self.mempool else []
+        llc = None
+        if extended_commit is not None and state.last_validators is not None:
+            # stored rows are trusted-ish but cheap to re-check: a
+            # corrupted extended commit must not reach the app
+            extended_commit.validate_basic(extensions_enabled=True)
+            votes = []
+            for i, e in enumerate(extended_commit.extended_signatures):
+                cs = e.commit_sig
+                val = (state.last_validators.validators[i]
+                       if i < len(state.last_validators) else None)
+                votes.append(abci.ExtendedVoteInfo(
+                    validator_address=(val.address if val
+                                       else cs.validator_address),
+                    power=val.voting_power if val else 0,
+                    block_id_flag=cs.flag,
+                    vote_extension=e.extension,
+                    extension_signature=e.extension_signature,
+                ))
+            llc = abci.ExtendedCommitInfo(
+                round=extended_commit.round, votes=votes
+            )
+        rpp = self.app.prepare_proposal(
+            abci.RequestPrepareProposal(
+                max_tx_bytes=state.consensus_params.block.max_bytes,
+                txs=list(txs), height=height,
+                proposer_address=proposer_address,
+                local_last_commit=llc,
+            )
+        )
+        if block_time is not None:
+            t = block_time
+        elif height == state.initial_height or last_commit is None \
+                or not last_commit.signatures:
+            t = state.last_block_time  # genesis time seeds the chain
+        else:
+            # BFT time (state/validation.go:123): block time is the
+            # voting-power-weighted median of LastCommit timestamps
+            t = median_time(last_commit, state.last_validators)
+        header = Header(
+            chain_id=state.chain_id,
+            height=height,
+            time=t,
+            last_block_id=state.last_block_id,
+            validators_hash=state.validators.hash(),
+            next_validators_hash=state.next_validators.hash(),
+            consensus_hash=state.consensus_params.hash(),
+            app_hash=state.app_hash,
+            last_results_hash=state.last_results_hash,
+            proposer_address=proposer_address,
+        )
+        evs = (self.evidence_pool.pending_evidence(
+                   state.consensus_params.evidence.max_bytes)
+               if self.evidence_pool else [])
+        block = Block(header, Data(list(rpp.txs)), last_commit,
+                      evidence=evs)
+        block.fill_header()
+        return block
+
+    def _build_last_commit_info(self, state: State, block: Block):
+        """execution.go:443 buildLastCommitInfo: who signed LastCommit,
+        with flags + power, for the app's incentive logic."""
+        return build_last_commit_info(
+            block.last_commit, state.last_validators,
+            block.header.height,
+        )
+
+    def _build_misbehavior(self, block: Block):
+        return build_misbehavior(block)
+
+    # -- vote extensions (execution.go:318 ExtendVote, :349 Verify) ---------
+
+    def extend_vote(self, height: int, round_: int,
+                    block_hash: bytes) -> bytes:
+        resp = self.app.extend_vote(abci.RequestExtendVote(
+            hash=block_hash, height=height, round=round_,
+        ))
+        return resp.vote_extension
+
+    def verify_vote_extension(self, vote) -> bool:
+        resp = self.app.verify_vote_extension(
+            abci.RequestVerifyVoteExtension(
+                hash=vote.block_id.hash,
+                validator_address=vote.validator_address,
+                height=vote.height,
+                vote_extension=vote.extension,
+            )
+        )
+        return resp.status == abci.VERIFY_VOTE_EXTENSION_ACCEPT
+
+    def process_proposal(self, block: Block, state: State) -> bool:
+        """execution.go:169 — ask the app to accept/reject."""
+        resp = self.app.process_proposal(
+            abci.RequestProcessProposal(
+                txs=list(block.data.txs), hash=block.hash() or b"",
+                height=block.header.height,
+                proposer_address=block.header.proposer_address,
+            )
+        )
+        return resp.status == abci.PROCESS_PROPOSAL_ACCEPT
+
+    # -- validation ----------------------------------------------------------
+
+    def validate_block(self, state: State, block: Block) -> None:
+        """state/validation.go:14-150 header-vs-state checks."""
+        block.validate_basic()
+        h = block.header
+        if h.chain_id != state.chain_id:
+            raise ExecutionError("wrong chain id")
+        if h.height != state.last_block_height + 1:
+            raise ExecutionError(
+                f"wrong height {h.height}, expected "
+                f"{state.last_block_height + 1}"
+            )
+        if h.last_block_id != state.last_block_id:
+            raise ExecutionError("wrong LastBlockID")
+        if h.validators_hash != state.validators.hash():
+            raise ExecutionError("wrong Header.ValidatorsHash")
+        if h.next_validators_hash != state.next_validators.hash():
+            raise ExecutionError("wrong Header.NextValidatorsHash")
+        if h.app_hash != state.app_hash:
+            raise ExecutionError("wrong Header.AppHash")
+        if h.last_results_hash != state.last_results_hash:
+            raise ExecutionError("wrong Header.LastResultsHash")
+        if not state.validators.has_address(h.proposer_address):
+            raise ExecutionError("proposer not in validator set")
+        # median-time rule (state/validation.go:123)
+        if h.height == state.initial_height:
+            if h.time != state.last_block_time:
+                raise ExecutionError(
+                    "block time for initial block must equal genesis time"
+                )
+        elif block.last_commit is not None and \
+                block.last_commit.signatures:
+            want = median_time(block.last_commit, state.last_validators)
+            if h.time != want:
+                raise ExecutionError(
+                    f"invalid block time: got {h.time}, median is {want}"
+                )
+        if block.evidence and self.evidence_pool is not None:
+            # every piece must verify and be neither committed nor
+            # expired (evidence/pool.go:192 CheckEvidence)
+            self.evidence_pool.check_evidence(block.evidence)
+        # full-power commit check against the set that signed it
+        # (state/validation.go:92)
+        if h.height > state.initial_height:
+            if block.last_commit is None:
+                raise ExecutionError("nil LastCommit")
+            validation.verify_commit(
+                state.chain_id, state.last_validators, state.last_block_id,
+                h.height - 1, block.last_commit, self.batch_fn,
+            )
+        elif block.last_commit and block.last_commit.signatures:
+            raise ExecutionError(
+                "initial block can't have LastCommit signatures"
+            )
+
+    # -- application ---------------------------------------------------------
+
+    def apply_block(
+        self, state: State, block_id: BlockID, block: Block,
+        validate: bool = True,
+    ) -> State:
+        """execution.go:211 ApplyBlock."""
+        if validate:
+            self.validate_block(state, block)
+        resp = self.app.finalize_block(
+            abci.RequestFinalizeBlock(
+                txs=list(block.data.txs), hash=block.hash() or b"",
+                height=block.header.height,
+                proposer_address=block.header.proposer_address,
+                time_seconds=block.header.time.seconds,
+                decided_last_commit=self._build_last_commit_info(
+                    state, block
+                ),
+                misbehavior=self._build_misbehavior(block),
+            )
+        )
+        if len(resp.tx_results) != len(block.data.txs):
+            raise ExecutionError("app returned wrong number of tx results")
+
+        new_state = self._update_state(state, block_id, block, resp)
+        if self.evidence_pool is not None:
+            self.evidence_pool.mark_committed(
+                block.header.height, block.header.time.seconds,
+                block.evidence,
+            )
+        self.state_store.save(new_state)
+        if hasattr(self.state_store, "save_abci_responses"):
+            # block_results + reindex source
+            # (state/store.go SaveFinalizeBlockResponse)
+            self.state_store.save_abci_responses(
+                block.header.height, responses_to_j(resp)
+            )
+        rc = self.app.commit()
+        if rc is not None and getattr(rc, "retain_height", 0) > 0 and \
+                self.on_retain_height is not None:
+            self.on_retain_height(rc.retain_height)
+        if self.mempool:
+            self.mempool.update(block.header.height, block.data.txs)
+        if self.event_bus is not None:
+            # fireEvents (execution.go:707): NewBlock + per-tx events
+            self.event_bus.publish_new_block(block, resp)
+            self.event_bus.publish_new_block_header(block.header)
+            for tx, txr in zip(block.data.txs, resp.tx_results):
+                self.event_bus.publish_tx(block.header.height, tx, txr)
+        return new_state
+
+    def _update_state(
+        self, state: State, block_id: BlockID, block: Block,
+        resp: abci.ResponseFinalizeBlock,
+    ) -> State:
+        """execution.go updateState (:560): rotate validator sets, apply
+        updates to next_validators (effective at H+2 — the +1 pipeline)."""
+        next_vals = state.next_validators.copy()
+        lhvc = state.last_height_validators_changed
+        if resp.validator_updates:
+            changes = [
+                Validator(PubKey(u.pub_key, u.key_type), u.power)
+                for u in resp.validator_updates
+            ]
+            # Robustness deviations from the reference (which panics
+            # here, halting the chain) — both filters are
+            # DETERMINISTIC (every honest node sees the same
+            # next_vals and the same updates, so every node drops the
+            # same entries), logged, and consensus-safe:
+            #  * duplicate addresses collapse to the LAST update (two
+            #    rotations of one validator in one block);
+            #  * a removal of a validator not in the set — e.g. a
+            #    rotation tx whose matching ADD was dropped under
+            #    overload — is filtered out instead of wedging
+            #    consensus on an unapplicable change set;
+            #  * a negative-power update (a buggy app) is likewise
+            #    dropped, not allowed to raise out of apply_block.
+            by_addr = {c.address: c for c in changes}
+            if len(by_addr) != len(changes):
+                _log.warning(
+                    "collapsing %d duplicate validator update(s) at "
+                    "height %d (last per address wins)",
+                    len(changes) - len(by_addr), block.header.height)
+                changes = list(by_addr.values())
+            dropped = [c for c in changes
+                       if c.voting_power < 0
+                       or (c.voting_power == 0
+                           and not next_vals.has_address(c.address))]
+            if dropped:
+                _log.warning(
+                    "dropping %d unapplicable validator update(s) at "
+                    "height %d (removal not in the set, or negative "
+                    "power — the app emitted an update the set "
+                    "cannot take)", len(dropped), block.header.height)
+                dropped_addrs = {c.address for c in dropped}
+                changes = [c for c in changes
+                           if c.address not in dropped_addrs]
+            if changes:
+                next_vals.update_with_change_set(changes)
+            lhvc = block.header.height + 1 + 1
+            # epoch rotation: hand the e+1 set to the async table
+            # warmer (verifyplane/warmer.py) so its device window
+            # tables build in the background while epoch e is still
+            # live — the first post-rotation commit then verifies
+            # against a warm cache instead of paying the build inline.
+            # Cheap no-op when no warmer is registered (simnet, tests).
+            vp_warmer.notify_next_valset(next_vals,
+                                         chain_id=state.chain_id)
+        next_vals.increment_proposer_priority(1)
+        return replace(
+            state,
+            last_block_height=block.header.height,
+            last_block_id=block_id,
+            last_block_time=block.header.time,
+            last_validators=state.validators.copy(),
+            validators=state.next_validators.copy(),
+            next_validators=next_vals,
+            last_height_validators_changed=lhvc,
+            app_hash=resp.app_hash,
+            last_results_hash=results_hash(resp.tx_results),
+        )

@@ -24,6 +24,7 @@ from cometbft_tpu_torch.verifyplane.plane import (
     VerifyFuture,
     VerifyPlane,
     clear_global_plane,
+    consensus_batch_fn,
     dump_flushes,
     flush_stats_for_seqs,
     global_plane,
@@ -67,6 +68,7 @@ __all__ = [
     "VerifyFuture",
     "VerifyPlane",
     "clear_global_plane",
+    "consensus_batch_fn",
     "clear_global_warmer",
     "global_warmer",
     "notify_next_valset",

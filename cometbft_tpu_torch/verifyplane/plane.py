@@ -754,6 +754,26 @@ def verify_off_plane(plane: Optional["VerifyPlane"], pubs, msgs,
         pubs, msgs, sigs, device=None if plane is None else plane.device)
 
 
+def consensus_batch_fn() -> Callable:
+    """batch_fn(pubs, msgs, sigs) -> (n,) bool for a caller given no
+    batch_fn (commit and evidence verification): the rows ride the
+    running global plane's CONSENSUS lane, resolved at each call; rows
+    the plane cannot take (a PlaneError) and every row when no plane runs
+    go to verify_off_plane (the plane's device, a host plane's host, else
+    the card). A DeviceError propagates (ROADMAP C1)."""
+
+    def fn(pubs, msgs, sigs):
+        p = global_plane()
+        if p is not None:
+            try:
+                return p.submit_and_wait(pubs, msgs, sigs)
+            except PlaneError:
+                pass
+        return verify_off_plane(p, pubs, msgs, sigs)
+
+    return fn
+
+
 def _device_fault(led, exc: BaseException):
     """A device plane's flush whose device pass faulted: record it on
     the flush's ledger record and raise the DeviceError its futures

@@ -1550,3 +1550,143 @@ def test_gateway_coalesces_and_takes_attack_evidence_on_the_card(card):
     assert {r["path"] for r in recs} == {"grouped"}
     assert ef.ecdsa_verify.launches - b0 == len(recs) > marks[1]
     assert brk.faults == 0
+
+
+# --------------------------------------------------------------------------
+# the application boundary and block execution on the card (-k "mempool
+# or executor")
+# --------------------------------------------------------------------------
+
+
+def test_mempool_sigtx_through_a_card_plane_bulk_lane(card):
+    """64 sigtx envelopes (one with a flipped signature byte) from 8
+    threads through Mempool.check_tx: their signatures ride a card plane's
+    BULK lane on grouped flushes, one ed25519_verify a flush; every code
+    is the built one."""
+    import threading
+
+    from cometbft_tpu_torch.abci import types as abci
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.crypto.batch import CircuitBreaker
+    from cometbft_tpu_torch.crypto.keys import PrivKey
+    from cometbft_tpu_torch.mempool import sigtx
+    from cometbft_tpu_torch.mempool.mempool import Mempool
+    from cometbft_tpu_torch.verifyplane import VerifyPlane, set_global_plane
+
+    privs = [PrivKey.generate(bytes([0x70 + k]) * 32) for k in range(8)]
+    txs = [sigtx.wrap(privs[i % 8], b"card-%d=v" % i) for i in range(64)]
+    bad = bytearray(txs[17])
+    bad[len(sigtx.MAGIC) + sigtx.PUB_LEN + 3] ^= 1
+    txs[17] = bytes(bad)
+    brk = CircuitBreaker()
+    plane = VerifyPlane(window_ms=1.0, breaker=brk)
+    plane.start()
+    set_global_plane(plane)
+    mp = Mempool(KVStoreApplication(), verify_sigs=True)
+    codes, b0 = {}, kf.ed25519_verify.launches
+    try:
+        def run(k):
+            for tx in txs[k::8]:
+                codes[tx] = mp.check_tx(tx).code
+
+        threads = [threading.Thread(target=run, args=(k,)) for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        set_global_plane(None)
+        plane.stop()
+    torch.cuda.synchronize()
+    recs = plane.ledger.records()
+    assert [codes[tx] for tx in txs] == [
+        abci.CODE_TYPE_BAD_SIGNATURE if i == 17 else abci.CODE_TYPE_OK
+        for i in range(64)]
+    assert plane.stats()["lane_rows"]["bulk"] == 64
+    assert {r["path"] for r in recs} == {"grouped"}
+    assert kf.ed25519_verify.launches - b0 == len(recs)
+    assert mp.size() == mp.gas_entries() == 63 and brk.faults == 0
+
+
+def test_block_executor_verifies_last_commits_on_the_card(card):
+    """Three heights of a BlockExecutor with batch_fn=None and no plane
+    over 16 validators: each LastCommit after height 1 is one
+    ed25519_verify on the card; height 1's val: txs rotate a validator,
+    and the card TableWarmer builds the next set's table (one
+    valset_table_build)."""
+    import base64
+
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.crypto.batch import CircuitBreaker
+    from cometbft_tpu_torch.crypto.keys import PrivKey
+    from cometbft_tpu_torch.mempool.mempool import Mempool
+    from cometbft_tpu_torch.ops import table_cache as tc
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.state import StateStore
+    from cometbft_tpu_torch.store.blockstore import BlockStore
+    from cometbft_tpu_torch.types.commit import (BLOCK_ID_FLAG_COMMIT,
+                                                 Commit, CommitSig)
+    from cometbft_tpu_torch.types.genesis import (GenesisDoc,
+                                                  GenesisValidator)
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.verifyplane import (TableWarmer,
+                                                clear_global_warmer,
+                                                global_plane,
+                                                set_global_warmer)
+
+    assert global_plane() is None
+    tc.reset_for_tests()
+    chain, t0 = "card-exec", 1_700_500_000
+    privs = [PrivKey.generate(bytes([0x90, i + 1]) + b"\x11" * 30)
+             for i in range(16)]
+    new = PrivKey.generate(b"\x9f" * 32)
+    by_addr = {p.pub_key().address(): p for p in privs + [new]}
+    doc = GenesisDoc(chain_id=chain, genesis_time=Timestamp(t0, 0),
+                     validators=[GenesisValidator(p.pub_key(), 10 + i)
+                                 for i, p in enumerate(privs)])
+    state = doc.make_state()
+    app = KVStoreApplication()
+    mp = Mempool(app, verify_sigs=False)
+    store, blocks = StateStore(), BlockStore()
+    ex = BlockExecutor(app, store, batch_fn=None, mempool=mp)
+    gone = state.validators.validators[-1].pub_key.data
+    for tx in (b"val:" + base64.b64encode(gone) + b"!0",
+               b"val:" + base64.b64encode(new.pub_key().data) + b"!30",
+               b"k=v"):
+        assert mp.check_tx(tx).code == 0
+    w = TableWarmer(breaker=CircuitBreaker())
+    assert w.device == card
+    w.start()
+    set_global_warmer(w)
+    l0, b0 = kf.ed25519_verify.launches, ec.valset_table_build.launches
+    last = None
+    try:
+        for h in (1, 2, 3):
+            block = ex.create_proposal_block(
+                h, state, last, state.validators.get_proposer().address)
+            bid = block.block_id()
+            commit = Commit(h, 0, bid, [
+                CommitSig(BLOCK_ID_FLAG_COMMIT, v.address,
+                          Timestamp(t0 + h, 1000 * i), b"")
+                for i, v in enumerate(state.validators.validators)])
+            for i, cs in enumerate(commit.signatures):
+                cs.signature = by_addr[cs.validator_address].sign(
+                    commit.vote_sign_bytes(chain, i))
+            state = ex.apply_block(state, bid, block)
+            blocks.save_block(block, commit)
+            last = commit
+            if h == 1:
+                assert w.wait_idle(120.0)
+        stats = w.stats()
+    finally:
+        clear_global_warmer(w)
+        w.stop()
+    torch.cuda.synchronize()
+    assert kf.ed25519_verify.launches - l0 == 2
+    assert ec.valset_table_build.launches - b0 == 1
+    assert (stats["builds_ok"], stats["builds_failed"]) == (1, 0)
+    assert state.last_height_validators_changed == 3
+    assert new.pub_key().address() in {cs.validator_address
+                                       for cs in last.signatures}
+    assert store.load().app_hash == state.app_hash == app.app_hash
+    assert blocks.height() == 3 and mp.size() == 0

@@ -82,7 +82,9 @@ def test_the_checks_cover_every_module_and_kernel_source():
     standard library. They also walk the main path's entry and the light
     client: the warmer, VoteSet, the block types and light/; and the
     catch-up engine, the evidence verifiers and pool, the light-client
-    gateway, the light proxy and what it imports."""
+    gateway, the light proxy and what it imports; and the application
+    boundary and block execution: abci/, mempool/, the genesis, params
+    and BFT-time types, store/ and the state store and executor."""
     from cometbft_tpu_torch.ops import _build
 
     mods = set(_modules())
@@ -100,7 +102,11 @@ def test_the_checks_cover_every_module_and_kernel_source():
               "crypto.proof_ops", "rpc", "rpc.client", "evidence",
               "evidence.verify", "evidence.pool", "lightgate",
               "lightgate.cache", "lightgate.gateway", "light.proxy",
-              "blocksync.catchup"):
+              "blocksync.catchup", "abci", "abci.types", "abci.kvstore",
+              "mempool", "mempool.sigtx", "mempool.admission",
+              "mempool.mempool", "types.bft_time", "types.params",
+              "types.genesis", "store", "store.blockstore",
+              "state.execution"):
         assert f"cometbft_tpu_torch.{m}" in mods
     csrc = PKG / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(_build.KERNELS)
