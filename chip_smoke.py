@@ -209,6 +209,25 @@ Phases (any failure exits non-zero and prints no result line):
      against plain on the rows both paths launched it on and timed by
      device time at both shapes; prints CheckTx/s and each height's
      validate, apply, update and LastCommit flush ms.
+ 17. the verify path over a mesh (parallel/mesh.py) of 8 slots of the card
+     (CBT_TORCH_DEVICE_SLOTS=8 for this phase only; each slot its own
+     stream): sharded_verify_tally_rows on phase 3's 10k commit (16,384
+     columns, 2,048 a slot), sharded_stream_verify on phase 6's
+     16-commit chunk (2 commits a slot) and sharded_stamp_rows on the
+     plane's deltas, each equal to the one-device launches bit for bit;
+     carry_quorum against its plain version on partials whose limbs all
+     carry; phase 11's 10,000 precommits through a card VerifyPlane with
+     mesh_devices=0, mesh_min_rows=1, pipeline_flights=2 and
+     half_mesh_rows=2,048: quorum, verdicts and tally as phase 11's, every
+     flush `fused_sharded` over a half's clamp (3 slots of 4,096, dev0 0
+     or 4), two flights airborne at once, launches exact; a burst of
+     3,200 precommits in one flush drains the deck and takes the full
+     mesh's clamp (0, 1, 2); a card TableWarmer warms phase 12's e+2
+     valset for both halves, whose first flushes are warm; a dispatch
+     fault fails its flush with DeviceError (`device_fault`); then one
+     flush over a half under the profiler (each slot's kernels and the
+     reduce) and carry_quorum's times beside torch.stack(...).sum(0).
+     The slots share one card's SMs, so these are not eight cards' times.
 Before the last line it prints the `kernels` JSON (launches on the main
 paths, in all and by path; times; bounds; for every kernel `device_ms`, from
 a profiler trace at its phase's shape, by live columns or by shape where a
@@ -224,6 +243,7 @@ counted. The circuit breaker must record no fault.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import multiprocessing as mp
 import os
@@ -487,9 +507,10 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def _traced(fn, name):
-    """(device events, wall ms) of fn() under torch.profiler; the trace is
-    kept under build/traces/<name>."""
+def _traced(fn, name, cats=("kernel", "gpu_memcpy", "gpu_memset")):
+    """(events of the categories `cats`, by default the device's, wall
+    ms) of fn() under torch.profiler; the trace is kept under
+    build/traces/<name>."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -505,8 +526,7 @@ def _traced(fn, name):
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
-    return [e for e in events if e.get("cat") in (
-        "kernel", "gpu_memcpy", "gpu_memset")], wall
+    return [e for e in events if e.get("cat") in cats], wall
 
 
 def trace_device_ms(fn, name):
@@ -1818,7 +1838,11 @@ def phase_stream(dev, pool, rng, kernel_stats):
            for key in ("device_ms", "ms", "ops")})
     return {"stream_blocks_per_s": STREAM_HEIGHTS / warm_s,
             "stream_sigs_per_s": n_sigs / warm_s,
-            "stream_sets": sets, "stream_seed_of": seed_of}
+            "stream_sets": sets, "stream_seed_of": seed_of,
+            # the 16-commit chunk (16,384 columns) phase 17 shards
+            "stream_chunk": (stamps[1]["rows"], captured[1]["table"],
+                             captured[1]["n_commits"],
+                             captured[1]["thresh"])}
 
 
 def phase_cached_commit(dev, res, kernel_stats):
@@ -3140,7 +3164,8 @@ def phase_voteset(dev, pool, rng, res, kernel_stats):
           f"(B={fk.B} M={fk.M} live={fk.live}); host-plane VoteSet over "
           f"votes {lo}-{hi - 1} s={host_s:.1f} (same outcomes and bits)",
           flush=True)
-    return {"vs_quorum_p50_ms": statistics.median(quorum_ms)}
+    return {"vs_quorum_p50_ms": statistics.median(quorum_ms),
+            "e2": (vs3, commit3)}
 
 
 # --------------------------------------------------------------------------
@@ -4459,6 +4484,632 @@ def phase_app(dev, pool, rng, res, kernel_stats):
                 r["validate_ms"] for r in heights[1:])}
 
 
+# --------------------------------------------------------------------------
+# phase 17: the verify plane over a mesh of slots of the card
+# --------------------------------------------------------------------------
+
+MESH_SLOTS = 8               # phase 17: CBT_TORCH_DEVICE_SLOTS
+MESH_HALF_ROWS = 2048        # phase 17: the plane's half_mesh_rows
+MESH_BURST = 3200            # phase 17: precommits of the giant flush
+MESH_LEAD = 64               # phase 17: precommits flying before the burst
+MESH_FAULT_VALS = (2048, 2304)  # phase 17: the dispatch fault's validators
+MESH_GATE_CYCLES = 100_000_000  # phase 17: the gate's spin (~50 ms)
+
+
+# a sharded flight's kernels, by symbol
+FLIGHT_SYMBOLS = {"stamp_rows_kernel": "stamp_rows",
+                  "ed25519_verify_cached": "ed25519_verify_cached",
+                  "tally_kernel": "tally_quorum_cached",
+                  "carry_quorum_kernel": "carry_quorum"}
+
+
+def slot_kernel_ms(events) -> dict:
+    """{kernel: (launches, device ms)} of a trace's kernel events, by the
+    kernel's symbol."""
+    out: dict = {}
+    for e in events:
+        if e["cat"] != "kernel":
+            continue
+        for sym, name in FLIGHT_SYMBOLS.items():
+            if sym in e.get("name", ""):
+                n, ms = out.get(name, (0, 0.0))
+                out[name] = (n + 1, ms + e.get("dur", 0) / 1e3)
+    return out
+
+
+def flight_groups(events) -> list:
+    """The sharded flights of a trace: its flight kernels (slot_kernel_ms's)
+    in launch (correlation) order, cut after each carry_quorum, as one
+    thread dispatches a flight's launches together. -> [(lead stream,
+    {streams}, [(start us, end us)])]; the carry runs on the lead."""
+    kern = sorted((e for e in events if e["cat"] == "kernel" and any(
+        k in e.get("name", "") for k in FLIGHT_SYMBOLS)),
+        key=lambda e: e["args"]["correlation"])
+    groups, cur = [], []
+    for e in kern:
+        cur.append(e)
+        if "carry_quorum_kernel" in e["name"]:
+            groups.append((e["args"]["stream"],
+                           {x["args"]["stream"] for x in cur},
+                           [(x["ts"], x["ts"] + x["dur"]) for x in cur]))
+            cur = []
+    return groups
+
+
+def stream_kernels(events) -> dict:
+    """{stream: {flight kernel: launches}} of a trace."""
+    out: dict = {}
+    for e in events:
+        for sym, name in FLIGHT_SYMBOLS.items():
+            if e["cat"] == "kernel" and sym in e.get("name", ""):
+                per = out.setdefault(e["args"]["stream"], {})
+                per[name] = per.get(name, 0) + 1
+    return out
+
+
+def _union(iv) -> list:
+    out: list = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def overlap_us(a, b) -> float:
+    """Microseconds in which some interval of `a` and some of `b` both
+    run."""
+    ua, ub = _union(a), _union(b)
+    tot, i, j = 0.0, 0, 0
+    while i < len(ua) and j < len(ub):
+        tot += max(0.0, min(ua[i][1], ub[j][1]) - max(ua[i][0], ub[j][0]))
+        if ua[i][1] < ub[j][1]:
+            i += 1
+        else:
+            j += 1
+    return tot
+
+
+def host_breakdown(events) -> dict:
+    """The CUDA runtime calls of a trace's busiest calling thread (the
+    plane's dispatcher): their count and ms, the most frequent, and the
+    host time between consecutive calls, split at 1 ms into time inside
+    a dispatch and time between flights."""
+    rt = [e for e in events if e.get("cat") == "cuda_runtime"]
+    if not rt:
+        return {}
+    tid = collections.Counter(e["tid"] for e in rt).most_common(1)[0][0]
+    rt = sorted((e for e in rt if e["tid"] == tid), key=lambda e: e["ts"])
+    gaps = [b["ts"] - (a["ts"] + a.get("dur", 0)) for a, b in zip(rt, rt[1:])]
+    return {"calls": len(rt), "call_ms": sum(e.get("dur", 0)
+                                             for e in rt) / 1e3,
+            "span_ms": (rt[-1]["ts"] - rt[0]["ts"]) / 1e3,
+            "top": collections.Counter(e["name"] for e in rt).most_common(6),
+            "gap_in_ms": sum(g for g in gaps if g <= 1000) / 1e3,
+            "gap_between_ms": sum(g for g in gaps if g > 1000) / 1e3,
+            "gap_launch_p50_us": statistics.median(
+                [g for a, g in zip(rt, gaps) if a["name"] == "cudaLaunchKernel"]
+                or [0])}
+
+
+def trace_breakdown(events, groups) -> dict:
+    """A trace's device time: kernel and copy counts and ms, the span from
+    the first device event to the last, the busy share of it, and the
+    overlap of the flights led by the two most frequent lead streams."""
+    def ms(ev):
+        return sum(e["dur"] for e in ev) / 1e3
+
+    events = [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    kern = [e for e in events if e["cat"] == "kernel"]
+    h2d = [e for e in events if e["cat"] == "gpu_memcpy"
+           and "HtoD" in e.get("name", "")]
+    d2h = [e for e in events if e["cat"] == "gpu_memcpy"
+           and "DtoH" in e.get("name", "")]
+    iv = [(e["ts"], e["ts"] + e["dur"]) for e in events]
+    span = (max(b for _, b in iv) - min(a for a, _ in iv)) / 1e3 if iv \
+        else 0.0
+    busy = sum(b - a for a, b in _union(iv)) / 1e3
+    leads = collections.Counter(g[0] for g in groups).most_common(2)
+    by_lead = [[x for g in groups if g[0] == ld for x in g[2]]
+               for ld, _ in leads]
+    return {"kernels": len(kern), "kernel_ms": ms(kern),
+            "h2d": len(h2d), "h2d_ms": ms(h2d), "d2h": len(d2h),
+            "d2h_ms": ms(d2h), "span_ms": span, "busy_ms": busy,
+            "idle_share": 1 - busy / span if span else None,
+            "flights": len(groups),
+            "halves_overlap_ms": overlap_us(*by_lead) / 1e3
+            if len(by_lead) == 2 else 0.0}
+
+
+def phase_mesh(dev, res, kernel_stats):
+    """Phase 17: the sharded steps and the plane's flight deck over
+    MESH_SLOTS slots of the card (parallel/mesh.py): the builders against
+    the one-device launches, carry_quorum against its plain version, phase
+    11's precommits through a plane whose flushes ride the deck's halves,
+    a giant flush over the full mesh, the warmer's sharded tables for
+    phase 12's e+2 rotation and a dispatch fault."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.libs import failpoints as fp
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+    from cometbft_tpu_torch.ops import table_cache as tc
+    from cometbft_tpu_torch.parallel import mesh as pm
+    from cometbft_tpu_torch.verifyplane import (FlushLedger, QuorumGroup,
+                                                TableWarmer, VerifyPlane,
+                                                notify_next_valset,
+                                                set_global_plane,
+                                                set_global_warmer)
+    from cometbft_tpu_torch.verifyplane import fused as fz
+    from cometbft_tpu_torch.verifyplane.plane import _Submission
+
+    def zero_mesh_launches():
+        zero_launches()
+        ek.carry_quorum.launches = 0
+
+    def read_mesh_launches():
+        return dict(read_launches(), carry_quorum=ek.carry_quorum.launches)
+
+    os.environ[pm.SLOTS_ENV] = str(MESH_SLOTS)
+    try:
+        slots = pm.local_devices(dev)
+        check(len(slots) == MESH_SLOTS and all(s.device == dev
+                                              for s in slots),
+              f"phase17 slots {slots}")
+        mesh8 = fz.plane_mesh(0, dev)
+        vs, bid, height, commit = res["fixture"]
+        pubs = tuple(v.pub_key.data for v in vs.validators)
+        powers = tuple(v.voting_power for v in vs.validators)
+        eff8 = fz.effective_mesh(mesh8, N_VALS)
+        halves = fz.half_meshes(mesh8)
+        eff_h = [fz.effective_mesh(h, N_VALS) for h in halves]
+        n_eff, m_s = eff8[1], eff8[2]
+        full_devs = tuple(range(n_eff))
+        half_devs = [full_devs, tuple(range(MESH_SLOTS // 2,
+                                            MESH_SLOTS // 2 + n_eff))]
+        check(eff8[0].indices == full_devs and n_eff >= 2
+              and [(e[0].indices, e[1], e[2]) for e in eff_h]
+              == [(d, n_eff, m_s) for d in half_devs],
+              f"phase17 layout {eff8} {eff_h}")
+
+        # (a) the builders against the one-device launches
+        t = time.perf_counter()
+        sigs = [cs.signature for cs in commit.signatures]
+        sigs[TAMPER_IDX] = flip(sigs[TAMPER_IDX], 40)
+        cols = kf.pad_to_tile(N_VALS)  # 16,384 at 10k
+        pb = ek.pack_batch(list(pubs), commit.sign_bytes_rows(CHAIN_ID),
+                           sigs, pad_to=cols)
+        p5 = np.zeros((cols, ek.POWER_LIMBS), np.int32)
+        p5[:N_VALS] = ek.power_limbs(np.asarray(powers, np.int64))
+        counted = np.arange(cols) < N_VALS
+        cids = np.zeros(cols, np.int32)
+        thresh = ek.threshold_limbs(sum(powers) * 2 // 3)
+        rows_t = torch.from_numpy(kf.pack_rows(pb, p5, counted, cids,
+                                               thresh)).to(dev)
+        one = kf.verify_tally_rows(rows_t, 1, device=dev)
+        rows_g = torch.from_numpy(kf.pack_rows(pb, p5, counted, cids)).to(
+            dev)
+        rows_step = pm.sharded_verify_tally_rows(mesh8, 1)
+        got = rows_step(rows_g, None, thresh)
+        check(all(torch.equal(a, b) for a, b in zip(got, one))
+              and int(got[0].sum()) == N_VALS - 1 and bool(got[2][0]),
+              "phase17 sharded_verify_tally_rows != one device")
+        # phase 6's second chunk (heights 65-80 in a launch of 64 commit
+        # slots): its first CHUNK_COMMITS commits, with the thresholds the
+        # rows carry for them
+        s_all, stable, _, s_thr_all = res["stream_chunk"]
+        s_c = CHUNK_COMMITS
+        srows = s_all[:, :s_c * stable.n_vals].contiguous()
+        s_thr = s_thr_all[:s_c]
+        one_s = ec.verify_tally_rows_cached(srows, stable, s_c)
+        stream_step = pm.sharded_stream_verify(mesh8, s_c)
+        got_s = stream_step(srows, stable.tab, stable.ok, stable.power5,
+                            None, s_thr)
+        check(srows.shape[1] // MESH_SLOTS == 2 * stable.n_vals,
+              f"phase17 stream chunk of {srows.shape[1]} columns")
+        check(all(torch.equal(a, b) for a, b in zip(got_s, one_s))
+              and not bool(got_s[2].all()),
+              "phase17 sharded_stream_verify != one device")
+        # the plane's delta rows, stamped a slot at a time, against the
+        # one-device stamp of the same deltas
+        subs = plane_subs(vs, commit)
+        g = QuorumGroup(1, "phase17-check", valset_pubs=pubs,
+                        valset_powers=powers)
+        batch = [_Submission(sb["rows"], g, sb["power"], True, sb["vidx"],
+                             stamp=sb["stamp"]) for sb in subs]
+        plan = fz.plan_fused(batch, device=dev, mesh=mesh8)
+        check(plan.stamped and plan.devs == full_devs
+              and plan.delta[0].shape[0] == n_eff * m_s,
+              "phase17 plan over the mesh")
+        sh_tab, _ = ec.sharded_table_for_pubs_info(pubs, powers, plan.mesh)
+        ent = es.template_entry(plan.sites, device=dev)
+        dsig, dts, dfl = (torch.from_numpy(a).to(dev) for a in plan.delta)
+        stamp_step = pm.sharded_stamp_rows(plan.mesh, ent.msg_max)
+        rows_m = stamp_step(dsig, dts, dfl, ent.pre_mat, ent.pre_len,
+                            ent.suf_mat, ent.suf_len, ent.ts_tag,
+                            sh_tab.pub_raw)
+        pub_all = torch.from_numpy(ec._pack_pub_arrays(
+            pubs, n_eff * m_s)[0]).to(dev)
+        rows_1 = es.stamp_rows(dsig, dts, dfl, ent, pub_all, torch.zeros(
+            (1, ek.TALLY_LIMBS), dtype=torch.int32, device=dev), 1)
+        check(torch.equal(rows_m, rows_1) and bool(rows_m.any()),
+              "phase17 sharded_stamp_rows != one-device stamp_rows")
+        # each builder's device ms (every slot's kernels and the reduce,
+        # summed from a profiler trace) and ms a call, beside the
+        # one-device launches of the same work
+        thr0 = torch.zeros((1, ek.TALLY_LIMBS), dtype=torch.int32,
+                           device=dev)
+        timed = {
+            "sharded_verify_tally_rows": (
+                lambda: rows_step(rows_g, None, thresh),
+                lambda: kf.verify_tally_rows(rows_t, 1, device=dev)),
+            "sharded_stream_verify": (
+                lambda: stream_step(srows, stable.tab, stable.ok,
+                                    stable.power5, None, s_thr),
+                lambda: ec.verify_tally_rows_cached(srows, stable, s_c)),
+            "sharded_stamp_rows": (
+                lambda: stamp_step(dsig, dts, dfl, ent.pre_mat,
+                                   ent.pre_len, ent.suf_mat, ent.suf_len,
+                                   ent.ts_tag, sh_tab.pub_raw),
+                lambda: es.stamp_rows(dsig, dts, dfl, ent, pub_all, thr0,
+                                      1)),
+        }
+        builder_ms = {
+            name: tuple(round(x, 6) if x is not None else None for x in (
+                dev_ms(fn, f"mesh_{name}_trace.json"), cuda_ms(fn, 10),
+                dev_ms(one_fn, f"one_{name}_trace.json"),
+                cuda_ms(one_fn, 10)))
+            for name, (fn, one_fn) in timed.items()}
+        # carry_quorum against plain on partials whose limbs all carry: at
+        # every slot and 5 commits, and at the plane's flush shape (a
+        # half's slots, one commit), where it is then timed
+        carry_err = 0
+        for n_d, c_n in ((MESH_SLOTS, 5), (n_eff, 1)):
+            parts = torch.full((n_d, c_n, ek.TALLY_LIMBS), 8191,
+                               dtype=torch.int32, device=dev)
+            pt, _ = ek.carry_quorum_plain(parts.cpu(), torch.zeros(
+                (c_n, ek.TALLY_LIMBS), dtype=torch.int32))
+            thr_c = pt.clone()
+            thr_c[1::2, 0] -= 1
+            thr_c = thr_c.to(dev)
+            tk, qk = ek.carry_quorum(parts, thr_c)
+            tpl, qpl = ek.carry_quorum_plain(parts, thr_c)
+            carry_err = max(carry_err, int((tk - tpl).abs().max()),
+                            int((qk != qpl).sum()))
+            check(carry_err == 0 and qk.tolist()
+                  == [k % 2 == 1 for k in range(c_n)],
+                  f"phase17 carry_quorum != plain at {n_d} x {c_n}")
+        ck = lambda: ek.carry_quorum(parts, thr_c)  # noqa: E731
+        builders_s = time.perf_counter() - t
+
+        # (b) the plane: flushes on the deck's halves, then a giant flush
+        brk = cbatch.CircuitBreaker(name="phase17")
+        plane = VerifyPlane(window_ms=PLANE_WINDOW_MS,
+                            max_batch=4 * PLANE_MAX_BATCH,
+                            max_queue=PLANE_MAX_QUEUE, mesh_devices=0,
+                            mesh_min_rows=1, pipeline_flights=2,
+                            half_mesh_rows=MESH_HALF_ROWS, breaker=brk)
+        check(plane.device == dev, f"phase17 plane device {plane.device}")
+        plane.ledger = FlushLedger(capacity=PLANE_LEDGER)
+        plans = []
+        real_dispatch = fz.dispatch_fused
+
+        def watch(p):
+            plans.append((p.devs, p.drain_first, len(p.batch)))
+            return real_dispatch(p)
+
+        tc.reset_for_tests()
+        want = [i != TAMPER_IDX for i in range(N_VALS)]
+        good = commit.signatures[TAMPER_IDX].signature
+        commit.signatures[TAMPER_IDX].signature = flip(good, 40)
+        try:
+            sub_t = plane_subs(vs, commit)
+        finally:
+            commit.signatures[TAMPER_IDX].signature = good
+        plane.start()
+        fz.dispatch_fused = watch
+        try:
+            zero_mesh_launches()
+            verdicts, group, quorum_ms, recs = plane_run(
+                plane, sub_t, pubs, powers)
+            torch.cuda.synchronize()
+            launches = read_mesh_launches()
+            check(quorum_ms is not None and verdicts == want
+                  and group.tally == sum(powers) - powers[TAMPER_IDX],
+                  "phase17 plane: quorum, verdicts or tally != phase 11's")
+            paths = {r["path"] for r in recs}
+            dev0s = {r["dev0"] for r in recs}
+            check(paths == {"fused_sharded"}
+                  and {r["n_dev"] for r in recs} == {n_eff}
+                  and dev0s == {half_devs[0][0], half_devs[1][0]}
+                  and max(r["airborne"] for r in recs) >= 1,
+                  f"phase17 ledger paths={paths} n_dev="
+                  f"{sorted({r['n_dev'] for r in recs})} dev0={dev0s} "
+                  f"airborne_max={max(r['airborne'] for r in recs)}")
+            n_fl = len(recs)
+            want_l = dict.fromkeys(launches, 0)
+            want_l.update(stamp_rows=n_eff * n_fl,
+                          ed25519_verify_cached=n_eff * n_fl,
+                          tally_quorum_cached=n_eff * n_fl,
+                          carry_quorum=n_fl, valset_table_build=2 * n_eff)
+            check(launches == want_l,
+                  f"phase17 launches {launches}, want {want_l}")
+            check([r["warm"] for r in recs].count(0) <= 2,
+                  "phase17 more than the two halves' first flushes cold")
+            # the same run again under the profiler: where a flush's time
+            # goes on the card, and no device-to-host copy but the
+            # collect's two (verdicts, tally) a flush
+            traced_run: list = []
+            zero_mesh_launches()
+            t_events, t_wall = _traced(lambda: traced_run.append(plane_run(
+                plane, sub_t, pubs, powers)), "mesh_plane_trace.json",
+                ("kernel", "gpu_memcpy", "gpu_memset", "cuda_runtime"))
+            t_launched = sum(n for k, n in read_mesh_launches().items()
+                             if k in FLIGHT_SYMBOLS.values())
+            t_recs = traced_run[0][3]
+            run_trace = trace_breakdown(t_events, flight_groups(t_events))
+            run_trace["in_trace"] = sum(sum(k.values()) for k in
+                                        stream_kernels(t_events).values())
+            run_host = host_breakdown(t_events)
+            check(traced_run[0][0] == want
+                  and run_trace["d2h"] <= 2 * len(t_recs),
+                  f"phase17 traced run: {len(t_recs)} flushes, trace "
+                  f"{run_trace}")
+            # the burst: a few precommits fly on a half, then one flush
+            # above half_mesh_rows drains the deck and takes the full mesh
+            burst_g = QuorumGroup(sum(powers) * 2 // 3 + 1, "phase17-burst",
+                                  valset_pubs=pubs, valset_powers=powers)
+            n_plans = len(plans)
+            lead = [plane.submit_many(group=burst_g, **sb)
+                    for sb in sub_t[:MESH_LEAD]]
+            wait_for = time.perf_counter() + PLANE_TIMEOUT_S
+            while len(plans) == n_plans:
+                check(time.perf_counter() < wait_for, "phase17 lead flush")
+                time.sleep(0.0005)
+            with plane._cv:  # one flush
+                burst = [plane.submit_many(group=burst_g, **sb)
+                         for sb in sub_t[MESH_LEAD:MESH_LEAD + MESH_BURST]]
+            bv = [f.result(PLANE_TIMEOUT_S)[0] for f in lead + burst]
+            check(bv == want[:MESH_LEAD + MESH_BURST],
+                  "phase17 burst verdicts")
+            giant = [p for p in plans[n_plans:] if p[2] >= MESH_BURST]
+            check(len(giant) == 1 and giant[0][0] == full_devs
+                  and giant[0][1], f"phase17 giant flush plans {giant}")
+            stats = plane.stats()
+        except BaseException:
+            plane.stop()
+            raise
+        finally:
+            fz.dispatch_fused = real_dispatch
+        deck_peak = stats["deck_peak"]
+
+        # (c) the warmer: e+2's sharded tables for both halves, warmed
+        vs3, commit3 = res["e2"]
+        pubs3 = tuple(v.pub_key.data for v in vs3.validators)
+        powers3 = tuple(v.voting_power for v in vs3.validators)
+        warmer = TableWarmer(breaker=brk)
+        warmer.start()
+        set_global_plane(plane)
+        set_global_warmer(warmer)
+        try:
+            hits0 = tc.STATS["warmed_hits"]
+            miss0 = tc.STATS["shard_misses"]
+            zero_launches()
+            notify_next_valset(vs3)
+            check(warmer.wait_idle(PLANE_TIMEOUT_S), "phase17 warmer idle")
+            warm_l = read_launches()
+            check(tc.STATS["shard_misses"] - miss0 == 2
+                  and warm_l["valset_table_build"] == 1 + 2 * n_eff,
+                  f"phase17 warmer builds {warm_l} shard_misses="
+                  f"{tc.STATS['shard_misses'] - miss0}")
+            v3, g3, q3, recs3 = plane_run(plane, plane_subs(vs3, commit3),
+                                          pubs3, powers3)
+            first = {}
+            for r in recs3:
+                first.setdefault(r["dev0"], r["warm"])
+            check(q3 is not None and all(v3)
+                  and first == {half_devs[0][0]: 1, half_devs[1][0]: 1}
+                  and tc.STATS["warmed_hits"] - hits0 == 2,
+                  f"phase17 e+2: quorum {q3}, first flush warm by half "
+                  f"{first}, warmed hits {tc.STATS['warmed_hits'] - hits0}")
+        except BaseException:
+            plane.stop()
+            raise
+        finally:
+            set_global_plane(None)
+            set_global_warmer(None)
+            warmer.stop()
+
+        # (d) a dispatch fault on the mesh plane
+        lo, hi = MESH_FAULT_VALS
+        fp.arm("verifyplane.dispatch", "raise", count=1)
+        try:
+            fv, _, _, frecs = plane_run(plane, sub_t[lo:hi], pubs, powers,
+                                        quorum=False)
+        finally:
+            fp.reset()
+            plane.stop()
+        fpaths = [r["path"] for r in frecs]
+        failed = [v for v in fv if v == "DeviceError"]
+        check(fpaths[0] == "device_fault"
+              and set(fpaths[1:]) <= {"fused_sharded"}
+              and len(failed) == frecs[0]["rows"] > 0
+              and all(v == want[lo + i] for i, v in enumerate(fv)
+                      if v != "DeviceError"),
+              f"phase17 fault run paths {fpaths}")
+        check(brk.faults == 0 and brk.trips == 0,
+              f"phase17 breaker faults={brk.faults}")
+
+        # the deck's halves on the card at once: both lead streams wait
+        # for a gate (a spin on a side stream) while a flight is
+        # dispatched on each half, so both are enqueued before either
+        # may start; once the gate opens, kernels of the two halves must
+        # overlap, which no stream of one flight ordered behind the other
+        # allows. CUDA events recorded on each slot's stream around its
+        # cached verify launch time the kernels (a profiler trace this
+        # late in the run can miss device events; it is kept for the
+        # report)
+        gate_plans = [fz.plan_fused(batch[:PLANE_MAX_BATCH], device=dev,
+                                    mesh=h) for h in halves]
+        for gp in gate_plans:
+            fz.dispatch_fused(gp)
+            fz.collect_fused(gp)
+        marks: list = []
+        real_launch = ec.launch_verify_cached
+
+        def marked_launch(*args):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = real_launch(*args)
+            ev[1].record()
+            marks.append(ev)
+            return out
+
+        gate_at: dict = {}
+
+        def gated():
+            gate = torch.cuda.Stream(dev)
+            ref, held = (torch.cuda.Event(enable_timing=True)
+                         for _ in range(2))
+            ref.record(gate)
+            with torch.cuda.stream(gate):
+                torch.cuda._sleep(MESH_GATE_CYCLES)
+            held.record(gate)
+            for gp in gate_plans:
+                pm.slot_stream(gp.mesh.slots[0]).wait_event(held)
+            for gp in gate_plans:
+                fz.dispatch_fused(gp)
+            gate_at.update(ref=ref, held=held, open=held.query())
+
+        ec.launch_verify_cached = marked_launch
+        try:
+            g_events, g_wall = _traced(gated, "mesh_halves_trace.json")
+        finally:
+            ec.launch_verify_cached = real_launch
+        g_verdicts = [fz.collect_fused(gp)[0] for gp in gate_plans]
+        gate_ms = gate_at["ref"].elapsed_time(gate_at["held"])
+        g_iv = [(gate_at["ref"].elapsed_time(a),
+                 gate_at["ref"].elapsed_time(b)) for a, b in marks]
+        g_overlap = overlap_us(g_iv[:n_eff], g_iv[n_eff:])
+        check(all(all(v) for v in g_verdicts) and len(g_iv) == 2 * n_eff
+              and not gate_at["open"]
+              and min(a for a, _ in g_iv) >= gate_ms and g_overlap > 0,
+              f"phase17 gated halves: gate {gate_ms:.3f} ms (open at the "
+              f"end of dispatch: {gate_at['open']}), verify intervals "
+              f"{[(round(a, 4), round(b, 4)) for a, b in g_iv]} ms, "
+              f"overlap {g_overlap:.6f} ms")
+        g_trace = stream_kernels(g_events)
+
+        # each slot's kernels and the reduce in a profiler trace of one
+        # flush over a half (3 slots), and carry_quorum's own times
+        hplan = fz.plan_fused(batch[:PLANE_MAX_BATCH], device=dev,
+                              mesh=halves[1])
+        fz.dispatch_fused(hplan)
+        torch.cuda.synchronize()
+        events, wall = _traced(lambda: fz.dispatch_fused(hplan),
+                               "mesh_flush_trace.json")
+        by_kernel = slot_kernel_ms(events)
+        carry_ms = cuda_ms(ck, 50)
+        carry_dev = dev_ms(ck, "carry_quorum_trace.json")
+        stack_fn = lambda: torch.stack(list(parts)).sum(0)  # noqa: E731
+        stack_dev = dev_ms(stack_fn, "carry_stack_trace.json")
+        t = time.perf_counter()
+        ek.carry_quorum_plain(parts, thr_c)
+        torch.cuda.synchronize()
+        carry_plain_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        del os.environ[pm.SLOTS_ENV]
+
+    n_shard = stats["shard_flushes"]
+    k = kernel_stats.setdefault("carry_quorum", dict(
+        launches_by_path={}, max_abs_err=0))
+    k["launches_by_path"]["mesh_plane"] = launches["carry_quorum"]
+    k["max_abs_err"] = max(k["max_abs_err"], carry_err)
+    k.update(ms=carry_ms, plain_ms=carry_plain_ms, device_ms=carry_dev,
+             library_device_ms=stack_dev,
+             library_ms=cuda_ms(stack_fn, 50),
+             # the timed shape's bytes (n_eff partial tallies of one
+             # commit and its threshold in, the tally and the bit out) and
+             # its int32 adds and carry steps
+             bytes=n_eff * 24 + 24 + 25,
+             ops=n_eff * ek.TALLY_LIMBS + 4 * (ek.TALLY_LIMBS - 1))
+    for name in ("stamp_rows", "ed25519_verify_cached",
+                 "tally_quorum_cached", "valset_table_build"):
+        kernel_stats[name]["launches_by_path"]["mesh_plane"] = \
+            launches[name]
+    rows = [r["rows"] for r in recs]
+    med = {c: statistics.median(r[c] for r in recs)
+           for c in ("dev_ms", "h2d_ms", "pack_ms", "collect_ms")}
+    per_slot = ", ".join(f"{n}: launches={c} device_ms={ms:.6f}"
+                         for n, (c, ms) in sorted(by_kernel.items()))
+    print(f"phase17 slots={MESH_SLOTS} of {torch.cuda.get_device_name(0)} "
+          f"(one card: the slots share its SMs, so these are not the times "
+          f"of {MESH_SLOTS} cards); flushes clamp to {n_eff} slots of "
+          f"{m_s}; builders == one device (rows {cols} cols, stream "
+          f"{srows.shape[1]} cols, stamp {n_eff * m_s} cols) "
+          f"s={builders_s:.3f}; carry_quorum == plain", flush=True)
+    print("phase17 builders (device_ms of all slots' kernels, ms a call; "
+          "the same work on one device): " + "; ".join(
+              f"{n} {b[0]} / {b[1]} vs one device {b[2]} / {b[3]}"
+              for n, b in builder_ms.items()), flush=True)
+    print(f"phase17 plane quorum_ms={quorum_ms:.3f} flushes={len(recs)} "
+          f"rows_per_flush p50={statistics.median(rows)} max={max(rows)} "
+          f"shard_flushes={n_shard} shard_rows={stats['shard_rows']} "
+          f"deck_peak={deck_peak} dev0={sorted(dev0s)} per-flush medians "
+          f"dev_ms={med['dev_ms']} h2d_ms={med['h2d_ms']} pack_ms="
+          f"{med['pack_ms']} collect_ms={med['collect_ms']}; giant flush "
+          f"rows={MESH_BURST} devs={full_devs} drain_first=True; e+2 warmed "
+          f"both halves (first flushes warm); dispatch fault -> "
+          f"DeviceError x{len(failed)}; card={smi('name,power.limit')}",
+          flush=True)
+    print(f"phase17 launches {json.dumps(launches)}", flush=True)
+    tr = run_trace
+    print(f"phase17 traced plane run (profiler on) wall_ms={t_wall:.3f} "
+          f"flushes={len(t_recs)}, the trace holds {tr['in_trace']} of "
+          f"{t_launched} flight kernel launches ({tr['flights']} flights): "
+          f"device span_ms={tr['span_ms']:.3f} "
+          f"busy_ms={tr['busy_ms']:.3f} idle_share={tr['idle_share']:.4f}; "
+          f"kernels={tr['kernels']} kernel_ms={tr['kernel_ms']:.6f}; "
+          f"HtoD copies={tr['h2d']} ms={tr['h2d_ms']:.6f}; DtoH copies="
+          f"{tr['d2h']} ms={tr['d2h_ms']:.6f}; halves' kernels overlap "
+          f"ms={tr['halves_overlap_ms']:.6f}; per-flush medians dev_ms="
+          f"{statistics.median(r['dev_ms'] for r in t_recs)} h2d_ms="
+          f"{statistics.median(r['h2d_ms'] for r in t_recs)} pack_ms="
+          f"{statistics.median(r['pack_ms'] for r in t_recs)}", flush=True)
+    if run_host:
+        print(f"phase17 traced plane run, the dispatcher thread: "
+              f"{run_host['calls']} CUDA runtime calls taking "
+              f"{run_host['call_ms']:.3f} ms of a {run_host['span_ms']:.3f} "
+              f"ms span, most frequent {run_host['top']}; host time between "
+              f"calls {run_host['gap_in_ms']:.3f} ms in gaps up to 1 ms (a "
+              f"dispatch's Python) and {run_host['gap_between_ms']:.3f} ms "
+              f"in longer ones (between flights); after a launch p50 "
+              f"{run_host['gap_launch_p50_us']:.1f} us", flush=True)
+    print(f"phase17 gated halves (a gate of {MESH_GATE_CYCLES} cycles, "
+          f"{gate_ms:.3f} ms): cached verify intervals after the gate, "
+          f"half {half_devs[0]} "
+          f"{[(round(a - gate_ms, 4), round(b - gate_ms, 4)) for a, b in g_iv[:n_eff]]}"
+          f" half {half_devs[1]} "
+          f"{[(round(a - gate_ms, 4), round(b - gate_ms, 4)) for a, b in g_iv[n_eff:]]}"
+          f" ms, overlap ms={g_overlap:.6f}; its trace holds "
+          f"{sum(sum(k.values()) for k in g_trace.values())} of "
+          f"{2 * (3 * n_eff + 1)} flight kernels ({g_trace})", flush=True)
+    print(f"phase17 one flush over {n_eff} slots (B="
+          f"{hplan.delta[0].shape[0]}, "
+          f"live={len(hplan.batch)}) wall_ms={wall:.3f}: {per_slot}; "
+          f"carry_quorum per call ms={carry_ms:.6f} device_ms="
+          f"{fmt_ms(carry_dev)} plain_ms={carry_plain_ms:.3f} "
+          f"torch.stack(parts).sum(0) device_ms={fmt_ms(stack_dev)}",
+          flush=True)
+    return {"mesh_quorum_ms": quorum_ms}
+
+
 def int_ops_per_s() -> tuple:
     """(clocks.max.sm in MHz, INT32 multiply-adds per second of the card)."""
     mhz = smi("clocks.max.sm").split()[0]
@@ -4500,6 +5151,21 @@ def kernels_json(kernel_stats):
         bound_by="operations" if ops_ms > bytes_ms else "bytes",
         library_ms=t["library_ms"], device_ms=t["device_ms"],
         library_device_ms=t["library_device_ms"],
+    ))
+    c = kernel_stats["carry_quorum"]
+    bytes_ms = c["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = c["ops"] / imad_per_s * 1e3
+    out.append(dict(
+        name="carry_quorum", route="cuda",
+        source="cometbft_tpu_torch/csrc/tally_quorum.cu",
+        replaces="cometbft_tpu/parallel/mesh.py:123",
+        launches=sum(c["launches_by_path"].values()),
+        launches_by_path=c["launches_by_path"],
+        max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+        bound_ms=max(ops_ms, bytes_ms),
+        bound_by="operations" if ops_ms > bytes_ms else "bytes",
+        library_ms=c["library_ms"], device_ms=c["device_ms"],
+        library_device_ms=c["library_device_ms"],
     ))
     sources = {
         "sr25519_verify": ("sr25519_verify.cu",
@@ -4615,6 +5281,9 @@ def main() -> int:
         t = time.perf_counter()
         res.update(phase_app(dev, pool, rng, res, kernel_stats))
         print(f"phase16 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        res.update(phase_mesh(dev, res, kernel_stats))
+        print(f"phase17 s={time.perf_counter() - t:.3f}", flush=True)
     brk = cbatch.device_breaker()
     check(brk.trips == 0 and brk.faults == 0, "breaker recorded a fault")
     print(json.dumps(kernels_json(kernel_stats)), flush=True)
@@ -4634,6 +5303,7 @@ def main() -> int:
           f"gateway_64_clients_ms={res['gw_wave1_ms']:.3f} "
           f"checktx_per_s={res['app_checktx_per_s']:.1f} "
           f"lastcommit_validate_p50_ms={res['app_validate_p50_ms']:.3f} "
+          f"mesh_plane_quorum_ms={res['mesh_quorum_ms']:.3f} "
           f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print("nvidia-smi:", smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

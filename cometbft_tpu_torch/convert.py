@@ -17,6 +17,12 @@ return the port's tensors:
                                  -> the port's ValsetTable (same entries,
                                  the port's layout), so both packages
                                  verify against one table;
+  sharded_table_from_jax(tab_i16, ok, power5, m_shard, n_dev, mesh,
+                         pub_raw)
+                                 the arrays of an
+                                 ed25519_cached.ShardedValsetTable, read
+                                 whole -> the port's per-slot tables on
+                                 the slots of a parallel/mesh.Mesh;
   secp_base_from_jax(t8, device) ecdsa_pallas.base_table8_np(), a
                                  (8192, 60) float32 array of 13-bit limbs
                                  of projective [d * 256^w]G -> the ECDSA
@@ -101,3 +107,35 @@ def valset_table_from_jax(tab_i16, ok, power5, n_vals: int,
         np.ascontiguousarray(np.asarray(power5, np.int32))).to(dev)
     return ec.ValsetTable(tab.reshape(M * ec.ENT_PER_VAL, 3, 10)
                           .contiguous().to(dev), ok_t, p5, M, device=dev)
+
+
+def sharded_table_from_jax(tab_i16, ok, power5, m_shard: int, n_dev: int,
+                           mesh, pub_raw=None) -> ec.ShardedValsetTable:
+    """A JAX ShardedValsetTable's global arrays (np.asarray of its `tab`,
+    `ok`, `power5` and `pub_raw`: shard d's rows follow shard d-1's) -> the
+    port's ShardedValsetTable, shard d converted by valset_table_from_jax
+    onto slot d's device of `mesh`."""
+    M = int(m_shard)
+    if mesh.size != n_dev:
+        raise ValueError(f"{n_dev} shards for a mesh of {mesh.size} slots")
+    t = np.asarray(tab_i16)
+    ok = np.asarray(ok).reshape(n_dev, M)
+    p5 = np.asarray(power5).reshape(n_dev, M, -1)
+    rows = t.shape[0] // n_dev
+    if rows * n_dev != t.shape[0]:
+        raise ValueError(f"table of {t.shape[0]} rows over {n_dev} shards")
+    prs = None if pub_raw is None else np.asarray(
+        pub_raw, np.uint8).reshape(n_dev, M, 32)
+    tabs, oks, p5s, pubs = [], [], [], []
+    for d, slot in enumerate(mesh.slots):
+        st = valset_table_from_jax(t[d * rows:(d + 1) * rows], ok[d], p5[d],
+                                   M, slot.device)
+        tabs.append(st.tab)
+        oks.append(st.ok)
+        p5s.append(st.power5)
+        if prs is not None:
+            pubs.append(torch.from_numpy(np.ascontiguousarray(prs[d]))
+                        .to(slot.device))
+    return ec.ShardedValsetTable(tabs, oks, p5s, M, n_dev,
+                                 pubs if prs is not None else None,
+                                 mesh.indices)

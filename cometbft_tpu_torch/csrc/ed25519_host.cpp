@@ -251,6 +251,15 @@ extern "C" int cbt_host_tally(int cached, const int32_t* valid,
                     tally, quorum);
 }
 
+// The mesh reduce of cbt_carry_quorum, a commit at a time.
+extern "C" void cbt_host_carry_quorum(const int32_t* parts, int n_dev,
+                                      int n_commits, const int32_t* thresh,
+                                      int32_t* tally, uint8_t* quorum) {
+  for (int k = 0; k < n_commits; k++)
+    cbt_tally::carry_quorum_commit(parts, n_dev, n_commits, k, thresh, tally,
+                                   quorum);
+}
+
 // The stamp's mod-L reduction on a 64-byte digest: in read as the digest's
 // big-endian state words, out the 32 little-endian bytes of (in mod L).
 extern "C" void cbt_host_sc_reduce(const uint8_t* in, uint8_t* out) {

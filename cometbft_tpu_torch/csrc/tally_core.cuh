@@ -1,11 +1,13 @@
 // The voting-power tally of csrc/tally_quorum.cu, in functions that build
 // for the card and for the host: loading a thread's columns, summing them
 // into runs of one commit id, the warp's combine, and the finish (carry to
-// canonical 13-bit limbs, strict compare with the threshold). The kernel
-// calls them; the host build (ed25519_host.cpp `cbt_host_tally`) runs the
-// kernel's own block and thread partition with them one step at a time,
-// so the CPU tests check the partition, the shared-memory cap and the
-// branch taken above it.
+// canonical 13-bit limbs, strict compare with the threshold); and the
+// cross-slot reduce of a mesh's partial tallies (`carry_quorum_commit`).
+// The kernels call them; the host build (ed25519_host.cpp
+// `cbt_host_tally`, `cbt_host_carry_quorum`) runs the kernels' own block
+// and thread partition with them one step at a time, so the CPU tests
+// check the partition, the shared-memory cap and the branch taken above
+// it, and the reduce's limb arithmetic.
 //
 // Every sum is of int32 limbs below 2^13 over at most 2^17 columns, so it
 // stays below 2^30: integer addition is exact in any order, and the
@@ -238,15 +240,11 @@ static inline void warp_combine_host(const int32_t cid[kWarp],
 }
 #endif
 
-// Commit c's finish: carry the five limb sums to six canonical 13-bit
-// limbs, then tally > threshold compared from the top limb down.
-CBT_TALLY_HD void finish_commit(const int32_t sum[kPowerLimbs],
-                                const int32_t* thresh, int32_t* tally,
-                                uint8_t* quorum) {
-  int32_t t[kTallyLimbs];
-#pragma unroll
-  for (int k = 0; k < kPowerLimbs; k++) t[k] = sum[k];
-  t[kPowerLimbs] = 0;
+// Carries six limb sums to canonical 13-bit limbs (each limb's carry into
+// the next; the top limb keeps the rest), then tally > threshold compared
+// from the top limb down.
+CBT_TALLY_HD void carry_compare(int32_t t[kTallyLimbs], const int32_t* thresh,
+                                int32_t* tally, uint8_t* quorum) {
 #pragma unroll
   for (int i = 0; i < kTallyLimbs - 1; i++) {
     const int32_t carry = t[i] >> 13;
@@ -262,6 +260,38 @@ CBT_TALLY_HD void finish_commit(const int32_t sum[kPowerLimbs],
 #pragma unroll
   for (int i = 0; i < kTallyLimbs; i++) tally[i] = t[i];
   *quorum = gt ? 1 : 0;
+}
+
+// Commit c's finish: the five limb sums, carried and compared.
+CBT_TALLY_HD void finish_commit(const int32_t sum[kPowerLimbs],
+                                const int32_t* thresh, int32_t* tally,
+                                uint8_t* quorum) {
+  int32_t t[kTallyLimbs];
+#pragma unroll
+  for (int k = 0; k < kPowerLimbs; k++) t[k] = sum[k];
+  t[kPowerLimbs] = 0;
+  carry_compare(t, thresh, tally, quorum);
+}
+
+// The cross-slot reduce of cbt_carry_quorum for commit k: parts is the
+// (n_dev, C, 6) partial tallies of the mesh's slots (canonical, so each
+// limb's sum stays below n_dev * 2^13 + the top limbs'), summed limb by
+// limb, then carried and compared with thresh's row k. Sums wrap modulo
+// 2^32, as the JAX psum's int32 sum does.
+CBT_TALLY_HD void carry_quorum_commit(const int32_t* parts, int n_dev, int C,
+                                      int k, const int32_t* thresh,
+                                      int32_t* tally, uint8_t* quorum) {
+  uint32_t s[kTallyLimbs] = {0, 0, 0, 0, 0, 0};
+  for (int d = 0; d < n_dev; d++) {
+    const int32_t* p = parts + ((size_t)d * C + k) * kTallyLimbs;
+#pragma unroll
+    for (int i = 0; i < kTallyLimbs; i++) s[i] += (uint32_t)p[i];
+  }
+  int32_t t[kTallyLimbs];
+#pragma unroll
+  for (int i = 0; i < kTallyLimbs; i++) t[i] = (int32_t)s[i];
+  carry_compare(t, thresh + (size_t)k * kTallyLimbs,
+                tally + (size_t)k * kTallyLimbs, quorum + k);
 }
 
 }  // namespace cbt_tally

@@ -11,6 +11,7 @@
 //   cbt_tally_quorum_cached  cached packed rows: power from the valset's
 //                            power5[b mod M], counted from V_FLAGS bit 2,
 //                            commit id V_FLAGS >> 3.
+// A third, cbt_carry_quorum, is the mesh's reduce (see its entry below).
 //
 // What bounds it on an H100: bytes, 24 B a column (general) or 8 B plus a
 // gathered 20 B power entry (cached), and at the main paths' sizes (B =
@@ -134,4 +135,47 @@ extern "C" int cbt_tally_quorum_cached(const int32_t* valid,
   return launch(CachedSrc{valid, rows, B, power5, M}, B, n_commits,
                 vector_loads(valid, rows, B), scratch, tally, quorum,
                 (cudaStream_t)stream);
+}
+
+// cbt_carry_quorum: the cross-slot reduce of a sharded step
+// (parallel/mesh.py), after each slot's tally kernel has written its
+// partial (C, 6) tally.
+//
+// Replaces: cometbft_tpu/parallel/mesh.py `jax.lax.psum` of the per-device
+// tallies + `_carry_tally` (:123) + `ed25519_kernel.quorum_core` (XLA,
+// after every shard_map builder's local tally).
+//
+// What bounds it on an H100: bytes, n_dev * C * 24 B of partials in, C *
+// 25 B out; at the plane's sizes (3 slots, a few commits) that is some
+// hundred bytes, so one launch is all its time. Design: one thread a
+// commit sums its limbs over the slots, carries and compares
+// (tally_core.cuh `carry_quorum_commit`); no scratch, no atomics.
+namespace {
+
+__global__ void __launch_bounds__(cbt_tally::kThreads)
+carry_quorum_kernel(const int32_t* __restrict__ parts, int n_dev, int C,
+                    const int32_t* __restrict__ thresh,
+                    int32_t* __restrict__ tally,
+                    uint8_t* __restrict__ quorum) {
+  const int k = blockIdx.x * cbt_tally::kThreads + threadIdx.x;
+  if (k < C)
+    cbt_tally::carry_quorum_commit(parts, n_dev, C, k, thresh, tally, quorum);
+}
+
+}  // namespace
+
+// parts: (n_dev, n_commits, 6) int32 partial tallies; thresh: (n_commits,
+// 6) int32; tally: (n_commits, 6) int32; quorum: (n_commits,) bool (one
+// byte each). Launches on `stream`, allocates nothing, does not
+// synchronise; returns the first CUDA error.
+extern "C" int cbt_carry_quorum(const int32_t* parts, int n_dev,
+                                int n_commits, const int32_t* thresh,
+                                int32_t* tally, uint8_t* quorum,
+                                void* stream) {
+  if (n_commits <= 0) return 0;
+  const int blocks =
+      (n_commits + cbt_tally::kThreads - 1) / cbt_tally::kThreads;
+  carry_quorum_kernel<<<blocks, cbt_tally::kThreads, 0, (cudaStream_t)stream>>>(
+      parts, n_dev, n_commits, thresh, tally, quorum);
+  return (int)cudaGetLastError();
 }

@@ -41,6 +41,7 @@ KERNELS = {
     "tally_quorum.cu": {
         "cbt_tally_quorum": [_P, _P, _I, _I, _P, _P, _P, _P],
         "cbt_tally_quorum_cached": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P],
+        "cbt_carry_quorum": [_P, _I, _I, _P, _P, _P, _P],
     },
     "valset_table.cu": {
         "cbt_valset_table_build_quad": [_P, _P, _I, _P, _P, _P, _P],
@@ -73,6 +74,7 @@ _HOST_FNS = {
                         _I, _P, _I, _I, _P], None),
     "cbt_host_sc_reduce": ([_P, _P], None),
     "cbt_host_tally": ([_I, _P, _P, _I, _P, _I, _I, _P, _P], ctypes.c_int),
+    "cbt_host_carry_quorum": ([_P, _I, _I, _P, _P, _P], None),
     "cbt_host_op_counts": ([ctypes.POINTER(ctypes.c_longlong)] * 2, None),
     "cbt_host_sha_blocks": ([], ctypes.c_longlong),
 }

@@ -31,7 +31,8 @@ canonical radix-2^25.5 limbs (the kernels' field layout). The JAX table
 holds the same points as (y - x, y + x, 2dt) in 13-bit int16 limbs, blocked
 by 128 validators; convert.valset_table_from_jax maps one onto the other.
 The packed-row ABI (`V_*`, `pack_rows_cached`) is byte for byte the JAX
-package's.
+package's. A sharded table (`ShardedValsetTable`) holds one such table a
+slot of a parallel/mesh.Mesh, each shard built on its slot's device.
 """
 from __future__ import annotations
 
@@ -656,6 +657,109 @@ def table_for_valset(vals, device=None) -> ValsetTable:
         _TABLE_STATS["valset_misses"] += 1
         _VALSET_MEMO.put(mkey, (vals, vals.validators, t))
     return t
+
+
+# --------------------------------------------------------------------------
+# sharded tables (the verify plane over a slot mesh, parallel/mesh.py)
+# --------------------------------------------------------------------------
+
+
+class ShardedValsetTable:
+    """One validator set's window table sharded over a slot mesh: slot d
+    holds the table, ok bits, power limbs and raw keys of validators
+    [d*m_shard, (d+1)*m_shard), each a tensor on slot d's device (`tab`,
+    `ok`, `power5` and `pub_raw` are tuples by slot). m_shard is a
+    table_pad bucket, which keeps the kernels' `column mod M -> validator`
+    map intact on every slot. `devs` are the slots' indices."""
+
+    __slots__ = ("tab", "ok", "power5", "m_shard", "n_dev", "pub_raw",
+                 "devs")
+
+    def __init__(self, tab, ok, power5, m_shard: int, n_dev: int,
+                 pub_raw=None, devs=None):
+        self.tab = tuple(tab)
+        self.ok = tuple(ok)
+        self.power5 = tuple(power5)
+        self.m_shard = m_shard
+        self.n_dev = n_dev
+        self.pub_raw = None if pub_raw is None else tuple(pub_raw)
+        self.devs = tuple(range(n_dev)) if devs is None else tuple(devs)
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes over every slot (table_cache sizes it by this)."""
+        return sum(int(t.nbytes) for part in (self.tab, self.ok, self.power5,
+                                               self.pub_raw or ())
+                   for t in part)
+
+
+def shard_stride(n_vals: int, n_dev: int) -> int:
+    """Per-slot table stride M_s for an n_vals valset over n_dev slots:
+    the table_pad bucket of the per-shard slice. Validator v lives on
+    slot v // M_s at local slot v % M_s; verifyplane/fused.plan_fused and
+    the table build agree on it through this one function."""
+    return table_pad(-(-max(n_vals, 1) // max(n_dev, 1)))
+
+
+# (content key, mesh key) -> ShardedValsetTable, bounded (tc.SHARDS)
+_SHARD_CACHE = tc.SHARDS
+
+
+def sharded_table_for_pubs_info(pub_bytes: Sequence[bytes], powers,
+                                mesh) -> Tuple[ShardedValsetTable, bool]:
+    """The per-slot window tables for (valset, mesh), memoized like
+    table_for_pubs: the content key rides the identity memo, so a steady
+    sharded flush uploads nothing. Counted under shard_hits /
+    shard_misses. Returns (table, warm), warm = a straight cache hit.
+
+    Each slot's shard (padded to exactly m_s slots with dead b"" keys of
+    power 0) is built on the slot's device by `build_table`, bypassing the
+    single-device LRU, so a shard never serves a single-device lookup."""
+    from cometbft_tpu_torch.parallel import mesh as pm
+
+    key = (_memo_cache_key(pub_bytes, powers), pm._mesh_key(mesh))
+    with _TABLE_LOCK:
+        t = _SHARD_CACHE.get(key)
+        if t is not None:
+            _TABLE_STATS["shard_hits"] += 1
+            # the warmer marks sharded builds apart from plain ones and
+            # per mesh: each half's first post-rotation flush attributes
+            # its own hit
+            tc.consume_warmed((key[0], "shard", key[1]))
+            return t, True
+        _TABLE_STATS["shard_misses"] += 1
+    n_dev = mesh.size
+    m_s = shard_stride(len(pub_bytes), n_dev)
+    tabs, oks, p5s, prs = [], [], [], []
+    for d, slot in enumerate(mesh.slots):
+        lo = d * m_s
+        chunk = list(pub_bytes[lo:lo + m_s])
+        chunk.extend(b"" for _ in range(m_s - len(chunk)))
+        pw = None
+        if powers is not None:
+            pw = list(powers[lo:lo + m_s])
+            pw.extend(0 for _ in range(m_s - len(pw)))
+        st = build_table(chunk, pw, slot.device)
+        tabs.append(st.tab)
+        oks.append(st.ok)
+        p5s.append(st.power5)
+        prs.append(st.pub_raw)
+    t = ShardedValsetTable(tabs, oks, p5s, m_s, n_dev, prs, mesh.indices)
+    with _TABLE_LOCK:
+        _SHARD_CACHE.put(key, t)
+    return t, False
+
+
+def sharded_table_for_pubs(pub_bytes: Sequence[bytes], powers,
+                           mesh) -> ShardedValsetTable:
+    return sharded_table_for_pubs_info(pub_bytes, powers, mesh)[0]
+
+
+def base60_repl(mesh) -> tuple:
+    """The [S]B comb table on each slot's device, the sharded steps'
+    `base` argument (`ed25519_fused.base_table`, uploaded once a
+    device)."""
+    return tuple(kf.base_table(s.device) for s in mesh.slots)
 
 
 # --------------------------------------------------------------------------

@@ -88,6 +88,46 @@ def pack_rows(pb, power5=None, counted=None, commit_ids=None,
     return rows
 
 
+def pack_rows_torch(B: int, device, pb=None, power5=None, counted=None,
+                    commit_ids=None, t_rows: int = 1) -> torch.Tensor:
+    """`pack_rows` on tensors, built on `device`: the (C_THRESH + t_rows, B)
+    int32 rows of `pb` (a tuple of the PackedBatch arrays ay, asign, ry,
+    rsign, sdig, hdig, precheck as tensors; None leaves the curve rows and
+    their flags zero) and the tally columns, with zero threshold rows. The
+    sharded steps (parallel/mesh.py) pack each slot's slice with it on the
+    slot's device. Power limbs are not checked (`pack_rows` checks them on
+    the host)."""
+    i32 = torch.int32
+    rows = torch.zeros((C_THRESH + t_rows, B), dtype=i32, device=device)
+    flags = torch.zeros((B,), dtype=i32, device=device)
+    if pb is not None:
+        ay, asign, ry, rsign, sdig, hdig, precheck = (
+            x.to(device=device, dtype=i32) for x in pb)
+        rows[C_AY:C_AY + 10] = (ay[:, :10] | (ay[:, 10:] << 13)).T
+        rows[C_RY:C_RY + 10] = (ry[:, :10] | (ry[:, 10:] << 13)).T
+        s8 = sdig[:, 0::2] + 16 * sdig[:, 1::2]
+        acc = torch.zeros((B, 8), dtype=i32, device=device)
+        for k in range(4):
+            acc |= s8[:, 8 * k:8 * k + 8] << (8 * k)
+        rows[C_S8:C_S8 + 8] = acc.T
+        acc = torch.zeros((B, 8), dtype=i32, device=device)
+        for k in range(8):
+            acc |= hdig[:, 8 * k:8 * k + 8] << (4 * k)
+        rows[C_H4:C_H4 + 8] = acc.T
+        flags |= asign | (rsign << 1) | (precheck << 2)
+    if counted is not None:
+        flags |= counted.to(device=device, dtype=i32) << 3
+    rows[C_FLAGS] = flags
+    if power5 is not None:
+        p = power5.to(device=device, dtype=i32)
+        rows[C_POW] = p[:, 0] | (p[:, 1] << 13)
+        rows[C_POW + 1] = p[:, 2] | (p[:, 3] << 13)
+        rows[C_POW + 2] = p[:, 4]
+    if commit_ids is not None:
+        rows[C_CID] = commit_ids.to(device=device, dtype=i32)
+    return rows
+
+
 def pad_to_tile(n: int) -> int:
     """Bucket size for the packed path: >= B_TILE and a multiple of it."""
     return max(ek.bucket_size(max(n, 1)), B_TILE)

@@ -1,5 +1,6 @@
-"""Host staging for batched ed25519 verification, and the plain voting-power
-tally.
+"""Host staging for batched ed25519 verification, the plain voting-power
+tally, and the mesh's reduce (`carry_quorum`, csrc/tally_quorum.cu
+`cbt_carry_quorum`, with its plain version `carry_quorum_plain`).
 
 Counterpart of the JAX package's ops/ed25519_kernel.py. The host side
 (SHA-512 challenge h = H(R||A||M) mod L, digit splits, the S < L
@@ -242,3 +243,75 @@ def quorum_core(tally, threshold):
         gt = gt | (eq & (tally[..., i] > threshold[..., i]))
         eq = eq & (tally[..., i] == threshold[..., i])
     return gt
+
+
+# --------------------------------------------------------------------------
+# carry_quorum: the cross-slot reduce of a sharded step (parallel/mesh.py)
+# --------------------------------------------------------------------------
+
+
+def carry_quorum_plain(partials, threshold):
+    """Plain PyTorch version of the reduce kernel: (n_dev, C, TALLY_LIMBS)
+    partial tallies + (C, TALLY_LIMBS) thresholds -> ((C, TALLY_LIMBS)
+    int32 canonical tally, (C,) bool quorum): the sum over slots (the JAX
+    package's psum), the limb re-carry (its `mesh._carry_tally`) and
+    `quorum_core`."""
+    t = partials.to(torch.int64).sum(0)
+    cols = list(t.unbind(-1))
+    for i in range(TALLY_LIMBS - 1):
+        c = cols[i] >> POWER_LIMB_BITS
+        cols[i] = cols[i] - (c << POWER_LIMB_BITS)
+        cols[i + 1] = cols[i + 1] + c
+    tally = torch.stack(cols, -1).to(torch.int32)
+    return tally, quorum_core(tally, threshold.to(torch.int32))
+
+
+def carry_quorum(partials: torch.Tensor, threshold: torch.Tensor):
+    """Sum of a mesh's (n_dev, C, TALLY_LIMBS) int32 partial tallies,
+    re-carried to canonical limbs, and the quorum bit (tally >
+    threshold) against the (C, TALLY_LIMBS) int32 thresholds -> ((C, 6)
+    int32 tally, (C,) bool quorum). CUDA tensors launch
+    csrc/tally_quorum.cu `cbt_carry_quorum` on the current stream; CPU
+    tensors run `carry_quorum_plain`.
+
+    Precondition, not checked here: the partials are canonical tallies of
+    the tally kernels, so every limb sum stays far below 2^31. The kernel's
+    int32 sums wrap as the JAX psum's do, the plain version's int64 sums
+    do not."""
+    if partials.dtype != torch.int32 or partials.dim() != 3 \
+            or partials.shape[2] != TALLY_LIMBS \
+            or not partials.is_contiguous():
+        raise ValueError(f"partials must be contiguous (n_dev, C, "
+                         f"{TALLY_LIMBS}) int32, got {partials.dtype} "
+                         f"{tuple(partials.shape)}")
+    n_dev, C = partials.shape[0], partials.shape[1]
+    if threshold.dtype != torch.int32 \
+            or tuple(threshold.shape) != (C, TALLY_LIMBS) \
+            or not threshold.is_contiguous():
+        raise ValueError(f"threshold must be contiguous ({C}, "
+                         f"{TALLY_LIMBS}) int32, got {threshold.dtype} "
+                         f"{tuple(threshold.shape)}")
+    if n_dev < 1:
+        raise ValueError("no partial tally to reduce")
+    dev = partials.device
+    if dev.type == "cpu" and threshold.device == dev:
+        return carry_quorum_plain(partials, threshold)
+    if dev.type != "cuda" or threshold.device != dev:
+        raise ValueError(f"no carry_quorum kernel for partials on {dev} and "
+                         f"thresholds on {threshold.device}")
+    from cometbft_tpu_torch.ops import _build
+
+    fn = _build.kernel_lib("tally_quorum.cu").cbt_carry_quorum
+    tally = torch.empty((C, TALLY_LIMBS), dtype=torch.int32, device=dev)
+    quorum = torch.empty((C,), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(partials.data_ptr(), n_dev, C, threshold.data_ptr(),
+                 tally.data_ptr(), quorum.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"carry_quorum launch failed: cudaError {err}")
+    carry_quorum.launches += 1
+    return tally, quorum
+
+
+carry_quorum.launches = 0

@@ -12,8 +12,9 @@ cache stack of ops/ed25519_cached.py routes through it:
   * a warmer can mark the keys it pre-built and the first lookup after a
     valset rotation attributes its hit honestly (``warmed_hits``).
 
-The multi-device sharded-table cache of the JAX package is not ported
-yet (it belongs with the multi-device slice).
+The sharded-table cache (``SHARDS``) holds one table a slot for each
+(valset, mesh) a sharded flush looked up (ops/ed25519_cached
+``sharded_table_for_pubs_info``).
 
 Thread-safety: callers synchronize on :data:`LOCK` (ed25519_cached
 routes every cache touch through it).
@@ -38,14 +39,16 @@ from typing import Callable, Iterator, Optional
 LOCK = threading.RLock()
 
 # steady-state observability + the hot path's regression guard: a
-# healthy consensus stream should be ~all hits. The evictions_* kinds
+# healthy consensus stream should be ~all hits. The shard_* kinds count
+# the per-mesh sharded-table cache; the evictions_* kinds
 # count entries each bounded cache dropped under churn pressure;
 # warmed_hits counts lookups answered by a table a warmer pre-built (the
 # first commit after a rotation, when the warmer won).
 STATS = {"hits": 0, "misses": 0, "key_memo_hits": 0,
          "valset_hits": 0, "valset_misses": 0,
+         "shard_hits": 0, "shard_misses": 0,
          "template_hits": 0, "template_misses": 0,
-         "evictions_tables": 0,
+         "evictions_tables": 0, "evictions_shard": 0,
          "evictions_valset_memo": 0, "evictions_key_memo": 0,
          "evictions_templates": 0,
          "warmed_hits": 0, "incremental_patches": 0}
@@ -54,7 +57,8 @@ STATS = {"hits": 0, "misses": 0, "key_memo_hits": 0,
 def default_size(value) -> int:
     """Best-effort byte size of a cached table: the device tensors'
     nbytes plus the host-side pubkey/power copies. Duck-typed so tests
-    can size fake tables through a bare ``nbytes`` attribute."""
+    can size fake tables through a bare ``nbytes`` attribute (a sharded
+    table has one: the sum over its slots)."""
     n = getattr(value, "nbytes", None)
     if isinstance(n, (int, float)):
         return int(n)
@@ -147,6 +151,10 @@ class BoundedLRU:
 # so this hits ~always; epoch churn inserts one new table per epoch
 # and the OLDEST retired epoch evicts.
 TABLES = BoundedLRU("tables", 8, size_fn=default_size)
+# (content key, mesh key) -> ShardedValsetTable: a node serves one live
+# valset per mesh in the steady state (two with the flight deck's
+# halves); churn evicts.
+SHARDS = BoundedLRU("shard", 4, size_fn=default_size)
 # id(pubs tuple) -> (pubs, powers, content key): the identity memo over
 # the O(valset) content digest. Entries pin the tuples themselves —
 # bounded so retired QuorumGroup valset tuples (10k pubkeys each) stop
@@ -165,8 +173,9 @@ VALSET_MEMO = BoundedLRU("valset_memo", 8)
 # the live template is never freed mid-flush.
 TEMPLATES = BoundedLRU("templates", 8, size_fn=default_size)
 
-_CACHES = {"tables": TABLES, "key_memo": KEY_MEMO,
-           "valset_memo": VALSET_MEMO, "templates": TEMPLATES}
+_CACHES = {"tables": TABLES, "shard_tables": SHARDS,
+           "key_memo": KEY_MEMO, "valset_memo": VALSET_MEMO,
+           "templates": TEMPLATES}
 
 
 def stats() -> dict:
@@ -178,12 +187,8 @@ def snapshot_values(kind: str) -> list:
     """The entries of one cache, snapshotted under :data:`LOCK`
     WITHOUT refreshing recency — the device observatory's residency
     sampler (libs/deviceledger) walks these to attribute per-device
-    bytes/slots; a scrape must never perturb eviction order. The JAX
-    package's "shard_tables" cache has no counterpart until the
-    multi-device slice, so it snapshots empty."""
+    bytes/slots; a scrape must never perturb eviction order."""
     with LOCK:
-        if kind == "shard_tables":
-            return []
         return list(_CACHES[kind]._od.values())
 
 
@@ -191,7 +196,7 @@ def resident_bytes() -> int:
     """Host+device bytes pinned by the TABLE caches (the memo caches
     pin only references whose owners are sized elsewhere)."""
     with LOCK:
-        return TABLES.resident_bytes()
+        return TABLES.resident_bytes() + SHARDS.resident_bytes()
 
 
 # -- warmer attribution ----------------------------------------------------

@@ -30,10 +30,27 @@ On a CPU device the same calls run the kernels' plain PyTorch versions
 dispatch -> collect end to end; there the outputs are computed when
 dispatch returns and `plan_ready` is True.
 
-Single device only: `plan_fused` takes no mesh. The sharded plan (the JAX
-package's `plane_mesh`, `half_meshes`, `effective_mesh`, `shard_positions`,
-per-shard tables and the cross-device tally) comes with the multi-device
-slice.
+Sharded flushes (the plane's mesh knobs): over a mesh of device slots
+(parallel/mesh.py), plan_fused lays the scattered rows out in per-slot
+blocks (validator v of stride s lands at ``d*B_loc + s*M_s + (v mod
+M_s)`` with d = v // M_s; shard_positions is the one home of that math),
+the valset's window table lives per slot (ed25519_cached
+.sharded_table_for_pubs), and dispatch_fused runs the mesh's
+sharded_stamped_verify (or sharded_fused_verify): each slot stamps,
+verifies and tallies its validators' signatures against its own table
+shard on its own stream, and `carry_quorum` reduces the partial tallies on
+the first slot's device, so the quorum bit is still a kernel output. A
+sharded flight is ordered on its lead stream (its first slot's), not on
+the device's shared default stream, so the deck's two halves never wait
+for each other on the device.
+
+The flight deck ([verify_plane] pipeline_flights): half_meshes splits the
+flush mesh into two disjoint halves on the same slot-prefix seam
+effective_mesh clamps through, and plan_fused carries the size-aware
+fan-out policy: a small flush rides the free half, while a flush past the
+half's per-slot budget (or over the half_mesh_rows knob) takes the full
+mesh and sets ``drain_first`` so the dispatcher lands the airborne deck
+before dispatching it.
 
 Staging is the JAX package's, byte for byte: the same pool slots with the
 same layouts (`delta_slot_specs`, `legacy_slot_specs`). The pool's buffers
@@ -42,6 +59,7 @@ are pageable host memory; the upload copies them before dispatch returns
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -122,17 +140,23 @@ class _Plan:
 
     __slots__ = ("rows", "pos", "batch", "groups", "sub_gid",
                  "counted_pos", "n_commits", "pubs_v", "powers_v",
-                 "pending", "n_dev", "thresh", "warm", "util",
+                 "pending", "mesh", "n_dev", "thresh", "devs",
+                 "drain_first", "warm", "util",
+                 # a sharded host-packed flush's per-slot column slices
+                 # of `rows`, in staging buffers of the pool
+                 "slot_rows",
                  # device-stamped delta staging: `stamped` selects the
                  # path, `delta` holds the (sig, ts, flags) staging
                  # buffers, `sites` the StampSites in template-id
                  # order, `delta_bytes` the staged delta footprint
                  # (rows is None on this path)
                  "stamped", "delta", "sites", "delta_bytes",
-                 # the torch device the flush runs on, and the CUDA
-                 # events recorded just before its first launch and
-                 # after its last (None on a CPU device)
-                 "device", "start", "event")
+                 # the torch device the flush runs on (a sharded
+                 # flush's first slot's), and the CUDA events recorded
+                 # on it just before the first launch and after the
+                 # last (None on a CPU device); a sharded CUDA flight's
+                 # uploads, held until collect_fused
+                 "device", "start", "event", "up")
 
 
 def _eligible(batch):
@@ -195,13 +219,125 @@ def _stamp_sites(stamp_meta, row_gid, max_sites: int):
     return tuple(sites), ids
 
 
-def plan_fused(batch, pool=None, device=None) -> Optional[_Plan]:
+def shard_positions(vidx, strides, m_shard: int,
+                    n_strides: int) -> np.ndarray:
+    """Row positions for the fused flush layout, one slot or many.
+
+    Validator v of stride s lands at ``d*B_loc + s*m_shard + (v mod
+    m_shard)`` where d = v // m_shard owns the validator's table shard and
+    B_loc = n_strides*m_shard is one slot's slice width. With one slot
+    m_shard is the whole padded valset and this is the classic
+    ``s*M + v``."""
+    v = np.asarray(vidx, np.int64)
+    s = np.asarray(strides, np.int64)
+    b_loc = n_strides * m_shard
+    return (v // m_shard) * b_loc + s * m_shard + (v % m_shard)
+
+
+# the plane's flush mesh, memoized per (slots, requested count): mesh
+# identity feeds the step and table memos downstream, so a fresh Mesh a
+# flush would defeat them
+_MESH_MEMO: dict = {}
+
+
+def plane_mesh(devices: int, device=None):
+    """The verify plane's flush mesh over the slots of `device` (None: the
+    CUDA card; parallel/mesh.local_devices): 0 = every slot, N caps at the
+    first N. None when fewer than 2 slots are usable: one device's
+    dispatch is strictly better then."""
+    from cometbft_tpu_torch.parallel import mesh as pm
+
+    slots = pm.local_devices(device)
+    n = len(slots) if not devices else min(int(devices), len(slots))
+    if n < 2:
+        return None
+    key = slots[:n]
+    m = _MESH_MEMO.get(key)
+    if m is None:
+        m = _MESH_MEMO[key] = pm.make_mesh(slots[:n])
+    return m
+
+
+# sub-meshes over a mesh's slots, memoized by the exact slot tuple
+# (effective_mesh clamps through prefixes; half_meshes slices the same
+# memo into the deck's disjoint halves)
+_SUBMESH_MEMO: dict = {}
+
+
+def _sub_mesh_devs(slots: tuple):
+    from cometbft_tpu_torch.parallel import mesh as pm
+
+    m = _SUBMESH_MEMO.get(slots)
+    if m is None:
+        m = _SUBMESH_MEMO[slots] = pm.make_mesh(list(slots))
+    return m
+
+
+def _sub_mesh(mesh, n_eff: int):
+    return _sub_mesh_devs(mesh.slots[:n_eff])
+
+
+def half_meshes(mesh) -> list:
+    """The flush mesh split into two DISJOINT halves for the pipelined
+    flight deck: lower half = slot prefix, upper half = the rest. Each
+    half needs >= 2 slots to run the sharded program on its own slots,
+    so meshes under 4 slots return [] and the deck stays single-flight
+    on the mesh."""
+    if mesh is None or mesh.size < 4:
+        return []
+    slots = mesh.slots
+    mid = len(slots) // 2
+    return [_sub_mesh_devs(slots[:mid]), _sub_mesh_devs(slots[mid:])]
+
+
+def effective_mesh(mesh, nvals: int):
+    """Clamp a flush mesh to the slots this valset actually fills.
+
+    shard_stride rounds the per-shard slice up to a table_pad bucket, and
+    the coarse buckets can leave trailing shards EMPTY: 10k validators
+    over 8 slots take a 4,096-slot stride, so slots 3-7 would stage and
+    verify pure padding on every flush. Shrinks the fan-out until every
+    shard holds validators (the fixpoint of n_eff = ceil(nvals / m_s)).
+
+    Returns (mesh-or-None, n_dev, m_shard); None means one device's
+    dispatch is strictly better (the whole valset fits one stride).
+    Raises ValueError when the valset exceeds even the full mesh's table
+    budget."""
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+
+    if mesh is None:
+        return None, 1, ec.shard_stride(nvals, 1)
+    n_eff = mesh.size
+    while True:
+        m_s = ec.shard_stride(nvals, n_eff)
+        need = -(-max(nvals, 1) // m_s)
+        if need >= n_eff:
+            break
+        n_eff = need
+    if n_eff < 2:
+        return None, 1, ec.shard_stride(nvals, 1)
+    if n_eff < mesh.size:
+        mesh = _sub_mesh(mesh, n_eff)
+    return mesh, n_eff, m_s
+
+
+def plan_fused(batch, pool=None, device=None, mesh=None, half=None,
+               half_max_rows: int = 0) -> Optional[_Plan]:
     """Host-side staging of the fused cached-table dispatch for a
     flush. Returns a _Plan, or None when the flush shape is ineligible
     — the caller then runs the generic grouped path. No device work
     happens here (dispatch_fused/collect_fused do that, under the
     breaker). `device` is where the flush will run (None: the CUDA card,
-    raising without one)."""
+    raising without one); `mesh` (a >1-slot parallel.mesh Mesh) selects
+    the sharded layout, None the one device.
+
+    `half` is the flight deck's fan-out offer: a free sub-mesh half the
+    flush should prefer so it can fly while the other half carries an
+    airborne flight. The half is taken when the valset and stride count
+    fit its per-slot budget AND the flush is under `half_max_rows` (0 =
+    budget only); otherwise the flush takes the full `mesh` and the
+    plan's ``drain_first`` tells the dispatcher to land the airborne deck
+    before dispatching it."""
     from cometbft_tpu_torch.device import resolve
 
     dev = resolve(device)
@@ -217,7 +353,9 @@ def plan_fused(batch, pool=None, device=None) -> Optional[_Plan]:
     from cometbft_tpu_torch.types import canonical
 
     # slot assignment: first free stride wins (a validator's vote and
-    # its extension land in different strides)
+    # its extension land in different strides); positions are computed
+    # after the walk, since a slot's slice width depends on the final
+    # stride count when the valset is sharded
     pubs: List[bytes] = []
     msgs: List[bytes] = []
     sigs: List[bytes] = []
@@ -266,15 +404,34 @@ def plan_fused(batch, pool=None, device=None) -> Optional[_Plan]:
     n_strides = len(occupied)
     if n == 0:
         return None
-    # validator v of stride s sits at column s*M + v of the padded table
-    M = ec.table_pad(max(nvals, 1))
-    if n_strides * M > MAX_FUSED_ROWS:
-        return None  # over the device's rows budget
-    B = n_strides * M
+    # fan-out policy. The rows budget is PER SLOT: each slot runs the
+    # kernels on its B/n_dev slice, so a sharded flush scales the cap
+    # with the mesh. effective_mesh clamps either choice to the slots
+    # the valset actually fills.
+    def _fit(m):
+        m2, nd, ms = effective_mesh(m, nvals)
+        if n_strides * ms > MAX_FUSED_ROWS:
+            raise ValueError("flush over the per-slot rows budget")
+        return m2, nd, ms
+
+    chosen = None
+    took_full = False
+    if half is not None and (not half_max_rows or n <= half_max_rows):
+        try:
+            chosen = _fit(half)
+        except ValueError:
+            chosen = None  # giant flush: the full mesh decides below
+    if chosen is None:
+        took_full = half is not None
+        try:
+            chosen = _fit(mesh)
+        except ValueError:
+            return None  # over even the full mesh's table budget
+    mesh, n_dev, M = chosen
+    B = n_dev * n_strides * M
 
     n_commits = len(groups)
-    pos = (np.asarray(row_s, np.int64) * M
-           + np.asarray(row_v, np.int64))
+    pos = shard_positions(row_v, row_s, M, n_strides)
     counted_pos = [None if ci is None else int(pos[ci])
                    for ci in counted_ridx]
     # rotating staging: the scatter targets and the final packed rows
@@ -318,6 +475,7 @@ def plan_fused(batch, pool=None, device=None) -> Optional[_Plan]:
         dfl = pool.get("fused.dflags", (B,), np.int32)
         dfl[pos] = fl_rows
         plan.rows = None
+        plan.slot_rows = None
         plan.stamped = True
         plan.delta = (dsig, dts, dfl)
         plan.sites = sites
@@ -350,10 +508,28 @@ def plan_fused(batch, pool=None, device=None) -> Optional[_Plan]:
 
         pb = ek.PackedBatch(n, B, None, None, ry, rsign, sdig, hdig,
                             precheck)
-        out = pool.get("fused.rows", ec.packed_rows_shape(B, n_commits),
-                       np.int32)
-        plan.rows = ec.pack_rows_cached(pb, counted, commit_ids, thresh,
-                                        out=out)
+        # sharded: thresholds ride the step's own argument (in-rows
+        # threshold rows would split into per-slot fragments), so the
+        # packed rows carry a zero threshold row; one device keeps them
+        # in the rows
+        out = pool.get(
+            "fused.rows",
+            ec.packed_rows_shape(B, 1 if mesh is not None else n_commits),
+            np.int32)
+        plan.rows = ec.pack_rows_cached(
+            pb, counted, commit_ids, None if mesh is not None else thresh,
+            out=out)
+        plan.slot_rows = None
+        if mesh is not None:
+            # per-slot staging: each slot's column slice, with zero
+            # threshold rows for n_commits, in its own pool buffer
+            b = B // n_dev
+            plan.slot_rows = []
+            for d in range(n_dev):
+                buf = pool.get(f"fused.rows.{d}",
+                               ec.packed_rows_shape(b, n_commits), np.int32)
+                buf[:ec.V_KROWS] = plan.rows[:ec.V_KROWS, d * b:(d + 1) * b]
+                plan.slot_rows.append(buf)
         plan.stamped = False
         plan.delta = None
         plan.sites = None
@@ -367,18 +543,24 @@ def plan_fused(batch, pool=None, device=None) -> Optional[_Plan]:
     plan.pubs_v = pubs_v
     plan.powers_v = powers_v
     plan.pending = None
-    plan.n_dev = 1
+    plan.mesh = mesh
+    plan.n_dev = n_dev
     plan.thresh = thresh
+    # slot indices this flush occupies (None = one device): the deck's
+    # disjointness bookkeeping and the ledger's dev0 column
+    plan.devs = None if mesh is None else mesh.indices
+    plan.drain_first = took_full
     # did the dispatch find its valset table cached? (set by
     # dispatch_fused; the plane stamps it into the ledger's warm column)
     plan.warm = False
     # rows-x-cost utilization: the fraction of the staged device pass
     # doing real work (n live rows over the B padded columns the kernel
-    # sweeps) — the ledger's util column
+    # sweeps across the whole fan-out) — the ledger's util column
     plan.util = round(n / B, 4) if B else 0.0
-    plan.device = dev
+    plan.device = dev if mesh is None else mesh.slots[0].device
     plan.start = None
     plan.event = None
+    plan.up = None
     return plan
 
 
@@ -420,37 +602,87 @@ def dispatch_fused(plan: _Plan) -> None:
     current stream, and record the plan's end event. Raises on
     dispatch-time faults (the caller's breaker handles those). The
     uploads copy the staging buffers before they return, so the pool may
-    rotate them at once."""
+    rotate them at once.
+
+    A mesh plan takes its per-slot tables from the sharded cache, uploads
+    each slot's slice of the staging to the slot's device, and runs the
+    mesh's sharded step on its lead stream (the first slot's stream),
+    which first waits for an event recorded after the uploads: every slot
+    stream waits for the lead, the lead waits for the slots before the
+    `carry_quorum` reduce, and the plan's two events, on the lead stream,
+    bracket all of it. Nothing of the flight is enqueued on the device's
+    shared stream after the uploads, so a flight on the deck's other half
+    does not queue behind it. The plan keeps the uploads until
+    collect_fused, since the shared stream no longer waits for the slots
+    that read them."""
     import torch
 
     from cometbft_tpu_torch.ops import ed25519_cached as ec
     from cometbft_tpu_torch.ops import ed25519_stamp as es
 
     dev = plan.device
-    # pubs_v/powers_v are the QuorumGroup's immutable tuples, so the
-    # content-key digest is identity-memoized (no per-flush O(valset)
-    # hashing) and a steady-state flush never re-uploads the valset
-    table, plan.warm = ec.table_for_pubs_info(plan.pubs_v, plan.powers_v,
-                                              device=dev)
-    if plan.stamped:
-        ent = es.template_entry(plan.sites, device=dev)
-        up = [torch.from_numpy(a).to(dev) for a in (*plan.delta,
-                                                    plan.thresh)]
+    mesh = plan.mesh
+    if mesh is None:
+        # pubs_v/powers_v are the QuorumGroup's immutable tuples, so the
+        # content-key digest is identity-memoized (no per-flush O(valset)
+        # hashing) and a steady-state flush never re-uploads the valset
+        table, plan.warm = ec.table_for_pubs_info(plan.pubs_v,
+                                                  plan.powers_v, device=dev)
+        if plan.stamped:
+            ent = es.template_entry(plan.sites, device=dev)
+            up = [torch.from_numpy(a).to(dev) for a in (*plan.delta,
+                                                        plan.thresh)]
+        else:
+            up = [torch.from_numpy(plan.rows).to(dev)]
     else:
-        up = [torch.from_numpy(plan.rows).to(dev)]
+        from cometbft_tpu_torch.parallel import mesh as pm
+
+        table, plan.warm = ec.sharded_table_for_pubs_info(
+            plan.pubs_v, plan.powers_v, mesh)
+        # each slot device's comb table, uploaded here (once a device)
+        # rather than inside the bracketed launches
+        base = ec.base60_repl(mesh)
+        thresh = torch.from_numpy(plan.thresh).to(dev)
+        if plan.stamped:
+            ent = es.template_entry(plan.sites, device=dev)
+            step = pm.sharded_stamped_verify(mesh, plan.n_commits,
+                                             ent.msg_max)
+            up = [pm.shard(mesh, a) for a in plan.delta]
+        else:
+            step = pm.sharded_fused_verify(mesh, plan.n_commits)
+            up = [pm.Sharded([torch.from_numpy(r).to(s.device) for r, s in
+                              zip(plan.slot_rows, mesh.slots)], axis=1)]
     # the events bracket the launches only, not the table fetch or the
     # uploads above
     if dev.type == "cuda":
         stream = torch.cuda.current_stream(dev)
+        if mesh is not None:
+            uploaded = torch.cuda.Event()
+            uploaded.record(stream)
+            stream = pm.slot_stream(mesh.slots[0])
+            stream.wait_event(uploaded)
+            plan.up = (up, thresh)
         plan.start = torch.cuda.Event(enable_timing=True)
         plan.start.record(stream)
-    if plan.stamped:
+    if mesh is None and plan.stamped:
         dsig, dts, dfl, thresh = up
         plan.pending = es.verify_tally_delta_cached(
             dsig, dts, dfl, ent, table, plan.n_commits, thresh)
-    else:
+    elif mesh is None:
         plan.pending = ec.verify_tally_rows_cached(up[0], table,
                                                    plan.n_commits)
+    else:
+        with torch.cuda.stream(stream) if dev.type == "cuda" \
+                else contextlib.nullcontext():
+            if plan.stamped:
+                dsig, dts, dfl = up
+                plan.pending = step(dsig, dts, dfl, ent.pre_mat,
+                                    ent.pre_len, ent.suf_mat, ent.suf_len,
+                                    ent.ts_tag, table.pub_raw, table.tab,
+                                    table.ok, table.power5, base, thresh)
+            else:
+                plan.pending = step(up[0], table.tab, table.ok,
+                                    table.power5, base, thresh)
     if dev.type == "cuda":
         plan.event = torch.cuda.Event(enable_timing=True)
         plan.event.record(stream)
@@ -466,6 +698,11 @@ def collect_fused(plan: _Plan) -> Tuple[List[bool], Dict[object, int]]:
     from cometbft_tpu_torch.ops import ed25519_kernel as ek
 
     fp.fail_point("verifyplane.collect")
+    if plan.up is not None:
+        # a sharded flight's outputs come from its lead stream, which the
+        # copies below (on the shared stream) do not wait for
+        plan.event.synchronize()
+        plan.up = None
     valid, tally, _quorum = plan.pending
     valid = valid.cpu().numpy()
     tallies_raw = ek.tally_to_int(tally.cpu().numpy())

@@ -29,16 +29,24 @@ Knobs ([verify_plane] config): window_ms bounds added latency,
 max_batch bounds device batch size (bucket padding reuses the compiled
 kernel shapes from ops/), max_queue bounds memory and provides
 backpressure — a full queue blocks submitters (or raises PlaneQueueFull
-for non-blocking callers, who then verify inline on the host). There is
-no mesh knob: the plane runs on one device until the multi-device slice
-brings the sharded plan.
+for non-blocking callers, who then verify inline on the host). The
+mesh knobs (mesh_devices / mesh_min_rows) shard eligible fused flushes
+over the device's slots (parallel/mesh.py): per-slot device-resident
+valset tables, the tally reduced on the device, the quorum still a
+kernel output (fused.py "Sharded flushes").
 
 Flight deck (pipeline_flights > 1): the dispatcher keeps up to K
-flushes airborne at once instead of a single in-flight slot, on the one
-device. Landing is out-of-order (fused.plan_ready probes the flush's
-CUDA event; flight k+1 finishing first never blocks behind k). The
-private staging pool is flights+1 deep per shape so pack(k+2) never
-waits on a buffer still in use under flight k.
+flushes airborne at once instead of a single in-flight slot. With a
+>=4-slot mesh the flush mesh splits into two DISJOINT halves
+(fused.half_meshes) and alternating flushes fly on alternating halves —
+while flush k verifies on one half, flush k+1 packs on the host and
+dispatches on the other. Landing is out-of-order (fused.plan_ready
+probes the flush's CUDA event; flight k+1 finishing first never blocks
+behind k), and the size-aware policy in fused.plan_fused sends a flush
+past one half's budget (or the half_mesh_rows knob) to the full mesh
+after draining the deck. The private staging pool is flights+1 deep per
+shape so pack(k+2) never waits on a buffer still in use under flight
+k.
 
 QoS lanes (overload resilience): every submission rides one of three
 priority classes.  CONSENSUS (the default: gossiped votes, commits,
@@ -158,6 +166,7 @@ LEDGER_CAPACITY = 256
 # flush dispatch paths (interned module constants — the ledger must not
 # build strings per flush)
 PATH_FUSED = "fused"                # cached-table device pass, airborne
+PATH_FUSED_SHARDED = "fused_sharded"  # sharded mesh pass, airborne
 PATH_GROUPED = "grouped"            # generic device pass (sync)
 PATH_HOST = "host"                  # no accelerator: inline host verify
 PATH_FAILPOINT = "failpoint_host"   # dispatch failpoint degraded flush
@@ -286,7 +295,7 @@ def _device_block(cols: dict) -> dict:
     from cometbft_tpu_torch.libs.quantiles import nearest_rank
 
     fused = [i for i, p in enumerate(cols["path"])
-             if p == PATH_FUSED]
+             if p in (PATH_FUSED, PATH_FUSED_SHARDED)]
 
     def pcts(name):
         xs = sorted(cols[name][i] for i in fused)
@@ -318,9 +327,10 @@ class FlushLedger:
     staging-pool misses charged to this flush, the queue depth left
     behind, the per-lane row split (c_rows CONSENSUS / g_rows GATEWAY /
     b_rows BULK), how many sheddable-lane submissions were shed at
-    this drain, the flush's device attribution: n_dev, n_host and dev0
-    (1, 1 and 0 here: one device; the JAX package's columns for its
-    sharded mesh pass, kept so the dumps read the same)
+    this drain, the flush's device attribution: n_dev (1 = one device
+    or the host, >1 = the sharded mesh pass), n_host (always 1) and dev0
+    (the first slot index of the flush's sub-mesh, so two deck flights
+    on disjoint halves are visibly disjoint in /dump_flushes)
     — and ``warm``: 1 when a fused flush found its valset window table
     already cached (LRU hit), 0 when it paid the build/patch inline
     (the cold first-commit-after-rotation stall the next-epoch table
@@ -409,7 +419,8 @@ class FlushLedger:
                 f"settle={r[_L_SETTLE]}ms"
                 + (f" x{r[_L_NDEV]}dev" if r[_L_NDEV] > 1 else "")
                 + (f" air={r[_L_AIR]}" if r[_L_AIR] else "")
-                + (" cold" if r[_L_PATH] == PATH_FUSED
+                + (" cold" if r[_L_PATH] in (PATH_FUSED,
+                                             PATH_FUSED_SHARDED)
                    and not r[_L_WARM] else "")
                 + (f" comp={r[_L_COMP]}ms" if r[_L_COMP] else "")
             )
@@ -498,9 +509,11 @@ class FlushLedger:
             # exists to keep this 0 across epochs)
             "tables": {
                 "warm": sum(1 for p, w in zip(cols["path"], cols["warm"])
-                            if w and p == PATH_FUSED),
+                            if w and p in (PATH_FUSED,
+                                           PATH_FUSED_SHARDED)),
                 "cold": sum(1 for p, w in zip(cols["path"], cols["warm"])
-                            if not w and p == PATH_FUSED),
+                            if not w and p in (PATH_FUSED,
+                                               PATH_FUSED_SHARDED)),
             },
         }
 DEFAULT_RESULT_TIMEOUT = 30.0
@@ -693,19 +706,21 @@ class _Flight:
     """One staged flush on the dispatcher's deck: the submissions, the
     deferred finish() that blocks for verdicts, whether a device pass
     is genuinely airborne, the flush id, the ledger scratch record,
-    and an optional non-blocking readiness probe for out-of-order
-    landing."""
+    the slot indices the pass occupies (None = one device or the host:
+    the deck's disjoint-halves bookkeeping), and an optional
+    non-blocking readiness probe for out-of-order landing."""
 
-    __slots__ = ("batch", "finish", "airborne", "fid", "led", "ready",
-                 "pack_idx")
+    __slots__ = ("batch", "finish", "airborne", "fid", "led", "devs",
+                 "ready", "pack_idx")
 
-    def __init__(self, batch, finish, airborne, fid, led, ready=None,
-                 pack_idx=0):
+    def __init__(self, batch, finish, airborne, fid, led, devs=None,
+                 ready=None, pack_idx=0):
         self.batch = batch
         self.finish = finish
         self.airborne = airborne
         self.fid = fid
         self.led = led
+        self.devs = devs
         self.ready = ready
         # per-plane pack ordinal: the staging pool rotates flights+1
         # slots round-robin, so pack m reuses pack m-(flights+1)'s
@@ -804,8 +819,11 @@ class VerifyPlane:
                  gateway_window_ms: Optional[float] = None,
                  gateway_max_queue: Optional[int] = None,
                  gateway_deadline_ms: float = 500.0,
+                 mesh_devices: Optional[int] = None,
+                 mesh_min_rows: int = 256,
                  pipeline_flights: int = 1,
                  pipeline_flights_max: Optional[int] = None,
+                 half_mesh_rows: int = 0,
                  tenants=None, device=None):
         from cometbft_tpu_torch.crypto import batch as cbatch
         from cometbft_tpu_torch.device import resolve
@@ -893,15 +911,33 @@ class VerifyPlane:
             tenants = TenantRegistry()
         self.tenants = tenants
         self._pending_tenant_rows: dict = {lane: {} for lane in LANES}
-        # flight deck: up to `flights` flushes airborne at once
+        # sharded dispatch ([verify_plane] mesh knobs): mesh_devices None
+        # = one device; 0 = shard fused flushes over ALL the device's
+        # slots (parallel/mesh.local_devices); N = cap at N.
+        # mesh_min_rows keeps tiny flushes on one device — a sharded
+        # pass only pays off once each slot's slice is worth its reduce.
+        self._mesh_devices = (None if mesh_devices is None
+                              else max(0, int(mesh_devices)))
+        self.mesh_min_rows = max(0, int(mesh_min_rows))
+        self._mesh = None          # resolved lazily, once
+        self._mesh_resolved = False
+        self.shard_flushes = 0     # flushes dispatched over a mesh
+        self.shard_rows = 0        # rows those flushes carried
+        self.mesh_ndev = 0         # resolved fan-out (0 = one device)
+        # flight deck (pipelined mesh halves): up to `flights` flushes
+        # airborne at once; with a >=4-slot mesh they alternate over
+        # disjoint halves (resolved with the mesh). half_mesh_rows is
+        # the policy knob: a flush over it takes the full mesh.
         self.flights = max(1, int(pipeline_flights))
         # controller ceiling: the deck may GROW to flights_max at
         # runtime (libs/controller), so everything sized at
-        # construction (the staging pool) must be sized for
+        # construction (staging pool, mesh halves) must be sized for
         # the ceiling, not the starting value — a live grow must never
         # alias staging buffers
         self.flights_max = max(self.flights,
                                int(pipeline_flights_max or 0))
+        self.half_mesh_rows = max(0, int(half_mesh_rows))
+        self._halves: list = []    # resolved with the mesh
         self.deck_airborne = 0     # flights airborne right now
         self.deck_peak = 0         # deepest the deck ever got
         self._packs = 0            # pack ordinal (rotation-window bound)
@@ -1365,10 +1401,12 @@ class VerifyPlane:
             while deck and deck[0].pack_idx <= self._packs - self.flights:
                 self._finish_flight(deck.pop(0))
                 self._deck_update(deck)
-            flight = self._stage(batch, depth, shed_n=len(shed))
-            # flights in the air at dispatch time: the ledger's airborne
-            # column and the overlap counter — a real overlap means this
-            # flush packed on the host while >=1 flight flew on the device
+            flight = self._stage(batch, depth, shed_n=len(shed),
+                                 deck=deck)
+            # flights in the air at dispatch time (after any drain the
+            # fan-out policy forced): the ledger's airborne column and
+            # the overlap counter — a real overlap means this flush
+            # packed on the host while >=1 flight flew on the device
             air = len(deck)
             flight.led[_L_AIR] = air
             if air:
@@ -1503,6 +1541,28 @@ class VerifyPlane:
         if self.metrics is not None:
             self.metrics.plane_deck_airborne.set(float(n))
 
+    def _pick_half(self, deck: List[_Flight]):
+        """The sub-mesh half the next fused flush should prefer: a half
+        with NO airborne flight (disjoint slots — both halves fly at
+        once), else the OLDEST flight's half (it lands soonest; the new
+        flush queues behind it on that half, as the classic single slot
+        queued behind the one in-flight pass). Disjointness is by slot
+        index: two halves of slots of one card share its device."""
+        halves = self._halves
+        if not halves or self.flights < 2:
+            return None
+        busy = set()
+        for f in deck:
+            busy.update(f.devs or ())
+        for h in halves:
+            if busy.isdisjoint(h.indices):
+                return h
+        old = deck[0].devs or ()
+        for h in halves:
+            if old and old[0] in h.indices:
+                return h
+        return halves[0]
+
     def _finish_flight(self, flight: _Flight) -> None:
         # hook audit (r05 post-mortem suspect #1): every tracing span
         # here sits behind an `enabled()` check so the DISABLED path
@@ -1610,7 +1670,7 @@ class VerifyPlane:
                 self.metrics.plane_h2d_bytes.inc(h2d_bytes, path=stamp)
 
     def _stage(self, batch: List[_Submission], depth: int = 0,
-               shed_n: int = 0):
+               shed_n: int = 0, deck: List[_Flight] = ()):
         """Pack one flush and (when eligible) launch it on the device
         WITHOUT waiting for results. Returns a _Flight whose finish()
         blocks for the verdicts — the seam that lets the dispatcher
@@ -1664,13 +1724,14 @@ class VerifyPlane:
         if not tracing.enabled():
             # disabled fast path: no O(batch) span-arg computation on
             # the dispatcher hot path
-            finish, airborne, ready = self._stage_inner(batch, fid, led)
+            finish, airborne, devs, ready = self._stage_inner(
+                batch, fid, led, deck)
         else:
             with tracing.span("plane.pack", cat="verifyplane", flush=fid,
                               rows=rows, subs=len(batch),
                               queued_ms=queued_ms):
-                finish, airborne, ready = self._stage_inner(batch, fid,
-                                                            led)
+                finish, airborne, devs, ready = self._stage_inner(
+                    batch, fid, led, deck)
         t1 = tracing.monotonic_ns()
         led[_L_PACK] = round((t1 - t0) / 1e6, 3)
         led[_L_TPACKED] = t1
@@ -1686,17 +1747,54 @@ class VerifyPlane:
                 return ok
 
             ready = probe
-        return _Flight(batch, finish, airborne, fid, led, ready,
+        return _Flight(batch, finish, airborne, fid, led, devs, ready,
                        pack_idx=self._packs)
 
-    def _stage_inner(self, batch: List[_Submission], fid: int, led):
+    def _flush_mesh(self, rows: int):
+        """The mesh a fused flush of `rows` rows should shard over, or
+        None for one device. Resolution is lazy and cached (mesh
+        identity feeds every downstream memo); flushes under
+        mesh_min_rows stay on one device — the reduce isn't free and
+        tiny flushes fit one device's columns anyway."""
+        if self._mesh_devices is None or rows < self.mesh_min_rows:
+            return None
+        if not self._mesh_resolved:
+            from cometbft_tpu_torch.verifyplane import fused as fz
+
+            try:
+                self._mesh = fz.plane_mesh(self._mesh_devices, self.device)
+            except Exception:  # noqa: BLE001 - no slots: stay single
+                _log.exception("verify plane mesh did not resolve; one "
+                               "device")
+                self._mesh = None
+            self.mesh_ndev = 0 if self._mesh is None else self._mesh.size
+            if self.flights_max > 1 and self._mesh is not None:
+                # the deck's disjoint halves ride the same memoized
+                # sub-mesh seam effective_mesh clamps through; meshes
+                # under 4 slots have none (single-flight dispatch).
+                # Gated on the CEILING, not the live value: the
+                # controller may grow flights after the mesh resolved
+                self._halves = fz.half_meshes(self._mesh)
+            # published LAST: the warmer's _mesh_targets reads
+            # (_mesh_resolved, _mesh, _halves) from its own thread —
+            # seeing resolved=True with the halves still unassigned
+            # would warm the full mesh instead of the halves flushes
+            # actually look tables up under
+            self._mesh_resolved = True
+            if self.metrics is not None:
+                self.metrics.plane_shard_ndev.set(float(self.mesh_ndev))
+        return self._mesh
+
+    def _stage_inner(self, batch: List[_Submission], fid: int, led,
+                     deck: List[_Flight] = ()):
         """The breaker's allow() — which consumes the single half-open
         probe slot when the breaker is open — is only asked once a
         fused plan exists, i.e. when a device attempt will actually
         happen; an ineligible flush must not burn the probe the
-        generic path needs to recover. Returns (finish, airborne,
+        generic path needs to recover. Returns (finish, airborne, devs,
         ready): finish() gives (verdicts, fused tallies or None), or
-        raises DeviceError for a device plane's flush that faulted."""
+        raises DeviceError for a device plane's flush that faulted;
+        devs are the slot indices a sharded flush occupies."""
         rows = [r for sub in batch for r in sub.rows]
         t0 = time.perf_counter()
         miss0 = self._staging.misses
@@ -1710,13 +1808,15 @@ class VerifyPlane:
                 _log.exception(
                     "verify plane dispatch fault (%d rows); failing this "
                     "flush with DeviceError", len(rows))
-                return (lambda e=exc: _device_fault(led, e)), False, None
+                return (lambda e=exc: _device_fault(led, e)), False, \
+                    None, None
             _log.exception(
                 "verify plane dispatch fault (%d rows); degrading this "
                 "flush to the inline host path", len(rows),
             )
             led[_L_PATH] = PATH_FAILPOINT
-            return (lambda: (_host_verdicts(rows), None)), False, None
+            return (lambda: (_host_verdicts(rows), None)), False, None, \
+                None
         plan = None
         if self._use_device:
             # lazy re-arm (a plane whose start() did not arm it): a
@@ -1729,14 +1829,26 @@ class VerifyPlane:
             from cometbft_tpu_torch.verifyplane import fused as fz
 
             try:
+                mesh = self._flush_mesh(len(rows))
+                half = self._pick_half(deck) if mesh is not None \
+                    else None
                 plan = fz.plan_fused(batch, pool=self._staging,
-                                     device=self.device)
+                                     device=self.device, mesh=mesh,
+                                     half=half,
+                                     half_max_rows=self.half_mesh_rows)
             except Exception:  # noqa: BLE001 - staging bug, not device
                 _log.exception("fused flush staging failed; grouped path")
                 plan = None
             if plan is not None and not self._breaker.allow():
                 plan = None
         if plan is not None:
+            if plan.drain_first and deck:
+                # the policy sent this flush to the FULL mesh while
+                # half-flights are airborne: land the deck before the
+                # dispatch so the giant flush owns every slot at once
+                # instead of queueing piecemeal behind the halves
+                while deck:
+                    self._land_one(deck)
             # device observatory attribution: every kernel build
             # landing during THIS dispatch (the first flush of a
             # process on an empty build cache) is charged to this
@@ -1769,7 +1881,12 @@ class VerifyPlane:
                     # the build time attributed above
                     led[_L_H2D] = round(
                         max((t_d1 - t_d0) / 1e6 - attr.ms, 0.0), 3)
-                led[_L_PATH] = PATH_FUSED
+                if plan.mesh is not None:
+                    led[_L_PATH] = PATH_FUSED_SHARDED
+                    led[_L_NDEV] = plan.n_dev
+                    led[_L_DEV0] = plan.devs[0]
+                else:
+                    led[_L_PATH] = PATH_FUSED
                 # warm: did this flush find its valset table cached,
                 # or pay the build inline (the post-rotation stall)?
                 led[_L_WARM] = 1 if plan.warm else 0
@@ -1787,6 +1904,11 @@ class VerifyPlane:
                         _log.exception(
                             "fused verify-plane flush failed in flight; "
                             "its futures fail with DeviceError")
+                        # a sharded flight that faulted must not keep
+                        # claiming a sharded pass (the ledger's n_dev
+                        # and the shard counters would disagree)
+                        led[_L_NDEV] = 1
+                        led[_L_DEV0] = 0
                         _device_fault(led, exc)
                     finally:
                         if prof is not None:
@@ -1794,6 +1916,14 @@ class VerifyPlane:
                     self._breaker.record_success()
                     # the span of the flush's launches from its CUDA events
                     led[_L_DEVEV] = fz.plan_device_ms(plan)
+                    if plan.mesh is not None:
+                        # counted on COLLECT success: only completed
+                        # sharded passes are attributed sharded
+                        self.shard_flushes += 1
+                        self.shard_rows += len(rows)
+                        if self.metrics is not None:
+                            self.metrics.plane_shard_flushes.inc()
+                            self.metrics.plane_shard_rows.inc(len(rows))
                     # device observatory steady declaration: after two
                     # successful fused collects the flush shapes are
                     # built — any further kernel build is the
@@ -1804,7 +1934,8 @@ class VerifyPlane:
                     return out
 
                 # the module-attr lookup keeps the probe patchable
-                return finish, True, (lambda: fz.plan_ready(plan))
+                return finish, True, plan.devs, \
+                    (lambda: fz.plan_ready(plan))
             except Exception:  # noqa: BLE001 - device fault at dispatch
                 deviceledger.attr_end(attr)
                 # builds a FAILED dispatch paid still belong to this
@@ -1824,7 +1955,8 @@ class VerifyPlane:
         # inside finish() under its own plane.verify span
         if not self._use_device:
             led[_L_PATH] = PATH_HOST
-            return (lambda: (_host_verdicts(rows), None)), False, None
+            return (lambda: (_host_verdicts(rows), None)), False, None, \
+                None
         led[_L_PATH] = PATH_GROUPED
 
         def grouped():
@@ -1833,7 +1965,7 @@ class VerifyPlane:
             except Exception as exc:  # noqa: BLE001 - device fault
                 _device_fault(led, exc)
 
-        return grouped, False, None
+        return grouped, False, None, None
 
     def _verify_rows(self, rows) -> List[bool]:
         """One padded device pass per key type under the circuit
@@ -1956,7 +2088,7 @@ class VerifyPlane:
 
     def set_flights(self, n: int) -> int:
         """Grow/shrink the flight deck within [1, flights_max]. The
-        staging pool was sized for flights_max at
+        staging pool and mesh halves were sized for flights_max at
         construction, so a live grow never aliases staging buffers;
         a shrink drains excess airborne flights on the next cycle."""
         with self._cv:
@@ -1985,8 +2117,12 @@ class VerifyPlane:
             "h2d_bytes": self.h2d_bytes,
             "overlapped": self.overlapped,
             "flushes_logged": len(self.ledger),
+            "mesh_ndev": self.mesh_ndev,
+            "shard_flushes": self.shard_flushes,
+            "shard_rows": self.shard_rows,
             "flights": self.flights,
             "flights_max": self.flights_max,
+            "halves": len(self._halves),
             "deck_airborne": self.deck_airborne,
             "deck_peak": self.deck_peak,
             "tenants": len(self.tenants.tenants()),
@@ -2106,7 +2242,7 @@ def flush_stats_for_seqs(seqs) -> dict:
             out["ms"] += (r[_L_PACK] + r[_L_FLIGHT] + r[_L_COLLECT]
                           + r[_L_SETTLE])
             out["flushes"] += 1
-            if r[_L_PATH] == PATH_FUSED \
+            if r[_L_PATH] in (PATH_FUSED, PATH_FUSED_SHARDED) \
                     and not r[_L_WARM]:
                 out["cold"] += 1
     out["ms"] = round(out["ms"], 3)

@@ -11,7 +11,8 @@ is exactly what the batch verifier amortizes over).
 The warmer closes that gap: when state/execution.py applies validator
 updates and computes the epoch e+1 set (`_update_state` ->
 :func:`notify_next_valset`), a background thread builds e+1's window
-table while epoch e is still live. The build lands
+table (and, when the verify plane runs a mesh of device slots, its
+sharded per-slot tables too) while epoch e is still live. The build lands
 in the same bounded caches every verifier reads (ops/table_cache), so
 the first post-rotation flush is a straight LRU hit; table_cache marks
 the key and the hit is attributed honestly (``warmed_hits``).
@@ -22,9 +23,8 @@ CUDA card and raises DeviceError without a Hopper card, as the verify
 plane does; ``device="cpu"`` builds with the kernels' plain versions, for
 tests; ``use_device=False`` skips every build, as the JAX warmer does
 without an accelerator); tables and templates are keyed by that device
-(ops/ed25519_cached, ops/ed25519_stamp); and the sharded per-device
-tables wait for the multi-device slice: the JAX warmer's ``mesh_fn`` and
-its mesh targets are not here, so only the plain table is warmed.
+(ops/ed25519_cached, ops/ed25519_stamp); the sharded tables are built
+on the slots of the plane's mesh (parallel/mesh.py).
 
 Failure containment (the warmer is an OPTIMIZATION and must never be
 load-bearing):
@@ -74,16 +74,20 @@ class TableWarmer:
     the default builds through ed25519_cached into the shared bounded
     caches on `device` (None: the CUDA card, raising DeviceError without
     one; "cpu": the plain versions), resolved here as the verify plane
-    resolves its own. `use_device=False` skips every build that has no
-    injected build_fn, and resolves no device. `breaker` defaults to the
-    process device breaker."""
+    resolves its own. `mesh_fn()` resolves the verify plane's flush mesh
+    (default: the global plane's already-resolved mesh) so a plane over a
+    mesh has its sharded tables warmed too. `use_device=False` skips
+    every build that has no injected build_fn, and resolves no device.
+    `breaker` defaults to the process device breaker."""
 
     def __init__(self, build_fn: Optional[Callable] = None,
+                 mesh_fn: Optional[Callable] = None,
                  breaker=None, use_device: Optional[bool] = None,
                  device=None):
         from cometbft_tpu_torch.device import resolve
 
         self._build_fn = build_fn
+        self._mesh_fn = mesh_fn
         self._breaker = breaker
         self._use_device = True if use_device is None else bool(use_device)
         self.device = resolve(device) if self._use_device else None
@@ -313,9 +317,8 @@ class TableWarmer:
 
     def _build_default(self, pubs: tuple, powers: Optional[tuple],
                        chain_id: Optional[str] = None) -> None:
-        """The real device build: the plain table (the sharded per-device
-        tables of the JAX warmer wait for the multi-device slice).
-        Inserts ride the
+        """The real device build: the plain table, plus the sharded
+        per-slot tables when the plane runs a mesh. Inserts ride the
         shared bounded caches (LRU: the LIVE epoch's table is the most
         recently used, so this insert can only evict retired epochs).
 
@@ -364,6 +367,58 @@ class TableWarmer:
                 with tcache.LOCK:
                     if tcache.STATS["incremental_patches"] > inc0:
                         self.builds_incremental += 1
+        meshes = self._mesh_targets(len(pubs))
+        if meshes:
+            from cometbft_tpu_torch.parallel import mesh as pm
+
+            for mesh in meshes:
+                mkey = pm._mesh_key(mesh)
+                with tcache.LOCK:
+                    present = (key[0], mkey) in tcache.SHARDS
+                if present:
+                    continue
+                _, hit = ec.sharded_table_for_pubs_info(pubs, powers, mesh)
+                if not hit:
+                    # distinct mark per (family, mesh): the plain and
+                    # per-half sharded lookups each attribute their
+                    # own first post-rotation hit
+                    ec.note_warmed((key[0], "shard", mkey))
+
+    def _mesh_targets(self, nvals: int) -> list:
+        """The meshes post-rotation sharded flushes will ACTUALLY look
+        tables up under. The dispatcher clamps every fused flush through
+        fused.effective_mesh, and with the flight deck's halves
+        configured, steady flushes ride a HALF mesh — so the warm must
+        target the clamped halves (both), not the full resolved mesh, or
+        its key never matches a flush's lookup and the cold build is paid
+        anyway. Without halves it's the effective full mesh. (A
+        drain-first giant flush over the half budget still takes the full
+        mesh and may build cold, visible in the ledger's warm column.)"""
+        meshes = []
+        if self._mesh_fn is not None:
+            m = self._mesh_fn()
+            if m is not None:
+                meshes = [m]
+        else:
+            from cometbft_tpu_torch.verifyplane import plane as vp
+
+            p = vp._GLOBAL
+            if p is not None and p._mesh_resolved \
+                    and p._mesh is not None:
+                meshes = list(p._halves) or [p._mesh]
+        if not meshes:
+            return []
+        from cometbft_tpu_torch.verifyplane import fused as fz
+
+        out = []
+        for m in meshes:
+            try:
+                eff, _, _ = fz.effective_mesh(m, nvals)
+            except ValueError:
+                continue  # valset over this mesh's table budget
+            if eff is not None and all(eff is not o for o in out):
+                out.append(eff)
+        return out
 
     # -- observability -----------------------------------------------------
 

@@ -1690,3 +1690,76 @@ def test_block_executor_verifies_last_commits_on_the_card(card):
                                        for cs in last.signatures}
     assert store.load().app_hash == state.app_hash == app.app_hash
     assert blocks.height() == 3 and mp.size() == 0
+
+
+# ---------------------------------------------------------------------------
+# the mesh over slots of the card (parallel/mesh.py, cbt_carry_quorum)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_dev,C", [(1, 1), (3, 2), (8, 5), (8, 300)])
+def test_carry_quorum_kernel_equals_plain(card, n_dev, C):
+    rng = np.random.default_rng(n_dev * 1000 + C)
+    parts = rng.integers(0, 1 << 13, (n_dev, C, ek.TALLY_LIMBS)).astype(
+        np.int32)
+    parts[:, 0] = (1 << 13) - 1  # every limb of commit 0 carries
+    p = torch.from_numpy(parts).to(card)
+    want_t, _ = ek.carry_quorum_plain(p.cpu(), torch.zeros(
+        (C, ek.TALLY_LIMBS), dtype=torch.int32))
+    thresh = want_t.clone()
+    thresh[1::2, 0] -= 1  # odd commits clear their threshold by one
+    thr = thresh.to(card)
+    before = ek.carry_quorum.launches
+    t, q = ek.carry_quorum(p, thr)
+    tp, qp = ek.carry_quorum_plain(p, thr)
+    torch.cuda.synchronize()
+    assert ek.carry_quorum.launches == before + 1
+    assert torch.equal(t, tp) and torch.equal(q, qp)
+    assert q.cpu().tolist() == [k % 2 == 1 for k in range(C)]
+
+
+def test_sharded_stream_step_on_eight_slots_equals_one_device(card):
+    """16 commits of a 1,000-validator set (M = 1,024) over 8 slots of the
+    card, 2 commits a slot: verdicts, tally limbs and quorum bits equal the
+    one-device launches; each slot launches the cached verify and tally
+    once on its own stream, then one carry_quorum."""
+    from cometbft_tpu_torch.parallel import mesh as pm
+
+    rng = np.random.default_rng(88)
+    n, C = 1000, 16
+    seeds = [rng.bytes(32) for _ in range(64)]
+    pubs = [ed.pubkey_from_seed(s) for s in seeds] * (n // 64) \
+        + [ed.pubkey_from_seed(s) for s in seeds[: n % 64]]
+    table = ec.build_table(pubs, [7] * n, device=card)
+    M = table.n_vals
+    spubs, smsgs, ssigs = [], [], []
+    for c in range(C):
+        for i in range(M):
+            if i < n and i % 50 == c:  # a few signed columns a commit
+                m = b"mesh-%d-%d" % (c, i)
+                spubs.append(pubs[i])
+                smsgs.append(m)
+                ssigs.append(ed.sign(seeds[i % 64], m))
+            else:
+                spubs.append(pubs[i] if i < n else b"\x00" * 32)
+                smsgs.append(b"")
+                ssigs.append(b"\x00" * 64)
+    ssigs[3 * M + 3] = b"\x01" * 64  # one of commit 3's 20 columns, broken
+    pb = ek.pack_batch(spubs, smsgs, ssigs, pad_to=C * M)
+    counted = np.ones(C * M, np.bool_)
+    cids = np.repeat(np.arange(C, dtype=np.int32), M)
+    thresh = ek.threshold_limbs(20 * 7 - 1, C)  # 20 signed a commit
+    one = ec.verify_tally_rows_cached(
+        ec.pack_rows_cached(pb, counted, cids, thresh), table, C)
+    mesh = pm.make_mesh([pm.Slot(i, card) for i in range(8)])
+    step = pm.sharded_stream_verify(mesh, C)
+    rows = ec.pack_rows_cached(pb, counted, cids)
+    v0, t0 = ec.ed25519_verify_cached.launches, ek.carry_quorum.launches
+    got = step(rows, table.tab, table.ok, table.power5, None, thresh)
+    torch.cuda.synchronize()
+    assert ec.ed25519_verify_cached.launches == v0 + 8
+    assert ek.carry_quorum.launches == t0 + 1
+    for g, w in zip(got, one):
+        assert torch.equal(g, w)
+    q = got[2].cpu().tolist()
+    assert q == [c != 3 for c in range(C)]

@@ -23,9 +23,10 @@ an open breaker, backpressure, stop's drain and leftovers, the group
 tally, a BULK shed) on both planes with equal outcomes, the open breaker
 with C1's divergence; plus the port's own seams: the in-flight fault (the
 `verifyplane.collect` failpoint) and the dispatch failpoint failing a
-device flush with DeviceError, stop's drain on the device, no mesh, the
-plane's device resolution, and crypto.batch's routing through a running
-plane.
+device flush with DeviceError, stop's drain on the device, the mesh
+knobs and seams (no mesh without device slots; tests/test_torch_mesh.py
+and tests/test_torch_shardplane.py drive the meshes), the plane's device
+resolution, and crypto.batch's routing through a running plane.
 The CUDA side (event readiness, an in-flight fault on the card) is in
 tests/test_torch_cuda.py (-k plane)."""
 import time
@@ -231,20 +232,32 @@ def test_slot_specs_and_layout_replicas_match_the_jax_package():
     assert pfz.MAX_FUSED_ROWS == jfz.MAX_FUSED_ROWS
 
 
-def test_no_mesh_until_the_multi_device_slice():
-    """The port's plan takes no mesh: the JAX package's mesh seams wait
-    for the multi-device slice, and its single-device stride is the
-    port's padded table size."""
+def test_no_mesh_until_the_multi_device_slice(monkeypatch):
+    """The port's plan has the JAX package's mesh seams (plane_mesh,
+    half_meshes, effective_mesh, shard_positions) and plan_fused's mesh,
+    half and half_max_rows arguments; without device slots
+    (CBT_TORCH_DEVICE_SLOTS unset) a CPU device resolves no mesh and the
+    plan stays on one device, its stride the padded table size."""
+    import inspect
+
+    from cometbft_tpu_torch.parallel import mesh as pm
+
+    monkeypatch.delenv(pm.SLOTS_ENV, raising=False)
     for name in ("plane_mesh", "half_meshes", "effective_mesh",
                  "shard_positions"):
-        assert hasattr(jfz, name) and not hasattr(pfz, name), name
-    with pytest.raises(TypeError):
-        pfz.plan_fused([], mesh=object())
-    assert jfz.effective_mesh(None, 10_000) == (None, 1,
-                                                ec.table_pad(10_000))
+        assert hasattr(jfz, name) and hasattr(pfz, name), name
+    jargs = inspect.signature(jfz.plan_fused).parameters
+    pargs = inspect.signature(pfz.plan_fused).parameters
+    for name in ("mesh", "half", "half_max_rows"):
+        assert pargs[name].default == jargs[name].default, name
+    for n in (1, 24, 10_000):
+        assert pfz.effective_mesh(None, n) == jfz.effective_mesh(None, n)
+    assert pfz.plane_mesh(0, "cpu") is None
+    assert pfz.half_meshes(None) == jfz.half_meshes(None) == []
     subs, _ = stream(PORT)
     plan = _plan(PORT, subs, None, device="cpu")
-    assert plan.n_dev == 1
+    assert plan.n_dev == 1 and plan.devs is None and plan.mesh is None
+    assert not plan.drain_first
     assert plan.delta[0].shape[0] == ec.table_pad(N_VALS)
 
 
@@ -548,19 +561,31 @@ def test_plan_readiness_and_device_time_on_the_cpu():
         want_tallies(subs, oracle(subs))
 
 
-def test_a_mesh_configured_plane_stays_on_one_device():
-    """The JAX plane's mesh knobs are refused, not ignored: the plane
-    stays on its one device."""
+def test_a_mesh_configured_plane_stays_on_one_device(monkeypatch):
+    """The JAX plane's mesh knobs with its defaults; without device slots
+    a plane asked for every slot (mesh_devices=0) resolves no mesh and
+    flushes on its one device, and its stats carry the JAX plane's keys."""
+    import inspect
+
+    from cometbft_tpu_torch.parallel import mesh as pm
+
+    monkeypatch.delenv(pm.SLOTS_ENV, raising=False)
+    jargs = inspect.signature(jvp.VerifyPlane).parameters
+    pargs = inspect.signature(pvp.VerifyPlane).parameters
     for knob in ("mesh_devices", "mesh_min_rows", "half_mesh_rows"):
-        with pytest.raises(TypeError):
-            pvp.VerifyPlane(device="cpu", **{knob: 0})
+        assert pargs[knob].default == jargs[knob].default, knob
     subs, _ = stream(PORT)
     plane = pvp.VerifyPlane(window_ms=1.0, max_batch=4096, device="cpu",
-                            breaker=pbatch.CircuitBreaker())
+                            breaker=pbatch.CircuitBreaker(),
+                            mesh_devices=0, mesh_min_rows=1,
+                            pipeline_flights=2)
     _drive(plane, [subs])
     rec, = plane.ledger.records()
     assert (rec["path"], rec["n_dev"], rec["dev0"]) == ("fused", 1, 0)
-    assert "mesh_ndev" not in plane.stats()
+    st = plane.stats()
+    assert (st["mesh_ndev"], st["shard_flushes"], st["halves"]) == (0, 0, 0)
+    jst = jvp.VerifyPlane(window_ms=1.0).stats()
+    assert set(st) == set(jst)
 
 
 def test_crypto_batch_routes_through_a_running_plane():

@@ -10,8 +10,10 @@ superseded, builds_incremental, warmed_hits) and each scenario's own
 observations must be equal. Then the port's own seams: one real build of
 an 8-validator table on the CPU (the plain table build), shared by the
 module, whose first lookup is a warmed hit; the incremental warm of a
-power change; a template prefetch; the device resolution; and mesh_fn
-refused until the multi-device slice."""
+power change; a template prefetch; the device resolution; mesh_fn; and
+the mesh scenarios of tests/test_warmer.py (:468, :552) on both
+warmers, with a real warm of both halves' sharded tables on 4 slots of
+the CPU."""
 import threading
 import time
 from types import SimpleNamespace
@@ -25,6 +27,8 @@ from cometbft_tpu.libs import failpoints as jfp
 from cometbft_tpu.ops import ed25519_cached as jec
 from cometbft_tpu.ops import table_cache as jtc
 from cometbft_tpu.types import validator as jval
+from cometbft_tpu.verifyplane import fused as jfz
+from cometbft_tpu.verifyplane import plane as jvp
 from cometbft_tpu.verifyplane import warmer as jwm
 from cometbft_tpu_torch import device as pdevice
 from cometbft_tpu_torch.crypto import keys as pkeys
@@ -35,21 +39,25 @@ from cometbft_tpu_torch.types import canonical as pcanon
 from cometbft_tpu_torch.types import validator as pval
 from cometbft_tpu_torch.types import vote as pvote
 from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+from cometbft_tpu_torch.verifyplane import fused as pfz
+from cometbft_tpu_torch.verifyplane import plane as pvp
 from cometbft_tpu_torch.verifyplane import warmer as pwm
 
 torch.set_num_threads(1)
 
 JAX = SimpleNamespace(
     name="jax", wm=jwm, tc=jtc, ec=jec, fp=jfp, keys=jkeys, val=jval,
+    vp=jvp, fz=jfz,
     kw={}, key=lambda pubs, powers: jec._cache_key(pubs, powers),
     # the JAX warmer's mesh resolver, as its tests pass it (no mesh)
     mesh={"mesh_fn": lambda: None},
     lookup=lambda fn: (lambda p, pw: fn()))
 PORT = SimpleNamespace(
     name="port", wm=pwm, tc=ptc, ec=pec, fp=pfp, keys=pkeys, val=pval,
+    vp=pvp, fz=pfz,
     kw={"device": "cpu"},
     key=lambda pubs, powers: (pec._cache_key(pubs, powers), "cpu"),
-    mesh={},
+    mesh={"mesh_fn": lambda: None},
     lookup=lambda fn: (lambda p, pw, device=None: fn()))
 
 COUNTERS = ("builds_ok", "builds_failed", "builds_skipped",
@@ -344,10 +352,117 @@ def test_warmer_scenario_matches_the_jax_warmer(name, monkeypatch):
 
 
 def test_mesh_fn_is_refused_until_the_multi_device_slice():
-    with pytest.raises(TypeError, match="mesh_fn"):
-        pwm.TableWarmer(mesh_fn=lambda: None, device="cpu")
+    """mesh_fn is the JAX warmer's keyword now (the multi-device slice is
+    ported): accepted, and a resolver answering no mesh warms no sharded
+    table."""
+    w = pwm.TableWarmer(mesh_fn=lambda: None, device="cpu")
+    assert w._mesh_targets(10_000) == []
     w = pwm.TableWarmer(build_fn=lambda p, pw: None, device="cpu")
     assert w.device == torch.device("cpu")
+
+
+def _flush_mesh_publishes_halves_before_resolved(P, monkeypatch):
+    """tests/test_warmer.py:468: the warmer reads (_mesh_resolved, _mesh,
+    _halves) from its own thread, so the plane assigns the halves before
+    it publishes _mesh_resolved."""
+    import inspect
+
+    src = inspect.getsource(P.vp.VerifyPlane._flush_mesh)
+    return src.index("self._halves") < src.index(
+        "self._mesh_resolved = True")
+
+
+def _mesh_targets_match_dispatch_keys(P, monkeypatch):
+    """tests/test_warmer.py:552: the warm targets the meshes flushes look
+    tables up under: the clamped full mesh without halves, both clamped
+    halves with them, none for a valset of one stride. The port's mesh is
+    8 slots of the CPU."""
+    from cometbft_tpu_torch.parallel import mesh as pm
+
+    monkeypatch.setenv(pm.SLOTS_ENV, "8")
+    mesh8 = (P.fz.plane_mesh(0) if P is JAX
+             else P.fz.plane_mesh(0, "cpu"))
+    halves = P.fz.half_meshes(mesh8)
+    ids = (lambda m: tuple(int(d.id) for d in m.devices.flat)) \
+        if P is JAX else (lambda m: m.indices)
+    w = P.wm.TableWarmer(breaker=FakeBreaker(), **P.kw)
+    fake = SimpleNamespace(_mesh_resolved=True, _mesh=mesh8, _halves=[])
+    monkeypatch.setattr(P.vp, "_GLOBAL", fake)
+    full = w._mesh_targets(300)
+    same = full == [P.fz.effective_mesh(mesh8, 300)[0]]
+    fake._halves = halves
+    by_half = w._mesh_targets(300)
+    same_h = by_half == [P.fz.effective_mesh(h, 300)[0] for h in halves]
+    return dict(full=[ids(m) for m in full], same=same,
+                halves=[ids(m) for m in by_half], same_h=same_h,
+                one_stride=w._mesh_targets(50))
+
+
+@pytest.mark.parametrize("scenario", [
+    _flush_mesh_publishes_halves_before_resolved,
+    _mesh_targets_match_dispatch_keys])
+def test_mesh_scenario_matches_the_jax_package(scenario, monkeypatch):
+    got = {P.name: scenario(P, monkeypatch) for P in (JAX, PORT)}
+    assert got["port"] == got["jax"]
+    if isinstance(got["jax"], dict):
+        assert got["jax"] == dict(full=[(0, 1)], same=True,
+                                  halves=[(0, 1), (4, 5)], same_h=True,
+                                  one_stride=[])
+    else:
+        assert got["jax"] is True
+
+
+def test_a_warm_builds_both_halves_sharded_tables(monkeypatch):
+    """A plane over 4 CPU slots with the deck's halves mounted as the
+    global plane: one warm of a 300-validator set looks up the plain table
+    and builds each clamped half's sharded table (2 slots of 256; the
+    shards' build stubbed), each marked; each half's first lookup is then
+    a warmed hit."""
+    from cometbft_tpu_torch.parallel import mesh as pm
+    from cometbft_tpu_torch.verifyplane import fused as pfz
+    from cometbft_tpu_torch.verifyplane import plane as pvp
+
+    monkeypatch.setenv(pm.SLOTS_ENV, "4")
+    mesh4 = pfz.plane_mesh(0, "cpu")
+    halves = pfz.half_meshes(mesh4)
+    fake = SimpleNamespace(_mesh_resolved=True, _mesh=mesh4,
+                           _halves=halves)
+    monkeypatch.setattr(pvp, "_GLOBAL", fake)
+    built = []
+    monkeypatch.setattr(pec, "table_for_pubs_info",
+                        lambda p, pw, device=None: (built.append(1), True))
+    shards = []
+
+    def fake_build(pub_bytes, powers=None, device=None):
+        # the shard builds' bookkeeping, not the plain build's curve work
+        M = pec.table_pad(len(pub_bytes))
+        shards.append(M)
+        return pec.ValsetTable(
+            torch.zeros((M * pec.ENT_PER_VAL, 3, 10), dtype=torch.int32),
+            torch.zeros(M, dtype=torch.bool),
+            torch.zeros((M, 5), dtype=torch.int32), M, device=device)
+
+    monkeypatch.setattr(pec, "build_table", fake_build)
+    rng = np.random.default_rng(3)
+    pubs = tuple(rng.bytes(32) for _ in range(300))
+    powers = tuple(range(1, 301))
+    ptc.reset_for_tests()
+    w = pwm.TableWarmer(breaker=FakeBreaker(), device="cpu")
+    w.start()
+    try:
+        w.request(pubs, powers)
+        assert w.wait_idle(120.0)
+    finally:
+        w.stop()
+    assert w.builds_ok == 1 and w.builds_failed == 0 and built == [1]
+    assert shards == [256] * 4
+    assert ptc.stats()["shard_misses"] == 2 and len(ptc.SHARDS) == 2
+    for h in halves:
+        eff = pfz.effective_mesh(h, 300)[0]
+        t, warm = pec.sharded_table_for_pubs_info(pubs, powers, eff)
+        assert warm and t.devs == eff.indices and t.m_shard == 256
+    assert ptc.stats()["warmed_hits"] == 2
+    ptc.reset_for_tests()
 
 
 def test_a_warmer_without_a_device_raises_without_a_card(monkeypatch):
