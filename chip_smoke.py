@@ -228,13 +228,40 @@ Phases (any failure exits non-zero and prints no result line):
      flush over a half under the profiler (each slot's kernels and the
      reduce) and carry_quorum's times beside torch.stack(...).sum(0).
      The slots share one card's SMs, so these are not eight cards' times.
+ 18. the node in one process (BASELINE config 1 as users run it): a TOML
+     read by the port's load_config ([verify_plane] enable, [crypto]
+     verifier = "tpu", tests/test_consensus.py's FAST timeouts), a
+     LocalNetwork of 4 port Nodes (kvstore app, ed25519, 10 power each,
+     FilePV and stores on disk), node 0's plane on the card the global
+     one every node rides: 20+ heights while one thread sends 200
+     k_i=v_i txs round-robin; every height's block hash and the app hash
+     equal on the 4 nodes, every key queried back, one NewBlock event a
+     height and one Tx event a tx on node 0's EventBus, every tx in its
+     TxIndexer; crypto/ed25519_ref.verify counted by its consensus site
+     (the proposal, stragglers, extension checks: nothing else verifies
+     on the host); node 3 halted at the wal.pre_fsync failpoint,
+     restarted over its home (handshake and WAL replay ms) and caught up
+     by the catch-up push until it commits through its own rounds; one
+     verifyplane.dispatch fault (the flush fails with DeviceError, the
+     heights after it commit, the rounds it cost printed); then, on the
+     stopped plane, each flush's rows equal the rows of the submissions
+     it served (votes on fused flushes, LastCommits on grouped ones),
+     launches exact (three cached kernels a fused flush, one
+     ed25519_verify a grouped one, the genesis set's table once), no
+     breaker fault; one captured vote flush's three kernels, the
+     LastCommit rows' ed25519_verify and the genesis set's table against
+     their plain versions, each timed in device time; then 16 validators
+     as 16 nodes commit 5 heights on a plane of the same config (heights/s,
+     the commit p50 from the height ledger, plane ms a height, rows a
+     flush, the LastCommit flush ms, the host verifies by site).
 Before the last line it prints the `kernels` JSON (launches on the main
 paths, in all and by path; times; bounds; for every kernel `device_ms`, from
 a profiler trace at its phase's shape, by live columns or by shape where a
 phase runs it at two; for the two tallies also `library_device_ms`; for
 ed25519_verify_cached and valset_table_build the entry the wrapper
-launched at each shape and the sweep of every entry); the last line is
-{"ok": true, "device": {...}}.
+launched at each shape and the sweep of every entry; for the node path's
+kernels `device_ms_by_path`); the summary line gains node_heights_per_s
+and node_commit_p50_ms; the last line is {"ok": true, "device": {...}}.
 
 Launch counters are set to 0 just before each main-path run and read just
 after; launches made to compare a kernel with its plain version are not
@@ -5110,6 +5137,644 @@ def phase_mesh(dev, res, kernel_stats):
     return {"mesh_quorum_ms": quorum_ms}
 
 
+# --------------------------------------------------------------------------
+# phase 18: the node in one process
+# --------------------------------------------------------------------------
+
+NODE_VALS = 4                # phase 18: BASELINE config 1's validators
+NODE_POWER = 10              # phase 18: each validator's power
+NODE_HEIGHTS = 20            # phase 18: heights the 4 nodes commit at least
+NODE_TXS = 200               # phase 18: k_i=v_i txs, round-robin
+NODE_CRASHED = 3             # phase 18: the node halted at a WAL failpoint
+NODE_CRASH_POINT = "wal.pre_fsync"
+NODE_FAULT_HEIGHTS = 3       # phase 18: heights committed after the fault
+NODE_WIDE_VALS = 16          # phase 18: the wider network's validators
+NODE_WIDE_HEIGHTS = 5
+NODE_TIMEOUT_S = 60.0
+# the node's TOML, read back with the port's load_config: the plane on,
+# the card's verifier, tests/test_consensus.py's FAST timeouts
+NODE_TOML = """[base]
+chain_id = "chip-smoke-node"
+
+[crypto]
+verifier = "tpu"
+
+[verify_plane]
+enable = true
+
+[consensus]
+timeout_propose = 0.4
+timeout_propose_delta = 0.1
+timeout_prevote = 0.2
+timeout_prevote_delta = 0.1
+timeout_precommit = 0.2
+timeout_precommit_delta = 0.1
+timeout_commit = 0.01
+"""
+CONSENSUS_SITES = ("_set_proposal", "_note_straggler", "_try_add_vote")
+
+
+class count_host_verifies:
+    """While the block runs, count each crypto/ed25519_ref.verify call
+    by the function of consensus/state.py it came from (its nearest
+    caller there), or by its nearest caller elsewhere: {site: n}."""
+
+    def __init__(self):
+        self.sites = collections.Counter()
+
+    def __enter__(self):
+        from cometbft_tpu_torch.crypto import ed25519_ref
+
+        self.mod, self.real = ed25519_ref, ed25519_ref.verify
+
+        def verify(*a, **kw):
+            f = sys._getframe(1)
+            site = None
+            while f is not None and site is None:
+                if f.f_code.co_filename.endswith(
+                        os.path.join("consensus", "state.py")):
+                    site = f.f_code.co_name
+                f = f.f_back
+            if site is None:
+                g = sys._getframe(2)
+                site = f"{g.f_code.co_filename}:{g.f_code.co_name}"
+            self.sites[site] += 1
+            return self.real(*a, **kw)
+
+        ed25519_ref.verify = verify
+        return self.sites
+
+    def __exit__(self, *exc):
+        self.mod.verify = self.real
+
+
+class count_direct_verifies:
+    """While the block runs, count the crypto/batch.verify_batch_direct
+    calls made outside a plane's grouped flush (rows no running plane
+    took: node 0 stops its plane before its consensus, and a submission
+    the stopping plane refuses goes to its device): [rows of each]."""
+
+    def __enter__(self):
+        from cometbft_tpu_torch.crypto import batch as cbatch
+
+        self.mod, self.real = cbatch, cbatch.verify_batch_direct
+        self.calls = []
+
+        def direct(pubs, msgs, sigs, **kw):
+            if sys._getframe(1).f_code.co_name != "_verify_rows":
+                self.calls.append(len(pubs))
+            return self.real(pubs, msgs, sigs, **kw)
+
+        cbatch.verify_batch_direct = direct
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.mod.verify_batch_direct = self.real
+
+
+class record_plane_submissions:
+    """While the block runs, record every submit_many of `plane` (the
+    votes' submissions and, through submit_and_wait, the LastCommits'):
+    [(kwargs with rows, future)], in call order."""
+
+    def __init__(self, plane):
+        self.plane = plane
+        self.seen = []
+
+    def __enter__(self):
+        real = self.plane.submit_many
+
+        def submit_many(rows, **kw):
+            fut = real(rows, **kw)
+            self.seen.append((dict(kw, rows=list(rows)), fut))
+            return fut
+
+        self.plane.submit_many = submit_many
+        return self.seen
+
+    def __exit__(self, *exc):
+        del self.plane.submit_many
+
+
+def node_network(cfg, seeds, root, dev, name):
+    """A LocalNetwork of len(seeds) port Nodes from `cfg`, one validator
+    of NODE_POWER each (FilePV homes on disk), a kvstore app each; node 0
+    takes the [verify_plane] config and builds the card plane the others
+    ride. -> (net, genesis state)."""
+    from cometbft_tpu_torch.crypto.keys import PrivKey
+    from cometbft_tpu_torch.node.node import LocalNetwork
+    from cometbft_tpu_torch.state.state import State
+    from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+
+    vals = ValidatorSet([Validator(PrivKey.generate(s).pub_key(),
+                                   NODE_POWER) for s in seeds])
+    state = State.make_genesis(cfg.base.chain_id, vals)
+    net = LocalNetwork()
+    for i, seed in enumerate(seeds):
+        net.add(node_at(cfg, state, seed, os.path.join(root, f"{name}{i}"),
+                        net, i, dev))
+    return net, state
+
+
+def node_at(cfg, state, seed, home, net, i, dev, restart=False):
+    """Node i of `net` over `home` (a restart loads its FilePV from
+    there), as the CLI builds one from a config."""
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.node.node import Node
+    from cometbft_tpu_torch.privval.file_pv import FilePV
+
+    pv_dir = os.path.join(home, "pv")
+    pv = FilePV.load(pv_dir) if restart else FilePV.generate(pv_dir, seed)
+    return Node(KVStoreApplication(), state.copy(), privval=pv, home=home,
+                broadcast=net.broadcaster(i),
+                timeouts=cfg.consensus.timeout_params(),
+                batch_fn=cfg.crypto.batch_fn(device=dev),
+                verify_plane=cfg.verify_plane if i == 0 else None,
+                mempool_config=cfg.mempool, device=dev)
+
+
+def stop_network(net):
+    """Stop every node, node 0 (the plane's owner) last."""
+    for n in reversed(net.nodes):
+        if n.is_running():
+            n.stop()
+
+
+def wait_heights(nodes, height, what, timeout=NODE_TIMEOUT_S,
+                 catchup=False):
+    """Wait until every node has committed `height`; with `catchup`, a
+    node left a height behind the others (a round it sat out) is caught
+    up from the highest one."""
+    deadline = time.time() + timeout
+    while min(n.height() for n in nodes) < height:
+        check(time.time() < deadline,
+              f"phase18 {what}: heights {[m.height() for m in nodes]}, "
+              f"want {height}")
+        if catchup:
+            top = max(nodes, key=lambda n: n.height())
+            for n in nodes:
+                if n.height() < top.height() - 1:
+                    catch_up(n, top, max(1.0, deadline - time.time()))
+        time.sleep(0.02)
+
+
+def catch_up(node, src, timeout=NODE_TIMEOUT_S):
+    """Push `src`'s committed blocks that `node` lacks into its
+    consensus (receive_commit_block, the consensus reactor's catch-up
+    push: each verified on the plane's CONSENSUS lane before it is
+    applied) until it is level with `src`; -> heights pushed."""
+    pushed = 0
+    deadline = time.time() + timeout
+    while node.height() < src.height():
+        check(time.time() < deadline,
+              f"phase18 catch-up stuck at {node.height()} of {src.height()}")
+        for h in range(node.height() + 1, src.height() + 1):
+            node.consensus.receive_commit_block(
+                src.block_store.load_block(h),
+                src.block_store.load_seen_commit(h))
+            pushed += 1
+        time.sleep(0.05)
+    return pushed
+
+
+def joined(node, others, timeout=NODE_TIMEOUT_S):
+    """Wait until `node` commits a height through its own consensus
+    rounds level with `others` (catching it up while it lags); -> that
+    height."""
+    from cometbft_tpu_torch.consensus import heightledger
+
+    deadline = time.time() + timeout
+    while True:
+        check(time.time() < deadline, f"phase18 the restarted node never "
+              f"joined (at {node.height()}, others "
+              f"{[n.height() for n in others]})")
+        catch_up(node, max(others, key=lambda n: n.height()),
+                 max(1.0, deadline - time.time()))
+        own = [r["height"] for r in node.consensus.height_ledger.records()
+               if r["via"] == heightledger.VIA_CONSENSUS]
+        if own:
+            return own[0]
+        time.sleep(0.05)
+
+
+def check_served(recs, subs, phase):
+    """Every flush's rows are the rows of the submissions it served (the
+    VoteSets' votes carry a quorum group; the executors' LastCommits and
+    catch-up commits, through consensus_batch_fn, none): a fused flush
+    serves votes only, a grouped one whatever its batch held (a batch
+    with a LastCommit in it takes the grouped path whole), a device_fault
+    one failed what it held; every answered submission was served by a
+    recorded flush. Run on a stopped plane."""
+    served = collections.defaultdict(lambda: [0, set()])
+    for kw, fut in subs:
+        if fut.flush_seq is not None:
+            served[fut.flush_seq][0] += len(kw["rows"])
+            served[fut.flush_seq][1].add(kw.get("group") is not None)
+    want = {r["seq"]: r["rows"] for r in recs}
+    got = {seq: n for seq, (n, _) in served.items()}
+    mixed = [r["seq"] for r in recs if r["path"] == "fused"
+             and served[r["seq"]][1] != {True}]
+    check(got == want and not mixed,
+          f"{phase} flush rows != the rows of the submissions they served: "
+          + str([(q, want.get(q), got.get(q)) for q in set(want) | set(got)
+                 if want.get(q) != got.get(q)][:4])
+          + f"; fused flushes serving a LastCommit {mixed[:4]}")
+    return sum(1 for r in recs if r["path"] == "grouped"
+               and served[r["seq"]][1] == {False, True})
+
+
+def flush_launches_want(recs, launches, table_builds, direct):
+    """The launches the plane's flushes in `recs` account for: one
+    stamp_rows, ed25519_verify_cached and tally_quorum_cached a fused
+    flush, one ed25519_verify a grouped flush and a direct verify
+    (`direct`: count_direct_verifies' calls), and `table_builds`."""
+    n_f = sum(r["path"] == "fused" for r in recs)
+    want = dict.fromkeys(launches, 0)
+    want.update(stamp_rows=n_f, ed25519_verify_cached=n_f,
+                tally_quorum_cached=n_f, valset_table_build=table_builds,
+                ed25519_verify=sum(r["path"] == "grouped" for r in recs)
+                + len(direct))
+    return want
+
+
+def flush_ms(r):
+    return sum(r[k] for k in ("queued_ms", "pack_ms", "flight_ms",
+                              "collect_ms", "settle_ms"))
+
+
+def phase_node(dev, rng, kernel_stats):
+    """ROADMAP A7, BASELINE config 1 in the form users run it: a
+    LocalNetwork of 4 port Nodes (kvstore app, ed25519 keys, 10 power
+    each) built from a TOML read by the port's load_config, node 0's
+    [verify_plane] the card plane every node rides; 20+ heights with 200
+    txs broadcast round-robin; a crash of node 3 at a WAL failpoint and
+    its replay; one dispatch fault; then 16 validators as 16 nodes."""
+    import contextlib
+    import hashlib
+    import tempfile
+    import threading
+
+    import torch
+
+    from cometbft_tpu_torch.config.config import load_config
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.libs import failpoints as fp
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+    from cometbft_tpu_torch.verifyplane import FlushLedger, global_plane
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    root = tempfile.mkdtemp(prefix="phase18-")
+    cfg_path = os.path.join(root, "config.toml")
+    with open(cfg_path, "w") as f:
+        f.write(NODE_TOML)
+    cfg = load_config(cfg_path)
+    check(cfg.verify_plane.enable and cfg.crypto.verifier == "tpu",
+          f"phase18 load_config read {cfg.verify_plane} {cfg.crypto}")
+    brk = cbatch.device_breaker()
+    faults0 = brk.faults
+    seeds = [seed_bytes(rng) for _ in range(NODE_VALS)]
+    net, genesis = node_network(cfg, seeds, root, dev, "n")
+    nodes = net.nodes
+    plane = nodes[0].verify_plane
+    check(plane is not None and plane.device == dev
+          and all(n.verify_plane is None for n in nodes[1:]),
+          "phase18 node 0 did not build the card plane")
+    plane.ledger = FlushLedger(capacity=PLANE_LEDGER)
+    bus = nodes[0].event_bus
+    sub_blk = bus.subscribe("phase18", "tm.event='NewBlock'", capacity=4096)
+    sub_tx = bus.subscribe("phase18", "tm.event='Tx'", capacity=4096)
+    txs = [b"k_%d=v_%d" % (i, i) for i in range(NODE_TXS)]
+    sent, tx_errs = [], []
+
+    def broadcaster():
+        for i, tx in enumerate(txs):
+            try:
+                sent.append(nodes[i % NODE_VALS].broadcast_tx(tx).code)
+            except Exception as e:  # noqa: BLE001 - reported below
+                tx_errs.append(repr(e))
+            time.sleep(0.002)
+
+    with contextlib.ExitStack() as stack:
+        host_sites = stack.enter_context(count_host_verifies())
+        subs = stack.enter_context(record_plane_submissions(plane))
+        lc_rows = stack.enter_context(capture_verify_rows(ed25519=kf))
+        direct = stack.enter_context(count_direct_verifies())
+        # the network stops first: the recorders above see every
+        # submission of the run
+        stack.callback(stop_network, net)
+        # -- 1-2: the network commits -----------------------------------
+        zero_launches()
+        t0 = time.perf_counter()
+        for n in nodes:
+            n.start()
+        check(global_plane() is plane, "phase18 the plane is not global")
+        th = threading.Thread(target=broadcaster, daemon=True)
+        th.start()
+        th.join(NODE_TIMEOUT_S)
+        deadline = time.time() + NODE_TIMEOUT_S
+        while not all(nodes[0].query(tx.split(b"=")[0]).value
+                      == tx.split(b"=")[1] for tx in txs):
+            check(time.time() < deadline, "phase18 txs never committed")
+            time.sleep(0.02)
+        wait_heights(nodes, max(NODE_HEIGHTS, nodes[0].height()),
+                     "the 4-node run")
+        run_s = time.perf_counter() - t0
+        h_end = min(n.height() for n in nodes)
+        run_sites = dict(host_sites)
+        check(not tx_errs and sent == [0] * NODE_TXS,
+              f"phase18 broadcast_tx: errors {tx_errs[:2]}, codes "
+              f"{collections.Counter(sent)}")
+        for h in range(1, h_end + 1):
+            check(len({n.block_store.load_block(h).hash()
+                       for n in nodes}) == 1,
+                  f"phase18 nodes disagree at height {h}")
+        check(len({n.block_store.load_block(h_end).header.app_hash
+                   for n in nodes}) == 1, "phase18 app hashes differ")
+        for n in nodes:
+            for tx in txs:
+                k, v = tx.split(b"=")
+                check(n.query(k).value == v,
+                      f"phase18 {k!r} did not query back")
+        blk_heights, tx_events = [], []
+        while (m := sub_blk.next(timeout=0)) is not None:
+            blk_heights.append(m.data["block"].header.height)
+        while (m := sub_tx.next(timeout=0)) is not None:
+            tx_events.append(m.data["tx"])
+        committed = [tx for h in range(1, blk_heights[-1] + 1)
+                     for tx in nodes[0].block_store.load_block(h).data.txs]
+        check(blk_heights == list(range(1, blk_heights[-1] + 1))
+              and blk_heights[-1] >= h_end,
+              f"phase18 NewBlock events {blk_heights[:5]}.., want one a "
+              f"height")
+        check(sorted(tx_events) == sorted(committed) == sorted(txs),
+              f"phase18 Tx events {len(tx_events)}, committed "
+              f"{len(committed)}, sent {len(txs)}")
+        deadline = time.time() + NODE_TIMEOUT_S
+        while any(nodes[0].tx_indexer.get(hashlib.sha256(tx).digest())
+                  is None for tx in txs):
+            check(time.time() < deadline, "phase18 the TxIndexer lags")
+            time.sleep(0.02)
+        s0 = nodes[0].consensus.height_ledger.summary()
+        heights_per_s = h_end / run_s
+        print(f"phase18 4 nodes from {cfg_path} ([verify_plane] enable, "
+              f"[crypto] verifier=tpu, FAST timeouts): {h_end} heights in "
+              f"{run_s:.3f} s = {heights_per_s:.3f} heights/s (start "
+              f"included), commit p50={s0['commit_latency_ms']['p50']} ms "
+              f"p90={s0['commit_latency_ms']['p90']} ms (node 0's height "
+              f"ledger; stage p50s "
+              f"{json.dumps({k: v['p50'] for k, v in s0['stage_ms'].items()})}"
+              f"), rounds_max={s0['rounds_max']}, plane ms/height "
+              f"{round(s0['plane_ms'] / s0['heights'], 3)}, WAL fsync "
+              f"ms/height {round(s0['wal_fsync_ms'] / s0['heights'], 3)}; "
+              f"{NODE_TXS} txs committed and queried back on every node, "
+              f"{len(tx_events)} Tx and {len(blk_heights)} NewBlock events "
+              f"on node 0's EventBus, every tx in its TxIndexer; block and "
+              f"app hashes equal at every height; host ed25519_ref.verify "
+              f"by site {json.dumps(run_sites)}; card="
+              f"{smi('name,power.limit')}", flush=True)
+
+        # -- 4: node 3 halts at a WAL failpoint, replays, rejoins ---------
+        victim = nodes[NODE_CRASHED]
+        others = [n for n in nodes if n is not victim]
+
+        def crash_victim(name):
+            if threading.current_thread() is victim.consensus._thread:
+                fp.simulated_crash(name)
+
+        fp.set_crash_handler(crash_victim)
+        fp.arm(NODE_CRASH_POINT, "crash")
+        try:
+            deadline = time.time() + NODE_TIMEOUT_S
+            while not victim.consensus.crashed:
+                check(time.time() < deadline, f"phase18 {NODE_CRASH_POINT}"
+                      f" never halted node {NODE_CRASHED}")
+                time.sleep(0.005)
+        finally:
+            fp.reset()
+            fp.set_crash_handler(None)
+        crash_h = victim.height()
+        victim.stop()
+        t = time.perf_counter()
+        node3 = node_at(cfg, genesis, None, victim.home, net, NODE_CRASHED,
+                        dev, restart=True)
+        node3.start()
+        replay_ms = (time.perf_counter() - t) * 1e3
+        net.nodes[NODE_CRASHED] = node3
+        check(node3.height() >= crash_h, f"phase18 the replay lost a "
+              f"height: {node3.height()} < {crash_h}")
+        rejoin_h = joined(node3, others)
+        wait_heights(nodes, rejoin_h + 2, "after the replay",
+                     catchup=True)
+        print(f"phase18 node {NODE_CRASHED} halted at {NODE_CRASH_POINT} "
+              f"in height {crash_h + 1} (others at "
+              f"{[n.height() for n in others]}), restarted over its home: "
+              f"handshake + WAL replay + start ms={replay_ms:.3f}; caught "
+              f"up and committed height {rejoin_h} through its own rounds; "
+              f"all 4 at {min(n.height() for n in nodes)}", flush=True)
+
+        # -- 5: one dispatch fault ----------------------------------------
+        fault_brk = cbatch.CircuitBreaker(name="phase18-fault")
+        plane._breaker = fault_brk
+        n_rec = len(plane.ledger.records())
+        h_fault = nodes[0].height()
+        fp.arm("verifyplane.dispatch", "raise", count=1)
+        try:
+            deadline = time.time() + NODE_TIMEOUT_S
+            while fp.registry().stats("verifyplane.dispatch")["fires"] == 0:
+                check(time.time() < deadline,
+                      "phase18 the dispatch fault never fired")
+                time.sleep(0.005)
+            deadline = time.time() + NODE_TIMEOUT_S
+            while sum(n.height() >= h_fault + NODE_FAULT_HEIGHTS
+                      for n in nodes) < NODE_VALS - 1:
+                check(time.time() < deadline, f"phase18 the network "
+                      f"stalled after the fault at "
+                      f"{[n.height() for n in nodes]}")
+                time.sleep(0.02)
+            lagging = [i for i, n in enumerate(nodes)
+                       if n.height() < h_fault + NODE_FAULT_HEIGHTS]
+            wait_heights(nodes, h_fault + NODE_FAULT_HEIGHTS,
+                         "after the fault", catchup=True)
+        finally:
+            fp.reset()
+            plane._breaker = brk
+        frecs = plane.ledger.records()[n_rec:]
+        faulted = [r for r in frecs if r["path"] == "device_fault"]
+        # a dispatch fault fails its flush before any launch: the breaker
+        # the plane ran on counts no device fault
+        check(len(faulted) == 1 and fault_brk.faults == 0,
+              f"phase18 fault: {len(faulted)} device_fault flushes, its "
+              f"breaker's faults {fault_brk.faults}")
+        frounds = {r["height"]: r["rounds"]
+                   for r in nodes[0].consensus.height_ledger.records()
+                   if h_fault < r["height"] <= h_fault + NODE_FAULT_HEIGHTS}
+        print(f"phase18 dispatch fault: a flush of {faulted[0]['rows']} "
+              f"rows failed with DeviceError (device_fault; the plane ran "
+              f"on its own breaker for the step, faults "
+              f"{fault_brk.faults}, then on the global one again); heights "
+              f"{h_fault + 1}-"
+              f"{h_fault + NODE_FAULT_HEIGHTS} committed with rounds "
+              f"{json.dumps(frounds)} (node 0's ledger), nodes behind "
+              f"once 3 had: {lagging}", flush=True)
+    # the network is stopped: the plane's ledger and the launch counters
+    # are final
+    sync()
+    launches = read_launches()
+    recs = plane.ledger.records()
+    check(len(recs) < PLANE_LEDGER, "phase18 the flush ledger wrapped")
+    n_mixed = check_served(recs, subs, "phase18")
+    paths = collections.Counter(r["path"] for r in recs)
+    check(set(paths) <= {"fused", "grouped", "device_fault"},
+          f"phase18 flush paths {dict(paths)}")
+    want_l = flush_launches_want(recs, launches, 1, direct)
+    check(launches == want_l, f"phase18 launches {launches}, want {want_l}")
+    bad_sites = {s: n for s, n in host_sites.items()
+                 if s not in CONSENSUS_SITES}
+    check(not bad_sites, f"phase18 ed25519_ref.verify outside consensus's "
+          f"three sites: {dict(host_sites)}")
+    check(brk.faults == faults0 and brk.trips == 0,
+          f"phase18 breaker faults={brk.faults - faults0} trips={brk.trips}")
+    fused = [r for r in recs if r["path"] == "fused"]
+    grouped = [r for r in recs if r["path"] == "grouped"]
+    vote_rows = sum(len(kw["rows"]) for kw, _ in subs if kw.get("group"))
+    lc_n = sum(len(kw["rows"]) for kw, _ in subs if not kw.get("group"))
+    print(f"phase18 the card's work over steps 1-5: flush paths "
+          f"{dict(paths)}; {vote_rows} vote rows from the nodes' VoteSets "
+          f"and {lc_n} LastCommit and catch-up rows through "
+          f"consensus_batch_fn; {len(fused)} fused flushes of "
+          f"{sum(r['rows'] for r in fused)} rows (p50="
+          f"{statistics.median(r['rows'] for r in fused)} max="
+          f"{max(r['rows'] for r in fused)}, ms p50="
+          f"{statistics.median(flush_ms(r) for r in fused):.3f}), "
+          f"{len(grouped)} grouped flushes of "
+          f"{sum(r['rows'] for r in grouped)} rows ({n_mixed} with votes "
+          f"in the batch; ms p50="
+          f"{statistics.median(flush_ms(r) for r in grouped):.3f}); each "
+          f"flush's rows == the rows it served; direct card verifies "
+          f"(at shutdown, the plane stopped) {direct}; launches "
+          f"{json.dumps(launches)}; host ed25519_ref.verify by site "
+          f"{json.dumps(dict(host_sites))} (trap sites only)", flush=True)
+
+    # the captured flushes against their plain versions
+    by_seq = collections.defaultdict(list)
+    for kw, fut in subs:
+        if kw.get("group") is not None and fut.flush_seq is not None:
+            by_seq[fut.flush_seq].append(kw)
+    vs0 = genesis.validators
+    pubs = tuple(v.pub_key.data for v in vs0.validators)
+    powers = tuple(v.voting_power for v in vs0.validators)
+    seq = max(by_seq, key=lambda s: len(by_seq[s]))
+    fk = flush_kernels_vs_plain(dev, [
+        dict(rows=kw["rows"], power=kw["power"], vidx=kw["vidx"],
+             stamp=kw["stamp"]) for kw in by_seq[seq]], pubs, powers,
+        "phase18")
+    table, _ = ec.table_for_pubs_info(pubs, powers, device=dev)
+    lenok = torch.zeros((table.pub_raw.shape[0],), dtype=torch.bool,
+                        device=dev)
+    lenok[:len(pubs)] = True
+    tab_p, _ = ec.valset_table_build_plain(table.pub_raw, lenok)
+    check(torch.equal(table.tab, tab_p), "phase18 valset table != plain")
+    points = kf.base_points(dev)
+    err_v, lc_cols = hold_shapes_against_plain(
+        dev, kf.ed25519_verify, lambda r: kf.ed25519_verify_plain(r, points),
+        lc_rows["ed25519"])
+    check(err_v == 0, f"phase18 ed25519_verify != plain at {lc_cols}")
+    lc_t = torch.as_tensor(lc_rows["ed25519"][-1]).to(dev)
+    node_dev = {
+        "stamp_rows": dev_ms(fk.stamp, "stamp_rows_node_trace.json"),
+        "ed25519_verify_cached": dev_ms(fk.vk,
+                                        "verify_cached_node_trace.json"),
+        "tally_quorum_cached": dev_ms(fk.tq, "tally_cached_node_trace.json"),
+        "ed25519_verify": dev_ms(lambda: kf.ed25519_verify(lc_t),
+                                 "ed25519_verify_node_trace.json"),
+        "valset_table_build": dev_ms(
+            lambda: ec.valset_table_build(table.pub_raw, lenok),
+            "valset_table_node_trace.json"),
+    }
+    print(f"phase18 flush {seq} ({fk.live} votes, B={fk.B}, M={fk.M}): "
+          f"stamp_rows, ed25519_verify_cached, tally_quorum_cached == "
+          f"plain; LastCommit rows ({lc_cols} cols) ed25519_verify == "
+          f"plain; the genesis set's table == plain; device_ms "
+          f"{json.dumps({k: fmt_ms(v) for k, v in node_dev.items()})}",
+          flush=True)
+
+    # -- 6: 16 validators as 16 nodes ---------------------------------------
+    zero_launches()
+    wseeds = [seed_bytes(rng) for _ in range(NODE_WIDE_VALS)]
+    wnet, _ = node_network(cfg, wseeds, root, dev, "w")
+    wplane = wnet.nodes[0].verify_plane
+    wplane.ledger = FlushLedger(capacity=PLANE_LEDGER)
+    with contextlib.ExitStack() as stack:
+        wsubs = stack.enter_context(record_plane_submissions(wplane))
+        wsites = stack.enter_context(count_host_verifies())
+        wdirect = stack.enter_context(count_direct_verifies())
+        stack.callback(stop_network, wnet)
+        t0 = time.perf_counter()
+        for n in wnet.nodes:
+            n.start()
+        wait_heights(wnet.nodes, NODE_WIDE_HEIGHTS, "the 16-node run",
+                     timeout=3 * NODE_TIMEOUT_S)
+        wide_s = time.perf_counter() - t0
+        wh = min(n.height() for n in wnet.nodes)
+        for h in range(1, wh + 1):
+            check(len({n.block_store.load_block(h).hash()
+                       for n in wnet.nodes}) == 1,
+                  f"phase18 16 nodes disagree at {h}")
+        ws = wnet.nodes[0].consensus.height_ledger.summary()
+    sync()
+    wide_l = read_launches()
+    wrecs = wplane.ledger.records()
+    w_mixed = check_served(wrecs, wsubs, "phase18 16-node")
+    wpaths = collections.Counter(r["path"] for r in wrecs)
+    check(set(wpaths) <= {"fused", "grouped"},
+          f"phase18 16-node flush paths {dict(wpaths)}")
+    want_w = flush_launches_want(wrecs, wide_l, 1, wdirect)
+    check(wide_l == want_w, f"phase18 16-node launches {wide_l}, want "
+          f"{want_w}")
+    check(not {s for s in wsites if s not in CONSENSUS_SITES},
+          f"phase18 16-node host verifies {dict(wsites)}")
+    check(brk.faults == faults0 and brk.trips == 0,
+          "phase18 the 16-node run recorded a breaker fault")
+    wfused = [r for r in wrecs if r["path"] == "fused"]
+    wgrouped = [r for r in wrecs if r["path"] == "grouped"]
+    print(f"phase18 {NODE_WIDE_VALS} validators as {NODE_WIDE_VALS} nodes: "
+          f"{wh} heights in {wide_s:.3f} s = {wh / wide_s:.3f} heights/s "
+          f"(start included), commit p50={ws['commit_latency_ms']['p50']} "
+          f"ms (node 0's height ledger; stage p50s "
+          f"{json.dumps({k: v['p50'] for k, v in ws['stage_ms'].items()})}"
+          f"), plane ms/height {round(ws['plane_ms'] / ws['heights'], 3)} "
+          f"(node 0's flush join); flushes {dict(wpaths)}, rows a fused "
+          f"flush p50={statistics.median(r['rows'] for r in wfused)} max="
+          f"{max(r['rows'] for r in wfused)}; grouped flushes with votes "
+          f"in the batch {w_mixed}; LastCommit flush ms p50="
+          f"{statistics.median(flush_ms(r) for r in wgrouped):.3f} (dev_ms "
+          f"p50 {statistics.median(r['dev_ms'] for r in wgrouped)}); "
+          f"direct card verifies {wdirect}; "
+          f"launches {json.dumps(wide_l)}; host ed25519_ref.verify by site "
+          f"{json.dumps(dict(wsites))}; card={smi('name,power.limit')}",
+          flush=True)
+
+    node_l = {k: launches[k] + wide_l[k] for k in launches}
+    restore_launches(node_l)
+    for name, n in node_l.items():
+        kernel_stats[name]["launches_by_path"]["node"] = n
+    kernel_stats["carry_quorum"]["launches_by_path"]["node"] = 0
+    for name, e in zip(("stamp_rows", "ed25519_verify_cached",
+                        "tally_quorum_cached"), fk.errs):
+        kernel_stats[name]["max_abs_err"] = max(
+            kernel_stats[name]["max_abs_err"], e)
+    kernel_stats["ed25519_verify"]["max_abs_err"] = max(
+        kernel_stats["ed25519_verify"]["max_abs_err"], err_v)
+    for name, ms in node_dev.items():
+        kernel_stats[name].setdefault("device_ms_by_path", {})["node"] = ms
+    return {"node_heights_per_s": heights_per_s,
+            "node_commit_p50_ms": s0["commit_latency_ms"]["p50"]}
+
+
 def int_ops_per_s() -> tuple:
     """(clocks.max.sm in MHz, INT32 multiply-adds per second of the card)."""
     mhz = smi("clocks.max.sm").split()[0]
@@ -5136,6 +5801,7 @@ def kernels_json(kernel_stats):
         bound_by="operations" if ops_ms >= bytes_ms else "bytes",
         library_ms=None, device_ms=v["device_ms"],
         device_ms_by_live=v["device_ms_by_live"],
+        device_ms_by_path=v.get("device_ms_by_path", {}),
     ))
     t = kernel_stats["tally_quorum"]
     bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -5203,7 +5869,8 @@ def kernels_json(kernel_stats):
             **{key: k[key] for key in ("library_device_ms",
                                        "device_ms_by_shape", "ms_by_shape",
                                        "device_ms_by_live", "entry_by_shape",
-                                       "sweep_device_ms") if key in k},
+                                       "sweep_device_ms", "device_ms_by_path")
+               if key in k},
             **extra,
         ))
     print(f"bound: {products} limb products/signature, clocks.max.sm={mhz} "
@@ -5284,6 +5951,9 @@ def main() -> int:
         t = time.perf_counter()
         res.update(phase_mesh(dev, res, kernel_stats))
         print(f"phase17 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        res.update(phase_node(dev, rng, kernel_stats))
+        print(f"phase18 s={time.perf_counter() - t:.3f}", flush=True)
     brk = cbatch.device_breaker()
     check(brk.trips == 0 and brk.faults == 0, "breaker recorded a fault")
     print(json.dumps(kernels_json(kernel_stats)), flush=True)
@@ -5304,6 +5974,8 @@ def main() -> int:
           f"checktx_per_s={res['app_checktx_per_s']:.1f} "
           f"lastcommit_validate_p50_ms={res['app_validate_p50_ms']:.3f} "
           f"mesh_plane_quorum_ms={res['mesh_quorum_ms']:.3f} "
+          f"node_heights_per_s={res['node_heights_per_s']:.3f} "
+          f"node_commit_p50_ms={res['node_commit_p50_ms']:.3f} "
           f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print("nvidia-smi:", smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

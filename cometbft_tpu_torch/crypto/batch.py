@@ -125,6 +125,13 @@ def device_breaker() -> CircuitBreaker:
     return _DEVICE_BREAKER
 
 
+def configure_breaker(failure_threshold: int, cooldown: float) -> None:
+    """Apply [crypto] breaker knobs (config/config.py) to the global
+    breaker."""
+    _DEVICE_BREAKER.failure_threshold = max(1, failure_threshold)
+    _DEVICE_BREAKER.cooldown = cooldown
+
+
 # One staging pool for THE device, mirroring the breaker: callers that pack
 # rows for upload without a pool of their own (fused.plan_fused without
 # the plane's private pool) rotate through the same two persistent host

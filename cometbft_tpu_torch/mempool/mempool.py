@@ -28,7 +28,9 @@ host (a plane error other than a shed, or no plane), the port verifies it
 where the plane would have: a device plane's row, or one whose flush
 faulted on the device, on that plane's device
 (crypto/batch.verify_batch_direct); a host plane's (use_device=False) on
-the host; with no plane, on the card. A DeviceError propagates out of
+the host; with no plane, on the card, or through `batch_fn` when one is
+given (a node's: its device, or the host for [crypto] verifier = "cpu").
+A DeviceError propagates out of
 check_tx, and the tx leaves the dedup cache first, so a retry once the
 device recovers is checked again.
 """
@@ -52,7 +54,7 @@ class Mempool:
     def __init__(self, app: abci.Application, max_txs: int = 5000,
                  cache_size: int = CACHE_SIZE, recheck: bool = True,
                  verify_sigs: bool = True, admission=None, metrics=None,
-                 chain_id: Optional[str] = None):
+                 chain_id: Optional[str] = None, batch_fn=None):
         self.app = app
         self.max_txs = max_txs
         self.cache_size = max(1, int(cache_size))
@@ -67,6 +69,9 @@ class Mempool:
         # tenant key for plane submissions (verifyplane/tenants.py):
         # BULK rows attribute to the hosting chain, None = "default"
         self.chain_id = chain_id
+        # batch_fn(pubs, msgs, sigs) for a signature when no plane runs
+        # (None: the card)
+        self.batch_fn = batch_fn
         self._txs: deque = deque()
         self._tx_set = set()
         self._tx_gas = {}  # tx -> gas_wanted from its CheckTx
@@ -131,6 +136,8 @@ class Mempool:
                 # faulted on the device: verify where it would have
                 ok = self._off_plane_verify(plane, pub, msg,
                                             parsed.signature)
+        elif self.batch_fn is not None:
+            ok = bool(self.batch_fn([pub], [msg], [parsed.signature])[0])
         else:
             ok = self._off_plane_verify(None, pub, msg, parsed.signature)
         if not ok:

@@ -1,0 +1,485 @@
+"""Node: wires stores, ABCI app, mempool, and consensus into one unit.
+
+Reference: node/node.go:263-525 NewNode (DBs -> stateStore -> proxyApp ->
+handshake -> mempool -> blockExec -> consensus -> ...), OnStart (:527).
+The p2p switch/reactors slot in where `broadcast` is today; an in-memory
+hub (LocalNetwork) plays the transport for multi-node-in-process tests
+(the p2p/test_util.go:315 analog).
+
+The port's copy of the JAX package's node/node.py, over the port's
+modules. Its seams:
+
+  * `device` (None: the card, which raises DeviceError without one;
+    "cpu": the kernels' plain versions) is where the node verifies what
+    no running verify plane takes: each height's votes (the VoteSets
+    get it), every LastCommit and evidence commit (the executor's and
+    the evidence pool's batch_fn, verifyplane.consensus_batch_fn(device))
+    and signed txs (the mempool's). With a running plane, which the
+    node that takes a [verify_plane] config builds on this device and
+    registers as the global plane, every node of the process rides it.
+  * A batch_fn marked `on_host` ([crypto] verifier = "cpu",
+    validation.oracle_batch_fn) makes a host node: no device is resolved,
+    votes take the VoteSet's serial host path and every commit, evidence
+    and tx signature the host callable, so the node launches nothing.
+  * The p2p stack (switch, reactors, blocksync, statesync, PEX), the
+    JSON-RPC server and the ABCI socket and gRPC clients come with ROADMAP
+    A8: p2p=True, listen(), rpc_listen() and dial() raise
+    NotImplementedError naming it.
+"""
+from __future__ import annotations
+
+import os
+from typing import Callable, List, Optional
+
+from cometbft_tpu_torch.abci import types as abci
+from cometbft_tpu_torch.consensus.state import ConsensusState
+from cometbft_tpu_torch.device import resolve
+from cometbft_tpu_torch.consensus.ticker import TimeoutParams
+from cometbft_tpu_torch.libs.service import BaseService
+from cometbft_tpu_torch.mempool.mempool import Mempool
+from cometbft_tpu_torch.privval.file_pv import FilePV
+from cometbft_tpu_torch.state.execution import BlockExecutor
+from cometbft_tpu_torch.state.state import State, StateStore
+from cometbft_tpu_torch.store.blockstore import BlockStore
+from cometbft_tpu_torch.types.validator import ValidatorSet
+from cometbft_tpu_torch.verifyplane.plane import consensus_batch_fn
+
+
+def _a8(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: the port's p2p stack, RPC server and ABCI clients come "
+        f"with ROADMAP A8; run nodes in one process over LocalNetwork")
+
+
+class Node(BaseService):
+    def __init__(
+        self,
+        app: abci.Application,
+        genesis_state: State,
+        privval: Optional[FilePV] = None,
+        home: Optional[str] = None,
+        broadcast: Optional[Callable] = None,
+        timeouts: Optional[TimeoutParams] = None,
+        batch_fn: Optional[Callable] = None,
+        p2p: bool = False,
+        node_key=None,
+        blocksync: bool = False,
+        pex: bool = False,
+        statesync_light_client=None,
+        statesync_discovery: float = 45.0,
+        app_state_bytes: bytes = b"",
+        verify_plane=None,
+        mempool_config=None,
+        lightgate=None,
+        controller=None,
+        device=None,
+    ):
+        """statesync_light_client: a light.Client already trusting a root
+        header; providing it turns on the statesync->blocksync->consensus
+        start sequence (node/node.go:527, statesync/syncer.go:145) once
+        the port has p2p (ROADMAP A8)."""
+        super().__init__("Node")
+        if p2p:
+            raise _a8("Node(p2p=True)")
+        # a host node ([crypto] verifier = "cpu") resolves no device;
+        # any other node resolves its own, the card by default
+        self.on_host = bool(getattr(batch_fn, "on_host", False))
+        self.device = None if self.on_host else resolve(device)
+        if batch_fn is None:
+            batch_fn = consensus_batch_fn(device=self.device)
+        # four logical ABCI connections over the one app
+        # (proxy/multi_app_conn.go; node/node.go:302
+        # createAndStartProxyAppConns) — callers may also hand in a
+        # ready-made AppConns (an out-of-process app's socket conns come
+        # with ROADMAP A8)
+        from cometbft_tpu_torch.abci.proxy import AppConns
+
+        if isinstance(app, AppConns):
+            self.app_conns = app
+        else:
+            self.app_conns = AppConns.in_process(app)
+        app = self.app_conns.consensus
+        self.app = app  # consensus conn: handshake/replay/apply path
+        self.home = home
+        db = lambda name: (
+            os.path.join(home, name) if home else ":memory:"
+        )
+        if home:
+            os.makedirs(home, exist_ok=True)
+        self.block_store = BlockStore(db("blockstore.db"))
+        self.state_store = StateStore(db("state.db"))
+
+        # handshake: adopt persisted state if it exists
+        # (consensus/replay.go:242 Handshaker)
+        persisted = self.state_store.load()
+        state = persisted if persisted is not None else genesis_state
+        if persisted is None:
+            ri = self.app.init_chain(abci.RequestInitChain(
+                time_seconds=state.last_block_time.seconds,
+                chain_id=state.chain_id,
+                initial_height=state.initial_height,
+                # genesis validators + app state reach the app
+                # (abci InitChain contract; node/node.go handshake)
+                validators=[
+                    abci.ValidatorUpdate(v.pub_key.data, v.voting_power,
+                                         v.pub_key.key_type)
+                    for v in state.validators.validators
+                ],
+                app_state_bytes=app_state_bytes,
+            ))
+            # the app may amend the genesis validator set in its
+            # InitChain response (abci spec); ours treats a non-empty
+            # response as authoritative replacement
+            if ri.validators:
+                from cometbft_tpu_torch.crypto.keys import PubKey
+                from cometbft_tpu_torch.types.validator import (
+                    Validator,
+                    ValidatorSet,
+                )
+
+                vs = ValidatorSet([
+                    Validator(PubKey(u.pub_key, u.key_type), u.power)
+                    for u in ri.validators
+                ])
+                from dataclasses import replace
+
+                state = replace(
+                    state, validators=vs,
+                    next_validators=vs.copy_increment_proposer_priority(1),
+                )
+            if ri.app_hash:
+                from dataclasses import replace
+
+                state = replace(state, app_hash=ri.app_hash)
+            self.state_store.save(state)
+        else:
+            # replay stored blocks the app hasn't seen
+            # (consensus/replay.go:285 ReplayBlocks). The request must be
+            # BIT-IDENTICAL to the live apply_block's: decided_last_commit
+            # and misbehavior included — an app that hashes CommitInfo
+            # (fee distribution, slashing) would otherwise compute a
+            # different state on replay than it did live.
+            from cometbft_tpu_torch.state.execution import (
+                build_last_commit_info,
+                build_misbehavior,
+            )
+
+            info = self.app.info(abci.RequestInfo())
+            for h in range(
+                info.last_block_height + 1, state.last_block_height + 1
+            ):
+                blk = self.block_store.load_block(h)
+                if blk is None:
+                    raise RuntimeError(f"missing block {h} for app replay")
+                last_vals = self.state_store.load_validators(h - 1)
+                self.app.finalize_block(abci.RequestFinalizeBlock(
+                    txs=list(blk.data.txs), hash=blk.hash() or b"",
+                    height=h, proposer_address=blk.header.proposer_address,
+                    time_seconds=blk.header.time.seconds,
+                    decided_last_commit=build_last_commit_info(
+                        blk.last_commit, last_vals, h
+                    ),
+                    misbehavior=build_misbehavior(blk),
+                ))
+                self.app.commit()
+
+        # mempool + CheckTx admission control (config [mempool]): the
+        # admission gate reads the pool's fill fraction (watermarks)
+        # and the device breaker state (tightened host-fallback bound)
+        from cometbft_tpu_torch.config.config import MempoolConfig
+
+        mcfg = mempool_config or MempoolConfig()
+
+        def _breaker_open():
+            from cometbft_tpu_torch.crypto import batch as cbatch
+
+            return cbatch.device_breaker().state == "open"
+
+        self.mempool = Mempool(
+            self.app_conns.mempool, max_txs=mcfg.size,
+            cache_size=mcfg.cache_size, recheck=mcfg.recheck,
+            verify_sigs=mcfg.verify_sigs, chain_id=state.chain_id,
+            batch_fn=batch_fn,
+        )
+        self.mempool.admission = mcfg.build_admission(
+            fill_fn=self.mempool.fill_fraction,
+            breaker_open_fn=_breaker_open,
+        )
+        # evidence pool backed by the state store's validator history
+        # (node/node.go:369 createEvidenceReactor)
+        from cometbft_tpu_torch.evidence.pool import EvidencePool
+
+        self.evidence_pool = EvidencePool(
+            state.chain_id, self.state_store.load_validators,
+            batch_fn=batch_fn,
+        )
+        self.evidence_pool.height = state.last_block_height
+        self.evidence_pool.time_s = state.last_block_time.seconds
+        from cometbft_tpu_torch.libs.metrics import NodeMetrics
+        from cometbft_tpu_torch.types.event_bus import EventBus
+
+        self.metrics = NodeMetrics()
+        self.mempool.metrics = self.metrics
+        self.event_bus = EventBus()
+        # verify plane (config [verify_plane]; the port's verifyplane):
+        # accepts a VerifyPlaneConfig, a ready VerifyPlane, or None.
+        # Started with the node; registered as THE global plane so every
+        # verification consumer in-process coalesces through it.
+        self.verify_plane = None
+        # next-epoch table warmer ([verify_plane] warm_next_epoch):
+        # builds the epoch e+1 valset's device window tables in the
+        # background when a block's validator updates rotate the set,
+        # so the first post-rotation commit verifies against a warm
+        # cache (verifyplane/warmer.py). Lifecycle rides the plane's.
+        self.valset_warmer = None
+        if verify_plane is not None:
+            if hasattr(verify_plane, "build"):
+                self.verify_plane = verify_plane.build(
+                    metrics=self.metrics, device=self.device)
+                if hasattr(verify_plane, "build_warmer"):
+                    self.valset_warmer = verify_plane.build_warmer(
+                        device=self.device)
+            else:
+                self.verify_plane = verify_plane
+                if self.verify_plane.metrics is None:
+                    self.verify_plane.metrics = self.metrics
+        # indexers + pruner (node/node.go:311-316 createAndStartIndexer,
+        # state/pruner.go)
+        from cometbft_tpu_torch.state.indexer import (
+            BlockIndexer,
+            IndexerService,
+            TxIndexer,
+        )
+        from cometbft_tpu_torch.state.pruner import Pruner
+
+        self.tx_indexer = TxIndexer(db("tx_index.db"))
+        self.block_indexer = BlockIndexer(db("block_index.db"))
+        self.indexer_service = IndexerService(
+            self.event_bus, self.tx_indexer, self.block_indexer
+        )
+        self.pruner = Pruner(
+            self.block_store, self.state_store, self.tx_indexer,
+            self.block_indexer,
+            evidence_safe_height=lambda: (
+                self.block_store.height()
+                - self.evidence_pool.max_age_blocks
+            ),
+        )
+        self.block_exec = BlockExecutor(
+            app, self.state_store, batch_fn=batch_fn, mempool=self.mempool,
+            evidence_pool=self.evidence_pool, event_bus=self.event_bus,
+        )
+        self.consensus = ConsensusState(
+            state,
+            self.block_exec,
+            self.block_store,
+            privval=privval,
+            wal_path=os.path.join(home, "cs.wal") if home else None,
+            broadcast=broadcast,
+            timeouts=timeouts,
+            device=self.device,
+        )
+        self.consensus.evidence_pool = self.evidence_pool
+        self.consensus.metrics = self.metrics
+        self.block_exec.on_retain_height = self.pruner.set_retain_height
+
+        # light-client gateway (config [lightgate];
+        # cometbft_tpu_torch.lightgate): accepts a LightGateConfig, a ready
+        # LightGateway, or None. Mounted on this node's stores/evidence
+        # pool; started with the node and registered as THE global
+        # gateway (the light proxy's shared-verifier path and /metrics
+        # sampling find it there).
+        self.lightgate = None
+        if lightgate is not None:
+            if hasattr(lightgate, "build"):
+                self.lightgate = lightgate.build(self)
+            else:
+                self.lightgate = lightgate
+
+        # self-tuning control plane (config [controller];
+        # cometbft_tpu_torch.libs.controller): accepts a ControllerConfig, a
+        # ready Controller, or None. The loop only ever moves sheddable
+        # actuators (BULK/GATEWAY windows, admission watermarks, the
+        # flight deck) — CONSENSUS lane bounds are structurally out of
+        # its reach. Attached + registered in on_start, after the plane.
+        self.controller = None
+        self._controller_bounds = None
+        if controller is not None:
+            if hasattr(controller, "build"):
+                self.controller = controller.build()
+                if self.controller is not None \
+                        and hasattr(verify_plane, "build"):
+                    # config-validated clamp bounds, anchored at the
+                    # static sections this node was actually built from
+                    self._controller_bounds = controller.bounds(
+                        verify_plane, mcfg)
+            else:
+                self.controller = controller
+
+        # the p2p stack (node/node.go:443-447 createTransport/
+        # createSwitch) comes with ROADMAP A8; `broadcast` (the in-memory
+        # hub) carries every message
+        self.switch = None
+        self.mempool_reactor = None
+
+    def listen(self, host: str = "127.0.0.1", port: int = 0):
+        """Start the p2p listener (ROADMAP A8)."""
+        raise _a8("Node.listen")
+
+    def rpc_listen(self, host: str = "127.0.0.1", port: int = 0,
+                   unsafe: bool = False) -> str:
+        """Start the JSON-RPC server (ROADMAP A8)."""
+        raise _a8("Node.rpc_listen")
+
+    def dial(self, addr, persistent: bool = True) -> None:
+        raise _a8("Node.dial")
+
+    def on_start(self) -> None:
+        # incident flight recorder: the real-clock watchdog ticker
+        # covers total wedges (no step transitions => no pokes) on
+        # live nodes; refcounted across nodes, inert under simnet
+        from cometbft_tpu_torch.libs import incidents
+
+        incidents.recorder().start_watchdog()
+        # device observatory: arm the process-global compile listener
+        # (kernel builds are recorded from here on; a host node builds
+        # nothing)
+        from cometbft_tpu_torch.libs import deviceledger
+
+        deviceledger.arm_compile_listener()
+        if self.verify_plane is not None:
+            from cometbft_tpu_torch import verifyplane
+
+            self.verify_plane.start()
+            verifyplane.set_global_plane(self.verify_plane)
+            if self.verify_plane._mesh_devices is not None:
+                # resolve the flush mesh now so a misconfigured
+                # multichip node reports its real fan-out at START,
+                # not on the first 100k-validator commit (print, not
+                # logging: the cmd/cli start lines are prints too, and
+                # only mesh-configured nodes reach here)
+                self.verify_plane._flush_mesh(
+                    self.verify_plane.mesh_min_rows)
+                deck = ""
+                if self.verify_plane.mesh_ndev \
+                        and self.verify_plane.flights > 1:
+                    deck = (f", deck of {self.verify_plane.flights} "
+                            f"flights over "
+                            f"{len(self.verify_plane._halves)} halves"
+                            if self.verify_plane._halves
+                            else f", deck requested but <4 devices; "
+                                 f"single-flight")
+                print("verify plane mesh: "
+                      + (f"{self.verify_plane.mesh_ndev}-device "
+                         f"sharded dispatch"
+                         if self.verify_plane.mesh_ndev
+                         else "requested but <2 devices; "
+                              "single-device")
+                      + deck)
+        if self.valset_warmer is not None:
+            # after the plane: a warm build may shard over the plane's
+            # freshly-resolved mesh
+            from cometbft_tpu_torch.verifyplane import warmer as vp_warmer
+
+            self.valset_warmer.start()
+            vp_warmer.set_global_warmer(self.valset_warmer)
+        if self.lightgate is not None:
+            # after the plane: the gateway's batch_fn rides its GATEWAY
+            # lane from the first request
+            self.lightgate.start()
+        if self.controller is not None:
+            # after the plane: attach() snapshots the live actuator
+            # bases (window/deadline/flights as configured) and the
+            # pokes only start deciding once registered global
+            from cometbft_tpu_torch.libs import controller as controlplane
+
+            self.controller.attach(
+                plane=self.verify_plane,
+                admission=self.mempool.admission,
+                height_ledger=self.consensus.height_ledger,
+                bounds=self._controller_bounds,
+            )
+            controlplane.set_global_controller(self.controller)
+        self.pruner.start()
+        self.consensus.start()
+
+    def on_stop(self) -> None:
+        from cometbft_tpu_torch.libs import incidents
+
+        incidents.recorder().stop_watchdog()
+        if self.controller is not None:
+            # before the plane stops: no actuator moves may race the
+            # drain. _LAST keeps serving /dump_controller post-stop.
+            from cometbft_tpu_torch.libs import controller as controlplane
+
+            controlplane.clear_global_controller(self.controller)
+        if self.lightgate is not None:
+            # before the plane stops: in-flight gateway verifies fall
+            # back to the direct host path instead of racing the drain
+            self.lightgate.stop()
+        if self.valset_warmer is not None:
+            # before the plane: a mid-warm sharded build may still be
+            # using the plane's mesh; stop() abandons it cleanly
+            from cometbft_tpu_torch.verifyplane import warmer as vp_warmer
+
+            vp_warmer.clear_global_warmer(self.valset_warmer)
+            self.valset_warmer.stop()
+        if self.verify_plane is not None:
+            from cometbft_tpu_torch import verifyplane
+
+            # unregister first: in-flight verifiers fall back to their
+            # direct paths instead of racing the drain
+            verifyplane.clear_global_plane(self.verify_plane)
+            self.verify_plane.stop()
+        self.indexer_service.stop()
+        if self.pruner.is_running():
+            self.pruner.stop()
+        if self.consensus.is_running():
+            self.consensus.stop()
+        self.block_store.close()
+        self.state_store.close()
+        if self.indexer_service._thread.is_alive():
+            # join timed out: leaking the connections beats closing them
+            # under a live thread (sqlite segfaults, not raises)
+            return
+        self.tx_indexer.close()
+        self.block_indexer.close()
+
+    # convenience API (rpc/core analogs; the JSON-RPC server wraps these)
+    def broadcast_tx(self, tx: bytes) -> abci.ResponseCheckTx:
+        resp = self.mempool.check_tx(tx)
+        if resp.code == abci.CODE_TYPE_OK and self.mempool_reactor:
+            self.mempool_reactor.broadcast_tx(tx)
+        return resp
+
+    def height(self) -> int:
+        return self.consensus.state.last_block_height
+
+    def query(self, key: bytes) -> abci.ResponseQuery:
+        return self.app_conns.query.query(
+            abci.RequestQuery(data=key)
+        )
+
+
+class LocalNetwork:
+    """In-memory message hub for multi-node-in-one-process tests
+    (p2p/test_util.go:315 MakeConnectedSwitches analog)."""
+
+    def __init__(self):
+        self.nodes: List[Node] = []
+
+    def broadcaster(self, exclude_idx: int) -> Callable:
+        def bcast(msg):
+            kind, payload = msg
+            for i, n in enumerate(self.nodes):
+                if i == exclude_idx:
+                    continue
+                if kind == "proposal":
+                    n.consensus.receive_proposal(payload)
+                elif kind == "vote":
+                    n.consensus.receive_vote(payload)
+
+        return bcast
+
+    def add(self, node: Node) -> None:
+        self.nodes.append(node)

@@ -136,6 +136,11 @@ class BoundedLRU:
     def resident_bytes(self) -> int:
         return self._bytes
 
+    def set_capacity(self, capacity: int) -> None:
+        """Shrink takes effect immediately (evictions are counted)."""
+        self.capacity = max(2, int(capacity))
+        self._trim()
+
     def _trim(self) -> None:
         while len(self._od) > self.capacity:
             _, v = self._od.popitem(last=False)
@@ -176,6 +181,32 @@ TEMPLATES = BoundedLRU("templates", 8, size_fn=default_size)
 _CACHES = {"tables": TABLES, "shard_tables": SHARDS,
            "key_memo": KEY_MEMO, "valset_memo": VALSET_MEMO,
            "templates": TEMPLATES}
+
+
+def set_capacities(tables: Optional[int] = None,
+                   shard_tables: Optional[int] = None,
+                   key_memo: Optional[int] = None,
+                   valset_memo: Optional[int] = None,
+                   templates: Optional[int] = None) -> None:
+    """Configure cache capacities ([crypto] table_cache_* knobs).
+    Each is clamped to >= 2 (capacity 1 would let a next-epoch warm
+    insert evict the LIVE epoch's table mid-flush)."""
+    with LOCK:
+        if tables is not None:
+            TABLES.set_capacity(tables)
+        if shard_tables is not None:
+            SHARDS.set_capacity(shard_tables)
+        if key_memo is not None:
+            KEY_MEMO.set_capacity(key_memo)
+        if valset_memo is not None:
+            VALSET_MEMO.set_capacity(valset_memo)
+        if templates is not None:
+            TEMPLATES.set_capacity(templates)
+
+
+def capacities() -> dict:
+    with LOCK:
+        return {name: c.capacity for name, c in _CACHES.items()}
 
 
 def stats() -> dict:

@@ -365,11 +365,17 @@ def device_batch_fn(device=None, cached: bool = False) -> Callable:
 
 
 def oracle_batch_fn() -> Callable:
-    """Pure-Python batch_fn (differential-test reference, no device)."""
+    """Pure-Python batch_fn (no device): the host reference path
+    (PubKey.verify_signature), one row at a time. It is the differential
+    tests' oracle and `[crypto] verifier = "cpu"`'s batch_fn: the JAX
+    package spells that choice None, which the port's executor reads as
+    the card. `on_host` marks it for the node, whose votes then take the
+    VoteSet's serial path."""
 
     def fn(pubs, msgs, sigs):
         return np.asarray(
             [p.verify_signature(m, s) for p, m, s in zip(pubs, msgs, sigs)]
         )
 
+    fn.on_host = True
     return fn

@@ -15,7 +15,11 @@ a device plane's vote is then verified directly on the plane's device
 a card (ROADMAP C1). A DeviceError from a device plane (a faulting flush,
 a verdict that timed out) is not a PlaneError: it propagates out of
 add_vote and the vote is not admitted, where the JAX plane would have
-answered from the host (C1).
+answered from the host (C1). A VoteSet given a `device` verifies on that
+device when no plane runs (crypto/batch.verify_batch_direct, one call a
+vote with its extension row), so a node on a card without a plane does
+not verify its votes on the host; with no device it takes the serial
+host path, as the JAX VoteSet does.
 """
 from __future__ import annotations
 
@@ -59,7 +63,7 @@ class _BlockVotes:
 class VoteSet:
     def __init__(self, chain_id: str, height: int, round_: int,
                  signed_msg_type: int, valset: ValidatorSet,
-                 ext_enabled: bool = False):
+                 ext_enabled: bool = False, device=None):
         if height == 0:
             raise VoteSetError("cannot make VoteSet for height == 0")
         self.chain_id = chain_id
@@ -70,6 +74,9 @@ class VoteSet:
         # vote extensions REQUIRED on non-nil precommits when enabled,
         # forbidden otherwise (params.go VoteExtensionsEnableHeight)
         self.ext_enabled = ext_enabled
+        # where a vote verifies when no plane runs: None is the serial
+        # host path, a device is verify_batch_direct on it
+        self.device = device
         self._lock = threading.RLock()
         n = len(valset)
         self.votes_bit_array = BitArray(n)
@@ -160,7 +167,9 @@ class VoteSet:
             return False  # duplicate
 
         need_ext, ext_err = self._ext_discipline(vote)
-        if verify:
+        if verify and self.device is not None:
+            self._verify_on_device(vote, val, need_ext)
+        elif verify:
             if need_ext:
                 # one host pass over vote + extension signatures — the
                 # serial-path mirror of the plane's single submission
@@ -179,6 +188,27 @@ class VoteSet:
             raise VoteSetError(ext_err)
 
         return self._add_verified(vote, val.voting_power)
+
+    def _verify_on_device(self, vote: Vote, val, need_ext: bool) -> None:
+        """The vote's signature (and its extension's) in one
+        verify_batch_direct call on this set's device, with the serial
+        path's errors; a DeviceError propagates."""
+        from cometbft_tpu_torch.crypto import batch as cbatch
+
+        pubs = [val.pub_key]
+        msgs = [vote.sign_bytes(self.chain_id)]
+        sigs = [vote.signature]
+        if need_ext:
+            pubs.append(val.pub_key)
+            msgs.append(vote.extension_sign_bytes(self.chain_id))
+            sigs.append(vote.extension_signature)
+        ok = cbatch.verify_batch_direct(pubs, msgs, sigs,
+                                        device=self.device)
+        if not ok[0]:
+            raise VoteSetError("invalid vote: invalid signature")
+        if need_ext and not ok[1]:
+            raise VoteSetError(
+                "invalid vote extension: invalid vote extension signature")
 
     # -- verify-plane path ---------------------------------------------------
 

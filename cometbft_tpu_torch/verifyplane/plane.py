@@ -754,28 +754,29 @@ def _host_verdicts(rows) -> List[bool]:
 
 
 def verify_off_plane(plane: Optional["VerifyPlane"], pubs, msgs,
-                     sigs) -> np.ndarray:
+                     sigs, device=None) -> np.ndarray:
     """(n,) bool verdicts of rows that `plane` could not take (it raised
     a PlaneError), verified where the plane would have verified them: a
     device plane's on its device (crypto/batch.verify_batch_direct; a
     DeviceError propagates), a host plane's with the host reference;
-    with no plane, on the card (ROADMAP C1)."""
+    with no plane, on `device` (None: the card; ROADMAP C1)."""
     if plane is not None and plane.device is None:
         return np.asarray(_host_verdicts(list(zip(pubs, msgs, sigs))),
                           np.bool_)
     from cometbft_tpu_torch.crypto import batch as cbatch
 
     return cbatch.verify_batch_direct(
-        pubs, msgs, sigs, device=None if plane is None else plane.device)
+        pubs, msgs, sigs, device=device if plane is None else plane.device)
 
 
-def consensus_batch_fn() -> Callable:
+def consensus_batch_fn(device=None) -> Callable:
     """batch_fn(pubs, msgs, sigs) -> (n,) bool for a caller given no
     batch_fn (commit and evidence verification): the rows ride the
     running global plane's CONSENSUS lane, resolved at each call; rows
     the plane cannot take (a PlaneError) and every row when no plane runs
     go to verify_off_plane (the plane's device, a host plane's host, else
-    the card). A DeviceError propagates (ROADMAP C1)."""
+    `device`, None being the card). A DeviceError propagates (ROADMAP
+    C1)."""
 
     def fn(pubs, msgs, sigs):
         p = global_plane()
@@ -784,7 +785,7 @@ def consensus_batch_fn() -> Callable:
                 return p.submit_and_wait(pubs, msgs, sigs)
             except PlaneError:
                 pass
-        return verify_off_plane(p, pubs, msgs, sigs)
+        return verify_off_plane(p, pubs, msgs, sigs, device=device)
 
     return fn
 

@@ -1763,3 +1763,116 @@ def test_sharded_stream_step_on_eight_slots_equals_one_device(card):
         assert torch.equal(g, w)
     q = got[2].cpu().tolist()
     assert q == [c != 3 for c in range(C)]
+
+
+def _node_net(tmp_path, n, card, chain, with_plane, key):
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.consensus.ticker import TimeoutParams
+    from cometbft_tpu_torch.crypto.keys import PrivKey
+    from cometbft_tpu_torch.node.node import LocalNetwork, Node
+    from cometbft_tpu_torch.privval.file_pv import FilePV
+    from cometbft_tpu_torch.state.state import State
+    from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+    from cometbft_tpu_torch.verifyplane import VerifyPlane
+
+    privs = [PrivKey.generate(bytes([key, i + 1]) + b"\x21" * 30)
+             for i in range(n)]
+    state = State.make_genesis(chain, ValidatorSet(
+        [Validator(p.pub_key(), 10) for p in privs]))
+    fast = TimeoutParams(propose=0.4, propose_delta=0.1, prevote=0.2,
+                         prevote_delta=0.1, precommit=0.2,
+                         precommit_delta=0.1, commit=0.01)
+    net = LocalNetwork()
+    for i, priv in enumerate(privs):
+        net.add(Node(KVStoreApplication(), state.copy(),
+                     privval=FilePV(priv), home=str(tmp_path / f"n{i}"),
+                     broadcast=net.broadcaster(i), timeouts=fast,
+                     verify_plane=VerifyPlane(window_ms=1.5)
+                     if with_plane and i == 0 else None))
+    return net
+
+
+def test_node_network_commits_on_a_card_plane(card, tmp_path):
+    """4 port Nodes (device=None: the card), node 0's card plane the
+    global one: 5 heights; every vote flush fused (stamp_rows,
+    ed25519_verify_cached and tally_quorum_cached once each), every
+    LastCommit flush grouped (one ed25519_verify, as is a direct verify
+    once the plane stopped), the genesis set's table built once; no
+    breaker fault."""
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+    from cometbft_tpu_torch.ops import table_cache as tc
+
+    tc.reset_for_tests()
+    brk = cbatch.device_breaker()
+    faults0 = brk.faults
+    net = _node_net(tmp_path, 4, card, "card-node", True, 0xA1)
+    plane = net.nodes[0].verify_plane
+    assert plane.device == card and net.nodes[1].device == card
+    kernels = (es.stamp_rows, ec.ed25519_verify_cached,
+               ec.tally_quorum_cached, kf.ed25519_verify,
+               ec.valset_table_build)
+    before = [k.launches for k in kernels]
+    direct, real = [], cbatch.verify_batch_direct
+
+    def spy(pubs, msgs, sigs, **kw):
+        import sys
+
+        if sys._getframe(1).f_code.co_name != "_verify_rows":
+            direct.append(len(pubs))  # not a grouped flush of the plane
+        return real(pubs, msgs, sigs, **kw)
+
+    cbatch.verify_batch_direct = spy
+    for n in net.nodes:
+        n.start()
+    try:
+        net.nodes[1].broadcast_tx(b"card=node")
+        for n in net.nodes:
+            assert n.consensus.wait_for_height(5, timeout=60), n.height()
+        assert len({n.block_store.load_block(4).hash()
+                    for n in net.nodes}) == 1
+    finally:
+        for n in reversed(net.nodes):
+            n.stop()
+        cbatch.verify_batch_direct = real
+    torch.cuda.synchronize()
+    got = [k.launches - b for k, b in zip(kernels, before)]
+    recs = plane.ledger.records()
+    paths = [r["path"] for r in recs]
+    n_f, n_g = paths.count("fused"), paths.count("grouped")
+    assert set(paths) <= {"fused", "grouped"} and n_f > 0 and n_g > 0
+    # a direct verify: node 0 stops its plane before its consensus, so a
+    # LastCommit the stopping plane refuses goes to the card without it
+    assert got == [n_f, n_f, n_f, n_g + len(direct), 1]
+    assert net.nodes[2].query(b"card").value == b"node"
+    assert brk.faults == faults0
+
+
+def test_planeless_node_verifies_votes_on_the_card(card, tmp_path):
+    """One validator, no plane: each vote is one verify_batch_direct call
+    on the card (one ed25519_verify launch); 3 heights."""
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.verifyplane import global_plane
+
+    assert global_plane() is None
+    calls = []
+    real = cbatch.verify_batch_direct
+
+    def spy(pubs, msgs, sigs, device=None, **kw):
+        calls.append((len(pubs), str(device)))
+        return real(pubs, msgs, sigs, device=device, **kw)
+
+    cbatch.verify_batch_direct = spy
+    net = _node_net(tmp_path, 1, card, "card-solo", False, 0xA2)
+    node = net.nodes[0]
+    b0 = kf.ed25519_verify.launches
+    node.start()
+    try:
+        assert node.consensus.wait_for_height(3, timeout=60)
+    finally:
+        node.stop()
+        cbatch.verify_batch_direct = real
+    torch.cuda.synchronize()
+    assert node.verify_plane is None and node.device == card
+    assert len(calls) >= 6 and set(calls) == {(1, str(card))}
+    assert kf.ed25519_verify.launches - b0 == len(calls)

@@ -84,7 +84,11 @@ def test_the_checks_cover_every_module_and_kernel_source():
     catch-up engine, the evidence verifiers and pool, the light-client
     gateway, the light proxy and what it imports; and the application
     boundary and block execution: abci/, mempool/, the genesis, params
-    and BFT-time types, store/ and the state store and executor."""
+    and BFT-time types, store/ and the state store and executor; and the
+    node in one process: config/, privval/, consensus/ (ticker, height
+    vote set, WAL, height ledger, state machine, WAL generator), node/,
+    the event bus, pubsub, service and metrics libs, the proposal type,
+    the ABCI proxy, the indexers and the pruner."""
     from cometbft_tpu_torch.ops import _build
 
     mods = set(_modules())
@@ -106,7 +110,14 @@ def test_the_checks_cover_every_module_and_kernel_source():
               "mempool", "mempool.sigtx", "mempool.admission",
               "mempool.mempool", "types.bft_time", "types.params",
               "types.genesis", "store", "store.blockstore",
-              "state.execution"):
+              "state.execution", "libs.service", "libs.pubsub",
+              "types.event_bus", "libs.metrics", "types.proposal",
+              "privval", "privval.file_pv", "config", "config.config",
+              "consensus", "consensus.ticker",
+              "consensus.height_vote_set", "consensus.wal",
+              "consensus.heightledger", "consensus.state",
+              "abci.proxy", "state.indexer", "state.pruner", "node",
+              "node.node", "consensus.wal_generator"):
         assert f"cometbft_tpu_torch.{m}" in mods
     csrc = PKG / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(_build.KERNELS)
