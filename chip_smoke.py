@@ -254,6 +254,35 @@ Phases (any failure exits non-zero and prints no result line):
      as 16 nodes commit 5 heights on a plane of the same config (heights/s,
      the commit p50 from the height ledger, plane ms a height, rows a
      flush, the LastCommit flush ms, the host verifies by site).
+ 19. the node over TCP (ROADMAP A8's p2p layer and reactors): (a) BASELINE
+     config 1 as users run it, 4 port validators from a TOML, each a
+     Node(p2p=True) with homes on disk and its own listener on 127.0.0.1,
+     a full mesh of secret connections, 20+ heights; 200 sigtx
+     envelopes sent to node 0 only reach the others through the mempool
+     reactor (each node's CheckTx a row on the card plane's BULK lane),
+     each committed exactly once; heights/s, the commit p50, the wire
+     bytes a height from each switch's peer ledger, the AEAD's seal and
+     open ms a height (the OpenSSL path or aead_ref, timed by wrapping
+     the class the secret connection binds); (b) a fifth node with
+     blocksync=True joins at height 10, catches up over TCP (host verify:
+     4 rows a commit, under min_device_sigs) and commits through its own
+     rounds; (d) validator 3 double-signs a prevote through a second
+     FilePV: the evidence crosses the evidence reactor and is committed;
+     (e) a node restores the kvstore snapshot over the statesync
+     channels (its light client trusting node 0's stores through
+     node_light_provider), blocksyncs the rest and joins; (f) node 2 is
+     partitioned (its links stopped, every redial failed by p2p.dial),
+     rejoins and commits, then one verifyplane.dispatch fault costs at
+     most one round; flushes, launches and the kernels of one vote flush
+     and the LastCommit rows held to plain and timed; (c) config 4 over
+     the wire: a port node serves 65 blocks of phase 6's 1,000
+     validators (a BlockExecutor chain over the kvstore app with one
+     val-tx rotation), a fresh Node(p2p=True, blocksync=True) pulls them
+     through BlockPool, verifies them in the card's StreamVerifier and
+     applies 64: blocks/s, sigs/s, the verify / validate / apply / wire
+     split, request->block ms, beside phase 14's in-process rate; every
+     captured chunk, the LastCommit rows and both sets' tables held to
+     plain.
 Before the last line it prints the `kernels` JSON (launches on the main
 paths, in all and by path; times; bounds; for every kernel `device_ms`, from
 a profiler trace at its phase's shape, by live columns or by shape where a
@@ -261,7 +290,8 @@ phase runs it at two; for the two tallies also `library_device_ms`; for
 ed25519_verify_cached and valset_table_build the entry the wrapper
 launched at each shape and the sweep of every entry; for the node path's
 kernels `device_ms_by_path`); the summary line gains node_heights_per_s
-and node_commit_p50_ms; the last line is {"ok": true, "device": {...}}.
+and node_commit_p50_ms, then net_heights_per_s, net_commit_p50_ms and
+net_sync_blocks_per_s; the last line is {"ok": true, "device": {...}}.
 
 Launch counters are set to 0 just before each main-path run and read just
 after; launches made to compare a kernel with its plain version are not
@@ -277,6 +307,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 CHAIN_ID = "chip-smoke"
@@ -304,6 +335,8 @@ SHORT_ABSENT = 400
 STREAM_RUNS = 3              # one cold, two warm
 CACHED_RUNS = 5
 DEVICE_REPS = 50             # calls in a profiler trace for device_ms
+DEVICE_TRACES = 3            # traces device_ms takes before it gives up
+EVENT_GATE_CYCLES = 20_000_000  # gated_event_ms's spin (~10 ms) a call
 # column prefixes of the stream chunk (M = 1,024) at which every entry of
 # the cached verify is timed; 8,192 is pad_rows(6,667), the light call's
 STREAM_SWEEP = (8192, 10_240, 16_384, 32_768, 65_536)
@@ -571,12 +604,15 @@ def trace_device_ms(fn, name):
 def device_ms(fn, reps: int, name: str):
     """Device time of one call of fn, from a profiler trace of `reps`
     calls: for kernels and for memsets, the mean duration of the trace's
-    events times their count per call rounded to a whole number (a trace
-    may miss an event or two of a run). Returns (ms, kernel events per
-    call, memset events per call), or None when the trace holds no kernel.
-    Unlike `cuda_ms`, which times a loop of calls between two events and so
-    also counts the host's time to enqueue each one, this counts only the
-    time the card works."""
+    events times their count per call rounded to a whole number n. A
+    trace may miss a few events of a run (the card's runs show the
+    first trace after a pause missing up to two thirds of them): a trace
+    whose kernel events are not n a call to within a tenth of n * reps,
+    or n = 0, is taken again, up to DEVICE_TRACES times. Returns (ms,
+    kernel events per call, memset events per call), or None when no
+    trace held them. Unlike `cuda_ms`, which times a loop of calls
+    between two events and so also counts the host's time to enqueue
+    each one, this counts only the time the card works."""
     import torch
 
     fn()
@@ -586,25 +622,56 @@ def device_ms(fn, reps: int, name: str):
         for _ in range(reps):
             fn()
 
-    try:
-        events, _ = _traced(loop, name)
-    except Exception as e:  # noqa: BLE001 - the trace is a measurement only
-        print(f"device_ms {name}: profiler failed: {e!r}", flush=True)
-        return None
-    kern = [e.get("dur", 0) for e in events if e["cat"] == "kernel"]
-    mset = [e.get("dur", 0) for e in events if e["cat"] == "gpu_memset"]
-    if not kern:
-        return None
-    us = sum(sum(d) / len(d) * round(len(d) / reps)
-             for d in (kern, mset) if d)
-    return us / 1e3, len(kern) / reps, len(mset) / reps
+    for attempt in range(DEVICE_TRACES):
+        try:
+            events, _ = _traced(loop, name)
+        except Exception as e:  # noqa: BLE001 - the trace is a measurement
+            print(f"device_ms {name}: profiler failed: {e!r}", flush=True)
+            return None
+        kern = [e.get("dur", 0) for e in events if e["cat"] == "kernel"]
+        mset = [e.get("dur", 0) for e in events if e["cat"] == "gpu_memset"]
+        n = round(len(kern) / reps)
+        if n >= 1 and abs(len(kern) - n * reps) * 10 <= n * reps:
+            us = sum(sum(d) / len(d) * round(len(d) / reps)
+                     for d in (kern, mset) if d)
+            return us / 1e3, len(kern) / reps, len(mset) / reps
+        print(f"device_ms {name}: trace {attempt + 1} held {len(kern)} "
+              f"kernel events for {reps} calls", flush=True)
+    return None
+
+
+def gated_event_ms(fn, reps: int) -> float:
+    """Device ms of one call of fn from CUDA events around it, the median
+    of `reps` calls. Each call is enqueued behind a spin on its stream, so
+    the events' gap holds the call's device work and not the host's time
+    to enqueue it (fn must not wait on the card)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(EVENT_GATE_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
 
 
 def dev_ms(fn, name: str):
-    """Device ms of one call of fn (`device_ms` over DEVICE_REPS calls),
-    or None where the trace holds no kernel."""
+    """Device ms of one call of fn: `device_ms` over DEVICE_REPS calls,
+    or `gated_event_ms` where no trace held every call's kernels."""
     t = device_ms(fn, DEVICE_REPS, name)
-    return t and t[0]
+    if t is not None:
+        return t[0]
+    ms = gated_event_ms(fn, DEVICE_REPS)
+    print(f"device_ms {name}: from CUDA events around each call instead: "
+          f"{ms:.6f}", flush=True)
+    return ms
 
 
 def fmt_ms(t) -> str:
@@ -1206,6 +1273,10 @@ def zero_launches() -> None:
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in all_kernels().items()}
+
+
+def launches_since(mark: dict) -> dict:
+    return {name: n - mark[name] for name, n in read_launches().items()}
 
 
 def restore_launches(saved: dict) -> None:
@@ -5150,6 +5221,9 @@ NODE_CRASH_POINT = "wal.pre_fsync"
 NODE_FAULT_HEIGHTS = 3       # phase 18: heights committed after the fault
 NODE_WIDE_VALS = 16          # phase 18: the wider network's validators
 NODE_WIDE_HEIGHTS = 5
+# phase 18: blocks the 16-node run may push to nodes that sat out a
+# height (one node's whole run at most)
+NODE_WIDE_MAX_PUSHED = NODE_WIDE_HEIGHTS
 NODE_TIMEOUT_S = 60.0
 # the node's TOML, read back with the port's load_config: the plane on,
 # the card's verifier, tests/test_consensus.py's FAST timeouts
@@ -5235,7 +5309,8 @@ class count_direct_verifies:
 class record_plane_submissions:
     """While the block runs, record every submit_many of `plane` (the
     votes' submissions and, through submit_and_wait, the LastCommits'):
-    [(kwargs with rows, future)], in call order."""
+    [(kwargs with rows and the submitting thread, future)], in call
+    order."""
 
     def __init__(self, plane):
         self.plane = plane
@@ -5246,7 +5321,8 @@ class record_plane_submissions:
 
         def submit_many(rows, **kw):
             fut = real(rows, **kw)
-            self.seen.append((dict(kw, rows=list(rows)), fut))
+            self.seen.append((dict(kw, rows=list(rows),
+                                   thread=threading.current_thread()), fut))
             return fut
 
         self.plane.submit_many = submit_many
@@ -5304,7 +5380,8 @@ def wait_heights(nodes, height, what, timeout=NODE_TIMEOUT_S,
                  catchup=False):
     """Wait until every node has committed `height`; with `catchup`, a
     node left a height behind the others (a round it sat out) is caught
-    up from the highest one."""
+    up from the highest one. -> {node index: blocks pushed to it}."""
+    pushed = collections.Counter()
     deadline = time.time() + timeout
     while min(n.height() for n in nodes) < height:
         check(time.time() < deadline,
@@ -5312,10 +5389,12 @@ def wait_heights(nodes, height, what, timeout=NODE_TIMEOUT_S,
               f"want {height}")
         if catchup:
             top = max(nodes, key=lambda n: n.height())
-            for n in nodes:
+            for i, n in enumerate(nodes):
                 if n.height() < top.height() - 1:
-                    catch_up(n, top, max(1.0, deadline - time.time()))
+                    pushed[i] += catch_up(n, top,
+                                          max(1.0, deadline - time.time()))
         time.sleep(0.02)
+    return dict(pushed)
 
 
 def catch_up(node, src, timeout=NODE_TIMEOUT_S):
@@ -5716,9 +5795,16 @@ def phase_node(dev, rng, kernel_stats):
         t0 = time.perf_counter()
         for n in wnet.nodes:
             n.start()
-        wait_heights(wnet.nodes, NODE_WIDE_HEIGHTS, "the 16-node run",
-                     timeout=3 * NODE_TIMEOUT_S)
+        # a node that sat out a height in a LocalNetwork never catches
+        # up by itself (no reactor: it drops the next height's votes):
+        # push it the blocks it missed, and count them
+        wpushed = wait_heights(wnet.nodes, NODE_WIDE_HEIGHTS,
+                               "the 16-node run",
+                               timeout=3 * NODE_TIMEOUT_S, catchup=True)
         wide_s = time.perf_counter() - t0
+        check(sum(wpushed.values()) <= NODE_WIDE_MAX_PUSHED,
+              f"phase18 the 16-node run needed {wpushed} blocks pushed "
+              f"(node: blocks), over {NODE_WIDE_MAX_PUSHED}")
         wh = min(n.height() for n in wnet.nodes)
         for h in range(1, wh + 1):
             check(len({n.block_store.load_block(h).hash()
@@ -5743,7 +5829,9 @@ def phase_node(dev, rng, kernel_stats):
     wgrouped = [r for r in wrecs if r["path"] == "grouped"]
     print(f"phase18 {NODE_WIDE_VALS} validators as {NODE_WIDE_VALS} nodes: "
           f"{wh} heights in {wide_s:.3f} s = {wh / wide_s:.3f} heights/s "
-          f"(start included), commit p50={ws['commit_latency_ms']['p50']} "
+          f"(start included; blocks pushed to lagging nodes "
+          f"{json.dumps(wpushed)}), commit p50="
+          f"{ws['commit_latency_ms']['p50']} "
           f"ms (node 0's height ledger; stage p50s "
           f"{json.dumps({k: v['p50'] for k, v in ws['stage_ms'].items()})}"
           f"), plane ms/height {round(ws['plane_ms'] / ws['heights'], 3)} "
@@ -5769,10 +5857,940 @@ def phase_node(dev, rng, kernel_stats):
             kernel_stats[name]["max_abs_err"], e)
     kernel_stats["ed25519_verify"]["max_abs_err"] = max(
         kernel_stats["ed25519_verify"]["max_abs_err"], err_v)
+    check(all(node_dev.values()), f"phase18 a kernel's device time was "
+          f"not measured: {node_dev}")
     for name, ms in node_dev.items():
         kernel_stats[name].setdefault("device_ms_by_path", {})["node"] = ms
     return {"node_heights_per_s": heights_per_s,
             "node_commit_p50_ms": s0["commit_latency_ms"]["p50"]}
+
+
+# --------------------------------------------------------------------------
+# phase 19: the node over TCP
+# --------------------------------------------------------------------------
+
+NET_VALS = 4                 # phase 19: BASELINE config 1's validators
+NET_HEIGHTS = 20             # phase 19: heights the 4 TCP validators commit
+NET_TXS = 200                # phase 19: k_i=v_i sigtx envelopes, to node 0
+NET_JOIN_AT = 10             # phase 19: height at which the joiner starts
+NET_SNAPSHOT_EVERY = 5       # phase 19: the validators' kvstore snapshots
+NET_AFTER = 3                # phase 19: heights committed after each fault
+NET_SYNC_HEIGHTS = 65        # phase 19: the served 1,000-validator chain
+NET_SYNC_ROTATE_AT = 30      # phase 19: height of its val-tx rotation
+NET_SYNC_TXS = 4             # phase 19: k=v txs a block of that chain
+NET_TIMEOUT_S = 120.0
+AEAD_REF_FRAMES = 64         # phase 19: frames timed on the aead_ref path
+# the TCP validators' TOML: the plane on, the card's verifier, timeouts
+# that leave room for the pure-Python AEAD when `cryptography` is absent
+NET_TOML = """[base]
+chain_id = "chip-smoke-net"
+
+[crypto]
+verifier = "tpu"
+
+[verify_plane]
+enable = true
+
+[consensus]
+timeout_propose = 3.0
+timeout_propose_delta = 0.5
+timeout_prevote = 1.0
+timeout_prevote_delta = 0.5
+timeout_precommit = 1.0
+timeout_precommit_delta = 0.5
+timeout_commit = 0.05
+"""
+
+
+class time_aead:
+    """While the block runs, time every seal (encrypt) and open (decrypt)
+    of the secret connections made meanwhile, by wrapping the AEAD class
+    p2p/conn/secret_connection.py binds: {"seal": [ms], "open": [ms],
+    "backend": "OpenSSL" or "aead_ref"}."""
+
+    def __enter__(self):
+        from cometbft_tpu_torch.p2p.conn import secret_connection as sc
+
+        self.sc, self.real = sc, sc.ChaCha20Poly1305
+        out = {"seal": [], "open": [], "seal_bytes": 0,
+               "backend": "OpenSSL" if sc._HAVE_OPENSSL else "aead_ref"}
+        real = self.real
+
+        class Timed:
+            def __init__(self, key):
+                self._aead = real(key)
+
+            def encrypt(self, nonce, data, aad):
+                t = time.perf_counter()
+                try:
+                    return self._aead.encrypt(nonce, data, aad)
+                finally:
+                    out["seal"].append((time.perf_counter() - t) * 1e3)
+                    out["seal_bytes"] += len(data)
+
+            def decrypt(self, nonce, data, aad):
+                t = time.perf_counter()
+                try:
+                    return self._aead.decrypt(nonce, data, aad)
+                finally:
+                    out["open"].append((time.perf_counter() - t) * 1e3)
+
+        sc.ChaCha20Poly1305 = Timed
+        self.out = out
+        return out
+
+    def __exit__(self, *exc):
+        self.sc.ChaCha20Poly1305 = self.real
+
+
+def net_node(cfg, state, seed, key_seed, home, dev, i=None, app=None,
+             **kw):
+    """A port Node(p2p=True) over `home` as the CLI builds one from
+    `cfg` (FilePV from `seed` when it is a validator; node 0 takes the
+    [verify_plane] config), listening on 127.0.0.1:0."""
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.crypto.keys import PrivKey
+    from cometbft_tpu_torch.node.node import Node
+    from cometbft_tpu_torch.p2p.key import NodeKey
+    from cometbft_tpu_torch.privval.file_pv import FilePV
+
+    if app is None:
+        app = KVStoreApplication()
+        app.enable_snapshots(NET_SNAPSHOT_EVERY)
+    pv = (FilePV.generate(os.path.join(home, "pv"), seed)
+          if seed is not None else None)
+    node = Node(app, state.copy(), privval=pv, home=home,
+                timeouts=cfg.consensus.timeout_params(),
+                batch_fn=cfg.crypto.batch_fn(device=dev),
+                verify_plane=cfg.verify_plane if i == 0 else None,
+                mempool_config=cfg.mempool, device=dev, p2p=True,
+                node_key=NodeKey(PrivKey.generate(key_seed)), **kw)
+    return node, node.listen("127.0.0.1", 0)
+
+
+def wait_for(cond, what, timeout=NET_TIMEOUT_S):
+    """Wait for cond(); past `timeout`, print every thread's stack (what
+    the nodes were doing) and fail."""
+    deadline = time.time() + timeout
+    while not cond():
+        if time.time() >= deadline:
+            import faulthandler
+
+            faulthandler.dump_traceback(file=sys.stdout)
+            fail(f"phase19 {what}")
+        time.sleep(0.05)
+
+
+def own_rounds(node):
+    """Heights `node` committed through its own consensus rounds."""
+    from cometbft_tpu_torch.consensus import heightledger
+
+    return [r["height"] for r in node.consensus.height_ledger.records()
+            if r["via"] == heightledger.VIA_CONSENSUS]
+
+
+def cut_off(victim, others):
+    """Stop every link between `victim` and `others`, both ends."""
+    for p in list(victim.switch.peers.values()):
+        victim.switch.stop_peer_for_error(p, "phase19 partition")
+    vid = victim.switch.node_key.node_id
+    for n in others:
+        for p in list(n.switch.peers.values()):
+            if p.peer_id == vid:
+                n.switch.stop_peer_for_error(p, "phase19 partition")
+
+
+def wire_chain(pool, rng, res, home):
+    """NET_SYNC_HEIGHTS real blocks of phase 6's 1,000 validators and
+    powers from a GenesisDoc, made by a BlockExecutor over a kvstore app
+    into the stores under `home` (every LastCommit signed by its set,
+    NET_SYNC_TXS k=v txs a block, NET_SYNC_ROTATE_AT's block rotating
+    APP_ROTATED validators by val txs); -> (genesis doc, app, the sets by
+    height, signatures made)."""
+    import dataclasses
+
+    from cometbft_tpu_torch.abci import types as abci
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.crypto.keys import PubKey
+    from cometbft_tpu_torch.state.execution import BlockExecutor
+    from cometbft_tpu_torch.state.state import StateStore
+    from cometbft_tpu_torch.store.blockstore import BlockStore
+    from cometbft_tpu_torch.types import validation
+
+    v0 = res["stream_sets"][0]
+    seed_of = dict(res["stream_seed_of"])
+    new_seeds = [seed_bytes(rng) for _ in range(APP_ROTATED)]
+    gone = v0.validators[-APP_ROTATED:]
+    added = [(pub, v.voting_power) for (pub, _), v in zip(
+        sign_all(pool, [(s, []) for s in new_seeds]), gone)]
+    for (pub, _), s in zip(added, new_seeds):
+        seed_of[PubKey(pub).address()] = s
+    doc = app_genesis(v0, 1 << 20)
+    os.makedirs(home, exist_ok=True)
+    app = KVStoreApplication()
+    store = StateStore(os.path.join(home, "state.db"))
+    blocks = BlockStore(os.path.join(home, "blockstore.db"))
+    ex = BlockExecutor(app, store, batch_fn=validation.oracle_batch_fn())
+    state = doc.make_state()
+    # the handshake as Node makes it at genesis: InitChain, then its
+    # app hash into the state (the port's kvstore answers no validators)
+    ri = app.init_chain(abci.RequestInitChain(
+        time_seconds=state.last_block_time.seconds,
+        chain_id=state.chain_id, initial_height=state.initial_height,
+        validators=[abci.ValidatorUpdate(v.pub_key.data, v.voting_power,
+                                         v.pub_key.key_type)
+                    for v in state.validators.validators]))
+    check(not ri.validators, "phase19 the kvstore amended the genesis set")
+    if ri.app_hash:
+        state = dataclasses.replace(state, app_hash=ri.app_hash)
+    store.save(state)
+    last_commit, sets, n_sigs = None, {}, 0
+    for h in range(1, NET_SYNC_HEIGHTS + 1):
+        txs = [b"w%d_%d=%d" % (h, j, h * j) for j in range(NET_SYNC_TXS)]
+        if h == NET_SYNC_ROTATE_AT:
+            txs += val_txs(gone, added)
+        block = ex.create_proposal_block(
+            h, state, last_commit, state.validators.get_proposer().address,
+            txs=txs)
+        bid = block.block_id()
+        commit = signed_commit(pool, state.validators, bid, h, seed_of)
+        n_sigs += len(commit.signatures)
+        sets[h] = state.validators
+        state = ex.apply_block(state, bid, block, validate=False)
+        blocks.save_block(block, commit)
+        last_commit = commit
+    blocks.close()
+    store.close()
+    return doc, app, sets, n_sigs
+
+
+def phase_net(dev, pool, rng, res, kernel_stats):
+    """ROADMAP A8's p2p layer and reactors: (a) BASELINE config 1 over TCP
+    (4 port validators from a TOML, Node(p2p=True) each on 127.0.0.1 with
+    its own listener, a full mesh of secret connections, 20+ heights;
+    200 sigtx envelopes sent to node 0 only, gossiped by the mempool
+    reactor, each node's CheckTx on the card plane's BULK lane, each tx
+    committed once); (b) a fifth node that blocksyncs from height 10 and
+    joins consensus; (d) a validator that double-signs through a second
+    FilePV, its evidence gossiped and committed; (e) a node that
+    statesyncs the kvstore snapshot through a light client over node 0's
+    stores, blocksyncs the rest and joins; (f) a validator partitioned
+    (its links stopped, every redial failed by the p2p.dial failpoint)
+    that rejoins, and one verifyplane.dispatch fault; (c) config 4's path
+    over the wire: a fresh Node(p2p=True, blocksync=True) pulls 64 blocks
+    of 1,000 validators from a serving node through BlockPool, verifies
+    them in the StreamVerifier on the card and applies them."""
+    import tempfile
+
+    from cometbft_tpu_torch.config.config import load_config
+
+    root = tempfile.mkdtemp(prefix="phase19-")
+    cfg_path = os.path.join(root, "config.toml")
+    with open(cfg_path, "w") as f:
+        f.write(NET_TOML)
+    cfg = load_config(cfg_path)
+    card = smi("name,power.limit")
+    tcp = net_tcp(dev, pool, rng, cfg, cfg_path, root, card)
+    sync = net_sync(dev, pool, rng, res, cfg, root, card)
+    for name in tcp["launches"]:
+        kernel_stats[name]["launches_by_path"]["net"] = (
+            tcp["launches"][name] + sync["launches"][name])
+    kernel_stats["carry_quorum"]["launches_by_path"]["net"] = 0
+    for name, e in zip(("stamp_rows", "ed25519_verify_cached",
+                        "tally_quorum_cached"), tcp["errs"]):
+        kernel_stats[name]["max_abs_err"] = max(
+            kernel_stats[name]["max_abs_err"], e, sync["err_chunks"])
+    kernel_stats["ed25519_verify"]["max_abs_err"] = max(
+        kernel_stats["ed25519_verify"]["max_abs_err"], tcp["err_verify"],
+        sync["err_verify"])
+    kernel_stats["valset_table_build"]["max_abs_err"] = max(
+        kernel_stats["valset_table_build"]["max_abs_err"],
+        sync["err_table"])
+    check(all(tcp["dev_ms"].values()), f"phase19 a kernel's device time "
+          f"was not measured: {tcp['dev_ms']}")
+    for name, ms in tcp["dev_ms"].items():
+        kernel_stats[name].setdefault("device_ms_by_path", {})["net"] = ms
+    return {"net_heights_per_s": tcp["heights_per_s"],
+            "net_commit_p50_ms": tcp["commit_p50_ms"],
+            "net_sync_blocks_per_s": sync["blocks_per_s"]}
+
+
+def net_tcp(dev, pool, rng, cfg, cfg_path, root, card):
+    """Phase 19 (a), (b), (d), (e) and (f) on one TCP network of port
+    nodes; -> launches, the kernels' errors against plain, device ms and
+    the network's heights/s and commit p50."""
+    import contextlib
+
+    import torch
+
+    from cometbft_tpu_torch.blocksync.pipeline import StreamVerifier
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.crypto.keys import PrivKey
+    from cometbft_tpu_torch.libs import failpoints as fp
+    from cometbft_tpu_torch.lightgate.gateway import node_light_provider
+    from cometbft_tpu_torch.light import client as lc
+    from cometbft_tpu_torch.mempool import sigtx
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+    from cometbft_tpu_torch.ops import table_cache as tcache
+    from cometbft_tpu_torch.privval.file_pv import FilePV
+    from cometbft_tpu_torch.state.state import State
+    from cometbft_tpu_torch.types import canonical
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+    from cometbft_tpu_torch.types.vote import Vote
+    from cometbft_tpu_torch.verifyplane import FlushLedger, global_plane
+
+    brk = cbatch.device_breaker()
+    faults0 = brk.faults
+    seeds = [seed_bytes(rng) for _ in range(NET_VALS)]
+    vals = ValidatorSet([Validator(PrivKey.generate(s).pub_key(),
+                                   NODE_POWER) for s in seeds])
+    genesis = State.make_genesis(cfg.base.chain_id, vals)
+    payloads = [b"k_%d=v_%d" % (i, i) for i in range(NET_TXS)]
+    (tpub, tsigs), = sign_all(pool, [(seed_bytes(rng), [
+        sigtx.sign_bytes(p) for p in payloads])])
+    txs = [sigtx.MAGIC + tpub + s + p for s, p in zip(tsigs, payloads)]
+    tcache.reset_for_tests()
+    nodes, addrs = [], []
+    for i, s in enumerate(seeds):
+        n, a = net_node(cfg, genesis, s, bytes([0x90 + i]) * 32,
+                        os.path.join(root, f"n{i}"), dev, i=i)
+        nodes.append(n)
+        addrs.append(a)
+    plane = nodes[0].verify_plane
+    check(plane is not None and plane.device == dev,
+          "phase19 node 0 did not build the card plane")
+    plane.ledger = FlushLedger(capacity=PLANE_LEDGER)
+    extra = []  # the joiner and the statesync node
+
+    def stop_all():
+        for n in extra + nodes[::-1]:
+            if n.is_running():
+                n.stop()
+
+    with contextlib.ExitStack() as stack:
+        aead = stack.enter_context(time_aead())
+        subs = stack.enter_context(record_plane_submissions(plane))
+        lc_rows = stack.enter_context(capture_verify_rows(ed25519=kf))
+        direct = stack.enter_context(count_direct_verifies())
+        stack.callback(stop_all)
+        # -- (a) 4 validators over TCP -------------------------------------
+        zero_launches()
+        t0 = time.perf_counter()
+        for n in nodes:
+            n.start()
+        check(global_plane() is plane, "phase19 the plane is not global")
+        for i, n in enumerate(nodes):
+            for j, a in enumerate(addrs):
+                if i != j:
+                    n.dial(a)
+        wait_for(lambda: all(n.switch.num_peers() >= NET_VALS - 1
+                             for n in nodes), "the mesh never formed")
+        mesh_ms = (time.perf_counter() - t0) * 1e3
+        checked = [collections.Counter() for _ in nodes]
+        # each node's first CheckTx answer a tx, with the height its block
+        # store held then (a block is saved before its txs enter the
+        # mempool's cache)
+        first_at = [{} for _ in nodes]
+        ok_at = [set() for _ in nodes]
+        for n, seen, first, ok in zip(nodes, checked, first_at, ok_at):
+            real_check = n.mempool.check_tx
+
+            def check_tx(tx, real_check=real_check, seen=seen, first=first,
+                         ok=ok, n=n):
+                stored = n.block_store.height()
+                r = real_check(tx)
+                seen[r.code] += 1
+                first.setdefault(tx, (r.code, stored))
+                if r.code == 0:
+                    ok.add(tx)
+                return r
+
+            n.mempool.check_tx = check_tx
+        codes, resent = [], 0
+        for tx in txs:
+            # a client of broadcast_tx resends after an OVERLOADED answer's
+            # retry hint
+            for _ in range(APP_RESENDS):
+                r = nodes[0].broadcast_tx(tx)
+                if r.code != 1001:
+                    break
+                resent += 1
+                time.sleep(r.retry_after_ms / 1e3)
+            codes.append(r.code)
+        check(codes == [0] * NET_TXS,
+              f"phase19 broadcast_tx codes {collections.Counter(codes)}")
+        # -- (b) a fifth node joins at height NET_JOIN_AT -----------------
+        wait_for(lambda: nodes[0].height() >= NET_JOIN_AT,
+                 f"node 0 never reached {NET_JOIN_AT}")
+        joiner, _ = net_node(cfg, genesis, None, b"\x9f" * 32,
+                             os.path.join(root, "joiner"), dev,
+                             blocksync=True)
+        extra.append(joiner)
+        eng = joiner.blocksync_engine
+        check(isinstance(eng.verifier, StreamVerifier)
+              and eng.verifier.device == dev,
+              f"phase19 the joiner's verifier {eng.verifier!r}")
+        join_h0 = nodes[0].height()
+        t_join = time.perf_counter()
+        joiner.start()
+        for a in addrs:
+            joiner.dial(a)
+        def all_committed():
+            have = {tx for h in range(1, nodes[0].height() + 1)
+                    for tx in nodes[0].block_store.load_block(h).data.txs}
+            return have >= set(txs)
+
+        wait_for(all_committed, "the gossiped txs never all committed")
+        wait_for(lambda: min(n.height() for n in nodes) >= NET_HEIGHTS,
+                 f"heights {[n.height() for n in nodes]}, want "
+                 f"{NET_HEIGHTS}")
+        run_s = time.perf_counter() - t0
+        h_end = min(n.height() for n in nodes)
+        wait_for(lambda: bool(own_rounds(joiner)),
+                 f"the joiner never committed through its own rounds (at "
+                 f"{joiner.height()}, node 0 at {nodes[0].height()})")
+        join_s = time.perf_counter() - t_join
+        join_own = own_rounds(joiner)[0]
+        join_stats = dict(eng.verifier.stats)
+        check(join_stats["stamped_chunks"] == 0
+              and join_stats["general_chunks"] == 0,
+              f"phase19 the joiner's {NET_VALS}-validator runs went to the "
+              f"device: {join_stats}")
+        for h in range(1, h_end + 1):
+            check(len({n.block_store.load_block(h).hash()
+                       for n in nodes + [joiner]}) == 1,
+                  f"phase19 nodes disagree at height {h}")
+        check(len({n.block_store.load_block(h_end).header.app_hash
+                   for n in nodes}) == 1, "phase19 app hashes differ")
+        counts = collections.Counter(
+            tx for h in range(1, nodes[0].height() + 1)
+            for tx in nodes[0].block_store.load_block(h).data.txs)
+        check(set(counts) == set(txs) and set(counts.values()) == {1},
+              f"phase19 committed txs: {len(counts)} distinct, counts "
+              f"{collections.Counter(counts.values())}")
+        lanes = plane.stats()["lane_rows"]
+        oks = [seen[0] for seen in checked]
+        commit_h = {tx: h for h in range(1, nodes[0].height() + 1)
+                    for tx in nodes[0].block_store.load_block(h).data.txs}
+        # the mempool channel's tx and the consensus channel's block parts
+        # race: a peer that stored the tx's block first answers the gossiped
+        # tx as a duplicate (its cache took the block's txs), which is no
+        # rejection; every other tx must be CheckTx'd OK at every node
+        in_block = [[tx for tx in txs if tx not in ok] for ok in ok_at]
+        unexplained = [[first.get(tx) for tx in miss
+                        if tx not in first or first[tx][1] < commit_h[tx]]
+                       for miss, first in zip(in_block, first_at)]
+        check(not in_block[0] and not any(unexplained)
+              and lanes["bulk"] >= sum(oks),
+              f"phase19 CheckTx OK answers by node {oks} (want {NET_TXS} "
+              f"at node 0; at the others, all but the txs answered after "
+              f"their block was stored); (code, stored height) of the "
+              f"others, None where a node never ran CheckTx on it: "
+              f"{unexplained}; BULK lane rows {lanes['bulk']}")
+        s0 = nodes[0].consensus.height_ledger.summary()
+        wire = [n.switch.peer_ledger.summary() for n in nodes]
+        heights_per_s = h_end / run_s
+        a_seal, a_open = sum(aead["seal"]), sum(aead["open"])
+        print(f"phase19 (a) 4 validators over TCP from {cfg_path} (mesh of "
+              f"{NET_VALS * (NET_VALS - 1)} dials in {mesh_ms:.3f} ms): "
+              f"{h_end} heights in {run_s:.3f} s = {heights_per_s:.3f} "
+              f"heights/s (start included), commit p50="
+              f"{s0['commit_latency_ms']['p50']} ms p90="
+              f"{s0['commit_latency_ms']['p90']} ms (node 0's height "
+              f"ledger), rounds_max={s0['rounds_max']}; {NET_TXS} sigtx "
+              f"envelopes sent to node 0 only ({resent} resent after "
+              f"OVERLOADED), each committed exactly once; CheckTx answers "
+              f"by node {[dict(c) for c in checked]} (txs first answered "
+              f"after their block was stored {list(map(len, in_block))}), "
+              f"BULK lane rows "
+              f"{lanes['bulk']}; wire bytes a height by node (tx, rx) "
+              f"{[(round(w['bytes_tx'] / h_end), round(w['bytes_rx'] / h_end)) for w in wire]}"
+              f"; AEAD {aead['backend']}: seal {len(aead['seal'])} frames "
+              f"{a_seal:.3f} ms, open {len(aead['open'])} frames "
+              f"{a_open:.3f} ms over the run = {a_seal / h_end:.3f} + "
+              f"{a_open / h_end:.3f} ms a height (4 nodes, one process), "
+              f"seal p50={statistics.median(aead['seal']):.4f} ms a frame; "
+              f"card={card}", flush=True)
+        print(f"phase19 (b) the joiner (blocksync=True, no validator key) "
+              f"started at height {join_h0}: caught up over TCP and "
+              f"committed height {join_own} through its own rounds "
+              f"{join_s:.3f} s after its start; its StreamVerifier on "
+              f"{eng.verifier.device} took the host path for every run "
+              f"({NET_VALS} rows a commit, under min_device_sigs="
+              f"{eng.verifier.min_device_sigs}): stats "
+              f"{json.dumps({k: v for k, v in join_stats.items() if k != 'host_ms'})}",
+              flush=True)
+
+        # -- (d) a double-signing validator -------------------------------
+        mark = read_launches()
+        bad = 3
+        addr_bad = PrivKey.generate(seeds[bad]).pub_key().address()
+        idx_bad = vals.get_by_address(addr_bad)[0]
+        node_of = {n.consensus._thread: i for i, n in enumerate(nodes)}
+
+        def card_served(sig):
+            """{node: seqs of the plane flushes that answered the row
+            signed `sig`, submitted by that node's consensus thread}"""
+            out = collections.defaultdict(set)
+            for kw, fut in list(subs):
+                if (kw["thread"] in node_of and fut.done()
+                        and fut.flush_seq is not None
+                        and any(row[2] == sig for row in kw["rows"])):
+                    out[node_of[kw["thread"]]].add(fut.flush_seq)
+            return dict(out)
+
+        def evidence_of(sig):
+            for n in nodes:
+                for e in n.evidence_pool.pending_evidence():
+                    if sig in (e.vote_a.signature, e.vote_b.signature):
+                        return e
+            return None
+
+        ev_found, ev_seqs, made = None, {}, set()
+        deadline = time.time() + NET_TIMEOUT_S
+        tries = 0
+        while ev_found is None:
+            check(time.time() < deadline, f"phase19 no conflicting vote was "
+                  f"verified by every node's VoteSet in {tries} tries")
+            # a vote for another height is dropped: inject it while every
+            # node stands at node 0's height and round
+            cs = nodes[0].consensus
+            h, r = cs.height, cs.round
+            if any((n.consensus.height, n.consensus.round) != (h, r)
+                   for n in nodes):
+                time.sleep(0.01)
+                continue
+            v = Vote(vote_type=canonical.PREVOTE_TYPE, height=h, round=r,
+                     block_id=BlockID(rng.bytes(32),
+                                      PartSetHeader(1, rng.bytes(32))),
+                     timestamp=Timestamp.now(), validator_address=addr_bad,
+                     validator_index=idx_bad)
+            # the double signer: a second FilePV over validator 3's key
+            # (fresh each try, with no record of what it signed)
+            twin = FilePV(PrivKey.generate(seeds[bad]))
+            v.signature = twin.sign_vote(cfg.base.chain_id, v)
+            tries += 1
+            for n in nodes:
+                n.consensus.receive_vote(v)
+            t_ev = time.time() + 5
+            while time.time() < t_ev:
+                ev, seen = evidence_of(v.signature), card_served(v.signature)
+                if ev is not None:
+                    made.add(ev.hash())
+                    if len(seen) == NET_VALS:
+                        ev_found, ev_seqs = ev, seen
+                        break
+                time.sleep(0.05)
+        ev_h = None
+
+        def evidence_committed():
+            nonlocal ev_h
+            for hh in range(1, nodes[0].height() + 1):
+                if ev_found.hash() in {
+                        e.hash() for e in
+                        nodes[0].block_store.load_block(hh).evidence}:
+                    ev_h = hh
+                    return True
+            return False
+
+        wait_for(evidence_committed, "the evidence was never committed")
+        wait_for(lambda: min(n.height() for n in nodes) >= ev_h,
+                 "a node never reached the evidence's block")
+        check(all(ev_found.hash() in n.evidence_pool._committed
+                  for n in nodes),
+              "phase19 a node did not mark the evidence committed")
+        ev_l = launches_since(mark)
+        print(f"phase19 (d) validator {bad} double-signed a prevote through "
+              f"a second FilePV ({tries} tries to land it while every node "
+              f"stood at one height and round; {len(made)} evidence made): "
+              f"DuplicateVoteEvidence at height {ev_found.height}; every "
+              f"node's VoteSet verified the conflicting vote in a plane "
+              f"flush (node: flush seqs "
+              f"{json.dumps({i: sorted(q) for i, q in ev_seqs.items()})}, "
+              f"held to the card's flush ledger below); each pool verifies "
+              f"the evidence's two signatures on the host, in both "
+              f"packages as upstream; gossiped by the evidence reactor and "
+              f"committed in block {ev_h}; launches while it ran "
+              f"{json.dumps(ev_l)}", flush=True)
+
+        # -- (e) statesync ------------------------------------------------
+        mark = read_launches()
+        provider = node_light_provider(nodes[0])
+        light = lc.Client(cfg.base.chain_id, provider, trusting_period=1e6)
+        light.trust_light_block(provider.light_block(1))
+        ss, _ = net_node(cfg, genesis, None, b"\x9e" * 32,
+                         os.path.join(root, "ss"), dev, blocksync=True,
+                         statesync_light_client=light,
+                         statesync_discovery=NET_TIMEOUT_S / 4)
+        extra.append(ss)
+        t_ss = time.perf_counter()
+        ss.start()
+        for a in addrs:
+            ss.dial(a)
+        wait_for(lambda: bool(own_rounds(ss)),
+                 f"the statesync node never committed through its own "
+                 f"rounds (at {ss.height()})")
+        ss_s = time.perf_counter() - t_ss
+        ss_base = ss.block_store.base()
+        check(ss.block_store.load_block(2) is None and ss_base > 2,
+              f"phase19 the statesync node fetched early blocks (base "
+              f"{ss_base})")
+        check(ss.query(payloads[0].split(b"=")[0]).value
+              == nodes[0].query(payloads[0].split(b"=")[0]).value,
+              "phase19 the restored app state differs")
+        ss_l = launches_since(mark)
+        print(f"phase19 (e) statesync: restored the kvstore snapshot over "
+              f"the statesync channels (its light client trusting node 0's "
+              f"stores through node_light_provider), blocksynced from "
+              f"{ss_base} and committed height {own_rounds(ss)[0]} "
+              f"through its own rounds {ss_s:.3f} s after its start; "
+              f"launches {json.dumps(ss_l)}", flush=True)
+
+        # -- (f) a partition, then a dispatch fault -----------------------
+        mark = read_launches()
+        victim = nodes[2]
+        others = [n for n in nodes + extra if n is not victim]
+        fp.arm("p2p.dial", "raise")
+        try:
+            cut_off(victim, others)
+            h_cut = victim.height()
+            wait_for(lambda: nodes[0].height() >= h_cut + NET_AFTER,
+                     "the 3 others stalled during the partition")
+            fires = fp.registry().stats("p2p.dial")["fires"]
+            check(victim.height() <= h_cut + 1,
+                  f"phase19 the victim advanced to {victim.height()} "
+                  f"while cut off")
+        finally:
+            fp.disarm("p2p.dial")
+        t_re = time.perf_counter()
+        for j, a in enumerate(addrs):
+            if nodes[j] is not victim:
+                victim.dial(a)
+        target = nodes[0].height() + 1
+        n_own = len(own_rounds(victim))
+        wait_for(lambda: victim.height() >= target
+                 and len(own_rounds(victim)) > n_own,
+                 f"the partitioned node never rejoined (at "
+                 f"{victim.height()}, target {target})")
+        rejoin_ms = (time.perf_counter() - t_re) * 1e3
+        fault_brk = cbatch.CircuitBreaker(name="phase19-fault")
+        plane._breaker = fault_brk
+        n_rec = len(plane.ledger.records())
+        h_fault = nodes[0].height()
+        fp.arm("verifyplane.dispatch", "raise", count=1)
+        try:
+            wait_for(lambda: fp.registry().stats(
+                "verifyplane.dispatch")["fires"] > 0,
+                "the dispatch fault never fired")
+            wait_for(lambda: min(n.height() for n in nodes)
+                     >= h_fault + NET_AFTER,
+                     f"the network stalled after the fault at "
+                     f"{[n.height() for n in nodes]}")
+        finally:
+            fp.reset()
+            plane._breaker = brk
+        faulted = [r for r in plane.ledger.records()[n_rec:]
+                   if r["path"] == "device_fault"]
+        frounds = {r["height"]: r["rounds"]
+                   for r in nodes[0].consensus.height_ledger.records()
+                   if h_fault < r["height"] <= h_fault + NET_AFTER}
+        check(len(faulted) == 1 and fault_brk.faults == 0
+              and sum(frounds.values()) <= 1,
+              f"phase19 fault: {len(faulted)} device_fault flushes, rounds "
+              f"{frounds}")
+        f_l = launches_since(mark)
+        print(f"phase19 (f) node 2 partitioned at height {h_cut} (its "
+              f"links stopped, {fires} redials failed by p2p.dial) while "
+              f"the others committed {NET_AFTER} heights; redialed, it "
+              f"committed height {victim.height()} through its own rounds "
+              f"{rejoin_ms:.3f} ms later; one verifyplane.dispatch fault "
+              f"failed a flush of "
+              f"{faulted[0]['rows'] if faulted else None} rows, heights "
+              f"{h_fault + 1}-{h_fault + NET_AFTER} took rounds "
+              f"{json.dumps(frounds)}; launches {json.dumps(f_l)}",
+              flush=True)
+    # every node is stopped: the plane's ledger and the counters are final
+    torch.cuda.synchronize()
+    # one count over (a)-(f): set to 0 before the network started, read
+    # once every node has stopped
+    tcp_l = read_launches()
+    recs = plane.ledger.records()
+    check(len(recs) < PLANE_LEDGER, "phase19 the flush ledger wrapped")
+    n_mixed = check_served(recs, subs, "phase19")
+    rec_path = {r["seq"]: r["path"] for r in recs}
+    ev_paths = {i: [rec_path.get(q) for q in sorted(seqs)]
+                for i, seqs in ev_seqs.items()}
+    check(len(ev_paths) == NET_VALS and all(
+        p and set(p) <= {"fused", "grouped"} for p in ev_paths.values()),
+          f"phase19 (d) the conflicting vote's flushes by node {ev_paths}, "
+          f"want card flushes (fused or grouped) at each of {NET_VALS}")
+    paths = collections.Counter(r["path"] for r in recs)
+    check(set(paths) <= {"fused", "grouped", "device_fault"},
+          f"phase19 flush paths {dict(paths)}")
+    want_l = flush_launches_want(recs, tcp_l, 1, direct)
+    check(tcp_l == want_l, f"phase19 launches {tcp_l}, want {want_l}")
+    check(brk.faults == faults0 and brk.trips == 0,
+          f"phase19 breaker faults={brk.faults - faults0} trips={brk.trips}")
+    by_seq = collections.defaultdict(list)
+    for kw, fut in subs:
+        if kw.get("group") is not None and fut.flush_seq is not None:
+            by_seq[fut.flush_seq].append(kw)
+    pubs = tuple(v.pub_key.data for v in vals.validators)
+    powers = tuple(v.voting_power for v in vals.validators)
+    seq = max(by_seq, key=lambda s: len(by_seq[s]))
+    fk = flush_kernels_vs_plain(dev, [
+        dict(rows=kw["rows"], power=kw["power"], vidx=kw["vidx"],
+             stamp=kw["stamp"]) for kw in by_seq[seq]], pubs, powers,
+        "phase19")
+    points = kf.base_points(dev)
+    err_v, lc_cols = hold_shapes_against_plain(
+        dev, kf.ed25519_verify, lambda r: kf.ed25519_verify_plain(r, points),
+        lc_rows["ed25519"])
+    check(err_v == 0, f"phase19 ed25519_verify != plain at {lc_cols}")
+    fused = [r for r in recs if r["path"] == "fused"]
+    grouped = [r for r in recs if r["path"] == "grouped"]
+    lc_t = torch.as_tensor(lc_rows["ed25519"][-1]).to(dev)
+    tcp_dev = {
+        "stamp_rows": dev_ms(fk.stamp, "stamp_rows_net_trace.json"),
+        "ed25519_verify_cached": dev_ms(fk.vk,
+                                        "verify_cached_net_trace.json"),
+        "tally_quorum_cached": dev_ms(fk.tq, "tally_cached_net_trace.json"),
+        "ed25519_verify": dev_ms(lambda: kf.ed25519_verify(lc_t),
+                                 "ed25519_verify_net_trace.json"),
+    }
+    print(f"phase19 the card's work over (a)-(f): flush paths "
+          f"{dict(paths)} ({len(fused)} fused of "
+          f"{sum(r['rows'] for r in fused)} vote rows, {len(grouped)} "
+          f"grouped of {sum(r['rows'] for r in grouped)} BULK, LastCommit "
+          f"and catch-up rows, {n_mixed} with votes in the batch); fused "
+          f"flush ms p50={statistics.median(flush_ms(r) for r in fused):.3f}"
+          f", grouped ms p50="
+          f"{statistics.median(flush_ms(r) for r in grouped):.3f}; direct "
+          f"card verifies {direct}; launches {json.dumps(tcp_l)} == one "
+          f"stamp/cached verify/tally a fused flush, one ed25519_verify a "
+          f"grouped flush; flush {seq} ({fk.live} votes, B={fk.B}, "
+          f"M={fk.M}) kernels == plain, LastCommit rows ({lc_cols} cols) "
+          f"ed25519_verify == plain; device_ms "
+          f"{json.dumps({k: fmt_ms(v) for k, v in tcp_dev.items()})}; "
+          f"card={card}", flush=True)
+
+    return {"launches": tcp_l, "errs": fk.errs, "err_verify": err_v,
+            "dev_ms": tcp_dev, "heights_per_s": heights_per_s,
+            "commit_p50_ms": s0["commit_latency_ms"]["p50"]}
+
+
+def net_sync(dev, pool, rng, res, cfg, root, card):
+    """Phase 19 (c): config 4's blocksync over the wire; -> launches, the
+    kernels' errors against plain and blocks/s."""
+    import contextlib
+    import threading
+
+    import torch
+
+    from cometbft_tpu_torch.blocksync.pipeline import StreamVerifier
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+    from cometbft_tpu_torch.ops import table_cache as tcache
+
+    points = kf.base_points(dev)
+    # -- (c) config 4's blocksync over the wire ------------------------------
+    t = time.perf_counter()
+    srv_home = os.path.join(root, "srv")
+    doc, srv_app, sets, n_sigs = wire_chain(pool, rng, res, srv_home)
+    chain_s = time.perf_counter() - t
+    g_state = doc.make_state()
+    srv, srv_addr = net_node(cfg, g_state, None, b"\x9d" * 32, srv_home,
+                             dev, app=srv_app)
+    check(srv.height() == NET_SYNC_HEIGHTS,
+          f"phase19 the server holds {srv.height()} blocks")
+    tcache.reset_for_tests()
+    fresh, _ = net_node(cfg, g_state, None, b"\x9c" * 32,
+                        os.path.join(root, "fresh"), dev, blocksync=True)
+    eng = fresh.blocksync_engine
+    check(isinstance(eng.verifier, StreamVerifier)
+          and eng.verifier.device == dev,
+          f"phase19 (c) the verifier {eng.verifier!r}")
+    chunks = []
+    real_delta = es.verify_tally_delta_cached
+
+    def capture_delta(sig, ts, flags, ent, table, n_commits, thresh=None):
+        import numpy as np
+
+        chunks.append(dict(sig=sig.copy(), ts=ts.copy(), flags=flags.copy(),
+                           ent=ent, table=table, n_commits=n_commits,
+                           thresh=np.asarray(thresh).copy()))
+        return real_delta(sig, ts, flags, ent, table, n_commits, thresh)
+
+    # the sync loop's runs, and within them the stream's verify and every
+    # validate_block (the reactor's, and apply_block's own)
+    process_ms, verify_ms, validate_ms = [], [], []
+    time_calls(eng, "_process_run", process_ms)
+    time_calls(eng.verifier, "verify", verify_ms)
+    time_calls(fresh.block_exec, "validate_block", validate_ms)
+    validated = collections.Counter()  # validate_block calls by height
+    timed_validate = fresh.block_exec.validate_block
+
+    def validate_block(state, block, *a, **kw):
+        validated[block.header.height] += 1
+        return timed_validate(state, block, *a, **kw)
+
+    fresh.block_exec.validate_block = validate_block
+    req_at, got_at = {}, {}
+    real_req = fresh.blocksync_reactor._send_request
+
+    def send_request(peer_id, height):
+        req_at.setdefault(height, time.perf_counter())
+        return real_req(peer_id, height)
+
+    fresh.blocksync_reactor._send_request = send_request
+    real_recv = eng.receive_block
+
+    def receive_block(peer_id, block):
+        got_at.setdefault(block.header.height, time.perf_counter())
+        return real_recv(peer_id, block)
+
+    eng.receive_block = receive_block
+    caught, synced = threading.Event(), []
+    real_caught = eng.on_caught_up
+
+    def on_caught_up(st):
+        synced.append(st)
+        caught.set()
+        real_caught(st)
+
+    eng.on_caught_up = on_caught_up
+    with contextlib.ExitStack() as stack:
+        aead = stack.enter_context(time_aead())
+        sync_rows = stack.enter_context(capture_verify_rows(ed25519=kf))
+        es.verify_tally_delta_cached = capture_delta
+        stack.callback(setattr, es, "verify_tally_delta_cached", real_delta)
+        stack.callback(lambda: [n.stop() for n in (fresh, srv)
+                                if n.is_running()])
+        srv.start()
+        zero_launches()
+        t0 = time.perf_counter()
+        fresh.start()
+        fresh.dial(srv_addr)
+        wait_for(caught.is_set, f"the fresh node never caught up (at "
+                 f"{fresh.height()} of {NET_SYNC_HEIGHTS})",
+                 timeout=4 * NET_TIMEOUT_S)
+        sync_s = time.perf_counter() - t0
+        # the state blocksync handed to consensus
+        n_blocks = synced[0].last_block_height
+        check(n_blocks == NET_SYNC_HEIGHTS - 1,
+              f"phase19 (c) applied {n_blocks}, want "
+              f"{NET_SYNC_HEIGHTS - 1}")
+        for h in (1, NET_SYNC_ROTATE_AT, n_blocks):
+            check(fresh.block_store.load_block(h).hash()
+                  == srv.block_store.load_block(h).hash(),
+                  f"phase19 (c) block {h} differs")
+        check(synced[0].app_hash
+              == srv.block_store.load_block(n_blocks + 1).header.app_hash,
+              "phase19 (c) the synced app hash differs")
+        check(synced[0].validators.hash() == sets[n_blocks + 1].hash(),
+              "phase19 (c) the synced validator set differs")
+        wire_srv = srv.switch.peer_ledger.summary()
+        # the commits verified: each applied height's, carried by the next
+        # block's LastCommit
+        sigs = sum(len(srv.block_store.load_block(h + 1).last_commit
+                       .signatures) for h in range(1, n_blocks + 1))
+    # both nodes are stopped: the fresh node's consensus may have taken
+    # the served tip's catch-up push after the switch (one more
+    # validation), so the counts are read now
+    torch.cuda.synchronize()
+    sync_l = read_launches()
+    st = eng.verifier.stats
+    check(st["stamped_chunks"] > 0 and st["general_chunks"] == 0,
+          f"phase19 (c) the stream's chunks {st}")
+    for name in ("stamp_rows", "ed25519_verify_cached",
+                 "tally_quorum_cached", "ed25519_verify",
+                 "valset_table_build"):
+        check(sync_l[name] > 0, f"phase19 (c) {name} never launched")
+    check(sync_l["stamp_rows"] == len(chunks) == st["stamped_chunks"],
+          f"phase19 (c) stamp launches {sync_l['stamp_rows']}, chunks "
+          f"{len(chunks)}, stats {st}")
+    # one direct card verify a LastCommit a validation (no plane runs):
+    # the reactor validates each block, then apply_block validates it
+    # again (as the JAX reactor does), and heights 2..n_blocks carry one;
+    # after the switch, consensus may take the served tip from the
+    # server's catch-up push: one verify of the pushed commit and one of
+    # the block's LastCommit
+    with_lc = sum(validated[h] for h in range(2, n_blocks + 1))
+    tail = sync_l["ed25519_verify"] - with_lc
+    check(0 <= tail
+          <= 2 * sum(n for h, n in validated.items() if h > n_blocks)
+          and all(validated[h] == 2 for h in range(1, n_blocks + 1)),
+          f"phase19 (c) ed25519_verify launches {sync_l['ed25519_verify']}"
+          f", validations by height {dict(validated)}")
+    err_c, c_cols = hold_delta_chunks(dev, chunks, "phase19 (c)")
+    err_s, s_cols = hold_shapes_against_plain(
+        dev, kf.ed25519_verify, lambda r: kf.ed25519_verify_plain(r, points),
+        sync_rows["ed25519"])
+    check(err_s == 0, f"phase19 (c) ed25519_verify != plain at {s_cols}")
+    tab_err = 0
+    for vs_ in (sets[1], sets[n_blocks]):
+        vp = tuple(v.pub_key.data for v in vs_.validators)
+        vw = tuple(v.voting_power for v in vs_.validators)
+        table, _ = ec.table_for_pubs_info(vp, vw, device=dev)
+        lenok = torch.zeros((table.pub_raw.shape[0],), dtype=torch.bool,
+                            device=dev)
+        lenok[:len(vp)] = True
+        tab_p, _ = ec.valset_table_build_plain(table.pub_raw, lenok)
+        tab_err = max(tab_err, int((table.tab.to(torch.int64)
+                                    - tab_p.to(torch.int64)).abs().max()))
+    check(tab_err == 0, "phase19 (c) a valset table != plain")
+    lat = [(got_at[h] - req_at[h]) * 1e3 for h in got_at if h in req_at]
+    # what the pure-Python fallback (no `cryptography`) would cost here:
+    # aead_ref on full 1,028-byte frames
+    from cometbft_tpu_torch.crypto import aead_ref
+
+    ref = aead_ref.ChaCha20Poly1305(bytes(32))
+    t = time.perf_counter()
+    sealed = [ref.encrypt(i.to_bytes(12, "little"), bytes(1028), None)
+              for i in range(AEAD_REF_FRAMES)]
+    ref_seal = (time.perf_counter() - t) * 1e3 / AEAD_REF_FRAMES
+    t = time.perf_counter()
+    for i, c in enumerate(sealed):
+        ref.decrypt(i.to_bytes(12, "little"), c, None)
+    ref_open = (time.perf_counter() - t) * 1e3 / AEAD_REF_FRAMES
+    n_frames = len(aead["seal"]) + len(aead["open"])
+    v_ms, va_ms = sum(verify_ms), sum(validate_ms)
+    ap_ms = sum(process_ms) - v_ms - va_ms
+    wire_ms = sync_s * 1e3 - sum(process_ms)
+    a_seal, a_open = sum(aead["seal"]), sum(aead["open"])
+    sync_bps = n_blocks / sync_s
+    print(f"phase19 (c) config 4 over the wire: a {NET_SYNC_HEIGHTS}-block "
+          f"chain of {len(sets[1])} validators (BlockExecutor over the "
+          f"kvstore app, val-tx rotation of {APP_ROTATED} at height "
+          f"{NET_SYNC_ROTATE_AT}; {n_sigs} signatures in {chain_s:.3f} s) "
+          f"served by a port node; a fresh Node(p2p=True, blocksync=True) "
+          f"pulled and applied {n_blocks} blocks ({sigs} signatures) in "
+          f"{sync_s:.3f} s = {sync_bps:.3f} blocks/s = "
+          f"{sigs / sync_s:.1f} sigs/s (phase 14's in-process catch-up in "
+          f"this run: {res['catchup_blocks_per_s']:.1f} blocks/s); split "
+          f"ms: stream verify {v_ms:.3f} ({st['stamped_chunks']} card "
+          f"chunks), validate_block x2 a block {va_ms:.3f} (LastCommits "
+          f"on ed25519_verify), apply and save {ap_ms:.3f}, outside the "
+          f"sync loop's runs (wire, decode, waits) {wire_ms:.3f} (AEAD "
+          f"{aead['backend']}: seal {a_seal:.3f} ms and "
+          f"open {a_open:.3f} ms over {len(aead['seal'])} + "
+          f"{len(aead['open'])} frames, both ends in this process; "
+          f"aead_ref, the fallback without `cryptography`, takes "
+          f"{ref_seal:.3f} ms to seal and {ref_open:.3f} ms to open a "
+          f"full frame here, ~"
+          f"{n_frames / 2 * (ref_seal + ref_open) / 1e3:.3f} s for this "
+          f"sync's frames); "
+          f"request->block ms p50={statistics.median(lat):.3f} "
+          f"max={max(lat):.3f}; the server's wire bytes tx "
+          f"{wire_srv['bytes_tx']} ({wire_srv['bytes_tx'] / n_blocks:.0f} a "
+          f"block); launches {json.dumps(sync_l)}; the captured chunks "
+          f"({c_cols} cols), the LastCommit rows ({s_cols} cols) and both "
+          f"sets' tables == plain; card={card}", flush=True)
+    return {"launches": sync_l, "err_chunks": err_c, "err_verify": err_s,
+            "err_table": tab_err, "blocks_per_s": sync_bps}
 
 
 def int_ops_per_s() -> tuple:
@@ -5954,6 +6972,9 @@ def main() -> int:
         t = time.perf_counter()
         res.update(phase_node(dev, rng, kernel_stats))
         print(f"phase18 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        res.update(phase_net(dev, pool, rng, res, kernel_stats))
+        print(f"phase19 s={time.perf_counter() - t:.3f}", flush=True)
     brk = cbatch.device_breaker()
     check(brk.trips == 0 and brk.faults == 0, "breaker recorded a fault")
     print(json.dumps(kernels_json(kernel_stats)), flush=True)
@@ -5976,6 +6997,9 @@ def main() -> int:
           f"mesh_plane_quorum_ms={res['mesh_quorum_ms']:.3f} "
           f"node_heights_per_s={res['node_heights_per_s']:.3f} "
           f"node_commit_p50_ms={res['node_commit_p50_ms']:.3f} "
+          f"net_heights_per_s={res['net_heights_per_s']:.3f} "
+          f"net_commit_p50_ms={res['net_commit_p50_ms']:.3f} "
+          f"net_sync_blocks_per_s={res['net_sync_blocks_per_s']:.3f} "
           f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print("nvidia-smi:", smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,10 +21,15 @@ modules. Its seams:
     validation.oracle_batch_fn) makes a host node: no device is resolved,
     votes take the VoteSet's serial host path and every commit, evidence
     and tx signature the host callable, so the node launches nothing.
-  * The p2p stack (switch, reactors, blocksync, statesync, PEX), the
-    JSON-RPC server and the ABCI socket and gRPC clients come with ROADMAP
-    A8: p2p=True, listen(), rpc_listen() and dial() raise
-    NotImplementedError naming it.
+  * p2p=True builds the switch and its reactors (consensus, mempool,
+    evidence, blocksync, statesync, PEX), as the JAX node does. The
+    blocksync engine verifies each run of blocks in a
+    StreamVerifier(device=node.device): the node's device, never a plain
+    or host verifier behind its back (a run under its min_device_sigs
+    rows verifies on the host, in both packages). A host node's engine
+    gets HostCommitVerifier, the host path.
+  * The JSON-RPC server and the ABCI socket and gRPC clients come with
+    ROADMAP A8: rpc_listen() raises NotImplementedError naming it.
 """
 from __future__ import annotations
 
@@ -43,12 +48,6 @@ from cometbft_tpu_torch.state.state import State, StateStore
 from cometbft_tpu_torch.store.blockstore import BlockStore
 from cometbft_tpu_torch.types.validator import ValidatorSet
 from cometbft_tpu_torch.verifyplane.plane import consensus_batch_fn
-
-
-def _a8(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the port's p2p stack, RPC server and ABCI clients come "
-        f"with ROADMAP A8; run nodes in one process over LocalNetwork")
 
 
 class Node(BaseService):
@@ -77,10 +76,8 @@ class Node(BaseService):
         """statesync_light_client: a light.Client already trusting a root
         header; providing it turns on the statesync->blocksync->consensus
         start sequence (node/node.go:527, statesync/syncer.go:145) once
-        the port has p2p (ROADMAP A8)."""
+        p2p=True."""
         super().__init__("Node")
-        if p2p:
-            raise _a8("Node(p2p=True)")
         # a host node ([crypto] verifier = "cpu") resolves no device;
         # any other node resolves its own, the card by default
         self.on_host = bool(getattr(batch_fn, "on_host", False))
@@ -316,23 +313,120 @@ class Node(BaseService):
             else:
                 self.controller = controller
 
-        # the p2p stack (node/node.go:443-447 createTransport/
-        # createSwitch) comes with ROADMAP A8; `broadcast` (the in-memory
-        # hub) carries every message
+        # optional real p2p stack (node/node.go:443-447 createTransport/
+        # createSwitch); when absent, `broadcast` (in-memory hub) rules
         self.switch = None
         self.mempool_reactor = None
+        self.consensus_reactor = None
+        self.blocksync_engine = None
+        self.blocksync_reactor = None
+        self._blocksync_first = blocksync
+        self._statesync_discovery = statesync_discovery
+        if p2p:
+            from cometbft_tpu_torch.blocksync.p2p_reactor import (
+                BlocksyncP2PReactor,
+            )
+            from cometbft_tpu_torch.blocksync.reactor import BlocksyncReactor
+            from cometbft_tpu_torch.consensus.reactor import ConsensusReactor
+            from cometbft_tpu_torch.mempool.reactor import MempoolReactor
+            from cometbft_tpu_torch.p2p.key import NodeKey
+            from cometbft_tpu_torch.p2p.switch import Switch
+
+            nk = node_key or NodeKey.load_or_gen(
+                os.path.join(home, "node_key.json") if home else None
+            )
+            self.switch = Switch(nk, state.chain_id)
+            # gossip observatory -> height ledger join: late-signer
+            # rows name the delivering hop, and net_ms/sign_ms split
+            # against THIS node's peer ledger (never the module global
+            # — multi-node processes each join their own)
+            self.consensus.height_ledger.peer_ledger = \
+                self.switch.peer_ledger
+            self.consensus_reactor = ConsensusReactor(self.consensus)
+            self.switch.add_reactor(self.consensus_reactor)
+            self.mempool_reactor = MempoolReactor(self.mempool)
+            self.switch.add_reactor(self.mempool_reactor)
+            if blocksync:
+                # syncing node: blocksync drives first, consensus starts
+                # at SwitchToConsensus (node.go:527 sequencing)
+                self.blocksync_engine = BlocksyncReactor(
+                    state, self.block_exec, self.block_store,
+                    stream_verifier=self._stream_verifier(),
+                    on_caught_up=self._switch_to_consensus,
+                )
+            # every p2p node SERVES blocks even when not syncing itself
+            self.blocksync_reactor = BlocksyncP2PReactor(
+                self.blocksync_engine, self.block_store
+            )
+            self.switch.add_reactor(self.blocksync_reactor)
+            from cometbft_tpu_torch.evidence.reactor import EvidenceReactor
+
+            self.evidence_reactor = EvidenceReactor(self.evidence_pool)
+            self.switch.add_reactor(self.evidence_reactor)
+            self.consensus.on_evidence = \
+                self.evidence_reactor.broadcast_evidence
+
+            # statesync (serve snapshots always; sync when a trusted
+            # light client was provided and we are at genesis)
+            from cometbft_tpu_torch.statesync.p2p_reactor import (
+                StatesyncP2PReactor,
+            )
+
+            self.statesync_syncer = None
+            if statesync_light_client is not None and \
+                    state.last_block_height == 0:
+                from cometbft_tpu_torch.statesync.syncer import (
+                    LightStateProvider,
+                    Syncer,
+                )
+
+                self.statesync_syncer = Syncer(
+                    self.app_conns.snapshot, LightStateProvider(
+                        statesync_light_client,
+                        params=state.consensus_params,
+                    )
+                )
+            self.statesync_reactor = StatesyncP2PReactor(
+                self.app_conns.snapshot, self.statesync_syncer
+            )
+            self.switch.add_reactor(self.statesync_reactor)
+
+            # PEX + address book (node/node.go:462-481)
+            self.pex_reactor = None
+            if pex:
+                from cometbft_tpu_torch.p2p.pex import AddrBook, PEXReactor
+
+                self.addr_book = AddrBook(
+                    os.path.join(home, "addrbook.json") if home else None
+                )
+                self.pex_reactor = PEXReactor(self.addr_book)
+                self.switch.add_reactor(self.pex_reactor)
 
     def listen(self, host: str = "127.0.0.1", port: int = 0):
-        """Start the p2p listener (ROADMAP A8)."""
-        raise _a8("Node.listen")
+        """Start the p2p listener; returns our NetAddress."""
+        return self.switch.listen(host, port)
+
+    def _stream_verifier(self):
+        """The blocksync engine's verifier: the node's device, or the
+        host path for a host node."""
+        if self.on_host:
+            from cometbft_tpu_torch.blocksync.catchup import (
+                HostCommitVerifier,
+            )
+
+            return HostCommitVerifier()
+        from cometbft_tpu_torch.blocksync.pipeline import StreamVerifier
+
+        return StreamVerifier(device=self.device)
 
     def rpc_listen(self, host: str = "127.0.0.1", port: int = 0,
                    unsafe: bool = False) -> str:
         """Start the JSON-RPC server (ROADMAP A8)."""
-        raise _a8("Node.rpc_listen")
+        raise NotImplementedError(
+            "Node.rpc_listen: the port's RPC server comes with ROADMAP A8")
 
     def dial(self, addr, persistent: bool = True) -> None:
-        raise _a8("Node.dial")
+        self.switch.dial_peer(addr, persistent=persistent)
 
     def on_start(self) -> None:
         # incident flight recorder: the real-clock watchdog ticker
@@ -401,6 +495,66 @@ class Node(BaseService):
             )
             controlplane.set_global_controller(self.controller)
         self.pruner.start()
+        if self.switch is not None:
+            self.switch.start()
+        if getattr(self, "pex_reactor", None) is not None:
+            # redial from the persisted book immediately (node/node.go
+            # DialPeersAsync from the addrbook on start)
+            self.pex_reactor.start_routines()
+        if getattr(self, "statesync_syncer", None) is not None:
+            import threading
+
+            threading.Thread(target=self._run_statesync, daemon=True,
+                             name="statesync").start()
+        elif self.blocksync_engine is not None:
+            self.blocksync_engine.start()
+        else:
+            self.consensus.start()
+
+    def _run_statesync(self) -> None:
+        """statesync -> blocksync -> consensus (node/node.go:527)."""
+        try:
+            synced = self.statesync_syncer.sync_any(
+                discovery_time=self._statesync_discovery
+            )
+            if not self.is_running():
+                return  # node stopped mid-sync: stores are closed
+            # adopt: persist state + the restore height's commit, then
+            # let blocksync close the remaining gap. Inside the try:
+            # provider/light-client errors here must also fall back, not
+            # silently kill this daemon thread.
+            commit = self.statesync_syncer.state_provider.commit_at(
+                synced.last_block_height
+            )
+            self.state_store.save(synced)
+            self.block_store.save_seen_commit(
+                synced.last_block_height, commit
+            )
+        except Exception:  # noqa: BLE001 - any sync failure -> fallback
+            import logging
+
+            if not self.is_running():
+                return  # shutdown race, not a sync failure
+            logging.getLogger(__name__).exception(
+                "statesync failed; falling back to blocksync from genesis"
+            )
+            if self.blocksync_engine is not None:
+                self.blocksync_engine.start()
+            else:
+                self.consensus.start()
+            return
+        if self.blocksync_engine is not None:
+            self.blocksync_engine.state = synced
+            self.blocksync_engine.pool.height = \
+                synced.last_block_height + 1
+            self.blocksync_engine.start()
+        else:
+            self._switch_to_consensus(synced)
+
+    def _switch_to_consensus(self, synced_state: State) -> None:
+        """Blocksync caught up: hand the synced state to consensus
+        (blocksync/reactor.go:391-401 SwitchToConsensus)."""
+        self.consensus.reset_to_state(synced_state)
         self.consensus.start()
 
     def on_stop(self) -> None:
@@ -436,6 +590,17 @@ class Node(BaseService):
             self.pruner.stop()
         if self.consensus.is_running():
             self.consensus.stop()
+        if self.blocksync_engine is not None and \
+                self.blocksync_engine.is_running():
+            self.blocksync_engine.stop()
+        if self.consensus_reactor is not None:
+            self.consensus_reactor.stop_routines()
+        if self.blocksync_reactor is not None:
+            self.blocksync_reactor.stop_routines()
+        if getattr(self, "pex_reactor", None) is not None:
+            self.pex_reactor.stop_routines()
+        if self.switch is not None:
+            self.switch.stop()
         self.block_store.close()
         self.state_store.close()
         if self.indexer_service._thread.is_alive():

@@ -3,6 +3,8 @@
 Marked `cuda`: they need an NVIDIA Hopper GPU and nvcc, and skip on a host
 without them. On the card:  python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1876,3 +1878,107 @@ def test_planeless_node_verifies_votes_on_the_card(card, tmp_path):
     assert node.verify_plane is None and node.device == card
     assert len(calls) >= 6 and set(calls) == {(1, str(card))}
     assert kf.ed25519_verify.launches - b0 == len(calls)
+
+
+def _p2p_node(tmp_path, card, name, chain_state, priv=None, key=0,
+              **kw):
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.consensus.ticker import TimeoutParams
+    from cometbft_tpu_torch.crypto.keys import PrivKey
+    from cometbft_tpu_torch.node.node import Node
+    from cometbft_tpu_torch.p2p.key import NodeKey
+    from cometbft_tpu_torch.privval.file_pv import FilePV
+
+    fast = TimeoutParams(propose=1.0, propose_delta=0.2, prevote=0.5,
+                         prevote_delta=0.1, precommit=0.5,
+                         precommit_delta=0.1, commit=0.02)
+    node = Node(KVStoreApplication(), chain_state.copy(),
+                privval=FilePV(priv) if priv is not None else None,
+                home=str(tmp_path / name), timeouts=fast, p2p=True,
+                node_key=NodeKey(PrivKey.generate(bytes([key]) * 32)), **kw)
+    return node, node.listen("127.0.0.1", 0)
+
+
+def test_p2p_nodes_verify_votes_on_the_card(card, tmp_path):
+    """Two Node(p2p=True) validators (device=None: the card), no plane,
+    over loopback with secret connections: every vote their VoteSets
+    admit is one verify_batch_direct call on the card; 3 heights, equal
+    blocks."""
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.crypto.keys import PrivKey
+    from cometbft_tpu_torch.state.state import State
+    from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+    from cometbft_tpu_torch.verifyplane import global_plane
+
+    assert global_plane() is None
+    privs = [PrivKey.generate(bytes([0xB1, i]) + b"\x31" * 30)
+             for i in range(2)]
+    state = State.make_genesis("card-p2p", ValidatorSet(
+        [Validator(p.pub_key(), 10) for p in privs]))
+    calls, real = [], cbatch.verify_batch_direct
+
+    def spy(pubs, msgs, sigs, device=None, **kw):
+        calls.append((len(pubs), str(device)))
+        return real(pubs, msgs, sigs, device=device, **kw)
+
+    cbatch.verify_batch_direct = spy
+    nodes, addrs = [], []
+    for i, p in enumerate(privs):
+        n, a = _p2p_node(tmp_path, card, f"p{i}", state, p, key=0xC0 + i)
+        nodes.append(n)
+        addrs.append(a)
+    b0 = kf.ed25519_verify.launches
+    try:
+        for n in nodes:
+            n.start()
+        nodes[0].dial(addrs[1])
+        for n in nodes:
+            assert n.consensus.wait_for_height(3, timeout=60), n.height()
+        assert nodes[0].block_store.load_block(2).hash() == \
+            nodes[1].block_store.load_block(2).hash()
+    finally:
+        for n in nodes:
+            n.stop()
+        cbatch.verify_batch_direct = real
+    torch.cuda.synchronize()
+    assert all(n.device == card for n in nodes)
+    assert calls and {d for _, d in calls} == {str(card)}
+    assert kf.ed25519_verify.launches - b0 == len(calls)
+
+
+def test_blocksync_node_verifies_on_the_card(card, tmp_path):
+    """A Node(p2p=True, blocksync=True) on the card: its engine's
+    StreamVerifier is on the card; it blocksyncs a one-validator card
+    node's chain over loopback (one row a commit: under min_device_sigs,
+    the host loop, as in the JAX package) and equals its blocks."""
+    from cometbft_tpu_torch.blocksync.pipeline import StreamVerifier
+    from cometbft_tpu_torch.crypto.keys import PrivKey
+    from cometbft_tpu_torch.state.state import State
+    from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+
+    priv = PrivKey.generate(b"\xb2" * 32)
+    state = State.make_genesis("card-sync", ValidatorSet(
+        [Validator(priv.pub_key(), 10)]))
+    srv, addr = _p2p_node(tmp_path, card, "srv", state, priv, key=0xC4)
+    late, _ = _p2p_node(tmp_path, card, "late", state, key=0xC5,
+                        blocksync=True)
+    eng = late.blocksync_engine
+    assert isinstance(eng.verifier, StreamVerifier)
+    assert eng.verifier.device == card
+    try:
+        srv.start()
+        assert srv.consensus.wait_for_height(5, timeout=60)
+        late.start()
+        late.dial(addr)
+        target = srv.height()
+        deadline = time.time() + 60
+        while late.height() < target:
+            assert time.time() < deadline, late.height()
+            time.sleep(0.05)
+        for h in range(1, target + 1):
+            assert late.block_store.load_block(h).hash() == \
+                srv.block_store.load_block(h).hash()
+    finally:
+        late.stop()
+        srv.stop()
+    assert eng.verifier.stats["stamped_chunks"] == 0
