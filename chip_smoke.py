@@ -282,7 +282,24 @@ Phases (any failure exits non-zero and prints no result line):
      applies 64: blocks/s, sigs/s, the verify / validate / apply / wire
      split, request->block ms, beside phase 14's in-process rate; every
      captured chunk, the LastCommit rows and both sets' tables held to
-     plain.
+     plain;
+ 20. config 1 as deployed, a node per process (the operator surface):
+     `python -m cometbft_tpu_torch testnet --v 4`, each config with the
+     card's verifier, the plane and phase 19's timeouts (node 0 with the
+     light-client gateway, node 3's kvstore an `abci kvstore` process
+     over the ABCI socket), each node a `start` process of its own (four
+     CUDA contexts and four card planes on one card; node 2 started with
+     one verifyplane.dispatch fault armed); then over HTTP and the
+     WebSocket only: every node at 20+ heights, 200 sigtx envelopes by
+     broadcast_tx_sync round-robin (each code 0, committed once, proven
+     by `tx` prove=true on another node), one broadcast_tx_commit, a
+     NewBlock subscription that sees every height, lightgate_verify from
+     1 to the tip, loadtime's open loop at node 1 and its latency report
+     from node 1's block store, every node's flush ledger (polled whole)
+     and device ledger (every flush on its card plane, one device_fault
+     at node 2 only), nvidia-smi's compute apps, SIGTERM (exit 0 each)
+     and `inspect` serving block and commit at 20 from node 0's stores;
+     the kernels' launches in it come from the four flush ledgers.
 Before the last line it prints the `kernels` JSON (launches on the main
 paths, in all and by path; times; bounds; for every kernel `device_ms`, from
 a profiler trace at its phase's shape, by live columns or by shape where a
@@ -291,7 +308,9 @@ ed25519_verify_cached and valset_table_build the entry the wrapper
 launched at each shape and the sweep of every entry; for the node path's
 kernels `device_ms_by_path`); the summary line gains node_heights_per_s
 and node_commit_p50_ms, then net_heights_per_s, net_commit_p50_ms and
-net_sync_blocks_per_s; the last line is {"ok": true, "device": {...}}.
+net_sync_blocks_per_s, then proc_heights_per_s, proc_commit_p50_ms,
+proc_tx_sync_p50_ms and loadtime's p50 and p99; the last line is
+{"ok": true, "device": {...}}.
 
 Launch counters are set to 0 just before each main-path run and read just
 after; launches made to compare a kernel with its plain version are not
@@ -6793,6 +6812,646 @@ def net_sync(dev, pool, rng, res, cfg, root, card):
             "err_table": tab_err, "blocks_per_s": sync_bps}
 
 
+PROC_VALS = 4                # phase 20: BASELINE config 1, a node per process
+PROC_HEIGHTS = 20            # phase 20: heights every node serves at least
+PROC_TXS = 200               # phase 20: sigtx envelopes, round-robin by HTTP
+PROC_CHAIN = "chip-smoke-procs"
+PROC_APP_NODE = 3            # phase 20: the node whose kvstore runs apart
+PROC_FAULT_NODE = 2          # phase 20: the node started with a dispatch fault
+PROC_FAULT = "verifyplane.dispatch=raise*1"
+PROC_LOAD_NODE = 1           # phase 20: loadtime's and the WebSocket's node
+PROC_LOAD_RATE = 50.0        # phase 20: loadtime's open loop, tx/s
+PROC_LOAD_S = 6.0
+PROC_POLL_S = 0.25           # phase 20: the flush ledgers' poll period
+PROC_TIMEOUT_S = 120.0
+PROC_CARD_PATHS = {"fused", "grouped", "device_fault"}
+REPO = os.path.dirname(os.path.abspath(__file__))
+# phase 20's node process: `python -m cometbft_tpu_torch start ...` run
+# through runpy, with count_direct_verifies entered before the port loads
+# and an exit hook that writes, to the path in argv[1], the process's
+# launch counters (0 at its start, read after the node stopped), its
+# direct verifies, its plane's last flush records and its card
+PROC_NODE_MAIN = """\
+import atexit, json, os, runpy, sys
+report = sys.argv.pop(1)
+import chip_smoke
+direct = chip_smoke.count_direct_verifies().__enter__()
+
+
+def write():
+    import torch
+    from cometbft_tpu_torch import verifyplane
+    doc = {"launches": chip_smoke.read_launches(), "direct": direct,
+           "flushes": verifyplane.dump_flushes()["flushes"],
+           "cuda": torch.cuda.is_initialized()}
+    if doc["cuda"]:
+        d = torch.cuda.current_device()
+        doc.update(device=d, name=torch.cuda.get_device_name(d),
+                   reserved_mb=torch.cuda.max_memory_reserved(d) / 2**20,
+                   allocated_mb=torch.cuda.max_memory_allocated(d) / 2**20)
+    with open(report + ".tmp", "w") as f:
+        json.dump(doc, f, default=str)
+    os.replace(report + ".tmp", report)
+
+
+atexit.register(write)
+runpy.run_module("cometbft_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def port_cli(args, report=None, **kw):
+    """`python -m cometbft_tpu_torch <args>` from the checkout, as an
+    operator runs it, or, given `report`, the same under PROC_NODE_MAIN,
+    which writes its report there at exit; `env` entries are added to
+    this process's."""
+    env = dict(os.environ, PYTHONPATH=REPO, **kw.pop("env", {}))
+    main = ["-m", "cometbft_tpu_torch"] if report is None else [
+        "-c", PROC_NODE_MAIN, report]
+    return subprocess.Popen([sys.executable, *main, *args], cwd=REPO,
+                            env=env, **kw)
+
+
+def free_port_base(n):
+    """A base port b with b .. b+n-1 free on 127.0.0.1."""
+    import random
+    import socket
+
+    for _ in range(200):
+        base = random.randrange(20000, 60000 - n)
+        socks = []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    fail("phase20 no free port range")
+
+
+def read_line(proc, prefix, what, timeout=PROC_TIMEOUT_S):
+    """The first line of `proc`'s stdout that starts with `prefix`."""
+    out = {}
+
+    def reader():
+        for line in proc.stdout:
+            if line.startswith(prefix):
+                out["line"] = line.strip()
+                return
+
+    t = threading.Thread(target=reader, daemon=True)
+    t.start()
+    t.join(timeout)
+    check("line" in out, f"phase20 {what} never printed {prefix!r} "
+          f"(exit code {proc.poll()})")
+    return out["line"]
+
+
+class WSWatch:
+    """A WebSocket client (RFC 6455, masked text frames) of a node's
+    /websocket, subscribed to `query`: a thread collects the height of
+    every NewBlock event."""
+
+    def __init__(self, host, port, query):
+        import base64
+        import socket
+
+        self.sock = socket.create_connection((host, port), timeout=10)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall(
+            f"GET /websocket HTTP/1.1\r\nHost: {host}:{port}\r\n"
+            f"Upgrade: websocket\r\nConnection: Upgrade\r\n"
+            f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n"
+            f"\r\n".encode())
+        head = b""
+        while b"\r\n\r\n" not in head:
+            head += self.sock.recv(1)
+        check(b" 101 " in head.split(b"\r\n")[0],
+              f"phase20 websocket upgrade refused: {head[:80]!r}")
+        self.heights, self.acked, self.closed = [], threading.Event(), False
+        self._send({"jsonrpc": "2.0", "id": 1, "method": "subscribe",
+                    "params": {"query": query}})
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _send(self, doc):
+        import struct
+
+        data = json.dumps(doc).encode()
+        mask = os.urandom(4)
+        n = len(data)
+        hdr = bytes([0x81]) + (bytes([0x80 | n]) if n < 126 else
+                               bytes([0x80 | 126]) + struct.pack(">H", n))
+        self.sock.sendall(hdr + mask + bytes(
+            b ^ mask[i % 4] for i, b in enumerate(data)))
+
+    def _exact(self, n):
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            if not chunk:
+                raise ConnectionError("websocket closed")
+            buf += chunk
+        return buf
+
+    def _run(self):
+        import select
+        import struct
+
+        self.sock.settimeout(None)
+        try:
+            while not self.closed:
+                if not select.select([self.sock], [], [], 0.2)[0]:
+                    continue
+                b0, b1 = self._exact(2)
+                n = b1 & 0x7F
+                if n == 126:
+                    n = struct.unpack(">H", self._exact(2))[0]
+                elif n == 127:
+                    n = struct.unpack(">Q", self._exact(8))[0]
+                data = self._exact(n)
+                if b0 & 0x0F != 0x1:
+                    continue
+                doc = json.loads(data)
+                if doc.get("id") == 1:
+                    self.acked.set()
+                blk = ((doc.get("result") or {}).get("data") or {}).get(
+                    "block")
+                if blk:
+                    self.heights.append(int(blk["header"]["height"]))
+        except (OSError, ConnectionError):
+            pass
+
+    def close(self):
+        self.closed = True
+        self._thread.join(timeout=5)
+        self.sock.close()
+
+
+class LedgerPoll:
+    """Reads every node's /dump_flushes each PROC_POLL_S in a thread and
+    keeps each flush record by its seq: the whole ledger of a run longer
+    than the ring (256 flushes) the node keeps."""
+
+    def __init__(self, urls):
+        self.urls, self.recs = urls, [dict() for _ in urls]
+        self.stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def poll(self):
+        from cometbft_tpu_torch.rpc.client import HTTPClient
+
+        for url, keep in zip(self.urls, self.recs):
+            try:
+                doc = HTTPClient(url).call("dump_flushes")
+            except OSError:  # a node still starting
+                continue
+            for r in doc["flushes"]:
+                keep[r["seq"]] = r
+
+    def _run(self):
+        while not self.stop.wait(PROC_POLL_S):
+            self.poll()
+
+    def final(self):
+        """Stop the thread and read once more: -> each node's records in
+        seq order."""
+        self.stop.set()
+        self._thread.join(timeout=30)
+        self.poll()
+        return [[keep[s] for s in sorted(keep)] for keep in self.recs]
+
+
+def compute_apps():
+    """[(pid, MiB)] of the card's compute processes, as nvidia-smi prints
+    them (inside a PID namespace it prints a pid outside it)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout
+    apps = []
+    for line in out.strip().splitlines():
+        pid, mem = (x.strip() for x in line.split(","))
+        apps.append((int(pid), float(mem.split()[0])))
+    return apps, out.strip()
+
+
+def phase_procs(dev, pool, rng, kernel_stats):
+    """BASELINE config 1 as deployed: `python -m cometbft_tpu_torch
+    testnet --v 4`, each node a `start` process of its own (four CUDA
+    contexts and four card planes on one card), node 3's kvstore in an
+    `abci kvstore` process over the socket, node 2 started with one
+    verifyplane.dispatch fault armed, and every step over HTTP or the
+    WebSocket: heights, 200 sigtx envelopes round-robin (each committed
+    once, proven on another node), one broadcast_tx_commit, NewBlock on a
+    WebSocket, lightgate_verify, loadtime's open loop and its latency
+    report, the flush and device ledgers, nvidia-smi's compute apps,
+    SIGTERM and the inspect server over node 0's stores."""
+    import base64
+    import hashlib
+    import signal
+    import tempfile
+
+    import torch
+
+    from cometbft_tpu_torch.config.config import load_config, save_config
+    from cometbft_tpu_torch.mempool import sigtx
+    from cometbft_tpu_torch.rpc.client import HTTPClient
+    from cometbft_tpu_torch.store.blockstore import BlockStore
+    from cometbft_tpu_torch.tools import loadtime
+
+    card = smi("name,power.limit")
+    root = tempfile.mkdtemp(prefix="phase20-")
+    base = free_port_base(2 * PROC_VALS + 2)
+    gen = port_cli(["testnet", "--v", str(PROC_VALS), "--output", root,
+                    "--chain-id", PROC_CHAIN, "--p2p-port", str(base),
+                    "--rpc-port", str(base + 1)],
+                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                   text=True)
+    gen_out = gen.communicate(timeout=PROC_TIMEOUT_S)[0]
+    check(gen.returncode == 0, f"phase20 testnet: {gen_out[-400:]}")
+    homes = [os.path.join(root, f"node{i}") for i in range(PROC_VALS)]
+    urls = [f"http://127.0.0.1:{base + 1 + 2 * i}" for i in range(PROC_VALS)]
+    abci_port = base + 2 * PROC_VALS
+    for i, home in enumerate(homes):
+        path = os.path.join(home, "config", "config.toml")
+        cfg = load_config(path)
+        cfg.crypto.verifier = "tpu"
+        cfg.verify_plane.enable = True
+        c = cfg.consensus
+        c.timeout_propose, c.timeout_propose_delta = 3.0, 0.5
+        c.timeout_prevote, c.timeout_prevote_delta = 1.0, 0.5
+        c.timeout_precommit, c.timeout_precommit_delta = 1.0, 0.5
+        c.timeout_commit = 0.05
+        cfg.lightgate.enable = i == 0
+        if i == PROC_APP_NODE:
+            cfg.base.proxy_app = f"tcp://127.0.0.1:{abci_port}"
+        save_config(cfg, path)
+    clients = [HTTPClient(u, timeout=30) for u in urls]
+    procs, app = [], None
+    watch = poller = None
+    try:
+        app = port_cli(["abci", "kvstore", "--port", str(abci_port)],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True)
+        read_line(app, "abci kvstore serving on", "the abci kvstore")
+        spawned = []
+        reports = [os.path.join(root, f"node{i}.exit.json")
+                   for i in range(PROC_VALS)]
+        for i, home in enumerate(homes):
+            log = open(os.path.join(root, f"node{i}.log"), "wb")
+            env = {"CBT_FAILPOINTS": PROC_FAULT} if i == PROC_FAULT_NODE \
+                else {}
+            spawned.append(time.perf_counter())
+            procs.append(port_cli(["start", "--home", home], reports[i],
+                                  stdout=log, stderr=subprocess.STDOUT,
+                                  env=env))
+            log.close()
+
+        def log_tail(i):
+            with open(os.path.join(root, f"node{i}.log"), "rb") as f:
+                return f.read()[-1500:].decode(errors="replace")
+
+        def alive():
+            for i, p in enumerate(procs):
+                check(p.poll() is None, f"phase20 node {i} exited "
+                      f"{p.returncode}: {log_tail(i)}")
+
+        def heights():
+            out = []
+            for c in clients:
+                try:
+                    out.append(c.status()["sync_info"]["latest_block_height"])
+                except OSError:
+                    out.append(-1)
+            return out
+
+        def until(cond, what, timeout=PROC_TIMEOUT_S):
+            deadline = time.time() + timeout
+            while not cond():
+                alive()
+                check(time.time() < deadline, f"phase20 {what}; heights "
+                      f"{heights()}")
+                time.sleep(0.05)
+
+        # -- the processes come up: RPC, the WebSocket, the first height --
+        until(lambda: min(heights()) >= 0, "an RPC server never answered")
+        host, port = urls[PROC_LOAD_NODE][len("http://"):].split(":")
+        watch = WSWatch(host, int(port), "tm.event='NewBlock'")
+        check(watch.acked.wait(30), "phase20 the subscription was not acked")
+        sub_h = heights()[PROC_LOAD_NODE]
+        poller = LedgerPoll(urls)
+        first_s = [None] * PROC_VALS
+
+        def first_heights():
+            for i, h in enumerate(heights()):
+                if first_s[i] is None and h >= 1:
+                    first_s[i] = time.perf_counter() - spawned[i]
+            return all(s is not None for s in first_s)
+
+        until(first_heights, "a node never committed height 1")
+        t_run = time.perf_counter()
+
+        # -- (b) sigtx envelopes round-robin over HTTP ---------------------
+        payloads = [b"p_%d=v_%d" % (i, i) for i in range(PROC_TXS + 1)]
+        (tpub, tsigs), = sign_all(pool, [(seed_bytes(rng), [
+            sigtx.sign_bytes(p) for p in payloads])])
+        txs = [sigtx.MAGIC + tpub + s + p for s, p in zip(tsigs, payloads)]
+        sync_ms, codes, resent = [], [], 0
+        for k, tx in enumerate(txs[:PROC_TXS]):
+            c = clients[k % PROC_VALS]
+            for _ in range(APP_RESENDS):
+                t = time.perf_counter()
+                r = c.broadcast_tx_sync(tx)
+                sync_ms.append((time.perf_counter() - t) * 1e3)
+                if r["code"] != 1001:
+                    break
+                resent += 1
+                time.sleep(r["retry_after_ms"] / 1e3)
+            codes.append(r["code"])
+        check(codes == [0] * PROC_TXS, f"phase20 broadcast_tx_sync codes "
+              f"{collections.Counter(codes)}")
+        t = time.perf_counter()
+        btc = clients[0].broadcast_tx_commit(txs[PROC_TXS])
+        btc_ms = (time.perf_counter() - t) * 1e3
+        check(btc["check_tx"]["code"] == 0 and btc["tx_result"]["code"] == 0
+              and btc["height"] > 0, f"phase20 broadcast_tx_commit {btc}")
+        # -- (a) every node at PROC_HEIGHTS --------------------------------
+        until(lambda: min(heights()) >= PROC_HEIGHTS,
+              f"the nodes never all reached {PROC_HEIGHTS}")
+        run_s = time.perf_counter() - t_run
+        hashes = [hashlib.sha256(tx).hexdigest().upper() for tx in txs]
+        proven = {}
+
+        def all_proven():
+            for k, h in enumerate(hashes):
+                if k in proven:
+                    continue
+                try:
+                    r = clients[(k + 1) % PROC_VALS].call("tx", hash=h,
+                                                          prove=True)
+                except Exception:  # noqa: BLE001 - not indexed yet
+                    return False
+                proven[k] = r
+            return True
+
+        until(all_proven, "a tx was never indexed on another node")
+        tip0 = heights()[0]
+        data_hash = {}
+        counts = collections.Counter()
+        for h in range(1, tip0 + 1):
+            blk = clients[0].block(h)["block"]
+            data_hash[h] = blk["header"]["data_hash"]
+            counts.update(blk["txs"])
+        check(all(counts[tx.hex()] == 1 for tx in txs), f"phase20 "
+              f"committed counts "
+              f"{collections.Counter(counts[tx.hex()] for tx in txs)}")
+        b64 = [base64.b64encode(tx).decode() for tx in txs]
+        bad_proofs = [k for k, r in proven.items()
+                      if r["tx"] != b64[k] or r["tx_result"]["code"] != 0
+                      or r["proof"]["root_hash"].upper()
+                      != data_hash[r["height"]].upper()]
+        check(not bad_proofs, f"phase20 txs {bad_proofs[:4]} not proven "
+              f"against their block's data_hash")
+        check(proven[PROC_TXS]["height"] == btc["height"],
+              "phase20 broadcast_tx_commit's height != the indexed one")
+        # -- (d) lightgate_verify from 1 to the tip on node 0 -------------
+        t = time.perf_counter()
+        lg = clients[0].call("lightgate_verify", trusted_height=1,
+                             target_height=tip0)
+        lg_ms = (time.perf_counter() - t) * 1e3
+        check(lg["status"] == "verified" and lg["height"] == tip0,
+              f"phase20 lightgate_verify {dict(list(lg.items())[:4])}")
+        # -- (e) loadtime's open loop at node 1 -----------------------------
+        load_codes = []
+
+        def send(tx):
+            r = clients[PROC_LOAD_NODE].broadcast_tx_sync(tx)
+            load_codes.append(r["code"])
+            return r
+
+        t = time.perf_counter()
+        n_load = loadtime.run_load(send, PROC_LOAD_RATE, PROC_LOAD_S)
+        load_wall = time.perf_counter() - t
+        h_load = heights()[PROC_LOAD_NODE]
+        until(lambda: min(heights()) >= h_load + 3,
+              "the nodes stalled after the load")
+        # -- (f) the ledgers ------------------------------------------------
+        dheights = clients[0].call("dump_heights")
+        ledgers = poller.final()
+        devices = [c.call("dump_devices") for c in clients]
+        # -- (g) the card's compute processes -------------------------------
+        apps, apps_text = compute_apps()
+        pids = [p.pid for p in procs]
+        last_h = heights()
+        time.sleep(1.0)
+        ws_heights = list(watch.heights)
+    finally:
+        if watch is not None:
+            watch.close()
+        if poller is not None:
+            poller.stop.set()
+        # -- (h) SIGTERM: every node exits 0 --------------------------------
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        rcs = []
+        for p in procs:
+            try:
+                rcs.append(p.wait(timeout=60))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                rcs.append(p.wait(timeout=30))
+        if app is not None:
+            if app.poll() is None:
+                app.send_signal(signal.SIGTERM)
+            try:
+                app.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                app.kill()
+                app.wait(timeout=30)
+    check(rcs == [0] * PROC_VALS, f"phase20 node exit codes after SIGTERM "
+          f"{rcs}")
+    check(app.returncode == 0, f"phase20 abci kvstore exit code "
+          f"{app.returncode}")
+    check(ws_heights, "phase20 the WebSocket saw no NewBlock")
+    check(ws_heights == list(range(ws_heights[0], ws_heights[-1] + 1))
+          and ws_heights[0] <= sub_h + 1
+          and ws_heights[-1] >= last_h[PROC_LOAD_NODE],
+          f"phase20 the WebSocket saw heights {ws_heights[:3]}..."
+          f"{ws_heights[-3:]} ({len(ws_heights)}), subscribed at {sub_h}, "
+          f"node {PROC_LOAD_NODE} at {last_h[PROC_LOAD_NODE]}")
+    # each node's exit report: its launch counters, read after its node
+    # stopped, and its plane's last flushes (those after the final poll)
+    reps = []
+    for i, path in enumerate(reports):
+        check(os.path.exists(path), f"phase20 node {i} wrote no exit "
+              f"report: {log_tail(i)}")
+        with open(path) as f:
+            reps.append(json.load(f))
+        keep = {r["seq"]: r for r in ledgers[i]}
+        keep.update((r["seq"], r) for r in reps[i]["flushes"])
+        ledgers[i] = [keep[q] for q in sorted(keep)]
+    card_name = torch.cuda.get_device_name(dev)
+    # the flush ledgers: whole, on the card, one fault where armed, and
+    # each process's launches those its flushes account for
+    for i, (recs, nrep) in enumerate(zip(ledgers, reps)):
+        seqs = [r["seq"] for r in recs]
+        check(recs and seqs == list(range(seqs[0], seqs[0] + len(seqs)))
+              and seqs[0] <= 1, f"phase20 node {i}'s ledger has gaps: "
+              f"{seqs[:3]}..{seqs[-3:]} ({len(seqs)})")
+        paths = collections.Counter(r["path"] for r in recs)
+        check(set(paths) <= PROC_CARD_PATHS, f"phase20 node {i}'s flush "
+              f"paths {dict(paths)}")
+        want = 1 if i == PROC_FAULT_NODE else 0
+        check(paths["device_fault"] == want, f"phase20 node {i} has "
+              f"{paths['device_fault']} device_fault flushes, want {want}")
+        tables = devices[i]["residency"]["valset_tables"]
+        check(tables and set(tables) <= {"0"}, f"phase20 node {i}'s "
+              f"valset tables reside on {sorted(tables)}, want the card "
+              f"(0)")
+        check(nrep["cuda"] and nrep["device"] == 0 and nrep["name"]
+              == card_name and nrep["reserved_mb"] > 0, f"phase20 node {i} "
+              f"not on the card: cuda={nrep['cuda']} device="
+              f"{nrep.get('device')} name={nrep.get('name')} reserved_mb="
+              f"{nrep.get('reserved_mb')}")
+        want_l = flush_launches_want(recs, nrep["launches"], 1,
+                                     nrep["direct"])
+        check(nrep["launches"] == want_l, f"phase20 node {i} launches "
+              f"{nrep['launches']}, want {want_l}")
+    # nvidia-smi lists every node pid, unless it prints pids of another
+    # PID namespace (then none of ours is among them, and the nodes' own
+    # reports above show each on the card)
+    app_pids = {pid for pid, _ in apps}
+    ns_hidden = not app_pids & set(pids) and not app_pids & {os.getpid()}
+    check(set(pids) <= app_pids or ns_hidden, f"phase20 nvidia-smi "
+          f"compute apps {apps_text!r}, node pids {pids}")
+    # (h) the inspect server over node 0's stores
+    ins_port = free_port_base(1)
+    ins = port_cli(["inspect", "--home", homes[0], "--laddr",
+                    f"tcp://127.0.0.1:{ins_port}"], stdout=subprocess.PIPE,
+                   stderr=subprocess.STDOUT, text=True)
+    try:
+        read_line(ins, "inspect rpc listening on", "inspect")
+        ic = HTTPClient(f"http://127.0.0.1:{ins_port}", timeout=30)
+        ib, icm = ic.block(PROC_HEIGHTS), ic.commit(PROC_HEIGHTS)
+        check(ib["block"]["header"]["height"] == PROC_HEIGHTS
+              and icm["signed_header"]["commit"]["height"] == PROC_HEIGHTS
+              and icm["signed_header"]["commit"]["block_id"]
+              == ib["block_id"], "phase20 inspect's block and commit")
+        ins.send_signal(signal.SIGTERM)
+        check(ins.wait(timeout=30) == 0, f"phase20 inspect exit code "
+              f"{ins.returncode}")
+    finally:
+        if ins.poll() is None:
+            ins.kill()
+            ins.wait(timeout=30)
+    # (e) loadtime's report from node 1's block store
+    bs = BlockStore(os.path.join(homes[PROC_LOAD_NODE], "data",
+                                 "blockstore.db"))
+    rep = loadtime.report_from_blockstore(bs)
+    lat = []
+    for h in range(max(1, bs.base()), bs.height() + 1):
+        blk = bs.load_block(h)
+        stamp = blk.header.time.seconds * 10**9 + blk.header.time.nanos
+        lat += [(stamp - p[1]) / 1e6 for p in map(loadtime.parse_tx,
+                                                  blk.data.txs) if p]
+    bs.close()
+    n_ok = load_codes.count(0)
+    check(rep is not None and rep.n_txs == n_ok == len(lat) and n_ok > 0,
+          f"phase20 loadtime: {n_load} sent, {n_ok} accepted "
+          f"{collections.Counter(load_codes)}, {len(lat)} committed, "
+          f"report {rep}")
+    lat.sort()
+    load_p50 = statistics.median(lat)
+    load_p99 = lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+    check(abs(rep.p50_ms - load_p50) < 1e-6, "phase20 loadtime's p50")
+    # the launches the four processes counted
+    launches = dict.fromkeys(list(all_kernels()) + ["carry_quorum"], 0)
+    for nrep in reps:
+        for name, n in nrep["launches"].items():
+            launches[name] += n
+    check(launches["ed25519_verify_cached"] > 0
+          and launches["ed25519_verify"] > 0, f"phase20 launches "
+          f"{launches}")
+    for name, n in launches.items():
+        kernel_stats[name]["launches_by_path"]["procs"] = n
+    # figures
+    s0 = dheights["summary"]
+    recs0 = dheights["heights"]
+    span_s = (recs0[-1]["ts_ms"] - recs0[0]["ts_ms"]) / 1e3
+    hps = (len(recs0) - 1) / span_s
+    dev_p50 = []
+    for recs in ledgers:
+        by = collections.defaultdict(list)
+        for r in recs:
+            if r["dev_ms"]:
+                by[r["path"]].append(r["dev_ms"])
+        dev_p50.append({p: round(statistics.median(v), 4)
+                        for p, v in sorted(by.items())})
+    print(f"phase20 config 1 as deployed, a node per process: {PROC_VALS} "
+          f"`start` processes from `testnet --v {PROC_VALS}` (pids {pids}; "
+          f"node {PROC_APP_NODE}'s kvstore in `abci kvstore` over "
+          f"tcp://127.0.0.1:{abci_port}; node {PROC_FAULT_NODE} started "
+          f"with CBT_FAILPOINTS={PROC_FAULT}); seconds from spawn to "
+          f"height 1 by node {[round(s, 3) for s in first_s]}; all at "
+          f"{PROC_HEIGHTS} {run_s:.3f} s after the last first height; "
+          f"proc_heights_per_s={hps:.3f} proc_commit_p50_ms="
+          f"{s0['commit_latency_ms']['p50']} (node 0's /dump_heights, "
+          f"{len(recs0)} heights, rounds_max={s0['rounds_max']}); card="
+          f"{card}", flush=True)
+    print(f"phase20 (b) {PROC_TXS} sigtx envelopes by broadcast_tx_sync "
+          f"round-robin over the {PROC_VALS} nodes, each code 0 ({resent} "
+          f"resent after OVERLOADED), each committed once and proven "
+          f"(`tx` prove=true on the next node) against its block's "
+          f"data_hash: broadcast_tx_sync p50="
+          f"{statistics.median(sync_ms):.3f} ms p90="
+          f"{sorted(sync_ms)[int(0.9 * len(sync_ms))]:.3f} ms over HTTP; "
+          f"broadcast_tx_commit returned height {btc['height']} in "
+          f"{btc_ms:.3f} ms; (c) node {PROC_LOAD_NODE}'s WebSocket saw "
+          f"NewBlock {ws_heights[0]}..{ws_heights[-1]} without a gap "
+          f"(subscribed at height {sub_h}); (d) lightgate_verify 1 -> "
+          f"{tip0} on node 0: {lg['status']} in {lg_ms:.3f} ms", flush=True)
+    print(f"phase20 (e) loadtime run_load at node {PROC_LOAD_NODE}: "
+          f"{PROC_LOAD_RATE} tx/s for {PROC_LOAD_S} s, {n_load} sent in "
+          f"{load_wall:.3f} s, {n_ok} accepted and committed; latency "
+          f"(block time - stamp) from node {PROC_LOAD_NODE}'s block store: "
+          f"loadtime_p50_ms={load_p50:.3f} loadtime_p99_ms={load_p99:.3f} "
+          f"({rep})", flush=True)
+    print(f"phase20 (f) flush ledgers by node (all {PROC_POLL_S} s polls "
+          f"of /dump_flushes, no gap): paths "
+          f"{[dict(collections.Counter(r['path'] for r in recs)) for recs in ledgers]}"
+          f", cold fused flushes (table builds) "
+          f"{[sum(r['path'] == 'fused' and not r['warm'] for r in recs) for recs in ledgers]}"
+          f"; flush dev_ms p50 by path {json.dumps(dev_p50)}; valset tables "
+          f"resident {[d['residency']['valset_tables'] for d in devices]}; "
+          f"launches by node (each process's counters at its exit, each "
+          f"== the launches its flushes and direct verifies account for) "
+          f"{json.dumps([n['launches'] for n in reps])}, direct verifies "
+          f"by node {[n['direct'] for n in reps]}, launches in all "
+          f"{json.dumps(launches)}", flush=True)
+    print(f"phase20 (g) each node's card, from its own torch at exit: "
+          f"{[(n['device'], n['name']) for n in reps]}; card MB by node "
+          f"(max_memory_reserved, the CUDA context not included) "
+          f"{[round(n['reserved_mb'], 1) for n in reps]}, "
+          f"max_memory_allocated MB "
+          f"{[round(n['allocated_mb'], 1) for n in reps]}; nvidia-smi "
+          f"compute apps: {apps_text!r} (node pids {pids}"
+          f"{', hidden by the PID namespace' if ns_hidden else ''}); "
+          f"(h) SIGTERM exit codes {rcs}, abci kvstore "
+          f"{app.returncode}; inspect over node 0's stores served block and "
+          f"commit at {PROC_HEIGHTS}", flush=True)
+    return {"proc_heights_per_s": hps,
+            "proc_commit_p50_ms": s0["commit_latency_ms"]["p50"],
+            "proc_tx_sync_p50_ms": statistics.median(sync_ms),
+            "proc_load_p50_ms": load_p50, "proc_load_p99_ms": load_p99}
+
+
 def int_ops_per_s() -> tuple:
     """(clocks.max.sm in MHz, INT32 multiply-adds per second of the card)."""
     mhz = smi("clocks.max.sm").split()[0]
@@ -6975,6 +7634,9 @@ def main() -> int:
         t = time.perf_counter()
         res.update(phase_net(dev, pool, rng, res, kernel_stats))
         print(f"phase19 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        res.update(phase_procs(dev, pool, rng, kernel_stats))
+        print(f"phase20 s={time.perf_counter() - t:.3f}", flush=True)
     brk = cbatch.device_breaker()
     check(brk.trips == 0 and brk.faults == 0, "breaker recorded a fault")
     print(json.dumps(kernels_json(kernel_stats)), flush=True)
@@ -7000,6 +7662,11 @@ def main() -> int:
           f"net_heights_per_s={res['net_heights_per_s']:.3f} "
           f"net_commit_p50_ms={res['net_commit_p50_ms']:.3f} "
           f"net_sync_blocks_per_s={res['net_sync_blocks_per_s']:.3f} "
+          f"proc_heights_per_s={res['proc_heights_per_s']:.3f} "
+          f"proc_commit_p50_ms={res['proc_commit_p50_ms']:.3f} "
+          f"proc_tx_sync_p50_ms={res['proc_tx_sync_p50_ms']:.3f} "
+          f"proc_loadtime_p50_ms={res['proc_load_p50_ms']:.3f} "
+          f"proc_loadtime_p99_ms={res['proc_load_p99_ms']:.3f} "
           f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print("nvidia-smi:", smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,7 @@ Two constructions:
     server — requests on different conns pipeline on the wire; the
     server's own app lock provides the final serialization.
 
-The port's copy of the JAX package's abci/proxy.py. The port has no
-ABCI socket or gRPC server yet: socket(), grpc() and so from_addr()
-raise NotImplementedError naming ROADMAP A8, which brings them.
+The port's copy of the JAX package's abci/proxy.py.
 """
 from __future__ import annotations
 
@@ -69,19 +67,23 @@ class AppConns:
     @classmethod
     def socket(cls, host: str, port: int, timeout: float = 30.0
                ) -> "AppConns":
-        """Four socket clients to one ABCI server: not in the port yet."""
-        raise NotImplementedError(
-            f"AppConns.socket({host}:{port}): the port has no ABCI socket "
-            f"client yet (ROADMAP A8); use AppConns.in_process")
+        from cometbft_tpu_torch.abci.server import ABCISocketClient
+
+        return cls(*(ABCISocketClient(host, port, timeout=timeout)
+                     for _ in range(4)))
 
     @classmethod
     def grpc(cls, host: str, port: int, timeout: float = 30.0
              ) -> "AppConns":
         """Four logical conns over ONE multiplexed gRPC channel
-        (grpc_client.go): not in the port yet."""
-        raise NotImplementedError(
-            f"AppConns.grpc({host}:{port}): the port has no ABCI gRPC "
-            f"client yet (ROADMAP A8); use AppConns.in_process")
+        (grpc_client.go: HTTP/2 streams replace the socket client's
+        per-connection ordering mutex)."""
+        from cometbft_tpu_torch.abci.grpc import ABCIGRPCClient
+
+        client = ABCIGRPCClient(host, port, timeout=timeout)
+        conns = cls(client, client, client, client)
+        conns._grpc_client = client
+        return conns
 
     @classmethod
     def from_addr(cls, addr: str, timeout: float = 30.0) -> "AppConns":

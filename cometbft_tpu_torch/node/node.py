@@ -28,8 +28,9 @@ modules. Its seams:
     or host verifier behind its back (a run under its min_device_sigs
     rows verifies on the host, in both packages). A host node's engine
     gets HostCommitVerifier, the host path.
-  * The JSON-RPC server and the ABCI socket and gRPC clients come with
-    ROADMAP A8: rpc_listen() raises NotImplementedError naming it.
+  * rpc_listen() serves the JSON-RPC server (rpc/server.py) over this
+    node, and an AppConns from AppConns.socket/grpc/from_addr runs the
+    app out of process, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -87,8 +88,8 @@ class Node(BaseService):
         # four logical ABCI connections over the one app
         # (proxy/multi_app_conn.go; node/node.go:302
         # createAndStartProxyAppConns) — callers may also hand in a
-        # ready-made AppConns (an out-of-process app's socket conns come
-        # with ROADMAP A8)
+        # ready-made AppConns (e.g. AppConns.socket for an
+        # out-of-process app)
         from cometbft_tpu_torch.abci.proxy import AppConns
 
         if isinstance(app, AppConns):
@@ -421,9 +422,14 @@ class Node(BaseService):
 
     def rpc_listen(self, host: str = "127.0.0.1", port: int = 0,
                    unsafe: bool = False) -> str:
-        """Start the JSON-RPC server (ROADMAP A8)."""
-        raise NotImplementedError(
-            "Node.rpc_listen: the port's RPC server comes with ROADMAP A8")
+        """Start the JSON-RPC server (node/node.go:527 RPC listeners);
+        returns the base URL. unsafe=True adds the ops routes +
+        profiling endpoints (rpc/core/routes.go:58)."""
+        from cometbft_tpu_torch.rpc.server import RPCServer
+
+        self.rpc_server = RPCServer(self, host, port, unsafe=unsafe)
+        self.rpc_server.start()
+        return self.rpc_server.address
 
     def dial(self, addr, persistent: bool = True) -> None:
         self.switch.dial_peer(addr, persistent=persistent)
@@ -585,6 +591,8 @@ class Node(BaseService):
             # direct paths instead of racing the drain
             verifyplane.clear_global_plane(self.verify_plane)
             self.verify_plane.stop()
+        if getattr(self, "rpc_server", None) is not None:
+            self.rpc_server.stop()
         self.indexer_service.stop()
         if self.pruner.is_running():
             self.pruner.stop()

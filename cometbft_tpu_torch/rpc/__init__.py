@@ -1,3 +1,3 @@
-"""RPC: the JSON-RPC HTTP client and the RPC-backed light provider (the
-port's copy of the JAX package's rpc/client.py; the server comes with the
-network slice)."""
+"""RPC: the JSON-RPC server (rpc/server.py), the HTTP client and the
+RPC-backed light provider (rpc/client.py): the port's copies of the JAX
+package's modules."""

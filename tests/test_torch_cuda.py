@@ -1982,3 +1982,56 @@ def test_blocksync_node_verifies_on_the_card(card, tmp_path):
         late.stop()
         srv.stop()
     assert eng.verifier.stats["stamped_chunks"] == 0
+
+
+def test_start_process_verifies_on_the_card(card, tmp_path):
+    """`python -m cometbft_tpu_torch start` as an operator runs it, with
+    the default [crypto] verifier = "tpu" and [verify_plane] enable: the
+    process commits over its RPC, its flushes all ran on its card plane
+    (no host path), and SIGTERM stops it with exit code 0."""
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+    import urllib.request
+    from pathlib import Path
+
+    from cometbft_tpu_torch.cmd import cli
+    from cometbft_tpu_torch.config.config import load_config, save_config
+
+    root = Path(__file__).resolve().parents[1]
+    home = str(tmp_path / "node")
+    assert cli.main(["init", "--home", home, "--chain-id", "card-cli"]) == 0
+    path = os.path.join(home, "config", "config.toml")
+    cfg = load_config(path)
+    assert cfg.crypto.verifier == "tpu"
+    cfg.verify_plane.enable = True
+    cfg.consensus.timeout_commit = 0.05
+    cfg.p2p.laddr = cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    cfg.base.blocksync = False
+    save_config(cfg, path)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cometbft_tpu_torch", "start", "--home",
+         home], cwd=str(root), env=dict(os.environ, PYTHONPATH=str(root)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        url = next(line.split()[-1] for line in proc.stdout
+                   if line.startswith("rpc listening on "))
+        deadline = time.time() + 120
+        height = 0
+        while height < 3:
+            assert time.time() < deadline, height
+            with urllib.request.urlopen(f"{url}/status", timeout=10) as r:
+                height = json.loads(r.read())["result"]["sync_info"][
+                    "latest_block_height"]
+            time.sleep(0.1)
+        with urllib.request.urlopen(f"{url}/dump_flushes", timeout=10) as r:
+            paths = {f["path"] for f in json.loads(r.read())["flushes"]}
+        assert "fused" in paths and paths <= {"fused", "grouped"}, paths
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)

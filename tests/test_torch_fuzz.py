@@ -1,7 +1,7 @@
 """tests/test_fuzz.py on the port (tests/torch_mirror.py): secret
 connection frame corruption, handshake garbage, CheckTx fuzz and the
-fault-injecting socket (p2p/fuzz.py). :147, the RPC server fuzz, waits
-for the port's RPC server (ROADMAP A8)."""
+fault-injecting socket (p2p/fuzz.py) and garbage bodies and query
+strings against the port's RPC server."""
 import pytest
 
 import torch_mirror as tm
@@ -11,6 +11,7 @@ NAMES = [
     "test_handshake_garbage_rejected",
     "test_mempool_checktx_fuzz",
     "test_fuzzed_socket_drops_are_survivable",
+    "test_rpc_server_fuzz",
 ]
 PORT = tm.load("test_fuzz.py")
 

@@ -88,7 +88,10 @@ def test_the_checks_cover_every_module_and_kernel_source():
     node in one process: config/, privval/, consensus/ (ticker, height
     vote set, WAL, height ledger, state machine, WAL generator), node/,
     the event bus, pubsub, service and metrics libs, the proposal type,
-    the ABCI proxy, the indexers and the pruner."""
+    the ABCI proxy, the indexers and the pruner; and the operator
+    surface: the RPC server, the inspect server, the ABCI socket and gRPC
+    servers and the abci CLI, the remote signer, the psql sink, the CLI
+    with its `python -m` entry, and loadtime."""
     from cometbft_tpu_torch.ops import _build
 
     mods = set(_modules())
@@ -117,7 +120,10 @@ def test_the_checks_cover_every_module_and_kernel_source():
               "consensus.height_vote_set", "consensus.wal",
               "consensus.heightledger", "consensus.state",
               "abci.proxy", "state.indexer", "state.pruner", "node",
-              "node.node", "consensus.wal_generator"):
+              "node.node", "consensus.wal_generator", "rpc.server",
+              "inspect", "abci.server", "abci.grpc", "abci.cli",
+              "privval.remote", "state.psql_sink", "cmd", "cmd.cli",
+              "__main__", "tools", "tools.loadtime"):
         assert f"cometbft_tpu_torch.{m}" in mods
     csrc = PKG / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(_build.KERNELS)

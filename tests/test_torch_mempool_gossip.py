@@ -1,8 +1,8 @@
 """tests/test_mempool_gossip.py on the port (tests/torch_mirror.py):
 ReapMaxGas, the mempool reactor's no-echo and once-a-peer gossip, a new
 peer given the existing pool, and the in-process AppConns' serialisation.
-:116 (AppConns over a socket app) waits for the port's ABCI server
-(ROADMAP A8). The port's mempools ride a host verify plane."""
+and AppConns.socket's four connections to the port's ABCI socket server.
+The port's mempools ride a host verify plane."""
 import pytest
 
 import torch_mirror as tm
@@ -12,6 +12,7 @@ NAMES = [
     "test_no_echo_and_once_per_peer",
     "test_new_peer_gets_existing_pool",
     "test_app_conns_in_process_serializes",
+    "test_app_conns_socket_four_connections",
 ]
 PORT = tm.load("test_mempool_gossip.py")
 

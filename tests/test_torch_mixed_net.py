@@ -11,9 +11,21 @@ statesyncs from a JAX network's snapshots (its light client trusts the
 JAX node 0's files, opened by the port's stores, through
 lightgate.gateway.node_light_provider). node_key.json, addrbook.json and
 the statesync chunk cache directory written by one package are read by
-the other, both ways."""
+the other, both ways.
+
+The RPC is a wire too: on the mixed network a JAX node's and a port
+node's JSON-RPC servers answer the same routes at the same heights with
+the same bytes, and the same error codes. The seen commit a node stores
+at a height is its own (the precommits it held when it committed), so
+the live `commit` answers agree on the signed header and the commit's
+height, round and block; after the stop, both packages' read-only
+servers over one node's stores answer every route, `commit` included,
+with the same bytes."""
+import hashlib
 import importlib
+import json
 import time
+import urllib.request
 from types import SimpleNamespace
 
 import pytest
@@ -25,7 +37,8 @@ MODULES = {"kv": "abci.kvstore", "keys": "crypto.keys",
            "state": "state.state", "bs": "store.blockstore",
            "val": "types.validator", "ts": "types.timestamp",
            "ticker": "consensus.ticker", "p2pkey": "p2p.key",
-           "pex": "p2p.pex", "chunks": "statesync.chunks"}
+           "pex": "p2p.pex", "chunks": "statesync.chunks",
+           "inspect": "inspect"}
 
 
 def _pkg(base):
@@ -192,6 +205,116 @@ def test_port_node_statesyncs_from_jax_snapshots(tmp_path, plane):
             late.stop()
         for n in nodes:
             n.stop()
+
+
+# -- the JSON-RPC answers, both packages ---------------------------------------
+
+
+def rpc_raw(url, method, **params):
+    """The raw bytes of a JSON-RPC POST answer."""
+    body = json.dumps({"jsonrpc": "2.0", "id": 7, "method": method,
+                       "params": params}).encode()
+    req = urllib.request.Request(
+        url, data=body, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return r.read()
+
+
+def rpc_calls(heights, txs):
+    """(method, params) answered alike by any node of one chain at
+    `heights`, bar `commit` and the answers that carry the latest
+    height (LATEST_CALLS)."""
+    calls = [("genesis", {}), ("consensus_params", {"height": 1})]
+    for h in heights:
+        calls += [("block", {"height": h}), ("header", {"height": h}),
+                  ("validators", {"height": h}),
+                  ("block_results", {"height": h}),
+                  ("tx_search", {"query": f"tx.height={h}"})]
+    for tx in txs:
+        txh = hashlib.sha256(tx).hexdigest().upper()
+        calls += [("tx", {"hash": txh}), ("tx", {"hash": txh,
+                                                 "prove": True})]
+    # errors: an unknown method, a bad param name and a bad param value
+    calls += [("no_such_route", {}), ("block", {"hieght": 1}),
+              ("block", {"height": "abc"}), ("tx", {"hash": "00" * 32})]
+    return calls
+
+
+def latest_calls(top, txs):
+    """The answers that carry a node's latest height."""
+    return [("blockchain", {"min_height": 1, "max_height": top})] + [
+        ("abci_query", {"data": tx.split(b"=")[0].hex()}) for tx in txs]
+
+
+def same_answers(urls, calls):
+    for method, params in calls:
+        got = [rpc_raw(u, method, **params) for u in urls]
+        assert got[0] == got[1], (method, params, got)
+
+
+def test_rpc_answers_are_byte_equal_across_packages(tmp_path, plane):
+    pkgs = [JAX, JAX, PORT, PORT]
+    nodes = [make_node(P, i, "rpc-mixed", 4, tmp_path, f"n{i}")
+             for i, P in enumerate(pkgs)]
+    txs = [b"jk=1", b"pk=2", b"jk2=3"]
+    try:
+        mesh(nodes)
+        urls = [nodes[0].rpc_listen(), nodes[2].rpc_listen()]
+        wait(lambda: all(n.switch.num_peers() >= 3 for n in nodes), 60,
+             "mesh never formed")
+        for n, tx in zip((nodes[0], nodes[2], nodes[1]), txs):
+            assert n.broadcast_tx(tx).code == 0
+        wait(lambda: all(nodes[i].tx_indexer.get(
+            hashlib.sha256(tx).digest()) for i in (0, 2) for tx in txs),
+            90, "txs not committed and indexed")
+        for n in nodes:
+            assert n.consensus.wait_for_height(4, timeout=90), \
+                f"stuck at {n.height()}"
+        top = min(nodes[0].height(), nodes[2].height())
+        heights = list(range(1, top + 1))
+        same_answers(urls, rpc_calls(heights, txs))
+        # these carry the latest height: compare when the two nodes stand
+        # at the same one (their heights read around the answers)
+        for method, params in latest_calls(top, txs):
+            deadline = time.time() + 30
+            while True:
+                before = (nodes[0].height(), nodes[2].height())
+                got = [rpc_raw(u, method, **params) for u in urls]
+                if got[0] == got[1]:
+                    break
+                level = before[0] == before[1] == nodes[0].height() \
+                    == nodes[2].height()
+                assert not level and time.time() < deadline, (method, got)
+        for h in heights:
+            a, b = (json.loads(rpc_raw(u, "commit", height=h))["result"]
+                    for u in urls)
+            assert a["signed_header"]["header"] == \
+                b["signed_header"]["header"]
+            for k in ("height", "round", "block_id"):
+                assert a["signed_header"]["commit"][k] == \
+                    b["signed_header"]["commit"][k]
+    finally:
+        for n in reversed(nodes):
+            n.stop()
+    # after the stop: each package's read-only server over the same
+    # stores, for one JAX home and one port home
+    for name in ("n0", "n2"):
+        servers = [P.inspect.InspectServer(str(tmp_path / name))
+                   for P in (JAX, PORT)]
+        for s in servers:
+            s.start()
+        try:
+            urls = [s.address for s in servers]
+            latest = servers[0].node.block_store.height()
+            heights = list(range(1, latest + 1))
+            same_answers(urls, rpc_calls(heights, txs)
+                         + latest_calls(latest, txs) + [
+                ("commit", {"height": h}) for h in heights] + [
+                ("blockchain", {}), ("status", {}),
+                ("broadcast_tx_sync", {"tx": "YT0x"})])
+        finally:
+            for s in servers:
+                s.stop()
 
 
 # -- files on disk, both ways ----------------------------------------------------

@@ -24,6 +24,7 @@ import importlib
 import json
 import threading
 import time
+import urllib.request
 from types import SimpleNamespace
 
 import pytest
@@ -582,14 +583,22 @@ def test_node_without_a_card_raises(tmp_path, monkeypatch):
         PORT.node.Node(PORT.kv.KVStoreApplication(), state,
                        privval=PORT.pv.FilePV(privs[0]),
                        home=str(tmp_path / "n"))
-    # p2p=True builds the switch and its reactors (ROADMAP A8's p2p
-    # slice); the RPC server is still to come and raises naming A8
+    # p2p=True builds the switch and its reactors; rpc_listen serves the
+    # JSON-RPC server over the node
     node = PORT.node.Node(PORT.kv.KVStoreApplication(), state, p2p=True,
                           device="cpu")
     assert node.switch is not None and node.consensus_reactor is not None
     assert node.blocksync_reactor is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        node.rpc_listen()
+    url = node.rpc_listen()
+    try:
+        with urllib.request.urlopen(f"{url}/health", timeout=10) as r:
+            assert json.loads(r.read())["result"] == {}
+        with urllib.request.urlopen(f"{url}/status", timeout=10) as r:
+            st = json.loads(r.read())["result"]
+        assert st["node_info"]["network"] == state.chain_id
+        assert st["node_info"]["version"] == "cometbft-tpu/0.3"
+    finally:
+        node.rpc_server.stop()
     node.block_store.close()
     node.state_store.close()
 

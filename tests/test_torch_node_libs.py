@@ -380,12 +380,32 @@ def test_app_conns_in_process_and_the_a8_clients():
         with pytest.raises(AttributeError):
             conns.mempool.not_forwarded  # noqa: B018
         conns.close()
-    for fn in (lambda: PORT.proxy.AppConns.socket("127.0.0.1", 1),
-               lambda: PORT.proxy.AppConns.grpc("127.0.0.1", 1),
-               lambda: PORT.proxy.AppConns.from_addr("tcp://127.0.0.1:1"),
-               lambda: PORT.proxy.AppConns.from_addr("grpc://h:2")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            fn()
+    # the out-of-process clients: socket and gRPC, built directly and
+    # from a proxy_app address, each answering Info from a served kvstore
+    from cometbft_tpu_torch.abci.grpc import ABCIGRPCServer
+    from cometbft_tpu_torch.abci.server import ABCISocketServer
+
+    sock = ABCISocketServer(PORT.kv.KVStoreApplication())
+    grpc_srv = ABCIGRPCServer(PORT.kv.KVStoreApplication())
+    sock.start()
+    grpc_srv.start()
+    try:
+        (sh, sp), (gh, gp) = sock.addr[:2], grpc_srv.addr
+        for make in (lambda: PORT.proxy.AppConns.socket(sh, sp),
+                     lambda: PORT.proxy.AppConns.grpc(gh, gp),
+                     lambda: PORT.proxy.AppConns.from_addr(f"tcp://{sh}:{sp}"),
+                     lambda: PORT.proxy.AppConns.from_addr(f"grpc://{gh}:{gp}")):
+            conns = make()
+            try:
+                for c in (conns.consensus, conns.mempool, conns.query,
+                          conns.snapshot):
+                    assert c.info(PORT.abci.RequestInfo()) \
+                        .last_block_height == 0
+            finally:
+                conns.close()
+    finally:
+        grpc_srv.stop()
+        sock.stop()
     assert raised(lambda: PORT.proxy.AppConns.from_addr("udp://h:1")) == \
         raised(lambda: JAX.proxy.AppConns.from_addr("udp://h:1"))
 

@@ -2,11 +2,10 @@
 tests/test_statesync_recovery.py on the port (tests/torch_mirror.py):
 the chunk queue and fetcher with its cache directory, the syncer against
 tampered snapshots and dead or lying providers, the serve gate that sheds
-with PlaneOverloaded's retry hint, and a node that statesyncs over p2p. In
-the port's copy of test_statesync.py:163 the late node's light client
-trusts node 0's stores through lightgate.gateway.node_light_provider, as
-the port has no RPC server yet (ROADMAP A8). The port's nodes run on
-device="cpu" over a host verify plane."""
+with PlaneOverloaded's retry hint, and a node that statesyncs over p2p
+(its light client reads node 0 over the port's RPC server through
+rpc.client.light_provider). The port's nodes run on device="cpu" over a
+host verify plane."""
 import pytest
 
 import torch_mirror as tm
@@ -38,20 +37,8 @@ RECOVERY = [
     "test_fetch_chunk_rejects_bad_proof",
     "test_archive_retention_is_bounded",
 ]
-NODE_PROVIDER = [(
-    "        from cometbft_tpu_torch.rpc.client import light_provider\n"
-    "\n"
-    "        url = nodes[0].rpc_listen()\n"
-    "        provider = light_provider(\"ss-chain\", url)\n",
-    "        from cometbft_tpu_torch.lightgate.gateway import (\n"
-    "            node_light_provider,\n"
-    "        )\n"
-    "\n"
-    "        provider = node_light_provider(nodes[0])\n")]
-
-
 PARAMS = (tm.cases(tm.load("test_chunks.py"), CHUNKS)
-          + tm.cases(tm.load("test_statesync.py", NODE_PROVIDER), STATESYNC)
+          + tm.cases(tm.load("test_statesync.py"), STATESYNC)
           + tm.cases(tm.load("test_statesync_recovery.py"), RECOVERY))
 
 

@@ -21,11 +21,20 @@ from __future__ import annotations
 import contextlib
 import inspect
 import re
+import sys
 import types
 from pathlib import Path
 
 TESTS = Path(__file__).resolve().parent
 _JAX_NAME = re.compile(r"\bcometbft_tpu\b")
+
+
+# a function-level import of LocalNetwork and Node, Node made the port's
+# on the CPU
+LOCAL_NET_NODE = (
+    "    from cometbft_tpu_torch.node.node import LocalNetwork, Node\n",
+    "    from cometbft_tpu_torch.node.node import LocalNetwork\n"
+    "    from torch_mirror import port_node as Node\n")
 
 
 def port_node(*args, **kw):
@@ -47,6 +56,8 @@ def load(name: str, subs=()) -> types.ModuleType:
         src = src.replace(old, new)
     mod = types.ModuleType(f"mirror_port_{path.stem}")
     mod.__file__ = str(path)
+    # a dataclass looks its module up by name
+    sys.modules[mod.__name__] = mod
     exec(compile(src, str(path), "exec"), mod.__dict__)
     mod._fixture_cache = {}
     return mod
@@ -119,14 +130,29 @@ def cases(mod, names):
     return [pytest.param(mod, n, id=f"port-{n}") for n in names]
 
 
+BENCH_HELPERS = ("peer_ledger_bookkeeping_us", "height_ledger_bookkeeping_us")
+
+
 def port_bench():
-    """bench.py's peer_ledger_bookkeeping_us over the port's peer ledger:
-    the function's own source, its imports pointed at the port."""
+    """bench.py's ledger bookkeeping helpers (BENCH_HELPERS) over the
+    port's ledgers: each function's own source, its imports pointed at
+    the port."""
     import bench
 
-    src = inspect.getsource(bench.peer_ledger_bookkeeping_us)
     ns = {"_now_ms": bench._now_ms}
-    exec(compile(_JAX_NAME.sub("cometbft_tpu_torch", src), bench.__file__,
-                 "exec"), ns)
-    return types.SimpleNamespace(
-        peer_ledger_bookkeeping_us=ns["peer_ledger_bookkeeping_us"])
+    for name in BENCH_HELPERS:
+        src = inspect.getsource(getattr(bench, name))
+        exec(compile(_JAX_NAME.sub("cometbft_tpu_torch", src),
+                     bench.__file__, "exec"), ns)
+    return types.SimpleNamespace(**{n: ns[n] for n in BENCH_HELPERS})
+
+
+def port_tool(name: str) -> types.ModuleType:
+    """tools/<name>.py (a repo script over the JAX package) as a module
+    whose imports of the JAX package point at the port."""
+    path = TESTS.parent / "tools" / f"{name}.py"
+    mod = types.ModuleType(f"port_tool_{name}")
+    mod.__file__ = str(path)
+    src = _JAX_NAME.sub("cometbft_tpu_torch", path.read_text())
+    exec(compile(src, str(path), "exec"), mod.__dict__)
+    return mod
