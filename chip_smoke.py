@@ -122,7 +122,7 @@ Phases (any failure exits non-zero and prints no result line):
      entry, config 3's width): phase 3's commit as 10,000 precommit Votes
      (Commit.get_vote; 4,321 tampered) added from 8 threads to a port
      VoteSet, with a card VerifyPlane mounted as the global plane and a
-     card TableWarmer as the global warmer; 3 VoteSets over epoch e (the
+     card TableWarmer as the global warmer; 2 VoteSets over epoch e (the
      first with a cold table): vote 4,321 raises the invalid-signature
      VoteSetError, every other vote is admitted, the majority is the
      commit's block from the fused tally, make_commit() is the commit
@@ -300,6 +300,30 @@ Phases (any failure exits non-zero and prints no result line):
      at node 2 only), nvidia-smi's compute apps, SIGTERM (exit 0 each)
      and `inspect` serving block and commit at 20 from node 0's stores;
      the kernels' launches in it come from the four flush ledgers.
+ 21. the simnet (simnet/, the deterministic adversarial harness) on the
+     card: (a) tests/test_soak.py's chaos soak (a signed flood, a garbage
+     signer, a partition and heal, a kill and restart, lossy links; seed
+     2024, to height 6) on 4 Simnet nodes on the card over a card
+     VerifyPlane (window 0.5 ms) registered global, twice, and once as a
+     host run (batch_fn=oracle_batch_fn(), a host plane): commit hashes
+     byte-identical at every height on every node and the same flood
+     (seq, code) stream in all three, the card ledgers equal in path and
+     rows, fused flushes, no breaker fault; (b) tests/test_simnet.py's
+     equivocator (seed 11) and light-client attack (seed 12) on 4 card
+     nodes with no plane, each vote one verify_batch_direct on the card,
+     each against a host run (hashes and the committed evidence equal),
+     verify_light_client_attack launching ed25519_verify; (c) (a)'s
+     schedule with one verifyplane.dispatch fault armed process-globally:
+     one device_fault flush, no breaker fault or trip, safety and the
+     height; (d) tests/test_soak.py::test_churn_soak_10k_scale (a pool of
+     10,000 validators: 4 nodes at 1,000,000 power and a 9,996-member
+     passive tail of hashed, mostly undecodable keys; an epoch at churn
+     0.02, a partition of node 3, a heal) on a card plane and a card
+     TableWarmer: its assertions (safety, the rotation landed at height
+     5), then past the heal; the genesis set's table against plain and
+     timed, one vote flush's kernels against plain; each run's wall s,
+     simulated heights a wall second, flushes, rows a flush and launches,
+     exact against its flushes and direct verifies.
 Before the last line it prints the `kernels` JSON (launches on the main
 paths, in all and by path; times; bounds; for every kernel `device_ms`, from
 a profiler trace at its phase's shape, by live columns or by shape where a
@@ -309,7 +333,8 @@ launched at each shape and the sweep of every entry; for the node path's
 kernels `device_ms_by_path`); the summary line gains node_heights_per_s
 and node_commit_p50_ms, then net_heights_per_s, net_commit_p50_ms and
 net_sync_blocks_per_s, then proc_heights_per_s, proc_commit_p50_ms,
-proc_tx_sync_p50_ms and loadtime's p50 and p99; the last line is
+proc_tx_sync_p50_ms and loadtime's p50 and p99, then
+sim_chaos_heights_per_s and sim_10k_heights_per_s; the last line is
 {"ok": true, "device": {...}}.
 
 Launch counters are set to 0 just before each main-path run and read just
@@ -379,7 +404,7 @@ PLANE_TIMEOUT_S = 120.0
 PLANE_LEDGER = 16384         # flush ledger ring of the phase's planes
 VS_ROTATED = 100             # phase 12: validators whose power rotates
 VS_THREADS = 8               # phase 12: threads adding votes
-VS_RUNS = 3                  # phase 12: VoteSets over epoch e's votes
+VS_RUNS = 2                  # phase 12: VoteSets over epoch e's votes
 VS_HOST_VOTES = (4096, 5120)  # phase 12: the host plane's slice of votes
 LCC_VALS = 10_000            # phase 13: BASELINE config 5's width
 LCC_COPY_VALS = 16           # phase 13: the plan's copy the CPU test runs
@@ -407,7 +432,9 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 
 
 def fail(msg: str) -> None:
+    # on both streams: a reader of either tail sees which check failed
     print(f"chip_smoke FAILED: {msg}", flush=True)
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -7452,6 +7479,571 @@ def phase_procs(dev, pool, rng, kernel_stats):
             "proc_load_p50_ms": load_p50, "proc_load_p99_ms": load_p99}
 
 
+# --------------------------------------------------------------------------
+# phase 21: the simnet on the card
+# --------------------------------------------------------------------------
+
+SIM_NODES = 4                # phase 21: BASELINE config 1's validators
+SIM_WINDOW_MS = 0.5          # phase 21: the soak's plane window
+SIM_BULK_DEADLINE_MS = 250.0
+SIM_MAX_TIME = 120.0         # phase 21: simulated seconds a run may take
+# phase 21 (a), (c): tests/test_soak.py's chaos soak (seed 2024, to height
+# 6): a signed flood at node 0, a garbage signer, a partition and heal, a
+# kill and restart, lossy links
+SIM_CHAOS_SEED = 2024
+SIM_CHAOS_HEIGHT = 6
+SIM_CHAOS = [
+    {"at": 1.0, "op": "garbage", "node": 2, "votes": 2},
+    {"at": 1.5, "op": "partition", "groups": [[0, 1, 2], [3]]},
+    {"at": 3.0, "op": "heal"},
+    {"at": 3.5, "op": "kill", "node": 1},
+    {"at": 5.0, "op": "restart", "node": 1},
+    {"at": 5.5, "op": "link", "drop": 0.05, "delay": 0.01,
+     "jitter": 0.005},
+    {"at": 7.0, "op": "heal"},
+    {"at": 0.6, "op": "flood", "node": 0, "rate": 30.0, "duration": 6.0,
+     "signed": True, "size": 24},
+]
+SIM_FAULT = "verifyplane.dispatch=raise*1"  # phase 21 (c), process-global
+# phase 21 (d): tests/test_soak.py::test_churn_soak_10k_scale, a pool of
+# 10,000 validators (4 nodes + a 9,996-member passive tail)
+SIM_10K_SEED = 77
+SIM_10K_POWER = 1_000_000
+SIM_10K_TAIL = 9_996
+SIM_10K_HEIGHT = 5
+SIM_10K_SCHED = [
+    {"at": 0.8, "op": "epoch", "node": 0, "churn": 0.02},
+    {"at": 1.5, "op": "partition", "groups": [[0, 1, 2], [3]]},
+    {"at": 2.5, "op": "heal"},
+]
+SIM_10K_AFTER = 2            # phase 21 (d): heights every node adds past the heal
+
+
+class count_vote_verifies:
+    """While the block runs, count the VoteSet's vote verifications by
+    where they ran: {"device": calls of VoteSet._verify_on_device (one
+    verify_batch_direct each), "host": Vote.verify calls from
+    VoteSet._add_vote (the serial host path)}."""
+
+    def __enter__(self):
+        from cometbft_tpu_torch.types import vote as tvote
+        from cometbft_tpu_torch.types import vote_set as tvs
+
+        self.counts = collections.Counter()
+        self.vs, self.vote = tvs.VoteSet, tvote.Vote
+        self.real_dev = tvs.VoteSet._verify_on_device
+        self.real_host = tvote.Vote.verify
+        counts, real_dev, real_host = (self.counts, self.real_dev,
+                                       self.real_host)
+
+        def on_device(vset, *a, **kw):
+            counts["device"] += 1
+            return real_dev(vset, *a, **kw)
+
+        def host(vote, *a, **kw):
+            if sys._getframe(1).f_code.co_name == "_add_vote":
+                counts["host"] += 1
+            return real_host(vote, *a, **kw)
+
+        tvs.VoteSet._verify_on_device = on_device
+        tvote.Vote.verify = host
+        return self.counts
+
+    def __exit__(self, *exc):
+        self.vs._verify_on_device = self.real_dev
+        self.vote.verify = self.real_host
+
+
+class count_attack_verifies:
+    """While the block runs, record the evidence pool's
+    verify_light_client_attack calls: [(ed25519_verify launches made
+    inside the call, whether it returned)]."""
+
+    def __enter__(self):
+        from cometbft_tpu_torch.evidence import pool as epool
+        from cometbft_tpu_torch.ops import ed25519_fused as kf
+
+        self.mod, self.real = epool, epool.verify_light_client_attack
+        self.calls = []
+        real, calls = self.real, self.calls
+
+        def verify(*a, **kw):
+            n0 = kf.ed25519_verify.launches
+            ok = False
+            try:
+                out = real(*a, **kw)
+                ok = True
+                return out
+            finally:
+                calls.append((kf.ed25519_verify.launches - n0, ok))
+
+        epool.verify_light_client_attack = verify
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.mod.verify_light_client_attack = self.real
+
+
+def sim_chaos(sim):
+    """(a), (c): the chaos soak to SIM_CHAOS_HEIGHT, safety asserted."""
+    check(sim.run([dict(op) for op in SIM_CHAOS],
+                  until_height=SIM_CHAOS_HEIGHT, max_time=SIM_MAX_TIME),
+          f"phase21 the chaos soak never reached {SIM_CHAOS_HEIGHT}: "
+          f"{[n.height() for n in sim.net.nodes]}")
+    sim.assert_safety()
+    return {}
+
+
+def sim_equivocator(sim):
+    """(b): tests/test_simnet.py's equivocator (seed 11)."""
+    from cometbft_tpu_torch.types.evidence import DuplicateVoteEvidence
+
+    sim.run([{"at": 0.12, "op": "equivocate", "node": 3, "votes": 2}],
+            until_height=2, max_time=SIM_MAX_TIME)
+    ev = sim.assert_evidence_committed(
+        predicate=lambda e: isinstance(e, DuplicateVoteEvidence))
+    check(ev.vote_a.validator_address
+          == sim.net.privs[3].pub_key().address(),
+          "phase21 the duplicate vote names another validator")
+    sim.assert_safety()
+    sim.assert_liveness(min_new_heights=2, max_time=30.0)
+    return {"evidence": ev.hash().hex()}
+
+
+def sim_light_attack(sim):
+    """(b): tests/test_simnet.py's light-client attack (seed 12)."""
+    from cometbft_tpu_torch.types.evidence import LightClientAttackEvidence
+
+    sim.run([], until_height=2, max_time=SIM_MAX_TIME)
+    sim.run([{"at": sim.net.now + 0.05, "op": "light_attack",
+              "byz": [2, 3], "target": 0, "height": 1}], max_time=1.0)
+    ev = sim.assert_evidence_committed(
+        predicate=lambda e: isinstance(e, LightClientAttackEvidence))
+    check(len(ev.byzantine_validators) == 2 and ev.common_height == 1,
+          f"phase21 the attack evidence: {ev}")
+    sim.assert_safety()
+    return {"evidence": ev.hash().hex()}
+
+
+def sim_10k(sim):
+    """(d): test_churn_soak_10k_scale's run and assertions, then on past
+    the heal until every node adds SIM_10K_AFTER heights."""
+    check(len(sim.net.genesis.validators) >= SIM_NODES + SIM_10K_TAIL // 2,
+          "phase21 the 10k genesis set is short")
+    check(sim.run([dict(op) for op in SIM_10K_SCHED],
+                  until_height=SIM_10K_HEIGHT, max_time=SIM_MAX_TIME),
+          "phase21 the 10k churn never reached its height")
+    sim.assert_safety()
+    rec = sim.epoch_results[0]
+    check("error" not in rec and rec["txs"] > 0, f"phase21 epoch {rec}")
+    vs = sim.net.nodes[0].node.consensus.state.validators
+    pubs = {v.pub_key.data for v in vs.validators}
+    rot_in = [i for i in rec["in"] if sim.net.tail_pubs[i] in pubs]
+    rot_out = [i for i in rec["out"] if sim.net.tail_pubs[i] in pubs]
+    check(rot_in == rec["in"] and not rot_out,
+          f"phase21 the rotation did not land: {len(rot_in)} of "
+          f"{len(rec['in'])} in, {len(rot_out)} out still seated")
+    heal = max(float(op["at"]) for op in SIM_10K_SCHED)
+    target = max(n.height() for n in sim.net.nodes) + SIM_10K_AFTER
+    check(sim.run([], until=lambda: sim.net.now > heal and all(
+        n.height() >= target for n in sim.net.nodes),
+        max_time=SIM_MAX_TIME),
+        f"phase21 the 10k net stalled past the heal: "
+        f"{[n.height() for n in sim.net.nodes]}, want {target}")
+    sim.assert_safety()
+    return {"rotated": (len(rec["out"]), len(rec["in"])),
+            "final_vals": len(vs.validators),
+            "valset": (tuple(v.pub_key.data for v in vs.validators),
+                       tuple(v.voting_power for v in vs.validators))}
+
+
+def sim_run(dev, root, tag, seed, scenario, plane=None, host=False,
+            fault=None, warm=False, **simkw):
+    """One simnet scenario on the port: Simnet(SIM_NODES, seed) of nodes
+    on `dev` (host=True: host nodes, batch_fn=oracle_batch_fn()), with a
+    VerifyPlane registered global for the run ("card": on `dev`, "host":
+    use_device=False, None: no plane) and, with `warm`, a card
+    TableWarmer as the global warmer; `fault` armed on the process-global
+    failpoint registry. The launch counters are set to 0 just before the
+    run and read just after. -> dict of its outputs, launches and
+    figures."""
+    import contextlib
+
+    import torch
+
+    from cometbft_tpu_torch.libs import failpoints as fp
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+    from cometbft_tpu_torch.simnet import Simnet
+    from cometbft_tpu_torch.types.validation import oracle_batch_fn
+    from cometbft_tpu_torch.verifyplane import (
+        FlushLedger,
+        TableWarmer,
+        VerifyPlane,
+        global_plane,
+        set_global_plane,
+    )
+    from cometbft_tpu_torch.verifyplane import warmer as vwarmer
+
+    check(global_plane() is None and vwarmer.global_warmer() is None,
+          f"phase21 {tag}: a plane or warmer is already mounted")
+    p = w = None
+    if plane == "card":
+        p = VerifyPlane(window_ms=SIM_WINDOW_MS, device=dev,
+                        bulk_deadline_ms=SIM_BULK_DEADLINE_MS)
+        p.ledger = FlushLedger(capacity=PLANE_LEDGER)
+    elif plane == "host":
+        p = VerifyPlane(window_ms=SIM_WINDOW_MS, use_device=False,
+                        bulk_deadline_ms=SIM_BULK_DEADLINE_MS)
+    if p is not None:
+        p.start()
+        set_global_plane(p)
+    if warm:
+        w = TableWarmer(device=dev)
+        w.start()
+        vwarmer.set_global_warmer(w)
+    kw = dict(batch_fn=oracle_batch_fn()) if host else dict(device=dev)
+    fp.reset()
+    if fault:
+        fp.arm_from_spec(fault)
+    out = {"tag": tag}
+    zero_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.ExitStack() as stack:
+            direct = stack.enter_context(count_direct_verifies())
+            votes = stack.enter_context(count_vote_verifies())
+            attacks = stack.enter_context(count_attack_verifies())
+            subs = (stack.enter_context(record_plane_submissions(p))
+                    if plane == "card" else [])
+            lc_rows = stack.enter_context(capture_verify_rows(ed25519=kf))
+            sim = stack.enter_context(Simnet(
+                SIM_NODES, seed=seed,
+                basedir=os.path.join(root, tag), **kw, **simkw))
+            out.update(scenario(sim))
+            out["wall_s"] = time.perf_counter() - t0
+            out["sim_s"] = sim.net.now
+            out["heights"] = [n.height() for n in sim.net.nodes]
+            out["hashes"] = sim.commit_hashes()
+            out["flood"] = [(r["seq"], r["code"]) for r in sim.flood_results]
+            out["epochs"] = [dict(r) for r in sim.epoch_results]
+            out["genesis"] = sim.net.genesis
+        if w is not None:
+            check(w.wait_idle(NODE_TIMEOUT_S), f"phase21 {tag}: the "
+                  f"warmer never went idle")
+    finally:
+        if w is not None:
+            vwarmer.clear_global_warmer(w)
+            w.stop()
+        if p is not None:
+            set_global_plane(None)
+            p.stop()
+        out["fault"] = (fp.registry().stats("verifyplane.dispatch")
+                        if fault else None)
+        fp.reset()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["launches"] = read_launches()
+    out.update(direct=list(direct), votes=dict(votes),
+               attacks=list(attacks), subs=subs,
+               lc_rows=lc_rows["ed25519"], plane=p, warmer=w)
+    out["recs"] = p.ledger.records() if plane == "card" else []
+    check(all(len(h) >= 2 for h in out["hashes"]),
+          f"phase21 {tag}: a node committed no chain")
+    return out
+
+
+def sim_line(r) -> str:
+    """A run's figures: wall s, simulated heights a wall second, its
+    flushes by path, rows a flush and the kernels launched."""
+    recs = r["recs"]
+    paths = collections.Counter(x["path"] for x in recs)
+    rows = [x["rows"] for x in recs]
+    launched = {k: n for k, n in r["launches"].items() if n}
+    return (f"{r['tag']}: wall {r['wall_s']:.3f} s for {min(r['heights'])}"
+            f" heights ({r['sim_s']:.3f} simulated s) = "
+            f"{min(r['heights']) / r['wall_s']:.3f} simulated heights/s; "
+            f"flushes {dict(paths)}"
+            + (f", rows a flush p50={statistics.median(rows)} "
+               f"max={max(rows)}" if rows else "")
+            + f"; launches {json.dumps(launched)}; direct card verifies "
+            f"{len(r['direct'])}; vote verifies {json.dumps(r['votes'])}")
+
+
+def sim_launches_exact(r, phase):
+    """The launches a card run's flushes and direct verifies account
+    for: one stamp_rows, ed25519_verify_cached and tally_quorum_cached a
+    fused flush, one ed25519_verify a grouped flush and a direct verify;
+    valset_table_build once a cold fused flush and at most once a
+    warmer build, at least once; nothing else."""
+    recs, launches = r["recs"], r["launches"]
+    cold = sum(x["path"] == "fused" and not x["warm"] for x in recs)
+    tb = launches["valset_table_build"]
+    wb = r["warmer"].builds_ok if r["warmer"] is not None else 0
+    check(cold <= tb <= cold + wb,
+          f"{phase} table builds {tb}: cold fused flushes {cold}, warmer "
+          f"builds {wb}")
+    want = flush_launches_want(recs, launches, tb, r["direct"])
+    check(launches == want, f"{phase} launches {launches}, want {want}")
+    return cold
+
+
+def sim_same(runs, phase):
+    """Byte-identical commit hashes at every height on every node, the
+    same flood (seq, code) stream and epoch results across `runs`."""
+    ref = runs[0]
+    for r in runs[1:]:
+        check(r["hashes"] == ref["hashes"],
+              f"{phase} {r['tag']}'s commit hashes != {ref['tag']}'s")
+        check(r["flood"] == ref["flood"],
+              f"{phase} {r['tag']}'s flood verdicts != {ref['tag']}'s")
+        check(r["epochs"] == ref["epochs"],
+              f"{phase} {r['tag']}'s epochs != {ref['tag']}'s")
+
+
+def phase_simnet(dev, kernel_stats):
+    """ROADMAP A8.4, the deterministic adversarial harness on the card:
+    (a) the chaos soak on 4 card nodes over a card plane, twice, and as a
+    host run; (b) the equivocator and the light-client attack with no
+    plane, each vote a verify_batch_direct on the card, each against a
+    host run; (c) the chaos soak with one process-global dispatch fault;
+    (d) the 10k-validator churn at config 3's width on a card plane and
+    warmer."""
+    import tempfile
+
+    import torch
+
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+    from cometbft_tpu_torch.ops import table_cache as tcache
+
+    card = smi("name,power.limit")
+    root = tempfile.mkdtemp(prefix="phase21-")
+    brk = cbatch.device_breaker()
+    faults0, trips0 = brk.faults, brk.trips
+    sim_l = dict.fromkeys(all_kernels(), 0)
+    card_runs = []
+
+    def card_run(*a, **kw):
+        r = sim_run(dev, root, *a, **kw)
+        for k, n in r["launches"].items():
+            sim_l[k] += n
+        card_runs.append(r)
+        return r
+
+    # -- (a) chaos at config 1's shape --------------------------------------
+    a1 = card_run("a-card-1", SIM_CHAOS_SEED, sim_chaos, plane="card")
+    a2 = card_run("a-card-2", SIM_CHAOS_SEED, sim_chaos, plane="card")
+    ah = sim_run(dev, root, "a-host", SIM_CHAOS_SEED, sim_chaos,
+                 plane="host", host=True)
+    check(sum(ah["launches"].values()) == 0,
+          f"phase21 (a) the host run launched {ah['launches']}")
+    sim_same([ah, a1, a2], "phase21 (a)")
+    for r in (a1, a2):
+        paths = collections.Counter(x["path"] for x in r["recs"])
+        check(paths["fused"] > 0 and r["plane"].rows_verified > 0
+              and set(paths) <= {"fused", "grouped"},
+              f"phase21 (a) {r['tag']} flush paths {dict(paths)}")
+        check(r["plane"].stats()["breaker_state"] == "closed",
+              f"phase21 (a) {r['tag']}: the breaker is not closed")
+        sim_launches_exact(r, f"phase21 (a) {r['tag']}")
+    comp = [[(x["path"], x["rows"], x["c_rows"], x["b_rows"])
+             for x in r["recs"]] for r in (a1, a2)]
+    check(comp[0] == comp[1], "phase21 (a) the two card runs' flush "
+          "ledgers differ in path or rows")
+    check(brk.faults == faults0 and brk.trips == trips0,
+          "phase21 (a) the breaker recorded a fault")
+    codes = collections.Counter(c for _, c in a1["flood"])
+    print(f"phase21 (a) the chaos soak (tests/test_soak.py, seed "
+          f"{SIM_CHAOS_SEED}, to height {SIM_CHAOS_HEIGHT}) on "
+          f"{SIM_NODES} card nodes over a card VerifyPlane (window "
+          f"{SIM_WINDOW_MS} ms): two card runs and a host run "
+          f"(batch_fn=oracle_batch_fn(), host plane) with byte-identical "
+          f"commit hashes at every height on every node "
+          f"({[len(h) for h in a1['hashes']]} heights by node) and the "
+          f"same {len(a1['flood'])} flood verdicts (codes {dict(codes)}); "
+          f"the two card ledgers equal in path and rows; breaker closed, "
+          f"no fault; card={card}", flush=True)
+    for r in (a1, a2, ah):
+        print(f"phase21 (a) {sim_line(r)}", flush=True)
+
+    # -- (b) no plane: each vote a verify_batch_direct on the card ----------
+    b_out = {}
+    for name, seed, fn in (("equivocator", 11, sim_equivocator),
+                           ("light_attack", 12, sim_light_attack)):
+        rc = card_run(f"b-{name}-card", seed, fn)
+        rh = sim_run(dev, root, f"b-{name}-host", seed, fn, host=True)
+        check(sum(rh["launches"].values()) == 0,
+              f"phase21 (b) {name}'s host run launched {rh['launches']}")
+        sim_same([rh, rc], f"phase21 (b) {name}")
+        check(rc["evidence"] == rh["evidence"],
+              f"phase21 (b) {name}: the committed evidence differs")
+        check(rc["votes"].get("device", 0) > 0
+              and rc["votes"].get("host", 0) == 0
+              and rh["votes"].get("device", 0) == 0,
+              f"phase21 (b) {name} vote verifies card {rc['votes']}, host "
+              f"{rh['votes']}")
+        sim_launches_exact(rc, f"phase21 (b) {name}")
+        check(rc["launches"]["ed25519_verify"] >= rc["votes"]["device"],
+              f"phase21 (b) {name}: {rc['launches']} for "
+              f"{rc['votes']['device']} votes")
+        if name == "light_attack":
+            check(any(ok for _, ok in rc["attacks"])
+                  and all(n >= 1 for n, ok in rc["attacks"] if ok),
+                  f"phase21 (b) verify_light_client_attack (launches, "
+                  f"returned) by call {rc['attacks']}")
+        b_out[name] = (rc, rh)
+        print(f"phase21 (b) {name} (tests/test_simnet.py, seed {seed}) on "
+              f"{SIM_NODES} card nodes with no plane: commit hashes and "
+              f"the committed evidence ({rc['evidence'][:16]}) "
+              f"byte-identical to the host run; every vote verified by "
+              f"verify_batch_direct on the card ({rc['votes']['device']} "
+              f"calls, none on the host); verify_light_client_attack "
+              f"calls (ed25519_verify launches, returned) {rc['attacks']}; "
+              f"{sim_line(rc)}", flush=True)
+    check(brk.faults == faults0 and brk.trips == trips0,
+          "phase21 (b) the breaker recorded a fault")
+
+    # -- (c) C1: one process-global dispatch fault ---------------------------
+    c = card_run("c-card-fault", SIM_CHAOS_SEED, sim_chaos, plane="card",
+                 fault=SIM_FAULT)
+    cpaths = collections.Counter(x["path"] for x in c["recs"])
+    check(c["fault"]["fires"] == 1 and cpaths["device_fault"] == 1
+          and set(cpaths) <= {"fused", "grouped", "device_fault"},
+          f"phase21 (c) fault fires {c['fault']}, flush paths "
+          f"{dict(cpaths)}")
+    check(brk.faults == faults0 and brk.trips == trips0
+          and c["plane"].stats()["breaker_state"] == "closed",
+          f"phase21 (c) breaker faults {brk.faults - faults0} trips "
+          f"{brk.trips - trips0}")
+    sim_launches_exact(c, "phase21 (c)")
+    faulted = next(x for x in c["recs"] if x["path"] == "device_fault")
+    print(f"phase21 (c) the chaos soak with {SIM_FAULT} armed "
+          f"process-globally: the failpoint fired once (on the plane's "
+          f"dispatcher), one device_fault flush of {faulted['rows']} rows "
+          f"(its futures failed with DeviceError, no host answer), no "
+          f"breaker fault or trip; safety held and every node reached "
+          f"{SIM_CHAOS_HEIGHT} ({c['heights']}); commit hashes "
+          f"{'equal to' if c['hashes'] == ah['hashes'] else 'not equal to'}"
+          f" the host run's (not required: the failed vote is not "
+          f"admitted); {sim_line(c)}", flush=True)
+
+    # -- (d) full width: the 10k-validator churn ----------------------------
+    d = card_run("d-10k", SIM_10K_SEED, sim_10k, plane="card", warm=True,
+                 power=SIM_10K_POWER, extra_validators=SIM_10K_TAIL)
+    cold = sim_launches_exact(d, "phase21 (d)")
+    check(brk.faults == faults0 and brk.trips == trips0,
+          "phase21 (d) the breaker recorded a fault")
+    wst = d["warmer"].stats()
+    check(wst["builds_ok"] >= 1 and wst["builds_failed"] == 0,
+          f"phase21 (d) the warmer did not build the rotated set: {wst}")
+    pubs_r, powers_r = d["valset"]
+    check((ec._cache_key(pubs_r, powers_r), str(dev)) in tcache.TABLES,
+          "phase21 (d) the rotated set's table is not cached")
+    gvals = d["genesis"].validators.validators
+    gpubs = tuple(v.pub_key.data for v in gvals)
+    gpowers = tuple(v.voting_power for v in gvals)
+    table, hit = ec.table_for_pubs_info(gpubs, gpowers, device=dev)
+    check(hit, "phase21 (d) the genesis set's table is not cached")
+    n_gen = len(gpubs)
+    ok = table.ok[:n_gen].cpu()
+    undecodable = int((~ok).sum())
+    check(all(bool(ok[i]) for i, v in enumerate(gvals)
+              if v.voting_power == SIM_10K_POWER),
+          "phase21 (d) a node's key did not decode")
+    lenok = torch.zeros((table.pub_raw.shape[0],), dtype=torch.bool,
+                        device=dev)
+    lenok[:n_gen] = True
+    tab_k, ok_k = ec.valset_table_build(table.pub_raw, lenok)
+    tab_p, ok_p = ec.valset_table_build_plain(table.pub_raw, lenok)
+    tab_err = int((tab_k.to(torch.int64) - tab_p.to(torch.int64))
+                  .abs().max())
+    check(tab_err == 0 and torch.equal(ok_k, ok_p)
+          and torch.equal(tab_k, table.tab),
+          f"phase21 (d) the genesis table at M={table.n_vals} != plain")
+    table_ms = dev_ms(lambda: ec.valset_table_build(table.pub_raw, lenok),
+                      "valset_table_sim10k_trace.json")
+    # one captured vote flush of height 1 (the genesis set) against plain
+    by_seq = collections.defaultdict(list)
+    for kw, fut in d["subs"]:
+        if kw.get("group") is not None and fut.flush_seq is not None:
+            by_seq[fut.flush_seq].append(kw)
+    fused_seqs = {x["seq"] for x in d["recs"] if x["path"] == "fused"}
+    seq = min(s for s in by_seq if s in fused_seqs)
+    fk = flush_kernels_vs_plain(dev, [
+        dict(rows=kw["rows"], power=kw["power"], vidx=kw["vidx"],
+             stamp=kw["stamp"]) for kw in by_seq[seq]], gpubs, gpowers,
+        "phase21 (d)")
+    flush_dev = {
+        "stamp_rows": dev_ms(fk.stamp, "stamp_rows_sim10k_trace.json"),
+        "ed25519_verify_cached": dev_ms(fk.vk,
+                                        "verify_cached_sim10k_trace.json"),
+        "tally_quorum_cached": dev_ms(fk.tq,
+                                      "tally_cached_sim10k_trace.json"),
+    }
+    # dev_ms is CUDA events; the ledger's host stage times ride the
+    # simnet's virtual clock, which stands still while a flush runs
+    cold_ms = [x["dev_ms"] for x in d["recs"]
+               if x["path"] == "fused" and not x["warm"]]
+    print(f"phase21 (d) the 10k churn (tests/test_soak.py::"
+          f"test_churn_soak_10k_scale, seed {SIM_10K_SEED}): a pool of "
+          f"{SIM_NODES + SIM_10K_TAIL} validators, the genesis set "
+          f"{n_gen} ({SIM_NODES} nodes at {SIM_10K_POWER} + the elected "
+          f"tail), {undecodable} of its keys undecodable (hashed tail keys: "
+          f"columns that never verify, no fault); the genesis table at "
+          f"M={table.n_vals} == plain, its valset_table_build device_ms="
+          f"{fmt_ms(table_ms)}; the epoch rotated {d['rotated'][0]} out and "
+          f"{d['rotated'][1]} in, landed at height {SIM_10K_HEIGHT} on "
+          f"every node through the val: txs (set of {d['final_vals']}); "
+          f"the warmer built it (stats {json.dumps(wst)}); "
+          f"{cold} cold fused flushes (dev_ms {cold_ms}); "
+          f"safety held "
+          f"and every node passed the heal at {d['heights']}; card={card}",
+          flush=True)
+    print(f"phase21 (d) {sim_line(d)}", flush=True)
+    print(f"phase21 (d) flush {seq} ({fk.live} votes, B={fk.B}, M={fk.M}): "
+          f"stamp_rows, ed25519_verify_cached, tally_quorum_cached == "
+          f"plain; device_ms "
+          f"{json.dumps({k: fmt_ms(v) for k, v in flush_dev.items()})}",
+          flush=True)
+
+    # (b)'s direct verifies against plain, at the shapes they launched
+    points = kf.base_points(dev)
+    rows_b = [r for name in b_out for r in b_out[name][0]["lc_rows"]]
+    err_v, cols_b = hold_shapes_against_plain(
+        dev, kf.ed25519_verify, lambda r: kf.ed25519_verify_plain(r, points),
+        rows_b)
+    check(err_v == 0, f"phase21 (b) ed25519_verify != plain at {cols_b}")
+    rows_t = torch.as_tensor(rows_b[0]).to(dev)
+    v_ms = dev_ms(lambda: kf.ed25519_verify(rows_t),
+                  "ed25519_verify_sim_trace.json")
+    print(f"phase21 (b) the direct verifies' rows ({cols_b} columns) "
+          f"ed25519_verify == plain; device_ms {fmt_ms(v_ms)}; phase 21's "
+          f"card launches in all {json.dumps(sim_l)}; card={card}",
+          flush=True)
+
+    restore_launches(sim_l)
+    for name, n in sim_l.items():
+        kernel_stats[name]["launches_by_path"]["simnet"] = n
+    kernel_stats["carry_quorum"]["launches_by_path"]["simnet"] = 0
+    for name, e in zip(("stamp_rows", "ed25519_verify_cached",
+                        "tally_quorum_cached"), fk.errs):
+        kernel_stats[name]["max_abs_err"] = max(
+            kernel_stats[name]["max_abs_err"], e)
+    kernel_stats["ed25519_verify"]["max_abs_err"] = max(
+        kernel_stats["ed25519_verify"]["max_abs_err"], err_v)
+    kernel_stats["valset_table_build"]["max_abs_err"] = max(
+        kernel_stats["valset_table_build"]["max_abs_err"], tab_err)
+    sim_dev = dict(flush_dev, ed25519_verify=v_ms,
+                   valset_table_build=table_ms)
+    check(all(sim_dev.values()), f"phase21 a kernel's device time was not "
+          f"measured: {sim_dev}")
+    for name, ms in sim_dev.items():
+        kernel_stats[name].setdefault("device_ms_by_path", {})["simnet"] = ms
+    return {"sim_chaos_heights_per_s": min(a1["heights"]) / a1["wall_s"],
+            "sim_10k_heights_per_s": min(d["heights"]) / d["wall_s"]}
+
+
 def int_ops_per_s() -> tuple:
     """(clocks.max.sm in MHz, INT32 multiply-adds per second of the card)."""
     mhz = smi("clocks.max.sm").split()[0]
@@ -7637,6 +8229,9 @@ def main() -> int:
         t = time.perf_counter()
         res.update(phase_procs(dev, pool, rng, kernel_stats))
         print(f"phase20 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        res.update(phase_simnet(dev, kernel_stats))
+        print(f"phase21 s={time.perf_counter() - t:.3f}", flush=True)
     brk = cbatch.device_breaker()
     check(brk.trips == 0 and brk.faults == 0, "breaker recorded a fault")
     print(json.dumps(kernels_json(kernel_stats)), flush=True)
@@ -7667,6 +8262,8 @@ def main() -> int:
           f"proc_tx_sync_p50_ms={res['proc_tx_sync_p50_ms']:.3f} "
           f"proc_loadtime_p50_ms={res['proc_load_p50_ms']:.3f} "
           f"proc_loadtime_p99_ms={res['proc_load_p99_ms']:.3f} "
+          f"sim_chaos_heights_per_s={res['sim_chaos_heights_per_s']:.3f} "
+          f"sim_10k_heights_per_s={res['sim_10k_heights_per_s']:.3f} "
           f"total_s={time.perf_counter() - t_start:.1f}", flush=True)
     print("nvidia-smi:", smi("name,power.limit"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -59,6 +59,9 @@ class PeerState:
         self.last_update = 0.0
         self.last_pushed_height = 0   # catch-up dedup
         self.last_push_time = 0.0
+        # (height, round) of the proposals sent to this peer when it
+        # reached our height (one send each)
+        self.proposals_sent: set = set()
         # (round, vote_type) -> BitArray of held votes, current height
         self._has: dict = {}
 
@@ -252,17 +255,21 @@ class ConsensusReactor(Reactor):
                 peers = list(self._peer_states.items())
             our_h = self.cs.height
             for peer, ps in peers:
-                if not 0 < ps.height < our_h:
-                    continue
-                # push each height once; re-push only after a timeout in
-                # case the first one was lost (avoids re-serializing the
-                # same block 4x/second at a slow peer)
-                if ps.last_pushed_height == ps.height and \
-                        now - ps.last_push_time < 2.0:
-                    continue
-                ps.last_pushed_height = ps.height
-                ps.last_push_time = now
-                self._send_catchup(peer, ps.height)
+                if 0 < ps.height < our_h:
+                    self._push_catchup(peer, ps, now)
+
+    def _push_catchup(self, peer: Peer, ps: PeerState, now: float) -> None:
+        """Push the peer's height once; re-push only after a timeout in
+        case the first one was lost (avoids re-serializing the same
+        block 4x/second at a slow peer)."""
+        with self._lock:
+            h = ps.height
+            if ps.last_pushed_height == h and \
+                    now - ps.last_push_time < 2.0:
+                return
+            ps.last_pushed_height = h
+            ps.last_push_time = now
+        self._send_catchup(peer, h)
 
     def _vote_sets(self, round_: int):
         from cometbft_tpu_torch.types import canonical
@@ -367,6 +374,32 @@ class ConsensusReactor(Reactor):
             "c": serde.commit_to_j(commit),
         }).encode())
 
+    def _send_proposals(self, peer: Peer, ps: PeerState,
+                        height: int) -> None:
+        """A peer that reaches our height after its proposal went out
+        dropped it (a proposal for another height is ignored), and
+        without it the peer can only follow by catch-up pushes: send it
+        each proposal we hold for the height and the parts we have, once
+        (upstream's gossipDataRoutine sends a same-height peer the parts
+        it lacks). Parts still missing here reach it by relay."""
+        with self._lock:
+            todo = sorted(((k, b) for k, b in self._builders.items()
+                           if k[0] == height
+                           and k not in ps.proposals_sent),
+                          key=lambda kb: kb[0])
+            for k, _ in todo:
+                ps.proposals_sent.add(k)
+            for k in [k for k in ps.proposals_sent if k[0] < height]:
+                ps.proposals_sent.discard(k)
+        for (h, r), b in todo:
+            peer.send(DATA_CHANNEL,
+                      _proposal_bytes(ProposalMsg(b["prop"], None)))
+            parts = b["ps"]
+            for i in range(parts.total()):
+                part = parts.get_part(i)
+                if part is not None:
+                    peer.send(DATA_CHANNEL, _part_bytes(h, r, part))
+
     def stop_routines(self) -> None:
         self._stop.set()
 
@@ -392,12 +425,22 @@ class ConsensusReactor(Reactor):
             with self._lock:
                 ps = self._peer_states.setdefault(peer, PeerState())
                 new_h = int(j["h"])
-                if new_h != ps.height:
+                arrived = new_h != ps.height
+                if arrived:
                     ps.reset_votes()  # bitarrays are per-height
                 ps.height = new_h
                 ps.round = int(j["r"])
                 ps.step = int(j["s"])
                 ps.last_update = time.time()
+            if arrived:
+                our_h = self.cs.height
+                if new_h == our_h:
+                    self._send_proposals(peer, ps, new_h)
+                elif 0 < new_h < our_h:
+                    # a lagging peer that just applied a height takes the
+                    # next one now, not at the next catch-up tick: it
+                    # catches up faster than the chain moves
+                    self._push_catchup(peer, ps, time.time())
             return
         if t == "has_vote":
             # peer announces it holds one vote (reactor.go HasVote)
@@ -562,9 +605,15 @@ class ConsensusReactor(Reactor):
             with self._lock:
                 ps = self._peer_states.setdefault(peer, PeerState())
                 now = time.time()
-                if now - getattr(ps, "last_commit_block", 0.0) < 0.5:
-                    return  # rate limit: at most 2 pushes/sec/peer
+                if commit.height == getattr(ps, "last_commit_block_h", 0) \
+                        and now - getattr(ps, "last_commit_block", 0.0) \
+                        < 0.5:
+                    # rate limit: at most 2 pushes/sec/peer for one
+                    # height; the next height's push is not held back
+                    # (our height advances only through a valid commit)
+                    return
                 ps.last_commit_block = now
+                ps.last_commit_block_h = commit.height
             self.cs.receive_commit_block(block, commit)
             return
         if j.get("t") == "part":

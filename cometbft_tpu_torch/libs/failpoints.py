@@ -285,19 +285,26 @@ def parse_spec(spec: str):
 
 
 # The process-global registry: call sites use the module-level helpers.
+# A thread that swapped a registry in (swap_registry) reads its own.
 _REGISTRY = FailpointRegistry()
+_LOCAL = threading.local()
 
 
 def registry() -> FailpointRegistry:
-    return _REGISTRY
+    reg = getattr(_LOCAL, "reg", None)
+    return _REGISTRY if reg is None else reg
 
 
 def swap_registry(reg: FailpointRegistry) -> FailpointRegistry:
-    """Install `reg` as the process-global registry and return the old
-    one. The Byzantine simnet uses this to give every simulated node its
-    OWN failpoint registry: the (single-threaded) scheduler swaps a
-    node's registry in around that node's event execution, so a
+    """Install `reg` as the calling thread's registry and return the one
+    it replaces. The Byzantine simnet uses this to give every simulated
+    node its OWN failpoint registry: the (single-threaded) scheduler
+    swaps a node's registry in around that node's event execution, so a
     ``Failpoint(node=2, ...)`` schedule op faults only node 2's seams.
+    Every other thread keeps reading the process-global registry: a seam
+    evaluated on a background thread (``verifyplane.dispatch`` on a
+    plane's dispatcher) fires what was armed process-globally, whichever
+    node's event the scheduler is running at that instant.
     Callers must restore the previous registry (try/finally).
 
     Trace/metric hooks survive swaps: registries are swapped as whole
@@ -305,9 +312,8 @@ def swap_registry(reg: FailpointRegistry) -> FailpointRegistry:
     never contaminate the original registry with a per-node hook —
     custom hooks reach per-node registries at :func:`fresh_registry`
     creation instead."""
-    global _REGISTRY
-    old = _REGISTRY
-    _REGISTRY = reg
+    old = registry()
+    _LOCAL.reg = reg
     return old
 
 
@@ -320,39 +326,39 @@ def fresh_registry(crash_handler=None) -> FailpointRegistry:
     inheritance (a None hook already falls back to it)."""
     reg = FailpointRegistry()
     reg._env_loaded = True
-    reg._fire_hook = _REGISTRY._fire_hook
+    reg._fire_hook = registry()._fire_hook
     if crash_handler is not None:
         reg.set_crash_handler(crash_handler)
     return reg
 
 
 def register(name: str, doc: str = "") -> None:
-    _REGISTRY.register(name, doc)
+    registry().register(name, doc)
 
 
 def fail_point(name: str) -> None:
-    _REGISTRY.fail_point(name)
+    registry().fail_point(name)
 
 
 def arm(name: str, action: str, arg: float = 0.0, count: int = -1) -> None:
-    _REGISTRY.arm(name, action, arg, count)
+    registry().arm(name, action, arg, count)
 
 
 def disarm(name: str) -> None:
-    _REGISTRY.disarm(name)
+    registry().disarm(name)
 
 
 def reset() -> None:
-    _REGISTRY.reset()
+    registry().reset()
 
 
 def arm_from_spec(spec: str) -> int:
-    return _REGISTRY.arm_from_spec(spec)
+    return registry().arm_from_spec(spec)
 
 
 def set_crash_handler(fn: Optional[Callable[[str], None]]) -> None:
-    _REGISTRY.set_crash_handler(fn)
+    registry().set_crash_handler(fn)
 
 
 def counters() -> Dict[str, dict]:
-    return _REGISTRY.counters()
+    return registry().counters()

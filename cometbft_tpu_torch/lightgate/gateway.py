@@ -85,15 +85,16 @@ class GatewayOverloaded(GatewayError):
         self.retry_after_ms = float(retry_after_ms)
 
 
-def gateway_batch_fn(chain_id: Optional[str] = None) -> Callable:
+def gateway_batch_fn(chain_id: Optional[str] = None,
+                     device=None) -> Callable:
     """batch_fn(pubs, msgs, sigs) -> (n,) bool riding the verify
     plane's GATEWAY lane when a plane runs. A PlaneOverloaded shed is
     re-raised as GatewayOverloaded (hint preserved) so it surfaces to
     the RPC client. Any other PlaneError (a plane stopping or full
     mid-call) sends the rows to the plane's own device
     (verify_batch_direct), or to the host's per-row reference path on
-    a host plane; with no plane they verify on the card. A DeviceError
-    propagates. `chain_id` keys GATEWAY rows to their tenant so a shared
+    a host plane; with no plane they verify on `device` (None: the
+    card). A DeviceError propagates. `chain_id` keys GATEWAY rows to their tenant so a shared
     plane attributes (and quota-gates) them per hosted chain."""
 
     def fn(pubs, msgs, sigs):
@@ -111,7 +112,7 @@ def gateway_batch_fn(chain_id: Optional[str] = None) -> Callable:
                     str(e), retry_after_ms=e.retry_after_ms) from e
             except vp.PlaneError:
                 pass
-        return verify_off_plane(p, pubs, msgs, sigs)
+        return verify_off_plane(p, pubs, msgs, sigs, device=device)
 
     return fn
 
@@ -209,9 +210,16 @@ class LightGateway:
     @classmethod
     def for_node(cls, node, **kw) -> "LightGateway":
         """Mount on a full node: provider/evidence pool/root from the
-        node's own stores."""
+        node's own stores. With no plane running, headers verify where
+        the node verifies: on its device, or with its host batch_fn on
+        a host node."""
         provider = node_light_provider(node)
         kw.setdefault("root_fn", lambda: _node_root(node, provider))
+        if "batch_fn" not in kw:
+            kw["batch_fn"] = (
+                node.block_exec.batch_fn if getattr(node, "on_host", False)
+                else gateway_batch_fn(node.consensus.state.chain_id,
+                                      device=getattr(node, "device", None)))
         return cls(node.consensus.state.chain_id, provider,
                    evidence_pool=node.evidence_pool, **kw)
 

@@ -52,10 +52,32 @@ def _should_batch_verify(commit: Commit) -> bool:
     return len(commit.signatures) >= BATCH_VERIFY_THRESHOLD
 
 
+# Template packing: batch verification builds its sign-bytes via
+# Commit.sign_bytes_rows (vectorized template patching) instead of the
+# per-vote encode loop. The toggle exists for the differential path only
+# (the simnet's determinism scenario): the bytes are identical either way.
+_TEMPLATE_PACK = True
+
+
+def set_template_packing(on: bool) -> bool:
+    """Enable/disable the template-packing path; returns the previous
+    setting."""
+    global _TEMPLATE_PACK
+    prev = _TEMPLATE_PACK
+    _TEMPLATE_PACK = bool(on)
+    return prev
+
+
+def template_packing_enabled() -> bool:
+    return _TEMPLATE_PACK
+
+
 def _commit_msgs(chain_id: str, commit: Commit, idxs) -> List[bytes]:
     """Sign-bytes for the collected signature indices: one vectorized
-    template patch per commit."""
-    return commit.sign_bytes_rows(chain_id, idxs)
+    template patch per commit, or the per-vote encode loop."""
+    if _TEMPLATE_PACK:
+        return commit.sign_bytes_rows(chain_id, idxs)
+    return [commit.vote_sign_bytes(chain_id, i) for i in idxs]
 
 
 def commit_packed_batch(chain_id: str, commit: Commit, keys, idxs=None,

@@ -13,8 +13,13 @@ evidence bytes and hashes and pool sizes must be equal. Then the port's
 seams: the named byzantine rows verify as one batch_fn call whose first
 forged row is blamed with the JAX text and order, batch_fn=None with no
 plane is the card (DeviceError here), and a device plane that cannot take
-the rows verifies them on its own device."""
+the rows verifies them on its own device. The light-client attacks are
+each package's simnet actor (simnet/actors.py), and the port's actors
+(the attacker, the forged claim, the equivocator, the garbage signer and
+the election) are held byte-equal to the JAX package's."""
 import hashlib
+import json
+import random
 from types import SimpleNamespace
 
 import pytest
@@ -28,6 +33,7 @@ from cometbft_tpu.types import block_id as jbid
 from cometbft_tpu.types import canonical as jcanon
 from cometbft_tpu.types import commit as jcommit
 from cometbft_tpu.types import evidence as jev
+from cometbft_tpu.types import serde as jserde
 from cometbft_tpu.types import timestamp as jts
 from cometbft_tpu.types import validation as jvalidation
 from cometbft_tpu.types import validator as jval
@@ -37,10 +43,12 @@ from cometbft_tpu_torch.crypto import keys as pkeys
 from cometbft_tpu_torch.device import DeviceError
 from cometbft_tpu_torch.evidence import pool as ppool
 from cometbft_tpu_torch.evidence import verify as pverify
+from cometbft_tpu_torch.simnet import actors as pactors
 from cometbft_tpu_torch.types import block_id as pbid
 from cometbft_tpu_torch.types import canonical as pcanon
 from cometbft_tpu_torch.types import commit as pcommit
 from cometbft_tpu_torch.types import evidence as pev
+from cometbft_tpu_torch.types import serde as pserde
 from cometbft_tpu_torch.types import timestamp as pts
 from cometbft_tpu_torch.types import validation as pvalidation
 from cometbft_tpu_torch.types import validator as pval
@@ -51,10 +59,12 @@ torch.set_num_threads(1)
 
 JAX = SimpleNamespace(name="jax", keys=jkeys, pool=jpool, verify=jverify,
                       bid=jbid, canon=jcanon, commit=jcommit, ev=jev,
-                      ts=jts, validation=jvalidation, val=jval, vote=jvote)
+                      ts=jts, validation=jvalidation, val=jval, vote=jvote,
+                      actors=jactors, serde=jserde)
 PORT = SimpleNamespace(name="port", keys=pkeys, pool=ppool, verify=pverify,
                        bid=pbid, canon=pcanon, commit=pcommit, ev=pev,
-                       ts=pts, validation=pvalidation, val=pval, vote=pvote)
+                       ts=pts, validation=pvalidation, val=pval, vote=pvote,
+                       actors=pactors, serde=pserde)
 
 CHAIN = "ev-chain"
 
@@ -87,43 +97,92 @@ def mk_evidence(P, priv, vals, height, power=10):
         vals.total_voting_power(), power)
 
 
-def build_light_attack(P, privs, valset, byz_idxs, height, now):
-    """The JAX simnet actor build_light_attack for package P: a forged
-    header at `height` sealed by the byzantine coalition, packaged as
-    LightClientAttackEvidence with its commit proof."""
-    forged = hashlib.sha256(b"simnet-forged-header-%d" % height).digest()
-    bid = P.bid.BlockID(forged, P.bid.PartSetHeader(1, forged))
-    sigs = [P.commit.CommitSig.absent() for _ in range(len(valset))]
-    byz = []
-    for idx in byz_idxs:
-        priv = privs[idx]
-        addr = priv.pub_key().address()
-        vidx, _ = valset.get_by_address(addr)
-        v = P.vote.Vote(vote_type=P.canon.PRECOMMIT_TYPE, height=height,
-                        round=0, block_id=bid, timestamp=now,
-                        validator_address=addr, validator_index=vidx)
-        sigs[vidx] = P.commit.CommitSig(P.commit.BLOCK_ID_FLAG_COMMIT, addr,
-                                        now, priv.sign(v.sign_bytes(CHAIN)))
-        byz.append(addr)
-    return P.ev.LightClientAttackEvidence(
-        conflicting_header_hash=forged, conflicting_height=height,
-        common_height=height, byzantine_validators=byz,
-        total_voting_power=valset.total_voting_power(), timestamp=now,
-        conflicting_commit=P.commit.Commit(height, 0, bid, sigs))
-
-
 def mk_lca(P, privs, vals, byz_idxs, height):
-    return build_light_attack(P, privs, vals, byz_idxs, height,
-                              P.ts.Timestamp(1_700_000_100, 0))
+    """Each package's simnet light-client attacker: a forged header at
+    `height` sealed by the byzantine coalition, packaged as
+    LightClientAttackEvidence with its commit proof."""
+    return P.actors.build_light_attack(privs, vals, CHAIN, byz_idxs, height,
+                                       P.ts.Timestamp(1_700_000_100, 0))
 
 
 def test_the_attack_builder_equals_the_simnet_actor():
-    privs, vals = keys_and_vals(JAX)
-    want = jactors.build_light_attack(privs, vals, CHAIN, [1, 2], 5,
-                                      jts.Timestamp(1_700_000_100, 0))
-    assert mk_lca(JAX, privs, vals, [1, 2], 5).bytes() == want.bytes()
+    test_more_light_attacks_equal_the_jax_actor([1, 2], 5)
+
+
+@pytest.mark.parametrize("byz,height", [([0, 3], 1), ([2], 9)])
+def test_more_light_attacks_equal_the_jax_actor(byz, height):
+    jprivs, jvals = keys_and_vals(JAX)
+    want = mk_lca(JAX, jprivs, jvals, byz, height)
     pprivs, pvals = keys_and_vals(PORT)
-    assert mk_lca(PORT, pprivs, pvals, [1, 2], 5).bytes() == want.bytes()
+    got = mk_lca(PORT, pprivs, pvals, byz, height)
+    assert got.bytes() == want.bytes()
+    assert got.hash() == want.hash()
+
+
+@pytest.mark.parametrize("byz,height", [([2, 3], 2), ([0], 7)])
+def test_the_forged_claim_equals_the_simnet_actor(byz, height):
+    out = []
+    for P in (JAX, PORT):
+        privs, vals = keys_and_vals(P)
+        out.append(P.actors.forged_claim(
+            privs, vals, CHAIN, byz, height,
+            P.ts.Timestamp(1_700_000_200, 5)))
+    assert out[0] == out[1]
+    assert json.dumps(out[0], sort_keys=True) == json.dumps(
+        out[1], sort_keys=True)
+
+
+@pytest.mark.parametrize("vote_type,nil", [("PREVOTE_TYPE", False),
+                                           ("PRECOMMIT_TYPE", False),
+                                           ("PRECOMMIT_TYPE", True)])
+def test_the_equivocation_and_garbage_actors_equal_the_jax_ones(vote_type,
+                                                                nil):
+    """conflicting_vote re-signs the vote for a fabricated block ID with
+    the raw key; garbage_sign puts a seeded forgery in its signature. The
+    same vote and RNG seed give the same bytes in both packages."""
+    out = []
+    for P in (JAX, PORT):
+        privs, vals = keys_and_vals(P)
+        bid = (P.bid.BlockID() if nil else
+               P.bid.BlockID(b"\xcc" * 32, P.bid.PartSetHeader(1, b"\xcc" * 32)))
+        addr = privs[2].pub_key().address()
+        idx, _ = vals.get_by_address(addr)
+        v = P.vote.Vote(
+            vote_type=getattr(P.canon, vote_type), height=6, round=1,
+            block_id=bid, timestamp=P.ts.Timestamp(1_700_000_300, 7),
+            validator_address=addr, validator_index=idx)
+        v.signature = privs[2].sign(v.sign_bytes(CHAIN))
+        bad = P.actors.conflicting_vote(v, privs[2], CHAIN)
+        junk = P.actors.garbage_sign(v, random.Random(31))
+        out.append([P.serde.vote_to_j(x) for x in (v, bad, junk)]
+                   + [bad.sign_bytes(CHAIN).hex(),
+                      privs[2].pub_key().verify_signature(
+                          bad.sign_bytes(CHAIN), bad.signature)])
+    assert out[0] == out[1]
+    assert out[0][-1] is True
+
+
+def test_the_election_equals_the_jax_one():
+    """election_score and proportional_election over a 200-member pool of
+    hashed keys and stakes 1-7, several epochs and churns: the same
+    scores (float bits) and the same committees, rotations included."""
+    pubs = [hashlib.sha256(b"pool-%d" % i).digest() for i in range(200)]
+    stakes = {i: (pubs[i], 1 + i % 7) for i in range(200)}
+    out = []
+    for P in (JAX, PORT):
+        a = P.actors
+        scores = [a.election_score(seed, ep, pubs[i], stakes[i][1]).hex()
+                  for seed in (-3, 0, 77) for ep in (0, 1, 5)
+                  for i in range(0, 200, 13)]
+        committee, standby = list(range(0, 200, 2)), list(range(1, 200, 2))
+        rounds = []
+        for ep, churn in enumerate((0.02, 0.25, 0.5, 1.0, 0.0), start=1):
+            committee, standby, rot_out, rot_in = a.proportional_election(
+                77, ep, committee, standby, stakes, churn)
+            rounds.append((committee, standby, rot_out, rot_in))
+        out.append((scores, rounds))
+    assert out[0] == out[1]
+    assert any(r[2] for r in out[0][1])
 
 
 def outcome(fn):

@@ -31,9 +31,9 @@ def test_rpc(mod, name, request):
 
 # the dump routes of tests/test_zcatchup_smoke.py, test_ztenant_smoke.py
 # and test_zcontroller_smoke.py over the port's RPC server, with their
-# report diffs and fallbacks, and the lightgate routes' errors without a
-# gateway. test_zlightgate_smoke.py's end-to-end test needs simnet
-# (ROADMAP A8.4).
+# report diffs and fallbacks, and test_zlightgate_smoke.py's lightgate
+# routes end to end (a forged claim from the port's simnet actors) and
+# their errors without a gateway.
 CATCHUP = [
     "test_dump_catchup_over_real_rpc",
     "test_catchup_report_diff_detects_synthetic_regression",
@@ -59,7 +59,8 @@ DUMPS = (tm.cases(tm.load("test_zcatchup_smoke.py"), CATCHUP)
          + tm.cases(tm.load("test_zcontroller_smoke.py",
                             [tm.LOCAL_NET_NODE]), CONTROLLER)
          + tm.cases(tm.load("test_zlightgate_smoke.py"),
-                    ["test_lightgate_routes_error_without_gateway"]))
+                    ["test_lightgate_rpc_end_to_end",
+                     "test_lightgate_routes_error_without_gateway"]))
 
 
 @pytest.mark.parametrize("mod,name", DUMPS)

@@ -12,7 +12,10 @@ them back. The JSON of every consensus, blocksync, mempool, evidence,
 PEX and statesync message, and the handshake's NodeInfo, built from the
 same input by the two packages' reactors, is equal byte for byte. The
 reactors are driven with recording peers and a recording switch over a
-chain a JAX node wrote, which both packages' stores open."""
+chain a JAX node wrote, which both packages' stores open. Three tests
+hold where the port's consensus reactor sends more than the JAX one, to
+a peer that lags (ROADMAP §C): the messages it sends are the same
+forms."""
 import importlib
 import importlib.util
 import json
@@ -433,6 +436,131 @@ def test_consensus_messages_equal(chain, monkeypatch):
     kinds = {json.loads(m).get("t", "vote") for _, m in j_sent + j_bc}
     assert kinds >= {"vote", "has_vote", "maj23", "vsb", "step",
                      "proposal", "part", "commit_block"}
+
+
+def _reactor(P, monkeypatch):
+    """A manual-ticker validator's ConsensusState at height 1 of a
+    4-validator genesis and its reactor on a recording switch; -> the
+    reactor, the validators' keys and a step(peer, h, r) sender."""
+    monkeypatch.setattr(P.ts.Timestamp, "now", staticmethod(
+        lambda: P.ts.Timestamp(GENESIS_TIME + 50, 0)))
+    privs = [P.keys.PrivKey.generate(bytes([i + 70]) * 32)
+             for i in range(4)]
+    vs = P.val.ValidatorSet([P.val.Validator(p.pub_key(), 10)
+                             for p in privs])
+    state = P.state.State.make_genesis(
+        CHAIN, vs, genesis_time=P.ts.Timestamp(GENESIS_TIME, 0))
+    ex = P.ex.BlockExecutor(P.kv.KVStoreApplication(),
+                            P.state.StateStore(":memory:"))
+    cs = P.cs.ConsensusState(state, ex, P.bs.BlockStore(":memory:"),
+                             privval=P.pv.FilePV(privs[0]),
+                             manual_ticker=True)
+    r = P.creactor.ConsensusReactor(cs)
+    r.switch = Switch(P)
+
+    def step(peer, h, rnd):
+        r.receive(P.creactor.STATE_CHANNEL, peer, json.dumps(
+            {"t": "step", "h": h, "r": rnd, "s": 1}).encode())
+
+    return r, privs, step
+
+
+def _late_peer_run(P, home, monkeypatch):
+    """Our proposal for height 1 goes out while one peer stands at
+    height 0 and another at 1; then both report height 1 (the late one
+    arrives, the other changes round): what each was sent directly."""
+    r, privs, step = _reactor(P, monkeypatch)
+    sw = r.switch
+    late, level = Peer("late"), Peer("level")
+    step(late, 0, 0)
+    step(level, 1, 0)
+    store = _store(P, home)
+    block = store.load_block(1)
+    store.close()
+    prop = P.proposal.Proposal(1, 0, -1, block.block_id(),
+                               P.ts.Timestamp(GENESIS_TIME + 7, 0))
+    prop.signature = privs[0].sign(prop.sign_bytes(CHAIN))
+    r._broadcast_own(("proposal", P.cs.ProposalMsg(prop, block)))
+    step(late, 1, 0)
+    step(late, 1, 1)
+    step(level, 1, 1)
+    assert not sw.stopped
+    return late.sent, level.sent, sw.broadcasts
+
+
+def test_a_peer_reaching_our_height_gets_the_proposal(chain, monkeypatch):
+    """A peer that reaches our height after our proposal for it went out
+    is sent the proposal and its parts once, as they were broadcast; a
+    peer that stood at the height when it went out is sent nothing
+    again. The JAX reactor sends the late peer nothing (ROADMAP §C)."""
+    late, level, bc = _late_peer_run(PORT, chain, monkeypatch)
+    kinds = [json.loads(m)["t"] for _, m in bc]
+    assert kinds[0] == "proposal" and set(kinds[1:]) == {"part"}
+    assert late == bc
+    assert level == []
+    j_late, j_level, j_bc = _late_peer_run(JAX, chain, monkeypatch)
+    assert j_bc == bc
+    assert j_late == [] and j_level == []
+
+
+def _lagging_peer_run(P, home, monkeypatch):
+    """We stand at height 6 over the chain's store; one peer reports
+    heights 3, 3 (a new round), 4 and 6: what it was sent directly."""
+    r, _, step = _reactor(P, monkeypatch)
+    store = _store(P, home)
+    r.cs.block_store = store
+    r.cs.height = 6
+    peer = Peer()
+    sent = []
+    for h, rnd in ((3, 0), (3, 1), (4, 0), (6, 0)):
+        step(peer, h, rnd)
+        sent.append([json.loads(m) for _, m in peer.sent[len(
+            [x for y in sent for x in y]):]])
+    store.close()
+    assert not r.switch.stopped
+    return sent
+
+
+def test_a_lagging_peer_is_pushed_its_height_at_its_step(chain,
+                                                         monkeypatch):
+    """A peer that reports a height below ours is pushed that height's
+    block and seen commit at once, once a height; a new round or our own
+    height pushes nothing. The JAX reactor pushes only from its catch-up
+    routine (ROADMAP §C)."""
+    sent = _lagging_peer_run(PORT, chain, monkeypatch)
+    assert [[(m["t"], m["c"]["height"]) for m in ms] for ms in sent] == [
+        [("commit_block", 3)], [], [("commit_block", 4)], []]
+    assert _lagging_peer_run(JAX, chain, monkeypatch) == [[], [], [], []]
+
+
+def _pushes_taken(P, home, monkeypatch):
+    """One peer pushes height 3, then 3 again, then (once we stand at
+    4) height 4, back to back: the heights handed to consensus."""
+    sender, _, _ = _reactor(P, monkeypatch)
+    store = _store(P, home)
+    sender.cs.block_store = store
+    out = Peer()
+    for h in (3, 3, 4):
+        sender._send_catchup(out, h)
+    store.close()
+    r, _, _ = _reactor(P, monkeypatch)
+    taken = []
+    monkeypatch.setattr(r.cs, "receive_commit_block",
+                        lambda block, commit: taken.append(commit.height))
+    peer = Peer()
+    for (chan, msg), h in zip(out.sent, (3, 3, 4)):
+        r.cs.height = h
+        r.receive(chan, peer, msg)
+    assert not r.switch.stopped
+    return taken
+
+
+def test_the_push_rate_limit_holds_one_height(chain, monkeypatch):
+    """A peer's repeated push of one height is held to 2 a second; its
+    push of the next height is taken at once. The JAX reactor holds
+    every push of a peer to 2 a second (ROADMAP §C)."""
+    assert _pushes_taken(PORT, chain, monkeypatch) == [3, 4]
+    assert _pushes_taken(JAX, chain, monkeypatch) == [3]
 
 
 def test_mempool_evidence_pex_statesync_messages_equal(chain, monkeypatch):

@@ -5,7 +5,9 @@ JAX package point at `cometbft_tpu_torch`: the same test bodies, the same
 assertions and bounds, on the port's modules. The JAX package's own run
 of each module is tests/<name> itself. `subs` are exact textual edits
 (each must occur), for the few places where the port is built
-differently: a node on `device="cpu"`, a StreamVerifier on the CPU's
+differently: a node or a simnet on `device="cpu"` (`port_node`,
+`port_simnet`, swapped in for every plain import of `Node` or
+`Simnet`), a StreamVerifier on the CPU's
 plain kernels, a wait on a condition in place of a fixed sleep.
 `run(mod, name, request)` calls one test of such a module with its
 fixtures: pytest's own (tmp_path, monkeypatch, ...) through `request`,
@@ -45,12 +47,43 @@ def port_node(*args, **kw):
     return Node(*args, **kw)
 
 
+def port_simnet(*args, **kw):
+    """The port's Simnet on the CPU: every node it builds gets
+    device="cpu" (its default, the card, raises here)."""
+    from cometbft_tpu_torch.simnet import Simnet
+
+    kw.setdefault("device", "cpu")
+    return Simnet(*args, **kw)
+
+
+def port_host_simnet(*args, **kw):
+    """The port's Simnet of host nodes (batch_fn=oracle_batch_fn()).
+    Run with no plane mounted (run(..., plane=False)), every signature
+    verifies inline on the scheduler thread, as the JAX Simnet's nodes
+    verify when no plane runs: no flush of a plane shared by a test's
+    two runs enters the trace or incident snapshots they compare byte
+    for byte."""
+    from cometbft_tpu_torch.simnet import Simnet
+    from cometbft_tpu_torch.types.validation import oracle_batch_fn
+
+    kw.setdefault("batch_fn", oracle_batch_fn())
+    return Simnet(*args, **kw)
+
+
+# the port simnet a test imports by name, made host nodes
+HOST_SIMNET = ("    from torch_mirror import port_simnet as Simnet\n",
+               "    from torch_mirror import port_host_simnet as Simnet\n")
+
+
 def load(name: str, subs=()) -> types.ModuleType:
     path = TESTS / name
     src = _JAX_NAME.sub("cometbft_tpu_torch", path.read_text())
     src = src.replace(
         "from cometbft_tpu_torch.node.node import Node\n",
         "from torch_mirror import port_node as Node\n")
+    src = src.replace(
+        "from cometbft_tpu_torch.simnet import Simnet\n",
+        "from torch_mirror import port_simnet as Simnet\n")
     for old, new in subs:
         assert old in src, f"{name}: no {old!r} to replace"
         src = src.replace(old, new)
@@ -110,11 +143,14 @@ def host_plane():
         plane.stop()
 
 
-def run(mod, name: str, request) -> None:
+def run(mod, name: str, request, plane: bool = True) -> None:
+    """`plane=False` runs the test with no plane mounted, for a test
+    whose nodes verify on the host by themselves (port_host_simnet)."""
     fn = getattr(mod, name)
     fixtures = _fixtures(mod)
     with contextlib.ExitStack() as stack:
-        stack.enter_context(host_plane())
+        if plane:
+            stack.enter_context(host_plane())
         for k, (_, marker) in fixtures.items():
             if marker.autouse:
                 _call_fixture(mod, k, request, stack, fixtures)
