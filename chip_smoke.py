@@ -253,7 +253,9 @@ Phases (any failure exits non-zero and prints no result line):
      their plain versions, each timed in device time; then 16 validators
      as 16 nodes commit 5 heights on a plane of the same config (heights/s,
      the commit p50 from the height ledger, plane ms a height, rows a
-     flush, the LastCommit flush ms, the host verifies by site).
+     flush, the LastCommit flush ms, the host verifies by site; the
+     blocks pushed to a lagging node on a line of their own, at most 5,
+     and the messages the hub sent again to a node that was behind them).
  19. the node over TCP (ROADMAP A8's p2p layer and reactors): (a) BASELINE
      config 1 as users run it, 4 port validators from a TOML, each a
      Node(p2p=True) with homes on disk and its own listener on 127.0.0.1,
@@ -324,6 +326,19 @@ Phases (any failure exits non-zero and prints no result line):
      timed, one vote flush's kernels against plain; each run's wall s,
      simulated heights a wall second, flushes, rows a flush and launches,
      exact against its flushes and direct verifies.
+ 22. the JAX package's entry points the port took on last, by their JAX
+     names, at config 3's width, launches counted on the `parity` path:
+     ed25519_kernel.verify_batch on phase 3's 10,000 signatures (16,384
+     columns, the blame row tampered), ed25519_kernel.verify_tally_kernel
+     on the same rows (tally and quorum), ecdsa_kernel.verify_batch on
+     phase 10's 6,667 secp256k1 light rows (one tampered),
+     crypto.batch.batch_fn() through verify_commit on phase 9's mixed
+     commit (and its sr25519 blame), and
+     ed25519_cached.verify_tally_delta_cached on phase 11's template (the
+     10,000 precommits as the plane stages them) over a cold
+     ed25519_cached.build_table; each output equal to its plain version on
+     the card bit for bit and to the oracle's verdicts (the expected
+     vector, and the *_ref oracles on 48 rows of each).
 Before the last line it prints the `kernels` JSON (launches on the main
 paths, in all and by path; times; bounds; for every kernel `device_ms`, from
 a profiler trace at its phase's shape, by live columns or by shape where a
@@ -2494,7 +2509,8 @@ def phase_mixed_commit(dev, pool, rng, kernel_stats):
           f"ed25519_verify at cols={ed_cols} and sr25519_verify at cols="
           f"{sr_cols} (clean and tampered rows of the path)", flush=True)
     return {"mixed_light_p50_ms": statistics.median(light_ms),
-            "mixed_sigs_per_s": MIXED_VALS / (full_p50 / 1e3)}
+            "mixed_sigs_per_s": MIXED_VALS / (full_p50 / 1e3),
+            "mixed_fixture": (vs, bid, height, commit, tamper)}
 
 
 def phase_light_secp(dev, pool, rng, kernel_stats):
@@ -2611,7 +2627,7 @@ def phase_light_secp(dev, pool, rng, kernel_stats):
           f"{rows_t.shape[1]} live={n_trust_live} device_ms="
           f"{fmt_ms(ec_dev_trust)}; plain_ms={plain_ms:.1f}; kernel==plain at "
           f"cols={ec_cols} (clean and tampered rows of the path)", flush=True)
-    return {"lc_pair_p50_ms": p50}
+    return {"lc_pair_p50_ms": p50, "lc_fixture": (vs, commit, n_light)}
 
 
 # --------------------------------------------------------------------------
@@ -5841,13 +5857,17 @@ def phase_node(dev, rng, kernel_stats):
         t0 = time.perf_counter()
         for n in wnet.nodes:
             n.start()
-        # a node that sat out a height in a LocalNetwork never catches
-        # up by itself (no reactor: it drops the next height's votes):
-        # push it the blocks it missed, and count them
+        # the hub sends a node that was behind a proposal or vote that
+        # message again once it gets there (LocalNetwork); a node left
+        # two heights behind all the same is pushed the blocks it
+        # missed, and they are counted
         wpushed = wait_heights(wnet.nodes, NODE_WIDE_HEIGHTS,
                                "the 16-node run",
                                timeout=3 * NODE_TIMEOUT_S, catchup=True)
         wide_s = time.perf_counter() - t0
+        print(f"phase18 16-node blocks pushed={sum(wpushed.values())} "
+              f"(messages the hub sent again {wnet.redelivered})",
+              flush=True)
         check(sum(wpushed.values()) <= NODE_WIDE_MAX_PUSHED,
               f"phase18 the 16-node run needed {wpushed} blocks pushed "
               f"(node: blocks), over {NODE_WIDE_MAX_PUSHED}")
@@ -8050,6 +8070,231 @@ def int_ops_per_s() -> tuple:
     return mhz, H100_SMS * IMAD_PER_CLK * float(mhz) * 1e6
 
 
+# --------------------------------------------------------------------------
+# phase 22: the JAX package's entry points, by their JAX names
+# --------------------------------------------------------------------------
+
+PARITY_SPOT = 48     # phase 22: rows of each entry held to the oracle
+
+
+def oracle_spot(verify, rows, got, tamper, rng):
+    """The oracle's verdict (`verify(pub, msg, sig)`) on the tampered row
+    and PARITY_SPOT - 1 others drawn from `rng`, each against `got`;
+    -> the rows checked."""
+    n = len(rows)
+    picks = sorted({tamper, *(int(i) for i in rng.choice(
+        n, PARITY_SPOT - 1, replace=False))})
+    for i in picks:
+        check(bool(got[i]) == bool(verify(*rows[i])),
+              f"phase22 row {i}: {bool(got[i])} != the oracle's")
+    return picks
+
+
+def phase_parity(dev, rng, res, kernel_stats):
+    """The JAX package's entries the port took on last, at config 3's
+    width, each launch counted on the `parity` path: ed25519_kernel
+    .verify_batch and .verify_tally_kernel on phase 3's commit,
+    ecdsa_kernel.verify_batch on phase 10's light rows, crypto.batch
+    .batch_fn() through validation on phase 9's mixed commit, and
+    ed25519_cached.verify_tally_delta_cached on phase 11's template over a
+    cold ed25519_cached.build_table. Each output equal to its plain
+    version on the card and to the oracle."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.crypto import ed25519_ref, secp256k1_ref
+    from cometbft_tpu_torch.ops import ecdsa_fused as ef
+    from cometbft_tpu_torch.ops import ecdsa_kernel as eck
+    from cometbft_tpu_torch.ops import ed25519_cached as ec
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+    from cometbft_tpu_torch.ops import sr25519_kernel as srk
+    from cometbft_tpu_torch.types import validation as val
+    from cometbft_tpu_torch.verifyplane import QuorumGroup
+    from cometbft_tpu_torch.verifyplane import fused as fz
+    from cometbft_tpu_torch.verifyplane import plane as vp
+
+    check(vp.global_plane() is None, "phase22 a verify plane is mounted")
+    brk = cbatch.device_breaker()
+    faults0 = brk.faults
+    points = kf.base_points(dev)
+
+    # phase 3's commit, its blame row tampered
+    vs, bid, height, commit = res["fixture"]
+    pubs = [v.pub_key.data for v in vs.validators]
+    powers = [v.voting_power for v in vs.validators]
+    msgs = commit.sign_bytes_rows(CHAIN_ID)
+    sigs = [cs.signature for cs in commit.signatures]
+    sigs[TAMPER_IDX] = flip(sigs[TAMPER_IDX], 40)
+    want = np.arange(N_VALS) != TAMPER_IDX
+    total = sum(powers)
+    pb = ek.pack_batch(pubs, msgs, sigs, pad_to=kf.pad_to_tile(N_VALS))
+    n = pb.padded
+    power5 = np.zeros((n, ek.POWER_LIMBS), np.int32)
+    power5[:N_VALS] = ek.power_limbs(np.asarray(powers, np.int64))
+    counted = np.arange(n) < N_VALS
+    cids = np.zeros(n, np.int32)
+    thresh = ek.threshold_limbs(total * 2 // 3)
+
+    # phase 9's mixed commit, its sr25519 blame row tampered
+    mvs, mbid, mheight, mcommit, mtamper = res["mixed_fixture"]
+    # phase 10's light rows (the 2/3 + 1 that VerifyCommitLight reads)
+    lvs, lcommit, n_light = res["lc_fixture"]
+    lrows = [(v.pub_key.data, m, cs.signature) for v, m, cs in zip(
+        lvs.validators[:n_light], lcommit.sign_bytes_rows(CHAIN_ID)[:n_light],
+        lcommit.signatures[:n_light])]
+    lrows[LC_TAMPER_IDX] = lrows[LC_TAMPER_IDX][:2] + (
+        flip(lrows[LC_TAMPER_IDX][2], 40),)
+    # phase 11's template: the commit's precommits as the plane stages
+    # them, one QuorumGroup over the valset
+    good = commit.signatures[TAMPER_IDX].signature
+    commit.signatures[TAMPER_IDX].signature = sigs[TAMPER_IDX]
+    try:
+        subs = plane_subs(vs, commit)
+    finally:
+        commit.signatures[TAMPER_IDX].signature = good
+    group = QuorumGroup(total * 2 // 3 + 1, "phase22",
+                        valset_pubs=tuple(pubs), valset_powers=tuple(powers))
+    batch = [vp._Submission(s["rows"], group, s["power"], True, s["vidx"],
+                            stamp=s["stamp"]) for s in subs]
+    plan = fz.plan_fused(batch, device=dev)
+    check(plan.stamped, "phase22 the flush is not device-stamped")
+    delta = [torch.from_numpy(a).to(dev) for a in plan.delta]
+    thr = torch.from_numpy(plan.thresh).to(dev)
+    torch.cuda.synchronize()
+
+    with capture_verify_rows(ed25519=kf, sr25519=srk,
+                             secp256k1=ef) as path_rows:
+        zero_launches()
+        t0 = time.perf_counter()
+        got_vb = ek.verify_batch(pubs, msgs, sigs)
+        got_vt = ek.verify_tally_kernel(
+            pb.ay, pb.asign, pb.ry, pb.rsign, pb.sdig, pb.hdig, pb.precheck,
+            power5, counted, cids, thresh, n_commits=1)
+        got_ec = eck.verify_batch(*map(list, zip(*lrows)))
+        fn = cbatch.batch_fn()
+        val.verify_commit(CHAIN_ID, mvs, mbid, mheight, mcommit, fn)
+        mgood = mcommit.signatures[mtamper].signature
+        mcommit.signatures[mtamper].signature = flip(mgood, 40)
+        try:
+            val.verify_commit(CHAIN_ID, mvs, mbid, mheight, mcommit, fn)
+            blamed = None
+        except val.InvalidSignatureError as e:
+            blamed = e.idx
+        finally:
+            mcommit.signatures[mtamper].signature = mgood
+        table = ec.build_table(pubs, powers, device=dev)
+        ent = ec.template_entry(plan.sites, device=dev)
+        got_dc = ec.verify_tally_delta_cached(*delta, ent, table,
+                                              plan.n_commits, thr)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+    want_l = dict.fromkeys(launches, 0)
+    want_l.update(ed25519_verify=2 + 2, tally_quorum=1, ecdsa_verify=1,
+                  sr25519_verify=2, valset_table_build=1, stamp_rows=1,
+                  ed25519_verify_cached=1, tally_quorum_cached=1)
+    check(launches == want_l, f"phase22 launches {launches}, want {want_l}")
+    check(blamed == mtamper,
+          f"phase22 batch_fn() blamed {blamed}, want {mtamper}")
+    check(brk.faults == faults0 and brk.trips == 0,
+          "phase22 the breaker recorded a fault")
+
+    # each output against its plain version on the card, bit for bit
+    rows = torch.from_numpy(kf.pack_rows(pb, power5, counted, cids,
+                                         thresh)).to(dev)
+    check(rows.shape[1] == kf.pad_to_tile(N_VALS),
+          f"phase22 {rows.shape[1]} columns")
+    v_p = kf.ed25519_verify_plain(rows, points)
+    check(np.array_equal(got_vb, v_p.cpu().numpy()[:N_VALS] != 0)
+          and np.array_equal(got_vb, want),
+          "phase22 ed25519_kernel.verify_batch != plain or the oracle")
+    t_p, q_p = kf.tally_quorum_plain(v_p, rows, 1)
+    valid, tally, quorum = got_vt
+    check(torch.equal(valid, v_p != 0) and torch.equal(tally, t_p)
+          and torch.equal(quorum, q_p),
+          "phase22 verify_tally_kernel != plain")
+    tally_int = int(ek.tally_to_int(tally.cpu().numpy())[0])
+    check(tally_int == total - VAL_POWER and bool(quorum[0]),
+          f"phase22 verify_tally_kernel tally {tally_int}, quorum "
+          f"{bool(quorum[0])}, want {total - VAL_POWER} and True")
+    lpb = eck.pack_batch(*map(list, zip(*lrows)),
+                         pad_to=ef.pad_to_tile(n_light))
+    e_p = ef.ecdsa_verify_plain(torch.from_numpy(ef.pack_rows(lpb)).to(dev),
+                                ef.base_points(dev))
+    lwant = np.arange(n_light) != LC_TAMPER_IDX
+    check(np.array_equal(got_ec, e_p.cpu().numpy()[:n_light] != 0)
+          and np.array_equal(got_ec, lwant),
+          "phase22 ecdsa_kernel.verify_batch != plain or the oracle")
+    err_ed, ed_cols = hold_shapes_against_plain(
+        dev, kf.ed25519_verify, lambda r: kf.ed25519_verify_plain(r, points),
+        path_rows["ed25519"][1:])
+    err_sr, sr_cols = hold_shapes_against_plain(
+        dev, srk.sr25519_verify,
+        lambda r: srk.sr25519_verify_plain(r, points), path_rows["sr25519"])
+    check(err_ed == 0 and err_sr == 0,
+          f"phase22 batch_fn()'s kernels != plain at {ed_cols}, {sr_cols}")
+    lenok = torch.zeros((table.pub_raw.shape[0],), dtype=torch.bool,
+                        device=dev)
+    lenok[:N_VALS] = True
+    tab_p, ok_p = ec.valset_table_build_plain(table.pub_raw, lenok)
+    check(torch.equal(table.tab, tab_p) and torch.equal(table.ok, ok_p),
+          "phase22 build_table's valset_table_build != plain")
+    rows_s = es.stamp_rows_plain(
+        *delta, ent.pre_mat, ent.pre_len, ent.suf_mat, ent.suf_len,
+        ent.ts_tag, table.pub_raw, thr, ent.msg_max,
+        ec.packed_rows_shape(delta[0].shape[0], plan.n_commits)[0]
+        - ec.V_THRESH)
+    vc_p = ec.ed25519_verify_cached_plain(rows_s, table.tab, table.ok,
+                                          points)
+    tc_p, qc_p = ec.tally_quorum_cached_plain(vc_p, rows_s, table.power5,
+                                              plan.n_commits)
+    dvalid, dtally, dquorum = got_dc
+    check(torch.equal(dvalid, vc_p != 0) and torch.equal(dtally, tc_p)
+          and torch.equal(dquorum, qc_p),
+          "phase22 verify_tally_delta_cached != plain")
+    dv = dvalid.cpu().numpy()[np.asarray(plan.pos)]
+    check(np.array_equal(dv, want) and bool(dquorum[0]),
+          "phase22 verify_tally_delta_cached verdicts or quorum != the "
+          "oracle's")
+    check(int(ek.tally_to_int(dtally.cpu().numpy())[0]) == total - VAL_POWER,
+          "phase22 verify_tally_delta_cached tally")
+
+    # the oracle itself on a spot of each entry's rows
+    spot = np.random.default_rng(int(rng.integers(1 << 31)))
+    ed_rows = list(zip(pubs, msgs, sigs))
+    oracle_spot(ed25519_ref.verify, ed_rows, got_vb, TAMPER_IDX, spot)
+    oracle_spot(ed25519_ref.verify, ed_rows, valid.cpu().numpy(),
+                TAMPER_IDX, spot)
+    oracle_spot(ed25519_ref.verify, ed_rows, dv, TAMPER_IDX, spot)
+    oracle_spot(secp256k1_ref.verify, lrows, got_ec, LC_TAMPER_IDX, spot)
+    # the mixed rows as PubKeys: verify_signature is each key type's oracle
+    mrows = [(v.pub_key, m, cs.signature) for v, m, cs in zip(
+        mvs.validators, mcommit.sign_bytes_rows(CHAIN_ID),
+        mcommit.signatures)]
+    got_m = np.asarray(fn(*map(list, zip(*mrows))))
+    check(bool(got_m.all()), "phase22 batch_fn() rejected a valid row")
+    oracle_spot(lambda k, m, s_: k.verify_signature(m, s_), mrows, got_m,
+                mtamper, spot)
+    restore_launches(launches)
+
+    for name, n_l in launches.items():
+        if n_l:
+            kernel_stats[name]["launches_by_path"]["parity"] = n_l
+    print(f"phase22 launches {json.dumps(launches)} (the parity entries, "
+          f"wall_s={wall_s:.3f}): ed25519_kernel.verify_batch and "
+          f"verify_tally_kernel ({N_VALS} of {rows.shape[1]} cols, "
+          f"tally={tally_int}, quorum=True), ecdsa_kernel.verify_batch "
+          f"({n_light} of {lpb.padded}), crypto.batch.batch_fn() through "
+          f"verify_commit ({MIXED_VALS} mixed, blamed {mtamper}), "
+          f"ed25519_cached.verify_tally_delta_cached (B="
+          f"{delta[0].shape[0]}, M={table.n_vals}) == plain on the card "
+          f"and the oracle ({PARITY_SPOT} rows each)", flush=True)
+    return {}
+
+
 def kernels_json(kernel_stats):
     from cometbft_tpu_torch.ops import ed25519_fused as kf
 
@@ -8232,6 +8477,9 @@ def main() -> int:
         t = time.perf_counter()
         res.update(phase_simnet(dev, kernel_stats))
         print(f"phase21 s={time.perf_counter() - t:.3f}", flush=True)
+        t = time.perf_counter()
+        res.update(phase_parity(dev, rng, res, kernel_stats))
+        print(f"phase22 s={time.perf_counter() - t:.3f}", flush=True)
     brk = cbatch.device_breaker()
     check(brk.trips == 0 and brk.faults == 0, "breaker recorded a fault")
     print(json.dumps(kernels_json(kernel_stats)), flush=True)

@@ -13,8 +13,9 @@ verifier are verified one by one through `PubKey.verify_signature`, and
 rows it cannot verify are marked invalid, as the JAX package does: that is
 the semantics of an unknown key, not a device fallback.
 
-Every kernel dispatch runs under a circuit breaker. A device fault is
-logged, counted and raised to the caller: the port never re-verifies on the
+Every kernel dispatch runs under a circuit breaker, behind the
+`crypto.device_dispatch` failpoint. A device fault is logged, counted and
+raised to the caller as `DeviceError`: the port never re-verifies on the
 host behind the caller's back, here or in the verify plane (a device
 plane's flush that faults fails its futures with `DeviceError`; the JAX
 package's host-verifies). After `failure_threshold` consecutive faults the
@@ -28,6 +29,7 @@ coalesce into shared device passes, as in the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import logging
 import threading
 import time
@@ -42,10 +44,23 @@ from cometbft_tpu_torch.crypto.keys import (
     SR25519_KEY_TYPE,
     PubKey,
 )
-from cometbft_tpu_torch.device import DeviceError
+from cometbft_tpu_torch.device import DeviceError, default_device, resolve
+from cometbft_tpu_torch.libs import failpoints as fp
 from cometbft_tpu_torch.libs.staging import StagingPool
 
 _log = logging.getLogger(__name__)
+
+_BATCHABLE = {ED25519_KEY_TYPE, SECP256K1_KEY_TYPE, SR25519_KEY_TYPE}
+
+fp.register("crypto.device_dispatch",
+            "device kernel about to run (raise = device fault; the "
+            "breaker counts it and the caller gets DeviceError)")
+
+
+def supports_batch_verifier(key_type: str) -> bool:
+    """crypto/batch/batch.go:24-32 analog (plus secp256k1): whether a
+    key type has a batch verifier (a kernel) here."""
+    return key_type in _BATCHABLE
 
 
 class CircuitBreaker:
@@ -115,6 +130,15 @@ class CircuitBreaker:
                 "circuit breaker %s: OPEN after %d consecutive device "
                 "faults; failing fast, re-probing every %.1fs", self.name, self._failures, self.cooldown,
             )
+
+    def reset(self) -> None:
+        """Close the breaker and forget its consecutive faults, as the
+        JAX package's reset does; the counters (trips, closes, probes,
+        faults) keep their totals."""
+        with self._lock:
+            self._failures = 0
+            self._is_open = False
+            self._open_until = 0.0
 
 
 # One breaker for THE device: every kernel shares the card.
@@ -198,11 +222,12 @@ def verify_batch_direct(
 
     `device` is passed to the kernel (None: the CUDA card; "cpu": the plain
     PyTorch version); `cached` routes ed25519 groups through the
-    cached-valset kernel. A device fault is recorded on the breaker and
-    raised; while the breaker is open, groups raise `DeviceError` without
-    touching the device. `breaker` overrides the global device breaker
-    (tests); `kernels` ({key type: fn(pubs, msgs, sigs, device=...)})
-    overrides the kernel of a key type (tests)."""
+    cached-valset kernel. A device fault (the kernel raised, or the
+    `crypto.device_dispatch` failpoint fired) is recorded on the breaker
+    and raised as `DeviceError`; while the breaker is open, groups raise
+    `DeviceError` without touching the device. `breaker` overrides the
+    global device breaker (tests); `kernels` ({key type: fn(pubs, msgs,
+    sigs, device=...)}) overrides the kernel of a key type (tests)."""
     n = len(pubs)
     valid = np.zeros((n,), np.bool_)
     brk = breaker if breaker is not None else _DEVICE_BREAKER
@@ -219,17 +244,21 @@ def verify_batch_direct(
                 f"circuit breaker {brk.name} is open; {len(idxs)} {kt} "
                 f"signatures not verified")
         try:
+            fp.fail_point("crypto.device_dispatch")
             sub = kernel(
                 [pubs[i].data for i in idxs],
                 [msgs[i] for i in idxs],
                 [sigs[i] for i in idxs],
                 device=device,
             )
-        except Exception:
+        except Exception as exc:
             brk.record_failure()
             _log.exception("device batch verify failed for %s (%d sigs)",
                            kt, len(idxs))
-            raise
+            if isinstance(exc, DeviceError):
+                raise
+            raise DeviceError(f"device batch verify failed for {len(idxs)} "
+                              f"{kt} signatures: {exc!r}") from exc
         brk.record_success()
         valid[np.asarray(idxs)] = np.asarray(sub)
     return valid
@@ -237,14 +266,14 @@ def verify_batch_direct(
 
 def verify_batch(pubs, msgs, sigs, device=None,
                  breaker: CircuitBreaker = None,
-                 cached: bool = False) -> np.ndarray:
+                 cached: bool = False, kernels: dict = None) -> np.ndarray:
     """The batch_fn validation.py consumes. While the verify plane runs,
-    a default call (no device, breaker or cached pinned) is a
+    a default call (no device, breaker, cached or kernels pinned) is a
     submit-and-wait over the plane, so independent callers coalesce into
     shared device passes; it goes direct when the plane stops, overflows
     or sheds mid-call (PlaneError), and raises the plane's DeviceError
     when its flush faults on the device. Pinned calls go direct."""
-    if device is None and breaker is None and not cached:
+    if device is None and breaker is None and not cached and not kernels:
         from cometbft_tpu_torch.verifyplane import plane as _vp
 
         p = _vp.global_plane()
@@ -253,4 +282,16 @@ def verify_batch(pubs, msgs, sigs, device=None,
                 return p.submit_and_wait(pubs, msgs, sigs)
             except _vp.PlaneError:
                 pass  # plane stopped/overflowed mid-call: go direct
-    return verify_batch_direct(pubs, msgs, sigs, device, breaker, cached)
+    return verify_batch_direct(pubs, msgs, sigs, device, breaker, cached,
+                               kernels)
+
+
+def batch_fn(device=None) -> Callable:
+    """The batch_fn validation.py consumes (CreateBatchVerifier analog):
+    `verify_batch` on `device`. None is the card, checked here (DeviceError
+    without one), and the function then rides a running verify plane as
+    a default `verify_batch` call does; "cpu" runs the plain versions."""
+    if device is None:
+        default_device()
+        return verify_batch
+    return functools.partial(verify_batch, device=resolve(device))

@@ -104,3 +104,7 @@ def equals(p: tuple, q: tuple) -> bool:
     X1, Y1, Z1, T1 = p
     X2, Y2, Z2, T2 = q
     return (X1 * Y2 - Y1 * X2) % P == 0 or (Y1 * Y2 - X1 * X2) % P == 0
+
+
+def is_identity(p: tuple) -> bool:
+    return equals(p, (0, 1, 1, 0))

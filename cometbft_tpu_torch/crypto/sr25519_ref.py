@@ -131,3 +131,11 @@ def sign_many(seed: bytes, msgs, rng: Optional[bytes] = None):
         sig[63] |= 0x80
         sigs.append(bytes(sig))
     return pk, sigs
+
+
+def keygen(seed: Optional[bytes] = None) -> Tuple[bytes, bytes]:
+    """Returns (seed/mini-secret, pubkey bytes); a random seed when none
+    is given."""
+    if seed is None:
+        seed = os.urandom(32)
+    return seed, pubkey_from_seed(seed)

@@ -35,10 +35,11 @@ modules. Its seams:
 from __future__ import annotations
 
 import os
+import threading
 from typing import Callable, List, Optional
 
 from cometbft_tpu_torch.abci import types as abci
-from cometbft_tpu_torch.consensus.state import ConsensusState
+from cometbft_tpu_torch.consensus.state import STEP_COMMIT, ConsensusState
 from cometbft_tpu_torch.device import resolve
 from cometbft_tpu_torch.consensus.ticker import TimeoutParams
 from cometbft_tpu_torch.libs.service import BaseService
@@ -636,23 +637,127 @@ class Node(BaseService):
 
 class LocalNetwork:
     """In-memory message hub for multi-node-in-one-process tests
-    (p2p/test_util.go:315 MakeConnectedSwitches analog)."""
+    (p2p/test_util.go:315 MakeConnectedSwitches analog).
+
+    Each proposal and vote is delivered once to every other node, as in
+    the JAX package, and the hub also does what the consensus reactor's
+    gossip does for a peer over TCP: a node that was behind a message when
+    it was sent gets it again once its consensus reaches it. The consensus
+    state drops a vote of another height or more than a round ahead, and a
+    proposal of another height or round, so without this a node that
+    falls a height or a round behind at the wrong moment never sees those
+    messages again and stalls (at COMMIT without the decided block, or a
+    height behind). For the newest `HOLD_HEIGHTS` heights:
+      * a message sent to a node behind it is kept for that node and
+        delivered again when the node enters the message's height and
+        round (its `on_step_change`);
+      * the hub keeps every proposal, and a node that enters COMMIT
+        without the decided block is sent its height's proposals (the
+        commit-recovery path of `ConsensusState._set_proposal`).
+    A height's messages are dropped once every node has passed it, or it
+    leaves the newest `HOLD_HEIGHTS`; a node further behind needs the
+    blocks themselves (`receive_commit_block`)."""
+
+    HOLD_HEIGHTS = 2
 
     def __init__(self):
         self.nodes: List[Node] = []
+        self._lock = threading.Lock()
+        self._proposals = {}  # height -> [ProposalMsg]
+        self._behind = {}     # ConsensusState -> [(kind, payload)]
+        self._top = 0         # the newest height broadcast
+        self.redelivered = 0
 
     def broadcaster(self, exclude_idx: int) -> Callable:
         def bcast(msg):
             kind, payload = msg
-            for i, n in enumerate(self.nodes):
-                if i == exclude_idx:
-                    continue
-                if kind == "proposal":
-                    n.consensus.receive_proposal(payload)
-                elif kind == "vote":
-                    n.consensus.receive_vote(payload)
+            if kind not in ("proposal", "vote"):
+                return
+            with self._lock:
+                self._hold(kind, payload)
+                targets = [n for i, n in enumerate(self.nodes)
+                           if i != exclude_idx]
+                for n in targets:
+                    cs = self._attach(n.consensus)
+                    if _behind(cs, kind, payload):
+                        self._behind[cs].append((kind, payload))
+            for n in targets:
+                _deliver(n.consensus, kind, payload)
 
         return bcast
 
     def add(self, node: Node) -> None:
-        self.nodes.append(node)
+        with self._lock:
+            self.nodes.append(node)
+            self._attach(node.consensus)
+
+    def _attach(self, cs: ConsensusState) -> ConsensusState:
+        """Hook `cs` (a node added, or put in place of a restarted one)
+        on first sight. Caller holds the lock."""
+        if cs not in self._behind:
+            self._behind[cs] = []
+            prev = cs.on_step_change
+
+            def on_step():
+                if prev is not None:
+                    prev()
+                self._caught_up(cs)
+
+            cs.on_step_change = on_step
+        return cs
+
+    def _hold(self, kind: str, payload) -> None:
+        """Keep a broadcast proposal; drop the heights every node has
+        passed or that left the window. Caller holds the lock."""
+        h = _height(kind, payload)
+        if kind == "proposal":
+            self._proposals.setdefault(h, []).append(payload)
+        self._top = max(self._top, h)
+        floor = self._top - self.HOLD_HEIGHTS + 1
+        if self.nodes:
+            floor = max(floor, min(n.consensus.height for n in self.nodes))
+        for old in [k for k in self._proposals if k < floor]:
+            del self._proposals[old]
+        for cs, msgs in self._behind.items():
+            self._behind[cs] = [m for m in msgs
+                                if _height(*m) >= floor]
+
+    def _caught_up(self, cs: ConsensusState) -> None:
+        """`cs` changed step: send it what it was sent too early, and at
+        COMMIT without the decided block its height's proposals."""
+        h, r = cs.height, cs.round
+        commit = cs.step == STEP_COMMIT and cs.proposal_block is None
+        with self._lock:
+            msgs = self._behind.get(cs, [])
+            self._behind[cs] = [m for m in msgs if _behind(cs, *m)]
+            due = [m for m in msgs if not _behind(cs, *m)]
+            if commit:
+                due += [("proposal", p)
+                        for p in self._proposals.get(h, ())]
+            due = [(k, p) for k, p in due if _height(k, p) == h and (
+                k == "vote" or commit or p.proposal.round == r)]
+            self.redelivered += len(due)
+        for kind, payload in due:
+            _deliver(cs, kind, payload)
+
+
+def _height(kind: str, payload) -> int:
+    return payload.proposal.height if kind == "proposal" else payload.height
+
+
+def _behind(cs: ConsensusState, kind: str, payload) -> bool:
+    """True when `cs`, where it stands now, would drop the message for
+    being ahead of it (ConsensusState._set_proposal, _vote_prefilter,
+    HeightVoteSet.add_vote)."""
+    if kind == "proposal":
+        p = payload.proposal
+        return (p.height, p.round) > (cs.height, cs.round)
+    return payload.height > cs.height or (
+        payload.height == cs.height and payload.round > cs.round + 1)
+
+
+def _deliver(cs: ConsensusState, kind: str, payload) -> None:
+    if kind == "proposal":
+        cs.receive_proposal(payload)
+    else:
+        cs.receive_vote(payload)

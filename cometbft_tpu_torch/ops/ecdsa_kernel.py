@@ -11,8 +11,11 @@ second only when r + N < p), with no inversion.
 
 `pack_batch` is the JAX package's host pack, so a `PackedEcdsaBatch` is
 byte-identical across the two packages; `verify_core` is the plain PyTorch
-verify (the CUDA kernel of ops/ecdsa_fused.py is held against it). The
-reference has no secp256k1 batch verifier (crypto/batch/batch.go:12-21);
+verify (the CUDA kernel of ops/ecdsa_fused.py is held against it), and
+`verify_batch`, the JAX module's entry, packs a batch and launches that
+kernel (`ecdsa_verify`) on the card, or its plain version for
+device="cpu". The reference has no secp256k1 batch verifier
+(crypto/batch/batch.go:12-21);
 its single verify is btcec's with high-S rejection
 (crypto/secp256k1/secp256k1.go:192-220), whose semantics the precheck and
 the device pass reproduce.
@@ -138,3 +141,13 @@ def verify_core(qx, qparity, u1dig, u2dig, xr1, xr2, precheck, table):
     not_inf = ~F.is_zero(Z)
     match = F.eq(X, F.mul(xr1, Z)) | F.eq(X, F.mul(xr2, Z))
     return ok_q & not_inf & match & (precheck != 0)
+
+
+def verify_batch(pubkeys, msgs, sigs, device=None) -> np.ndarray:
+    """Verify a batch of (pubkey33, msg, sig64) triples; (n,) bool numpy
+    validity. `pack_batch` pads the rows to their bucket, then one
+    `ecdsa_verify` launch on `device` (None: the card, which raises
+    DeviceError without one; "cpu": the plain version)."""
+    from cometbft_tpu_torch.ops import ecdsa_fused
+
+    return ecdsa_fused.verify_batch(pubkeys, msgs, sigs, device=device)

@@ -33,6 +33,12 @@ by 128 validators; convert.valset_table_from_jax maps one onto the other.
 The packed-row ABI (`V_*`, `pack_rows_cached`) is byte for byte the JAX
 package's. A sharded table (`ShardedValsetTable`) holds one such table a
 slot of a parallel/mesh.Mesh, each shard built on its slot's device.
+
+The JAX module's stamping entries (`STAMP_NAMES`: `TemplateEntry`,
+`template_entry`, `warm_template`, `stamp_rows_cached`,
+`verify_tally_delta_cached`) resolve here to ops/ed25519_stamp.py's
+objects, so callers and tests that look for them under this module get
+the same functions.
 """
 from __future__ import annotations
 
@@ -1075,3 +1081,17 @@ def verify_batch_cached(pub_bytes, msgs, sigs,
         table = table_for_pubs(pub_bytes, device=device)
     pb = ek.pack_batch(pub_bytes, msgs, sigs, pad_to=pad_rows(n))
     return verify_rows_cached(pack_rows_cached(pb), table).cpu().numpy()[:n]
+
+
+STAMP_NAMES = ("TemplateEntry", "template_entry", "warm_template",
+               "stamp_rows_cached", "verify_tally_delta_cached")
+
+
+def __getattr__(name: str):
+    # ops/ed25519_stamp.py imports this module, so its names resolve at
+    # first use
+    if name in STAMP_NAMES:
+        from cometbft_tpu_torch.ops import ed25519_stamp
+
+        return getattr(ed25519_stamp, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

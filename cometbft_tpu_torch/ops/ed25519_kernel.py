@@ -8,7 +8,11 @@ precheck, 13-bit limbs) runs in one call of the native host packer
 (native.ed25519_pack), as the reference's does; the numpy + hashlib
 pipeline stays as its plain version (`native=False`) and screens rows of
 bad lengths. A `PackedBatch` is byte-identical across the two packages and
-the two routes. The curve work runs in ops/ed25519_fused.py.
+the two routes. The curve work runs in ops/ed25519_fused.py, and the
+JAX module's entries over it are here: `verify_batch`, `verify_kernel`
+and `verify_tally_kernel` launch the CUDA `ed25519_verify` (and
+`tally_quorum`) on the card, or run their plain versions for
+device="cpu".
 
 Voting powers ride as 5 x 13-bit limbs so the tally stays int32 on the
 device: power < 2^63 and MaxTotalVotingPower = MaxInt64/8
@@ -48,8 +52,15 @@ def bucket_size(n: int) -> int:
 # --------------------------------------------------------------------------
 
 
+def scalar_digits(v: int) -> np.ndarray:
+    """256-bit int -> 64 base-16 digits, little-endian."""
+    return nibbles(np.frombuffer(int.to_bytes(v, 32, "little"), np.uint8))
+
+
 def nibbles(b: np.ndarray) -> np.ndarray:
-    """(..., 32) uint8 -> (..., 64) int32 base-16 digits, little-endian."""
+    """(..., 32) uint8 -> (..., 64) int32 base-16 digits, little-endian.
+
+    Batched scalar_digits: one numpy pass for the whole batch."""
     lo = (b & 0xF).astype(np.int32)
     hi = (b >> 4).astype(np.int32)
     return np.stack([lo, hi], axis=-1).reshape(b.shape[:-1] + (64,))
@@ -315,3 +326,56 @@ def carry_quorum(partials: torch.Tensor, threshold: torch.Tensor):
 
 
 carry_quorum.launches = 0
+
+
+# --------------------------------------------------------------------------
+# entry points (the JAX module's, over ops/ed25519_fused.py's kernels)
+# --------------------------------------------------------------------------
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _packed(ay, asign, ry, rsign, sdig, hdig, precheck) -> PackedBatch:
+    f = [_host(x) for x in (ay, asign, ry, rsign, sdig, hdig, precheck)]
+    B = f[0].shape[0]
+    return PackedBatch(B, B, *f)
+
+
+def verify_kernel(ay, asign, ry, rsign, sdig, hdig, precheck, device=None):
+    """Verification only (no tally), the plain BatchVerifier.Verify path:
+    a PackedBatch's fields (numpy arrays or tensors) -> (B,) bool tensor
+    on `device`. One `ed25519_verify` launch on the card (None, which
+    raises DeviceError without one), its plain version for "cpu"."""
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+
+    pb = _packed(ay, asign, ry, rsign, sdig, hdig, precheck)
+    return kf.verify_rows(kf.pack_rows(pb), device)
+
+
+def verify_tally_kernel(ay, asign, ry, rsign, sdig, hdig, precheck, power5,
+                        counted, commit_ids, threshold, n_commits: int,
+                        device=None):
+    """Batched ZIP-215 verify + per-commit quorum tally over a
+    PackedBatch's fields, (B, 5) power limbs, (B,) counted flags and
+    commit ids, and (n_commits, TALLY_LIMBS) thresholds -> (valid (B,)
+    bool, tally (n_commits, TALLY_LIMBS) int32, quorum (n_commits,) bool)
+    tensors on `device`: one upload, `ed25519_verify` then `tally_quorum`
+    on the card, their plain versions for "cpu"."""
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+
+    pb = _packed(ay, asign, ry, rsign, sdig, hdig, precheck)
+    rows = kf.pack_rows(pb, _host(power5), _host(counted),
+                        _host(commit_ids), _host(threshold))
+    return kf.verify_tally_rows(rows, n_commits, device)
+
+
+def verify_batch(pubkeys, msgs, sigs, device=None) -> np.ndarray:
+    """Verify a batch; (n,) bool numpy validity (the per-signature valid
+    slice of crypto/ed25519/ed25519.go:236 Verify(), which the blame path
+    of types/validation.go:243 needs). `pack_batch` pads the rows to
+    their bucket, then one `ed25519_verify` launch on `device`."""
+    from cometbft_tpu_torch.ops import ed25519_fused
+
+    return ed25519_fused.verify_batch(pubkeys, msgs, sigs, device=device)

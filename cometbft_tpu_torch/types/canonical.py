@@ -203,6 +203,57 @@ def split_ts_words(secs, nanos, out: Optional[np.ndarray] = None
     return out
 
 
+class DeltaRows:
+    """The compact per-row delta form of a vote batch: one int64
+    secs/nanos pair per row against a shared VoteRowTemplate, not full
+    packed sign-bytes (~12 B a row of payload where a packed row carries
+    the whole message). ``ts_words()`` is the exact int32 staging layout
+    the stamp kernel (ops/ed25519_stamp.py) consumes: a 64-bit seconds
+    value ships as a lo/hi pair. ``expand()`` rebuilds the rows from those
+    words through the numpy reference, the differential oracle that the
+    delta form is lossless."""
+
+    __slots__ = ("template", "secs", "nanos")
+
+    def __init__(self, template: "VoteRowTemplate", secs: np.ndarray,
+                 nanos: np.ndarray):
+        self.template = template
+        self.secs = secs
+        self.nanos = nanos
+
+    def __len__(self) -> int:
+        return int(self.secs.shape[0])
+
+    def stampable(self) -> bool:
+        """Device-stamp eligibility: nanos must fit an int32 word (the
+        staging layout sign-extends it on the device; out-of-range nanos,
+        which no real Timestamp has, take the host pack)."""
+        if self.nanos.size == 0:
+            return True
+        lo, hi = int(self.nanos.min()), int(self.nanos.max())
+        return lo >= -(2 ** 31) and hi < 2 ** 31
+
+    def ts_words(self) -> np.ndarray:
+        """(n, 3) int32, the staged delta words: [secs_lo, secs_hi,
+        nanos]."""
+        return split_ts_words(self.secs, self.nanos)
+
+    @property
+    def nbytes(self) -> int:
+        """Staged delta payload bytes (the ledger's delta_bytes unit)."""
+        return int(self.secs.shape[0]) * 3 * 4
+
+    def expand(self) -> SignRows:
+        """Numpy reference expansion FROM THE STAGED WORDS, not from the
+        original int64s, so byte-equality against patch_rows proves the
+        int32 staging round-trips losslessly."""
+        w = self.ts_words()
+        secs = (w[:, 0].view(np.uint32).astype(np.uint64)
+                | (w[:, 1].astype(np.int64).view(np.uint64)
+                   << np.uint64(32))).view(np.int64)
+        return self.template.patch_rows(secs, w[:, 2].astype(np.int64))
+
+
 class VoteRowTemplate:
     """Vectorized row builder for one (chain_id, type, height, round,
     block_id): the invariant prefix/suffix encode once, then
@@ -242,6 +293,14 @@ class VoteRowTemplate:
             site = StampSite(self._pre_arr, self._suf_arr, self.TS_TAG)
             self._site = site
         return site
+
+    def delta_rows(self, secs: Sequence[int],
+                   nanos: Sequence[int]) -> DeltaRows:
+        """The compact delta form of patch_rows: per-row (secs, nanos)
+        against this template. The stamp kernel expands it on the device;
+        DeltaRows.expand() is its numpy oracle."""
+        return DeltaRows(self, np.asarray(secs, np.int64),
+                         np.asarray(nanos, np.int64))
 
     def patch_rows(self, secs: Sequence[int],
                    nanos: Sequence[int]) -> SignRows:

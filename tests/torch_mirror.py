@@ -75,7 +75,53 @@ HOST_SIMNET = ("    from torch_mirror import port_simnet as Simnet\n",
                "    from torch_mirror import port_host_simnet as Simnet\n")
 
 
-def load(name: str, subs=()) -> types.ModuleType:
+def _close_paren(src: str, i: int) -> int:
+    """Index of the parenthesis closing the one at src[i]; quotes are
+    skipped (no escapes inside the calls this rewrites)."""
+    depth, quote = 0, None
+    for j in range(i, len(src)):
+        c = src[j]
+        if quote:
+            quote = None if c == quote else quote
+        elif c in "'\"":
+            quote = c
+        elif c in "([{":
+            depth += 1
+        elif c in ")]}":
+            depth -= 1
+            if depth == 0:
+                return j
+    raise ValueError("unbalanced call")
+
+
+def cpu_calls(src: str, name: str) -> str:
+    """Every call of `name` (a function's dotted name as the source
+    spells it) in `src` with `device="cpu"` added as its last argument:
+    the port's default device is the card, which raises DeviceError
+    here, where the JAX call has no device. Each name must be called."""
+    pat = re.compile(r"(?<![\w.])" + re.escape(name) + r"\(")
+    out, pos, n = [], 0, 0
+    for m in pat.finditer(src):
+        if m.start() < pos:
+            continue
+        close = _close_paren(src, m.end() - 1)
+        inner = src[m.end():close]
+        stripped = inner.rstrip()
+        if not stripped:
+            inner = 'device="cpu"'
+        elif stripped.endswith(","):
+            inner = stripped + ' device="cpu"' + inner[len(stripped):]
+        else:
+            inner += ', device="cpu"'
+        out.append(src[pos:m.end()] + inner)
+        pos, n = close, n + 1
+    assert n, f"no call of {name}"
+    return "".join(out) + src[pos:]
+
+
+def load(name: str, subs=(), cpu=()) -> types.ModuleType:
+    """`cpu`: dotted function names whose every call runs on the plain
+    kernels (`cpu_calls`), after `subs`."""
     path = TESTS / name
     src = _JAX_NAME.sub("cometbft_tpu_torch", path.read_text())
     src = src.replace(
@@ -87,6 +133,8 @@ def load(name: str, subs=()) -> types.ModuleType:
     for old, new in subs:
         assert old in src, f"{name}: no {old!r} to replace"
         src = src.replace(old, new)
+    for fn in cpu:
+        src = cpu_calls(src, fn)
     mod = types.ModuleType(f"mirror_port_{path.stem}")
     mod.__file__ = str(path)
     # a dataclass looks its module up by name
@@ -143,18 +191,23 @@ def host_plane():
         plane.stop()
 
 
-def run(mod, name: str, request, plane: bool = True) -> None:
+def run(mod, name: str, request, plane: bool = True,
+        args: dict = None) -> None:
     """`plane=False` runs the test with no plane mounted, for a test
-    whose nodes verify on the host by themselves (port_host_simnet)."""
+    whose nodes verify on the host by themselves (port_host_simnet).
+    `args` are a parametrised case's arguments (`param_cases`); the
+    test's other arguments are fixtures."""
     fn = getattr(mod, name)
     fixtures = _fixtures(mod)
+    args = args or {}
     with contextlib.ExitStack() as stack:
         if plane:
             stack.enter_context(host_plane())
         for k, (_, marker) in fixtures.items():
             if marker.autouse:
                 _call_fixture(mod, k, request, stack, fixtures)
-        kwargs = {a: _resolve(mod, a, request, stack, fixtures)
+        kwargs = {a: args[a] if a in args
+                  else _resolve(mod, a, request, stack, fixtures)
                   for a in inspect.signature(fn).parameters}
         fn(**kwargs)
 
@@ -164,6 +217,89 @@ def cases(mod, names):
     import pytest
 
     return [pytest.param(mod, n, id=f"port-{n}") for n in names]
+
+
+def module_tests(mod) -> list:
+    """Every test function of a mirror module, in source order."""
+    return [k for k, v in vars(mod).items()
+            if k.startswith("test_") and inspect.isfunction(v)
+            and v.__module__ == mod.__name__]
+
+
+# the JAX kernels' XLA route (in place of Pallas), on the port the plain
+# kernels: the port has one route a kernel, on the device it is given
+NO_PALLAS = ("use_pallas=False", 'device="cpu"')
+
+
+DEVICE_ERROR = "from cometbft_tpu_torch.device import DeviceError\n"
+
+
+EXP_CHECK = "np.testing.assert_array_equal(got, np.asarray(exp))"
+
+
+def c1(call: str, before: str = "", indent: str = "    ",
+       checked: bool = True) -> tuple:
+    """The C1 substitution for one faulted call. Where the JAX test takes
+    the host fallback's verdicts, `{indent}got = {call}` then
+    `{indent}{EXP_CHECK}` (or `{indent}{call}` alone, `checked=False`),
+    the port raises DeviceError: it never verifies on the host behind a
+    device fault (ROADMAP C1). The call moves into
+    `pytest.raises(DeviceError)`. `before`, the exact text just before
+    it, picks one occurrence and stays. The mirror needs `DEVICE_ERROR`
+    among its imports."""
+    old = (f"{before}{indent}got = {call}\n{indent}{EXP_CHECK}\n"
+           if checked else f"{before}{indent}{call}\n")
+    new = (f"{before}{indent}with pytest.raises(DeviceError):\n"
+           f"{indent}    {call}\n")
+    return old, new
+
+
+def _case_id(names, values, i) -> str:
+    parts = []
+    for n, v in zip(names, values):
+        simple = isinstance(v, (int, str, bool)) and len(str(v)) <= 16
+        parts.append(str(v) if simple else f"{n}{i}")
+    return "-".join(parts)
+
+
+def param_cases(mod, names):
+    """pytest params (module, test name, arguments), one a case of each
+    test in `names`, as pytest would run the module itself: a test's
+    `pytest.mark.parametrize` marks (stacked ones multiply) give one case
+    a combination of values, with its id; a test without them gives one
+    case with no arguments. Run each with `run(mod, name, request,
+    args=arguments)`. The JAX module's own marks (a skip, a slow mark)
+    are not carried over."""
+    import itertools
+
+    import pytest
+
+    out = []
+    for name in names:
+        fn = getattr(mod, name)
+        axes = []
+        for mark in reversed(getattr(fn, "pytestmark", [])):
+            if mark.name != "parametrize":
+                continue
+            argnames, argvalues = mark.args[:2]
+            if isinstance(argnames, str):
+                argnames = [a.strip() for a in argnames.split(",")]
+            rows = []
+            for i, v in enumerate(argvalues):
+                vals = getattr(v, "values", None)
+                if vals is None:
+                    vals = (v,) if len(argnames) == 1 else tuple(v)
+                rows.append((dict(zip(argnames, vals)),
+                             getattr(v, "id", None)
+                             or _case_id(argnames, vals, i)))
+            axes.append(rows)
+        for combo in itertools.product(*axes):
+            args = {k: v for a, _ in combo for k, v in a.items()}
+            cid = "-".join(c for _, c in combo)
+            out.append(pytest.param(
+                mod, name, args,
+                id=f"port-{name}" + (f"[{cid}]" if cid else "")))
+    return out
 
 
 BENCH_HELPERS = ("peer_ledger_bookkeeping_us", "height_ledger_bookkeeping_us")
