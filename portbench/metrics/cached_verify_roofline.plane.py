@@ -1,0 +1,9 @@
+"""cached_verify_roofline.plane: the share of the card's peak multiply-add
+rate that the cached_verify kernel reaches in the profiled slice: the
+frozen work of a signature times the live rows it verified, over its
+device time."""
+from portbench import stats
+
+
+def read(rec):
+    return stats.slice_roofline(rec.profile, "cached_verify")
