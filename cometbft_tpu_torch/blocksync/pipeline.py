@@ -29,10 +29,20 @@ Kernel launches return at once, so the host stages chunk k+1 while the
 device works on chunk k; at most 2 chunks are in flight, and fetching
 chunk k's results (`_collect`, the one synchronisation point) overlaps
 the next dispatch.
+
+A call's stages, always timed into `StreamVerifier.stats` and each a
+`blocksync.*` span (libs/tracing.py) with the call's and the chunk's
+index: `precheck` a call; then a chunk's `rows` (valset arrays, per-row
+lists, thresholds), `pack` (the host pack), `layout` (the packed rows
+or the stamping deltas; after the launches, the chunk's row arrays),
+`dispatch` (upload and launches), all inside its `blocksync.chunk` span
+and its `host_ms` bracket; and in `_collect` its `wait` (the host
+blocked on the card) and `verdicts`.
 """
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -40,6 +50,7 @@ import numpy as np
 
 from cometbft_tpu_torch import native as _native
 from cometbft_tpu_torch.device import resolve
+from cometbft_tpu_torch.libs import tracing
 from cometbft_tpu_torch.libs.staging import StagingPool
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
 from cometbft_tpu_torch.types.commit import Commit
@@ -53,6 +64,22 @@ from cometbft_tpu_torch.types.validator import ValidatorSet
 
 # Fixed commit-axis padding: a chunk's commit count never exceeds it.
 MAX_COMMITS_PER_CHUNK = 64
+
+# A chunk's stages: the first four inside its host_ms bracket, the last
+# two in _collect. stats["stage_ms"][stage] runs parallel to host_ms.
+CHUNK_STAGES = ("rows", "pack", "layout", "dispatch")
+STAGES = CHUNK_STAGES + ("wait", "verdicts")
+_ROWS, _PACK, _LAYOUT, _DISPATCH = range(len(CHUNK_STAGES))
+_SPANS = tuple(f"blocksync.{s}" for s in CHUNK_STAGES)
+
+# every live verifier, weakly held, so a reader of its stage readings
+# (a benchmark metric, an operator's tool) needs no handle to it
+_VERIFIERS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def live_verifiers() -> List["StreamVerifier"]:
+    """Snapshot of every StreamVerifier still alive in this process."""
+    return list(_VERIFIERS)
 
 
 @dataclass
@@ -75,6 +102,43 @@ class _Chunk:
     row_pos: Optional[np.ndarray] = None  # device column per packed sig
     # (None = rows are dense 0..n-1; cached-table chunks stride commits
     # to the valset table period so column b mod M == validator index)
+    branch: str = "general"   # or "stamped", "host_packed_cached"
+    call: int = 0             # the verify call's sequence number
+    index: int = 0            # the chunk's index in stats["host_ms"]
+
+
+class _StageClock:
+    """A chunk's four host stages inside its host_ms bracket. Each stage
+    boundary reads the clock once and charges the time since the last
+    reading to the stage that ran, so the stages sum to the bracket; the
+    boundary also opens the stage's span. A stage may run more than once
+    in a chunk: the chunk's row arrays are built in `layout` after the
+    launches, while the card verifies."""
+
+    __slots__ = ("call", "chunk", "cur", "t0", "t", "s")
+
+    def __init__(self):
+        self.call = self.chunk = self.cur = 0
+        self.t0 = self.t = 0.0
+        self.s = [0.0] * len(CHUNK_STAGES)   # seconds by stage
+
+    def start(self, call: int, chunk: int) -> None:
+        self.call, self.chunk, self.cur = call, chunk, _ROWS
+        self.s[:] = (0.0,) * len(CHUNK_STAGES)
+        self.t0 = self.t = time.perf_counter()
+
+    def stage(self, i: int):
+        now = time.perf_counter()
+        self.s[self.cur] += now - self.t
+        self.t, self.cur = now, i
+        return tracing.span(_SPANS[i], "blocksync", call=self.call,
+                            chunk=self.chunk)
+
+    def stop(self) -> float:
+        """The bracket's milliseconds."""
+        now = time.perf_counter()
+        self.s[self.cur] += now - self.t
+        return (now - self.t0) * 1e3
 
 
 class StreamVerifier:
@@ -88,8 +152,11 @@ class StreamVerifier:
     `device` is where the kernels run (None: the CUDA card; "cpu": the
     plain PyTorch versions). `native=False` packs on the host with the
     numpy plain version instead of the native host packer. `stats` counts
-    chunks by branch and records the host wall time of staging and
-    dispatching each chunk."""
+    chunks by branch and records, always, the host wall time of staging
+    and dispatching each chunk (`host_ms`), each chunk's stages
+    (`stage_ms`: a list a stage, parallel to `host_ms`), and each call's
+    precheck (`precheck_ms`: (index of the call's first chunk in
+    `host_ms`, ms) a call)."""
 
     def __init__(self, max_sigs: int = 65536, device=None,
                  min_device_sigs: int = 129, native: bool = True):
@@ -105,7 +172,13 @@ class StreamVerifier:
         # packs
         self._staging = StagingPool(slots=3)
         self.stats = {"stamped_chunks": 0, "host_packed_cached_chunks": 0,
-                      "general_chunks": 0, "host_ms": []}
+                      "general_chunks": 0, "host_ms": [],
+                      "stage_ms": {s: [] for s in STAGES},
+                      "precheck_ms": []}
+        self._calls = 0
+        self._vs_misses = 0
+        self._clock = _StageClock()
+        _VERIFIERS.add(self)
 
     # -- packing -----------------------------------------------------------
 
@@ -155,6 +228,7 @@ class StreamVerifier:
         cached = self._vs_cache.get(id(vs))
         if cached is not None and cached[3] is vs:
             return cached[:3]
+        self._vs_misses += 1
         keys = tuple(v.pub_key.data for v in vs.validators)
         powers = tuple(v.voting_power for v in vs.validators)
         keys_ok = all(len(k) == 32 for k in keys)
@@ -190,81 +264,95 @@ class StreamVerifier:
         counted=0)."""
         from cometbft_tpu_torch.ops import ed25519_cached as ec
 
-        M = table.n_vals
-        cap = self._cap(table)
-        assert len(jobs) <= cap
-        B = cap * M
+        clk = self._clock
+        with clk.stage(_ROWS):
+            M = table.n_vals
+            cap = self._cap(table)
+            assert len(jobs) <= cap
+            B = cap * M
 
-        pubs: List[bytes] = []
-        sigs: List[bytes] = []
-        row_job: List[int] = []
-        row_idx: List[int] = []
-        row_pos: List[int] = []
-        row_ts: List[tuple] = []
-        job_idxs: List[tuple] = []  # (j, idxs) for the plain host pack
-        keys, _, _ = self._valset_arrays(jobs[0][1].vals)
-        nvals = len(keys)
-        for j, (_, job) in enumerate(jobs):
-            css = job.commit.signatures
-            idxs = [i for i, cs in enumerate(css)
-                    if cs.for_block() and i < nvals]
-            if not idxs:
-                continue
-            pubs += [keys[i] for i in idxs]
-            sigs += [css[i].signature for i in idxs]
-            row_ts += [(css[i].timestamp.seconds, css[i].timestamp.nanos)
-                       for i in idxs]
-            row_job += [j] * len(idxs)
-            row_idx += idxs
-            row_pos += [j * M + i for i in idxs]
-            job_idxs.append((j, idxs))
-        if not pubs:
-            return None
-        n = len(pubs)
-        if any(len(s) != 64 for s in sigs):
-            return None  # malformed rows: the general path screens them
-        pos = np.asarray(row_pos, np.int64)
-        thresh = np.zeros((cap, ek.TALLY_LIMBS), np.int32)
-        thresh[:, -1] = ek.POWER_MASK  # unreachable for padded job slots
-        for j, (_, job) in enumerate(jobs):
-            thresh[j] = ek.threshold_limbs(
-                job.vals.total_voting_power() * 2 // 3
-            )[0]
+            pubs: List[bytes] = []
+            sigs: List[bytes] = []
+            row_job: List[int] = []
+            row_idx: List[int] = []
+            row_pos: List[int] = []
+            row_ts: List[tuple] = []
+            job_idxs: List[tuple] = []  # (j, idxs) for the plain host pack
+            keys, _, _ = self._valset_arrays(jobs[0][1].vals)
+            nvals = len(keys)
+            for j, (_, job) in enumerate(jobs):
+                css = job.commit.signatures
+                idxs = [i for i, cs in enumerate(css)
+                        if cs.for_block() and i < nvals]
+                if not idxs:
+                    continue
+                pubs += [keys[i] for i in idxs]
+                sigs += [css[i].signature for i in idxs]
+                row_ts += [(css[i].timestamp.seconds, css[i].timestamp.nanos)
+                           for i in idxs]
+                row_job += [j] * len(idxs)
+                row_idx += idxs
+                row_pos += [j * M + i for i in idxs]
+                job_idxs.append((j, idxs))
+            if not pubs:
+                return None
+            n = len(pubs)
+            if any(len(s) != 64 for s in sigs):
+                return None  # malformed rows: the general path screens them
+            pos = np.asarray(row_pos, np.int64)
+            thresh = np.zeros((cap, ek.TALLY_LIMBS), np.int32)
+            thresh[:, -1] = ek.POWER_MASK  # unreachable for padded job slots
+            for j, (_, job) in enumerate(jobs):
+                thresh[j] = ek.threshold_limbs(
+                    job.vals.total_voting_power() * 2 // 3
+                )[0]
         # delta staging first: when every job stamps, the host pack below
         # (SHA-512 + mod-L per row) never runs
         pending = self._stamp_chunk(jobs, sigs, row_ts, row_job, pos,
                                     B, cap, table, thresh)
         if pending is not None:
             self.stats["stamped_chunks"] += 1
-            return _Chunk(list(jobs), np.asarray(row_job),
-                          np.asarray(row_idx), pending, row_pos=pos)
+            with clk.stage(_LAYOUT):
+                return _Chunk(list(jobs), np.asarray(row_job),
+                              np.asarray(row_idx), pending, row_pos=pos,
+                              branch="stamped")
         # dense pack (keys and signatures are well formed here), then
         # scatter to the strided layout
-        pbd = self._host_pack(jobs, job_idxs, pubs, sigs, row_job, row_ts,
-                              n)
-        pool = self._staging
-        ry = pool.get("chunk.ry", (B, pbd.ry.shape[1]), pbd.ry.dtype)
-        ry[pos] = pbd.ry[:n]
-        rsign = pool.get("chunk.rsign", (B,), np.int32)
-        rsign[pos] = np.asarray(pbd.rsign[:n], np.int32)
-        sdig = pool.get("chunk.sdig", (B, pbd.sdig.shape[1]), pbd.sdig.dtype)
-        sdig[pos] = pbd.sdig[:n]
-        hdig = pool.get("chunk.hdig", (B, pbd.hdig.shape[1]), pbd.hdig.dtype)
-        hdig[pos] = pbd.hdig[:n]
-        precheck = pool.get("chunk.precheck", (B,), np.bool_)
-        precheck[pos] = np.asarray(pbd.precheck[:n], np.bool_)
-        counted = pool.get("chunk.counted", (B,), np.bool_)
-        counted[pos] = True
-        commit_ids = pool.get("chunk.cid", (B,), np.int32)
-        for j in range(cap):
-            commit_ids[j * M:(j + 1) * M] = j
-        pb = ek.PackedBatch(n, B, None, None, ry, rsign, sdig, hdig, precheck)
-        out = pool.get("chunk.rows", ec.packed_rows_shape(B, cap), np.int32)
-        rows = ec.pack_rows_cached(pb, counted, commit_ids, thresh, out=out)
-        pending = ec.verify_tally_rows_cached(rows, table, cap)
+        with clk.stage(_PACK):
+            pbd = self._host_pack(jobs, job_idxs, pubs, sigs, row_job,
+                                  row_ts, n)
+        with clk.stage(_LAYOUT):
+            pool = self._staging
+            ry = pool.get("chunk.ry", (B, pbd.ry.shape[1]), pbd.ry.dtype)
+            ry[pos] = pbd.ry[:n]
+            rsign = pool.get("chunk.rsign", (B,), np.int32)
+            rsign[pos] = np.asarray(pbd.rsign[:n], np.int32)
+            sdig = pool.get("chunk.sdig", (B, pbd.sdig.shape[1]),
+                            pbd.sdig.dtype)
+            sdig[pos] = pbd.sdig[:n]
+            hdig = pool.get("chunk.hdig", (B, pbd.hdig.shape[1]),
+                            pbd.hdig.dtype)
+            hdig[pos] = pbd.hdig[:n]
+            precheck = pool.get("chunk.precheck", (B,), np.bool_)
+            precheck[pos] = np.asarray(pbd.precheck[:n], np.bool_)
+            counted = pool.get("chunk.counted", (B,), np.bool_)
+            counted[pos] = True
+            commit_ids = pool.get("chunk.cid", (B,), np.int32)
+            for j in range(cap):
+                commit_ids[j * M:(j + 1) * M] = j
+            pb = ek.PackedBatch(n, B, None, None, ry, rsign, sdig, hdig,
+                                precheck)
+            out = pool.get("chunk.rows", ec.packed_rows_shape(B, cap),
+                           np.int32)
+            rows = ec.pack_rows_cached(pb, counted, commit_ids, thresh,
+                                       out=out)
+        with clk.stage(_DISPATCH):
+            pending = ec.verify_tally_rows_cached(rows, table, cap)
         self.stats["host_packed_cached_chunks"] += 1
-        return _Chunk(list(jobs), np.asarray(row_job),
-                      np.asarray(row_idx), pending, row_pos=pos)
+        with clk.stage(_LAYOUT):
+            return _Chunk(list(jobs), np.asarray(row_job),
+                          np.asarray(row_idx), pending, row_pos=pos,
+                          branch="host_packed_cached")
 
     def _stamp_chunk(self, jobs, sigs, row_ts, row_job, pos, B, cap,
                      table, thresh):
@@ -282,102 +370,111 @@ class StreamVerifier:
 
         if len(jobs) > es.MAX_TEMPLATE_SITES:
             return None
-        if any(not (-2**63 <= s < 2**63 and -2**31 <= nn < 2**31)
-               for s, nn in row_ts):
-            return None
-        sites = []
-        for _, job in jobs:
-            tpl = canonical.VoteRowTemplate(
-                job.chain_id, canonical.PRECOMMIT_TYPE,
-                job.commit.height, job.commit.round,
-                job.commit.block_id)
-            sites.append(tpl.stamp_site())
-        try:
-            ent = es.template_entry(sites, self.device)
-        except ValueError:  # oversized site list: host pack
-            return None
-        sec_a = np.fromiter((s for s, _ in row_ts), np.int64,
-                            count=len(row_ts))
-        nan_a = np.fromiter((nn for _, nn in row_ts), np.int64,
-                            count=len(row_ts))
-        pool = self._staging
-        dsig = pool.get("chunk.dsig", (B, 64), np.uint8)
-        dsig[pos] = np.frombuffer(b"".join(sigs),
-                                  np.uint8).reshape(-1, 64)
-        dts = pool.get("chunk.dts", (B, 3), np.int32)
-        dts[pos] = canonical.split_ts_words(sec_a, nan_a)
-        dfl = pool.get("chunk.dflags", (B,), np.int32)
-        rj = np.asarray(row_job, np.int64)
-        # live | counted | tmpl_id<<2 | cid<<10: every packed chunk row is
-        # countable (the for_block filter already ran); dead lanes keep
-        # the pool's zero fill (live=0 -> zero column)
-        dfl[pos] = (3 | (rj << 2) | (rj << 10)).astype(np.int32)
-        return es.verify_tally_delta_cached(dsig, dts, dfl, ent, table,
-                                            cap, thresh)
+        clk = self._clock
+        with clk.stage(_LAYOUT):
+            if any(not (-2**63 <= s < 2**63 and -2**31 <= nn < 2**31)
+                   for s, nn in row_ts):
+                return None
+            sites = []
+            for _, job in jobs:
+                tpl = canonical.VoteRowTemplate(
+                    job.chain_id, canonical.PRECOMMIT_TYPE,
+                    job.commit.height, job.commit.round,
+                    job.commit.block_id)
+                sites.append(tpl.stamp_site())
+            try:
+                ent = es.template_entry(sites, self.device)
+            except ValueError:  # oversized site list: host pack
+                return None
+            sec_a = np.fromiter((s for s, _ in row_ts), np.int64,
+                                count=len(row_ts))
+            nan_a = np.fromiter((nn for _, nn in row_ts), np.int64,
+                                count=len(row_ts))
+            pool = self._staging
+            dsig = pool.get("chunk.dsig", (B, 64), np.uint8)
+            dsig[pos] = np.frombuffer(b"".join(sigs),
+                                      np.uint8).reshape(-1, 64)
+            dts = pool.get("chunk.dts", (B, 3), np.int32)
+            dts[pos] = canonical.split_ts_words(sec_a, nan_a)
+            dfl = pool.get("chunk.dflags", (B,), np.int32)
+            rj = np.asarray(row_job, np.int64)
+            # live | counted | tmpl_id<<2 | cid<<10: every packed chunk row
+            # is countable (the for_block filter already ran); dead lanes
+            # keep the pool's zero fill (live=0 -> zero column)
+            dfl[pos] = (3 | (rj << 2) | (rj << 10)).astype(np.int32)
+        with clk.stage(_DISPATCH):
+            return es.verify_tally_delta_cached(dsig, dts, dfl, ent, table,
+                                                cap, thresh)
 
     def _pack_chunk(self, jobs) -> Optional[_Chunk]:
         """The general chunk (jobs: [(global_idx, CommitJob)]): dense rows
         with per-row keys and powers through the general kernels."""
-        pubs: List[bytes] = []
-        sigs: List[bytes] = []
-        row_job: List[int] = []
-        row_idx: List[int] = []
-        powers: List[int] = []
-        row_ts: List[tuple] = []
-        job_idxs: List[tuple] = []  # (j, idxs) for the plain host pack
-        well_formed = True
-        for j, (_, job) in enumerate(jobs):
-            keys, vpowers, keys_ok = self._valset_arrays(job.vals)
-            css = job.commit.signatures
-            nvals = len(keys)
-            idxs = [i for i, cs in enumerate(css)
-                    if cs.for_block() and i < nvals]
-            if not idxs:
-                continue
-            pubs += [keys[i] for i in idxs]
-            sigs += [css[i].signature for i in idxs]
-            row_ts += [(css[i].timestamp.seconds, css[i].timestamp.nanos)
-                       for i in idxs]
-            row_job += [j] * len(idxs)
-            row_idx += idxs
-            powers += [vpowers[i] for i in idxs]
-            job_idxs.append((j, idxs))
-            if not keys_ok or any(len(css[i].signature) != 64
-                                  for i in idxs):
-                well_formed = False  # the numpy screen takes bad rows
-        if not pubs:
-            return None
         from cometbft_tpu_torch.ops import ed25519_fused as kf
 
-        n = len(pubs)
-        pad = kf.pad_to_tile(n)
-        if well_formed:
-            pb = self._host_pack(jobs, job_idxs, pubs, sigs, row_job, row_ts,
-                                 pad)
-        else:
-            pb = ek.pack_batch(pubs, self._template_msgs(jobs, job_idxs),
-                               sigs, pad_to=pad, native=self.native)
-        power5 = np.zeros((pad, ek.POWER_LIMBS), np.int32)
-        power5[:n] = ek.power_limbs(np.asarray(powers, np.int64))
-        counted = np.zeros((pad,), np.bool_)
-        counted[:n] = True
-        # a fixed commit axis plus one sink id for the padding rows, so
-        # they can't pollute job 0's quorum
-        c_pad = MAX_COMMITS_PER_CHUNK + 1
-        commit_ids = np.zeros((pad,), np.int32)
-        commit_ids[:n] = np.asarray(row_job, np.int32)
-        commit_ids[n:] = c_pad - 1
-        thresh = np.zeros((c_pad, ek.TALLY_LIMBS), np.int32)
-        thresh[:, -1] = ek.POWER_MASK  # unused/sink: unreachable threshold
-        for j, (_, job) in enumerate(jobs):
-            thresh[j] = ek.threshold_limbs(
-                job.vals.total_voting_power() * 2 // 3
-            )[0]
-        rows = kf.pack_rows(pb, power5, counted, commit_ids, thresh)
-        pending = kf.verify_tally_rows(rows, c_pad, self.device)
+        clk = self._clock
+        with clk.stage(_ROWS):
+            pubs: List[bytes] = []
+            sigs: List[bytes] = []
+            row_job: List[int] = []
+            row_idx: List[int] = []
+            powers: List[int] = []
+            row_ts: List[tuple] = []
+            job_idxs: List[tuple] = []  # (j, idxs) for the plain host pack
+            well_formed = True
+            for j, (_, job) in enumerate(jobs):
+                keys, vpowers, keys_ok = self._valset_arrays(job.vals)
+                css = job.commit.signatures
+                nvals = len(keys)
+                idxs = [i for i, cs in enumerate(css)
+                        if cs.for_block() and i < nvals]
+                if not idxs:
+                    continue
+                pubs += [keys[i] for i in idxs]
+                sigs += [css[i].signature for i in idxs]
+                row_ts += [(css[i].timestamp.seconds, css[i].timestamp.nanos)
+                           for i in idxs]
+                row_job += [j] * len(idxs)
+                row_idx += idxs
+                powers += [vpowers[i] for i in idxs]
+                job_idxs.append((j, idxs))
+                if not keys_ok or any(len(css[i].signature) != 64
+                                      for i in idxs):
+                    well_formed = False  # the numpy screen takes bad rows
+            if not pubs:
+                return None
+            n = len(pubs)
+            pad = kf.pad_to_tile(n)
+            # a fixed commit axis plus one sink id for the padding rows, so
+            # they can't pollute job 0's quorum
+            c_pad = MAX_COMMITS_PER_CHUNK + 1
+            thresh = np.zeros((c_pad, ek.TALLY_LIMBS), np.int32)
+            thresh[:, -1] = ek.POWER_MASK  # unused/sink: unreachable
+            for j, (_, job) in enumerate(jobs):
+                thresh[j] = ek.threshold_limbs(
+                    job.vals.total_voting_power() * 2 // 3
+                )[0]
+        with clk.stage(_PACK):
+            if well_formed:
+                pb = self._host_pack(jobs, job_idxs, pubs, sigs, row_job,
+                                     row_ts, pad)
+            else:
+                pb = ek.pack_batch(pubs, self._template_msgs(jobs, job_idxs),
+                                   sigs, pad_to=pad, native=self.native)
+        with clk.stage(_LAYOUT):
+            power5 = np.zeros((pad, ek.POWER_LIMBS), np.int32)
+            power5[:n] = ek.power_limbs(np.asarray(powers, np.int64))
+            counted = np.zeros((pad,), np.bool_)
+            counted[:n] = True
+            commit_ids = np.zeros((pad,), np.int32)
+            commit_ids[:n] = np.asarray(row_job, np.int32)
+            commit_ids[n:] = c_pad - 1
+            rows = kf.pack_rows(pb, power5, counted, commit_ids, thresh)
+        with clk.stage(_DISPATCH):
+            pending = kf.verify_tally_rows(rows, c_pad, self.device)
         self.stats["general_chunks"] += 1
-        return _Chunk(jobs, np.asarray(row_job), np.asarray(row_idx),
-                      pending)
+        with clk.stage(_LAYOUT):
+            return _Chunk(jobs, np.asarray(row_job), np.asarray(row_idx),
+                          pending)
 
     # -- the streaming loop ------------------------------------------------
 
@@ -400,37 +497,47 @@ class StreamVerifier:
     ) -> List[Optional[VerificationError]]:
         from cometbft_tpu_torch.types import validation as tv
 
-        results: List[Optional[VerificationError]] = [None] * len(jobs)
-        done = set()
-        # structural prechecks stay host-side (cheap, no device round trip)
-        for i, job in enumerate(jobs):
-            try:
-                _verify_basic(job.vals, job.block_id, job.height, job.commit)
-            except VerificationError as e:
-                results[i] = e
-                done.add(i)
-
-        # commits with non-ed25519 validators route to the grouped batch
-        # dispatch; the fused multi-commit pass assumes ed25519 rows
-        for i, job in enumerate(jobs):
-            if i in done:
-                continue
-            if any(
-                v.pub_key.key_type != "ed25519" for v in job.vals.validators
-            ):
+        stats = self.stats
+        call, self._calls = self._calls, self._calls + 1
+        first = len(stats["host_ms"])
+        t0 = time.perf_counter()
+        with tracing.span("blocksync.precheck", "blocksync", call=call,
+                          chunk=first):
+            results: List[Optional[VerificationError]] = [None] * len(jobs)
+            done = set()
+            # structural prechecks stay host-side (cheap, no device round
+            # trip)
+            for i, job in enumerate(jobs):
                 try:
-                    tv.verify_commit_light(
-                        job.chain_id, job.vals, job.block_id, job.height,
-                        job.commit, tv.device_batch_fn(self.device),
-                    )
+                    _verify_basic(job.vals, job.block_id, job.height,
+                                  job.commit)
                 except VerificationError as e:
                     results[i] = e
-                done.add(i)
+                    done.add(i)
 
-        indexed = [(i, j) for i, j in enumerate(jobs) if i not in done]
-        total_rows = sum(
-            len(j.commit.signatures) for _, j in indexed
-        )
+            # commits with non-ed25519 validators route to the grouped
+            # batch dispatch; the fused multi-commit pass assumes ed25519
+            # rows
+            for i, job in enumerate(jobs):
+                if i in done:
+                    continue
+                if any(v.pub_key.key_type != "ed25519"
+                       for v in job.vals.validators):
+                    try:
+                        tv.verify_commit_light(
+                            job.chain_id, job.vals, job.block_id, job.height,
+                            job.commit, tv.device_batch_fn(self.device),
+                        )
+                    except VerificationError as e:
+                        results[i] = e
+                    done.add(i)
+
+            indexed = [(i, j) for i, j in enumerate(jobs) if i not in done]
+            total_rows = sum(
+                len(j.commit.signatures) for _, j in indexed
+            )
+        stats["precheck_ms"].append((first,
+                                     (time.perf_counter() - t0) * 1e3))
         if total_rows < self.min_device_sigs:
             for gi, job in indexed:
                 try:
@@ -443,10 +550,26 @@ class StreamVerifier:
             return results
 
         in_flight: List[_Chunk] = []
+        clk, stage_ms = self._clock, stats["stage_ms"]
         for chunk_pairs in self._split_for_tables(indexed):
-            t0 = time.perf_counter()
-            chunk = self._pack_any(chunk_pairs)
-            self.stats["host_ms"].append((time.perf_counter() - t0) * 1e3)
+            k = len(stats["host_ms"])
+            misses = self._vs_misses
+            with tracing.span("blocksync.chunk", "blocksync", call=call,
+                              chunk=k) as sp:
+                clk.start(call, k)
+                chunk = self._pack_any(chunk_pairs)
+                ms = clk.stop()
+                if sp is not None:
+                    sp.args.update(
+                        rows=0 if chunk is None else len(chunk.row_job),
+                        jobs=len(chunk_pairs),
+                        branch=None if chunk is None else chunk.branch,
+                        valset_misses=self._vs_misses - misses)
+            stats["host_ms"].append(ms)
+            for name, sec in zip(CHUNK_STAGES, clk.s):
+                stage_ms[name].append(sec * 1e3)
+            stage_ms["wait"].append(0.0)      # _collect fills these in
+            stage_ms["verdicts"].append(0.0)
             if chunk is None:
                 # zero packable rows (e.g. every signature ABSENT): fail
                 # CLOSED, these commits tallied no power at all
@@ -455,6 +578,7 @@ class StreamVerifier:
                         0, job.vals.total_voting_power() * 2 // 3
                     )
             else:
+                chunk.call, chunk.index = call, k
                 in_flight.append(chunk)
             # keep at most 2 chunks in flight: fetch the oldest while the
             # newest computes (double buffering)
@@ -477,7 +601,8 @@ class StreamVerifier:
                 yield chunk_pairs[k:k + cap]
 
     def _pack_any(self, jobs) -> Optional[_Chunk]:
-        table = self._cached_table(jobs)
+        with self._clock.stage(_ROWS):
+            table = self._cached_table(jobs)
         if table is not None:
             chunk = self._pack_chunk_cached(jobs, table)
             if chunk is not None:
@@ -486,20 +611,30 @@ class StreamVerifier:
 
     def _collect(self, chunk: _Chunk, results) -> None:
         valid, _, quorum = chunk.pending
-        valid = valid.cpu().numpy()
-        quorum = quorum.cpu().numpy()
-        for j, (gi, job) in enumerate(chunk.jobs):
-            rows = chunk.row_job == j
-            if chunk.row_pos is not None:
-                row_valid = valid[chunk.row_pos[rows]]
-            else:
-                row_valid = valid[: len(chunk.row_job)][rows]
-            if not row_valid.all():
-                bad = chunk.row_idx[rows][~row_valid][0]
-                results[gi] = InvalidSignatureError(int(bad))
-            elif not bool(quorum[j]):
-                needed = job.vals.total_voting_power() * 2 // 3
-                results[gi] = NotEnoughPowerError(-1, needed)
+        t0 = time.perf_counter()
+        with tracing.span("blocksync.wait", "blocksync", call=chunk.call,
+                          chunk=chunk.index):
+            valid = valid.cpu().numpy()
+            quorum = quorum.cpu().numpy()
+        t1 = time.perf_counter()
+        with tracing.span("blocksync.verdicts", "blocksync",
+                          call=chunk.call, chunk=chunk.index):
+            for j, (gi, job) in enumerate(chunk.jobs):
+                rows = chunk.row_job == j
+                if chunk.row_pos is not None:
+                    row_valid = valid[chunk.row_pos[rows]]
+                else:
+                    row_valid = valid[: len(chunk.row_job)][rows]
+                if not row_valid.all():
+                    bad = chunk.row_idx[rows][~row_valid][0]
+                    results[gi] = InvalidSignatureError(int(bad))
+                elif not bool(quorum[j]):
+                    needed = job.vals.total_voting_power() * 2 // 3
+                    results[gi] = NotEnoughPowerError(-1, needed)
+        t2 = time.perf_counter()
+        stage_ms = self.stats["stage_ms"]
+        stage_ms["wait"][chunk.index] = (t1 - t0) * 1e3
+        stage_ms["verdicts"][chunk.index] = (t2 - t1) * 1e3
 
 
 def make_stream_verifier(device=None,

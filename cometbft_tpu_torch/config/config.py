@@ -396,7 +396,10 @@ class TracingConfig:
     the dump_traces RPC as perfetto-loadable Chrome trace JSON).
     `profile_dir` additionally arms the torch.profiler bracket around
     verify-plane device flights — device traces land in that directory
-    aligned with the host spans (expensive; profiling runs only)."""
+    (expensive; profiling runs only). While a torch profiler records,
+    every span is also a `record_function` of its name, so each trace
+    holds the host spans as `user_annotation` events on the clock of
+    its kernel and copy events, tracer on or off."""
 
     enable: bool = False
     buffer: int = 16384     # ring capacity, in events

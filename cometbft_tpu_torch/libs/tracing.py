@@ -14,8 +14,10 @@ Design rules:
 
   * OFF BY DEFAULT, and near-free while off: every hook is a module
     function that loads one global and returns a shared no-op context
-    manager when no tracer is installed. Call sites fire per flush /
-    per step / per fsync — never per signature.
+    manager when no tracer is installed (``span`` also asks whether a
+    torch profiler records: one ``sys.modules`` lookup and one call).
+    Call sites fire per flush / per step / per fsync / per chunk —
+    never per signature.
   * Clock is ``time.perf_counter_ns`` by default. The simnet installs
     ``Timestamp.now().to_ns()`` (its virtual clock) via
     :func:`set_clock`, so the same (seed, schedule) produces an
@@ -34,18 +36,31 @@ Event vocabulary (Chrome trace-event phases):
                            for verify-plane flights so pack(k+1)
                            VISIBLY overlaps device-flight(k) in the UI
 
+One clock with the device: while a ``torch.profiler`` records in this
+process, :func:`span` also opens a ``record_function`` of the same name,
+whether or not a tracer is installed. The span then lands in the
+profiler's own trace as a ``user_annotation`` event, on the clock that
+the trace's kernel, copy and memset events use, so a device idle gap
+reads against the host span that was open across it. The ring's events
+stay on the tracer's clock and keep their shape. This module never
+imports torch: it looks torch up in ``sys.modules``, and with no torch
+loaded no profiler can be recording.
+
 An opt-in ``torch.profiler`` bracket (:func:`profiler_start` /
 :func:`profiler_stop`, armed by ``[tracing] profile_dir``) wraps
-verify-plane flights so device traces line up with the host spans; each
-bracket writes one Chrome trace into ``profile_dir``.
+verify-plane flights; each bracket writes one Chrome trace into
+``profile_dir``, holding the spans mirrored while it recorded.
 
-The port's copy of the JAX package's libs/tracing.py; only the profiler
-bracket differs (the JAX package brackets with ``jax.profiler``).
+The port's copy of the JAX package's libs/tracing.py. It differs in the
+profiler bracket (the JAX package brackets with ``jax.profiler``), in
+mirroring spans into torch's profiler, and in having no ``clock_ns``
+(nothing of the port read it; stamps use :func:`monotonic_ns`).
 """
 from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -86,6 +101,30 @@ class _Span:
     def __exit__(self, *exc):
         self.tr._complete(self.name, self.cat, self.t0,
                           self.tr._clock() - self.t0, self.args)
+        return False
+
+
+class _Annotated:
+    """A span mirrored into the running torch profiler: a
+    ``record_function`` of its name around the tracer's span (or the
+    null span), so it lands in the profiler's trace as a
+    ``user_annotation`` on the device events' clock."""
+
+    __slots__ = ("rf", "inner")
+
+    def __init__(self, name: str, inner):
+        from torch.autograd.profiler import record_function
+
+        self.rf = record_function(name)
+        self.inner = inner
+
+    def __enter__(self):
+        self.rf.__enter__()
+        return self.inner.__enter__()
+
+    def __exit__(self, *exc):
+        self.inner.__exit__(*exc)
+        self.rf.__exit__(*exc)
         return False
 
 
@@ -232,24 +271,14 @@ def set_clock(fn: Optional[Callable[[], int]]) -> None:
         t.set_clock(fn)
 
 
-def clock_ns() -> Optional[int]:
-    """The installed tracer's clock reading, or None when tracing is
-    off. Callers that stamp their own correlation timestamps (e.g. the
-    verify plane's submit-to-pack queue wait) MUST use this instead of
-    a wall clock so the stamps stay on the trace timeline — and stay
-    deterministic under the simnet's virtual clock."""
-    t = _TRACER
-    return None if t is None else t._clock()
-
-
 def monotonic_ns() -> int:
     """Always-available ns clock for ALWAYS-ON accounting (the verify
     plane's flush ledger): the tracer's clock when one is enabled (so
     ledger stamps share the trace timeline), else the module clock when
     installed (virtual under simnet — ledgers of the same (seed,
-    schedule) replay identically), else time.perf_counter_ns. Unlike
-    :func:`clock_ns` this never returns None: the ledger records every
-    flush whether or not tracing is on."""
+    schedule) replay identically), else time.perf_counter_ns. It never
+    returns None: the ledger records every flush whether or not tracing
+    is on."""
     t = _TRACER
     if t is not None:
         return t._clock()
@@ -277,10 +306,14 @@ def clock_gen() -> int:
 
 
 def span(name: str, cat: str = "", **args):
+    """The tracer's span, mirrored into a recording torch profiler; the
+    shared null span when neither runs."""
     t = _TRACER
-    if t is None:
-        return _NULL_SPAN
-    return t.span(name, cat, **args)
+    inner = _NULL_SPAN if t is None else t.span(name, cat, **args)
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.autograd._profiler_enabled():
+        return _Annotated(name, inner)
+    return inner
 
 
 def instant(name: str, cat: str = "", **args) -> None:
