@@ -60,7 +60,12 @@ Phases (any failure exits non-zero and prints no result line):
      the stream's M = 1,024 and at update_table's 128-slot delta (the 8
      rotated keys), the wrapper and each entry against plain, timed in
      device time, and update_table's columns equal to the delta's plain
-     build;
+     build; then the general branch at full size: heights 6-69 (two
+     validator sets, 64,000 live rows in 65,536 columns) in one chunk,
+     stamped by stamp_rows_general (no host pack runs, one launch of it and
+     of the general verify and tally), its outcomes and rows held to the
+     same chunk packed on the host, the kernel to its plain version, timed
+     in device time, and a cold 64-site template build timed;
   7. verify_commit on phase 3's 10k commit with device_batch_fn(cached=True):
      a cold table build, then warm calls; tampered signature 4,321 blamed;
      the path's host pack p50 (native) and the plain pack's time, the two
@@ -1665,6 +1670,141 @@ def _host_pack_chunk(jobs, M, B, thresh):
     return ec.pack_rows_cached(full, live, cids, thresh)
 
 
+def _stream_general(dev, jobs, kernel_stats):
+    """Phase 6's general chunk: heights 6-69 of the stream (59 under V0, 5
+    under V1, so no table serves them) in one chunk of 64,000 live rows in
+    65,536 columns, stamped on the card by stamp_rows_general. Checks the
+    outcomes, that no host pack runs and the launches; holds the stamped
+    rows to the same chunk packed on the host (native commit pack, then
+    pack_rows) and the kernel to its plain version, byte for byte; times
+    the kernel, both ways of the chunk and a cold build of its 64-site
+    template."""
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch import native
+    from cometbft_tpu_torch.blocksync import pipeline as bp
+    from cometbft_tpu_torch.ops import ed25519_fused as kf
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+    from cometbft_tpu_torch.ops import table_cache as tc
+    from cometbft_tpu_torch.types import canonical
+
+    gjobs = jobs[5:69]
+    captured, packs, seen = [], [], []
+    real_delta = es.verify_tally_delta_general
+    real_pack, real_commit_pack = ek.pack_batch, native.ed25519_pack_commits
+    real_rows = kf.verify_tally_rows
+
+    def capture(*a):  # the staging pool reuses its arrays: copy them
+        captured.append([np.array(x) if isinstance(x, np.ndarray) else x
+                         for x in a])
+        return real_delta(*a)
+
+    def counting(real):
+        return lambda *a, **k: packs.append(1) or real(*a, **k)
+
+    def host_rows(rows, n_commits, device=None):
+        seen.append(np.array(rows))
+        return real_rows(rows, n_commits, device)
+
+    saved = read_launches()
+    g0 = es.stamp_rows_general.launches
+    es.verify_tally_delta_general = capture
+    ek.pack_batch = counting(real_pack)
+    native.ed25519_pack_commits = counting(real_commit_pack)
+    try:
+        mark = read_launches()
+        sv = bp.make_stream_verifier()
+        t = time.perf_counter()
+        results = sv.verify(gjobs)
+        stamped_s = time.perf_counter() - t
+        launches = launches_since(mark)
+    finally:
+        es.verify_tally_delta_general = real_delta
+        ek.pack_batch = real_pack
+        native.ed25519_pack_commits = real_commit_pack
+    got = [_outcome(r) for r in results]
+    want = [None] * len(gjobs)
+    want[TAMPER_HEIGHT - 6] = ("InvalidSignatureError", TAMPER_VAL)
+    check(got == want, f"phase6 general chunk outcomes {got}")
+    check(not packs, f"a host pack ran on the stamped general chunk {packs}")
+    check(es.stamp_rows_general.launches == g0 + 1
+          and launches == dict({k: 0 for k in launches},
+                               ed25519_verify=1, tally_quorum=1),
+          f"phase6 general chunk launches {launches}")
+    st = sv.stats
+    check(st["general_chunks"] == st["general_stamped_chunks"] == 1,
+          f"phase6 general chunk branches {st}")
+    # the same chunk packed on the host
+    host = bp.make_stream_verifier()
+    host._stamp_general = lambda *a: None
+    kf.verify_tally_rows = host_rows
+    try:
+        t = time.perf_counter()
+        host_results = host.verify(gjobs)
+        host_s = time.perf_counter() - t
+    finally:
+        kf.verify_tally_rows = real_rows
+    check([_outcome(r) for r in host_results] == got,
+          "phase6 general chunk: host-packed outcomes differ")
+
+    sig, key, ts, flags, power, ent, n_c, thresh, _ = captured[0]
+    args = [torch.from_numpy(x).to(dev) for x in (sig, key, ts, flags, power)]
+    thr = torch.from_numpy(np.ascontiguousarray(thresh, np.int32)).to(dev)
+    B = sig.shape[0]
+    t_rows = max(1, -(-thr.numel() // B))
+    stamp = lambda: es.stamp_rows_general(  # noqa: E731
+        *args, ent, thr, t_rows)
+    sk = stamp()
+    t = time.perf_counter()
+    sp = es.stamp_rows_general_plain(*args, ent.pre_mat, ent.pre_len,
+                                     ent.suf_mat, ent.suf_len, ent.ts_tag,
+                                     thr, ent.msg_max, t_rows)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    err = int((sk.to(torch.int64) - sp.to(torch.int64)).abs().max())
+    check(err == 0, f"stamp_rows_general != plain at {B} columns")
+    check(np.array_equal(sk.cpu().numpy(), seen[0]),
+          "stamp_rows_general != pack_rows of the host pack of the chunk")
+    live = int((flags & 1).sum())
+    blocks = sum(
+        es.sha512_blocks(len(m)) for job in gjobs
+        for m, cs in zip(job.commit.sign_bytes_rows(CHAIN_ID),
+                         job.commit.signatures) if cs.for_block())
+    ms = cuda_ms(stamp, 10)
+    device_ms = dev_ms(stamp, "stamp_rows_general_trace.json")
+    # a cold template: the chunk's 64 sites, evicted, built again
+    sites = [canonical.VoteRowTemplate(
+        job.chain_id, canonical.PRECOMMIT_TYPE, job.commit.height,
+        job.commit.round, job.commit.block_id).stamp_site() for job in gjobs]
+    cold = []
+    for _ in range(5):
+        tc.TEMPLATES.pop(ent.key)
+        t = time.perf_counter()
+        es.template_entry(sites, dev)
+        torch.cuda.synchronize()
+        cold.append((time.perf_counter() - t) * 1e3)
+    restore_launches(saved)
+    stages = {k: [round(v, 3) for v in st["stage_ms"][k]]
+              for k in bp.STAGES}
+    host_stages = {k: [round(v, 3) for v in host.stats["stage_ms"][k]]
+                   for k in bp.STAGES}
+    print(f"phase6 stamp_rows_general cols={B} live={live} sha512_blocks="
+          f"{blocks} kernel_ms={ms:.4f} device_ms={fmt_ms(device_ms)} "
+          f"plain_ms={plain_ms:.1f} kernel==plain==host pack (bytes); "
+          f"template_entry_cold_64_sites_ms={[round(x, 3) for x in cold]}",
+          flush=True)
+    print(f"phase6 general chunk heights=6-69 stamped_s={stamped_s:.4f} "
+          f"host_packed_s={host_s:.4f} stages_stamped={json.dumps(stages)} "
+          f"stages_host_packed={json.dumps(host_stages)}", flush=True)
+    kernel_stats["stamp_rows_general"] = dict(
+        launches_by_path={"stream": 1}, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, ops=blocks * es.SHA512_OPS_PER_BLOCK,
+        bytes=B * (64 + 32 + 12 + 4 + 8) + (kf.C_THRESH + t_rows) * B * 4,
+        library_ms=None, device_ms=device_ms)
+
+
 def phase_stream(dev, pool, rng, kernel_stats):
     import numpy as np
     import torch
@@ -1995,6 +2135,7 @@ def phase_stream(dev, pool, rng, kernel_stats):
         library_ms=None, device_ms=stamps[0]["device_ms"],
         **{f"{key}_by_shape": {st["shape"]: st[key] for st in stamps}
            for key in ("device_ms", "ms", "ops")})
+    _stream_general(dev, jobs, kernel_stats)
     return {"stream_blocks_per_s": STREAM_HEIGHTS / warm_s,
             "stream_sigs_per_s": n_sigs / warm_s,
             "stream_sets": sets, "stream_seed_of": seed_of,
@@ -8360,6 +8501,9 @@ def kernels_json(kernel_stats):
                                 "cometbft_tpu/ops/ed25519_cached.py:987"),
         "stamp_rows": ("stamp_rows.cu",
                        "cometbft_tpu/ops/ed25519_cached.py:1495"),
+        # replaces no TPU kernel: the JAX package packs general rows on
+        # the host
+        "stamp_rows_general": ("stamp_rows.cu", None),
     }
     for name, (src, replaces) in sources.items():
         k = kernel_stats[name]

@@ -16,14 +16,17 @@ Two chunk branches:
     flags) and the stamp kernel builds the packed rows on the device
     (ops/ed25519_stamp.py); a chunk that cannot be staged so (timestamps
     outside the staged words, too many heights) is packed on the host.
-  * general: mixed valsets; the host packs the rows and the general verify
-    and tally kernels run (ops/ed25519_fused.py).
+  * general: mixed valsets, through the general verify and tally kernels
+    (ops/ed25519_fused.py). The host stages the same per-row deltas plus
+    each row's key and power, and the general stamp kernel builds the
+    packed rows on the device (ops/ed25519_stamp.py stamp_rows_general);
+    a chunk that cannot be staged so is packed on the host.
 
 A host pack builds each row's sign-bytes in C from its commit's template
 and its timestamp (native.ed25519_pack_commits); a chunk with a malformed
 key or signature goes through the numpy screen of
-ed25519_kernel.pack_batch, and `native=False` packs every chunk through
-the numpy plain version.
+ed25519_kernel.pack_batch, and `native=False` makes every host pack the
+numpy plain version.
 
 Kernel launches return at once, so the host stages chunk k+1 while the
 device works on chunk k; at most 2 chunks are in flight, and fetching
@@ -102,7 +105,8 @@ class _Chunk:
     row_pos: Optional[np.ndarray] = None  # device column per packed sig
     # (None = rows are dense 0..n-1; cached-table chunks stride commits
     # to the valset table period so column b mod M == validator index)
-    branch: str = "general"   # or "stamped", "host_packed_cached"
+    # or "general_stamped", "stamped", "host_packed_cached"
+    branch: str = "general"
     call: int = 0             # the verify call's sequence number
     index: int = 0            # the chunk's index in stats["host_ms"]
 
@@ -151,9 +155,11 @@ class StreamVerifier:
 
     `device` is where the kernels run (None: the CUDA card; "cpu": the
     plain PyTorch versions). `native=False` packs on the host with the
-    numpy plain version instead of the native host packer. `stats` counts
-    chunks by branch and records, always, the host wall time of staging
-    and dispatching each chunk (`host_ms`), each chunk's stages
+    numpy plain version instead of the native host packer, where a chunk
+    packs on the host. `stats` counts chunks by branch (`general_chunks`
+    counts every general chunk, `general_stamped_chunks` those stamped on
+    the device) and records, always, the host wall time of staging and
+    dispatching each chunk (`host_ms`), each chunk's stages
     (`stage_ms`: a list a stage, parallel to `host_ms`), and each call's
     precheck (`precheck_ms`: (index of the call's first chunk in
     `host_ms`, ms) a call)."""
@@ -172,7 +178,8 @@ class StreamVerifier:
         # packs
         self._staging = StagingPool(slots=3)
         self.stats = {"stamped_chunks": 0, "host_packed_cached_chunks": 0,
-                      "general_chunks": 0, "host_ms": [],
+                      "general_chunks": 0, "general_stamped_chunks": 0,
+                      "host_ms": [],
                       "stage_ms": {s: [] for s in STAGES},
                       "precheck_ms": []}
         self._calls = 0
@@ -205,7 +212,7 @@ class StreamVerifier:
             job.commit.round, job.commit.block_id).template
             for _, job in jobs]
 
-    def _host_pack(self, jobs, job_idxs, pubs, sigs, row_job, row_ts,
+    def _host_pack(self, jobs, job_idxs, pubs, sigs, row_job, secs, nanos,
                    pad: int) -> ek.PackedBatch:
         """The dense host pack of a chunk of well-formed rows, padded to
         `pad`: the native commit pack, or with native=False the numpy
@@ -217,8 +224,7 @@ class StreamVerifier:
         packed = _native.ed25519_pack_commits(
             b"".join(pubs), b"".join(sigs), self._templates(jobs),
             np.asarray(row_job, np.int32),
-            np.fromiter((t for t, _ in row_ts), np.int64, n),
-            np.fromiter((t for _, t in row_ts), np.int64, n), pad)
+            np.asarray(secs, np.int64), np.asarray(nanos, np.int64), pad)
         return ek.PackedBatch(n, pad, *packed)
 
     def _valset_arrays(self, vs):
@@ -276,7 +282,8 @@ class StreamVerifier:
             row_job: List[int] = []
             row_idx: List[int] = []
             row_pos: List[int] = []
-            row_ts: List[tuple] = []
+            secs: List[int] = []
+            nanos: List[int] = []
             job_idxs: List[tuple] = []  # (j, idxs) for the plain host pack
             keys, _, _ = self._valset_arrays(jobs[0][1].vals)
             nvals = len(keys)
@@ -288,8 +295,9 @@ class StreamVerifier:
                     continue
                 pubs += [keys[i] for i in idxs]
                 sigs += [css[i].signature for i in idxs]
-                row_ts += [(css[i].timestamp.seconds, css[i].timestamp.nanos)
-                           for i in idxs]
+                tss = [css[i].timestamp for i in idxs]
+                secs += [t.seconds for t in tss]
+                nanos += [t.nanos for t in tss]
                 row_job += [j] * len(idxs)
                 row_idx += idxs
                 row_pos += [j * M + i for i in idxs]
@@ -308,7 +316,7 @@ class StreamVerifier:
                 )[0]
         # delta staging first: when every job stamps, the host pack below
         # (SHA-512 + mod-L per row) never runs
-        pending = self._stamp_chunk(jobs, sigs, row_ts, row_job, pos,
+        pending = self._stamp_chunk(jobs, sigs, secs, nanos, row_job, pos,
                                     B, cap, table, thresh)
         if pending is not None:
             self.stats["stamped_chunks"] += 1
@@ -320,7 +328,7 @@ class StreamVerifier:
         # scatter to the strided layout
         with clk.stage(_PACK):
             pbd = self._host_pack(jobs, job_idxs, pubs, sigs, row_job,
-                                  row_ts, n)
+                                  secs, nanos, n)
         with clk.stage(_LAYOUT):
             pool = self._staging
             ry = pool.get("chunk.ry", (B, pbd.ry.shape[1]), pbd.ry.dtype)
@@ -354,61 +362,110 @@ class StreamVerifier:
                           np.asarray(row_idx), pending, row_pos=pos,
                           branch="host_packed_cached")
 
-    def _stamp_chunk(self, jobs, sigs, row_ts, row_job, pos, B, cap,
-                     table, thresh):
-        """Delta staging for the cached chunk: stage only (sig, ts words,
-        flags) per row and let the stamp kernel expand each row against
-        its height's resident template (template id == commit id == the
-        job index). Returns the pending device tensors, or None when the
-        chunk must host-pack: a table without pub_raw, more heights than
-        the template matrix holds, timestamp words outside the staged
-        int32 layout, or a template too large for one entry."""
-        if getattr(table, "pub_raw", None) is None:
-            return None
+    def _stage_deltas(self, jobs, sigs, secs, nanos, row_job, pos, B,
+                      dead_cid: int = 0):
+        """The stamp kernels' per-row deltas of a chunk whose rows sit at
+        device columns `pos` of B: the template entry of its heights
+        (template id == commit id == the job index) and the staged (B, 64)
+        signatures, (B, 3) timestamp words and (B,) flags; a dead column
+        stages zeros and the commit id `dead_cid`. Returns (entry, sig,
+        ts, flags), or None when the chunk cannot be staged so: more
+        heights than the template matrix holds, timestamp words outside
+        the staged int32 layout, or a template too large for one entry."""
         from cometbft_tpu_torch.ops import ed25519_stamp as es
         from cometbft_tpu_torch.types import canonical
 
         if len(jobs) > es.MAX_TEMPLATE_SITES:
             return None
+        try:
+            sec_a = np.asarray(secs, np.int64)
+            nan_a = np.asarray(nanos, np.int64)
+        except OverflowError:  # past int64: the host pack raises it
+            return None
+        if nan_a.size and not -2**31 <= nan_a.min() <= nan_a.max() < 2**31:
+            return None
+        sites = []
+        for _, job in jobs:
+            tpl = canonical.VoteRowTemplate(
+                job.chain_id, canonical.PRECOMMIT_TYPE,
+                job.commit.height, job.commit.round, job.commit.block_id)
+            sites.append(tpl.stamp_site())
+        try:
+            ent = es.template_entry(sites, self.device)
+        except ValueError:  # oversized site list: host pack
+            return None
+        pool = self._staging
+        dsig = pool.get("chunk.dsig", (B, 64), np.uint8)
+        dsig[pos] = np.frombuffer(b"".join(sigs), np.uint8).reshape(-1, 64)
+        dts = pool.get("chunk.dts", (B, 3), np.int32)
+        dts[pos] = canonical.split_ts_words(sec_a, nan_a)
+        dfl = pool.get("chunk.dflags", (B,), np.int32)
+        dfl[:] = dead_cid << 10
+        rj = np.asarray(row_job, np.int64)
+        # live | counted | tmpl_id<<2 | cid<<10: every packed chunk row is
+        # countable (the for_block filter already ran); a dead lane
+        # (live = 0) stamps a zero column, in the general layout but its
+        # commit id
+        dfl[pos] = (3 | (rj << 2) | (rj << 10)).astype(np.int32)
+        return ent, dsig, dts, dfl
+
+    def _stamp_chunk(self, jobs, sigs, secs, nanos, row_job, pos, B, cap,
+                     table, thresh):
+        """Delta staging for the cached chunk: stage only (sig, ts words,
+        flags) per row and let the stamp kernel expand each row against
+        its height's resident template. Returns the pending device
+        tensors, or None when the chunk must host-pack: a table without
+        pub_raw, or deltas `_stage_deltas` cannot stage."""
+        if getattr(table, "pub_raw", None) is None:
+            return None
+        from cometbft_tpu_torch.ops import ed25519_stamp as es
+
         clk = self._clock
         with clk.stage(_LAYOUT):
-            if any(not (-2**63 <= s < 2**63 and -2**31 <= nn < 2**31)
-                   for s, nn in row_ts):
-                return None
-            sites = []
-            for _, job in jobs:
-                tpl = canonical.VoteRowTemplate(
-                    job.chain_id, canonical.PRECOMMIT_TYPE,
-                    job.commit.height, job.commit.round,
-                    job.commit.block_id)
-                sites.append(tpl.stamp_site())
-            try:
-                ent = es.template_entry(sites, self.device)
-            except ValueError:  # oversized site list: host pack
-                return None
-            sec_a = np.fromiter((s for s, _ in row_ts), np.int64,
-                                count=len(row_ts))
-            nan_a = np.fromiter((nn for _, nn in row_ts), np.int64,
-                                count=len(row_ts))
-            pool = self._staging
-            dsig = pool.get("chunk.dsig", (B, 64), np.uint8)
-            dsig[pos] = np.frombuffer(b"".join(sigs),
-                                      np.uint8).reshape(-1, 64)
-            dts = pool.get("chunk.dts", (B, 3), np.int32)
-            dts[pos] = canonical.split_ts_words(sec_a, nan_a)
-            dfl = pool.get("chunk.dflags", (B,), np.int32)
-            rj = np.asarray(row_job, np.int64)
-            # live | counted | tmpl_id<<2 | cid<<10: every packed chunk row
-            # is countable (the for_block filter already ran); dead lanes
-            # keep the pool's zero fill (live=0 -> zero column)
-            dfl[pos] = (3 | (rj << 2) | (rj << 10)).astype(np.int32)
+            staged = self._stage_deltas(jobs, sigs, secs, nanos, row_job,
+                                        pos, B)
+        if staged is None:
+            return None
+        ent, dsig, dts, dfl = staged
         with clk.stage(_DISPATCH):
             return es.verify_tally_delta_cached(dsig, dts, dfl, ent, table,
                                                 cap, thresh)
 
+    def _stamp_general(self, jobs, pubs, sigs, secs, nanos, row_job, powers,
+                       pad, c_pad, thresh):
+        """Delta staging for the general chunk: the dense rows' deltas
+        (the padding columns dead, with the sink commit id c_pad - 1),
+        plus each row's key and power; the general stamp kernel builds the
+        packed rows on the device. Returns the pending device tensors, or
+        None when the chunk must host-pack (deltas `_stage_deltas` cannot
+        stage)."""
+        from cometbft_tpu_torch.ops import ed25519_stamp as es
+
+        clk = self._clock
+        n = len(pubs)
+        with clk.stage(_LAYOUT):
+            staged = self._stage_deltas(jobs, sigs, secs, nanos, row_job,
+                                        slice(0, n), pad, c_pad - 1)
+            if staged is None:
+                return None
+            pool = self._staging
+            dkey = pool.get("chunk.dkey", (pad, 32), np.uint8)
+            dkey[:n] = np.frombuffer(b"".join(pubs), np.uint8).reshape(n, 32)
+            dpow = pool.get("chunk.dpow", (pad,), np.int64)
+            dpow[:n] = powers
+            if dpow.min() < 0:  # as ek.power_limbs refuses them
+                raise ValueError("voting powers must be non-negative")
+        ent, dsig, dts, dfl = staged
+        with clk.stage(_DISPATCH):
+            return es.verify_tally_delta_general(dsig, dkey, dts, dfl, dpow,
+                                                 ent, c_pad, thresh,
+                                                 self.device)
+
     def _pack_chunk(self, jobs) -> Optional[_Chunk]:
         """The general chunk (jobs: [(global_idx, CommitJob)]): dense rows
-        with per-row keys and powers through the general kernels."""
+        with per-row keys and powers through the general kernels, stamped
+        on the device when the chunk is well formed and stages, else
+        packed on the host."""
         from cometbft_tpu_torch.ops import ed25519_fused as kf
 
         clk = self._clock
@@ -418,7 +475,8 @@ class StreamVerifier:
             row_job: List[int] = []
             row_idx: List[int] = []
             powers: List[int] = []
-            row_ts: List[tuple] = []
+            secs: List[int] = []
+            nanos: List[int] = []
             job_idxs: List[tuple] = []  # (j, idxs) for the plain host pack
             well_formed = True
             for j, (_, job) in enumerate(jobs):
@@ -431,8 +489,9 @@ class StreamVerifier:
                     continue
                 pubs += [keys[i] for i in idxs]
                 sigs += [css[i].signature for i in idxs]
-                row_ts += [(css[i].timestamp.seconds, css[i].timestamp.nanos)
-                           for i in idxs]
+                tss = [css[i].timestamp for i in idxs]
+                secs += [t.seconds for t in tss]
+                nanos += [t.nanos for t in tss]
                 row_job += [j] * len(idxs)
                 row_idx += idxs
                 powers += [vpowers[i] for i in idxs]
@@ -453,10 +512,23 @@ class StreamVerifier:
                 thresh[j] = ek.threshold_limbs(
                     job.vals.total_voting_power() * 2 // 3
                 )[0]
+        # delta staging first: when the chunk stamps, the host pack below
+        # (SHA-512 + mod-L per row) and pack_rows never run
+        if well_formed:
+            pending = self._stamp_general(jobs, pubs, sigs, secs, nanos,
+                                          row_job, powers, pad, c_pad,
+                                          thresh)
+            if pending is not None:
+                self.stats["general_chunks"] += 1
+                self.stats["general_stamped_chunks"] += 1
+                with clk.stage(_LAYOUT):
+                    return _Chunk(jobs, np.asarray(row_job),
+                                  np.asarray(row_idx), pending,
+                                  branch="general_stamped")
         with clk.stage(_PACK):
             if well_formed:
                 pb = self._host_pack(jobs, job_idxs, pubs, sigs, row_job,
-                                     row_ts, pad)
+                                     secs, nanos, pad)
             else:
                 pb = ek.pack_batch(pubs, self._template_msgs(jobs, job_idxs),
                                    sigs, pad_to=pad, native=self.native)

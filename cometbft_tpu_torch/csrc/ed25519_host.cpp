@@ -202,6 +202,20 @@ extern "C" void cbt_host_stamp(const uint8_t* sig, const int32_t* ts,
                             t_rows, out, staged, 1);
 }
 
+extern "C" void cbt_host_stamp_general(
+    const uint8_t* sig, const uint8_t* key, const int32_t* ts,
+    const int32_t* flags, const int64_t* power, int B, const uint8_t* pre,
+    const int32_t* pre_len, int pm, const uint8_t* suf,
+    const int32_t* suf_len, int sm, const int32_t* ts_tag, int n_sites,
+    const int32_t* thr, int n_thr, int t_rows, int32_t* out) {
+  const cbt_stamp::StampTemplate tp{pre, pre_len, suf, suf_len, ts_tag,
+                                    pm, sm, n_sites};
+  uint64_t staged[16];
+  for (int b = 0; b < B; b++)
+    cbt_stamp::stamp_column_general(b, B, sig, key, ts, flags, power, tp, thr,
+                                    n_thr, t_rows, out, staged, 1);
+}
+
 // The tally kernel (csrc/tally_quorum.cu) run one step at a time with its
 // own block and thread partition: per block, each warp's 32 threads load
 // and sum their columns, then the warp combines; below the shared-memory

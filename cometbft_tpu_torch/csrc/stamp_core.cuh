@@ -9,7 +9,13 @@
 // same vote: the canonical vote sign-bytes (LEB128 timestamp varints with
 // proto3 zero-skip, outer length prefix), h = SHA-512(R || A || msg) mod L
 // as 64 nibbles, R's 13-bit limbs, s's bytes, and the flags word
-// rsign | precheck << 1 | counted << 2 | commit_id << 3.
+// rsign | precheck << 1 | counted << 2 | commit_id << 3. The general column
+// (stamp_column_general, the stamp_rows_general kernel) hashes the same
+// sign-bytes with the row's own key and writes the layout of
+// ops/ed25519_fused.py `pack_rows` instead: the key's limbs as well, the
+// flags asign | rsign << 1 | precheck << 2 | counted << 3, the power's limbs
+// and the commit id. The two layouts conflict, so each has its own column
+// writer over the shared helpers.
 //
 // The program works on words. Each 128-byte SHA block is staged as 16
 // big-endian 64-bit words in a per-thread slice (shared memory on the
@@ -47,7 +53,13 @@ extern "C" long long cbt_sha_block_count;
 
 namespace cbt_stamp {
 
+// the cached layout (ops/ed25519_cached.py V_*) and the general one
+// (ops/ed25519_fused.py C_*)
 enum { V_RY = 0, V_S8 = 10, V_H4 = 18, V_FLAGS = 26, V_THRESH = 27 };
+enum {
+  C_AY = 0, C_RY = 10, C_S8 = 20, C_H4 = 28, C_FLAGS = 36, C_POW = 37,
+  C_CID = 40, C_THRESH = 41
+};
 
 CBT_CONST uint64_t kSha512K[80] = {
     0x428a2f98d728ae22ull, 0x7137449123ef65cdull, 0xb5c0fbcfec4d3b2full,
@@ -436,14 +448,129 @@ struct StampTemplate {
   int pm, sm, n_sites;
 };
 
-// Column b of the (V_THRESH + t_rows, B) packed rows. sig (B, 64) uint8,
-// ts (B, 3) int32 [secs_lo, secs_hi, nanos], flags (B,) int32 with bit 0 =
-// live, bit 1 = counted, bits 2..9 = template row, bits 10.. = commit id;
-// pub_raw (M, 32) uint8 (column b is validator b mod M); thr: n_thr int32
-// threshold words laid flat over the rows from V_THRESH on. A dead lane
-// (live = 0) gives an all-zero head and reads no key. blk is the thread's
-// slice for one staged block (16 words, stride apart). On the card sig and
-// pub_raw are 16-byte aligned, the template rows 8-byte aligned.
+// The template row of a flags word (bits 2..9); out-of-range rows clamp to
+// the last site, as XLA's gathers do.
+CBT_D int template_row(int32_t fl, const StampTemplate& tp) {
+  const int t = (fl >> 2) & 0xff;
+  return t < tp.n_sites ? t : tp.n_sites - 1;
+}
+
+// h = SHA-512(R || A || msg) mod L of one row, as eight little-endian
+// words: msg is the sign-bytes of template row t with the row's timestamp
+// words tw = [secs_lo, secs_hi, nanos]. sg holds R || S and key A; blk is
+// the thread's slice for one staged block (16 words, stride apart). On the
+// card sg and key are 16-byte aligned, the template rows 8-byte aligned.
+CBT_D void row_digest(const uint8_t* sg, const uint8_t* key,
+                      const int32_t* tw, const StampTemplate& tp, int t,
+                      uint64_t* blk, int stride, uint32_t* hw) {
+  const uint64_t secs =
+      (uint64_t)(uint32_t)tw[0] | ((uint64_t)(uint32_t)tw[1] << 32);
+  const uint64_t nanos = (uint64_t)(int64_t)tw[2];
+  uint64_t slo, shi, nlo, nhi, olo, ohi;
+  const int sl = leb128(secs, slo, shi), nl = leb128(nanos, nlo, nhi);
+  const int l1 = secs ? sl + 1 : 0, l2 = nanos ? nl + 1 : 0;
+  Msg m;
+  m.pl = tp.pre_len[t];
+  m.xl = tp.suf_len[t];
+  m.ml = 2 + l1 + l2;
+  const int ol = leb128((uint64_t)(m.pl + m.ml + m.xl), olo, ohi);
+  m.ob = bswap64(olo);
+  m.pre = tp.pre + (size_t)t * tp.pm;
+  m.suf = tp.suf + (size_t)t * tp.sm;
+  m.at_pre = ol;
+  m.at_mid = ol + m.pl;
+  m.at_suf = m.at_mid + m.ml;
+  m.at_pad = m.at_suf + m.xl;
+  // the timestamp field, little-endian: tag, length, then each tagged
+  // varint that is not zero
+  uint64_t mid[3] = {((uint64_t)tp.ts_tag[t] & 0xff) |
+                         ((uint64_t)(l1 + l2) << 8),
+                     0, 0};
+  if (secs) or_shifted(mid, 0x08 | (slo << 8), (slo >> 56) | (shi << 8), 16);
+  if (nanos)
+    or_shifted(mid, 0x10 | (nlo << 8), (nlo >> 56) | (nhi << 8),
+               8 * (2 + l1));
+#pragma unroll
+  for (int i = 0; i < 3; i++) m.mid[i] = bswap64(mid[i]);
+
+  const int total = 64 + m.at_pad;
+  const int nblk = (total + 17 + 127) >> 7;
+  uint64_t h[8];
+#pragma unroll
+  for (int k = 0; k < 8; k++) h[k] = kSha512H0[k];
+  for (int j = 0; j < nblk; j++) {
+    stage_block(m, j, nblk, total, sg, key, blk, stride);
+    uint64_t w[16];
+#pragma unroll
+    for (int k = 0; k < 16; k++) w[k] = blk[k * stride];
+    sha512_compress(h, w);
+  }
+  sc_reduce_digest(h, hw);
+}
+
+// A point encoding's y (its eight little-endian words w, the top bit
+// dropped) as 20 13-bit limbs, two a word: word i = limb i | limb i+10 << 13.
+CBT_D void limb_pairs(const uint32_t* w, uint32_t* out) {
+  uint32_t rw[9];
+#pragma unroll
+  for (int k = 0; k < 8; k++) rw[k] = w[k];
+  rw[7] &= 0x7fffffffu;
+  rw[8] = 0;
+  uint32_t rl[20];
+#pragma unroll
+  for (int i = 0; i < 20; i++) {
+    const int q = (13 * i) >> 5, r = (13 * i) & 31;
+    rl[i] = fshr(rw[q], rw[q + 1], r) & 0x1fffu;
+  }
+#pragma unroll
+  for (int i = 0; i < 10; i++) out[i] = rl[i] | (rl[i + 10] << 13);
+}
+
+// The digit rows of S (eight little-endian words sw) and of h: s8 row j
+// holds bytes j, 8 + j, 16 + j, 24 + j of S; h4 row j nibbles j, 8 + j, ...,
+// 56 + j of h.
+CBT_D void digit_rows(const uint32_t* sw, const uint32_t* hw, uint32_t* s8,
+                      uint32_t* h4) {
+#pragma unroll
+  for (int j = 0; j < 8; j++) {
+    const int q = j >> 2;
+    const uint32_t sel = (uint32_t)(j & 3) | ((uint32_t)(4 + (j & 3)) << 4);
+    s8[j] = prmt(prmt(sw[q], sw[q + 2], sel), prmt(sw[q + 4], sw[q + 6], sel),
+                 0x5410);
+    uint32_t d = 0;
+#pragma unroll
+    for (int k = 0; k < 8; k++) d |= ((hw[k] >> (4 * j)) & 15u) << (4 * k);
+    h4[j] = d;
+  }
+}
+
+// precheck: S < L, the borrow out of S - L
+CBT_D uint32_t s_below_l(const uint32_t* sw) {
+  int64_t borrow = 0;
+#pragma unroll
+  for (int k = 0; k < 8; k++)
+    borrow = ((int64_t)sw[k] - (int64_t)kLWords[k] + borrow) >> 32;
+  return (uint32_t)(borrow & 1);
+}
+
+// The threshold rows of column b: threshold word k of the n_thr flat words
+// sits at column k mod B of row k / B, from out (the first threshold row) on.
+CBT_D void threshold_rows(int b, int B, const int32_t* thr, int n_thr,
+                          int t_rows, int32_t* out) {
+  for (int r = 0; r < t_rows; r++) {
+    const size_t k = (size_t)r * B + b;
+    out[k] = k < (size_t)n_thr ? thr[k] : 0;
+  }
+}
+
+// Column b of the (V_THRESH + t_rows, B) cached packed rows. sig (B, 64)
+// uint8, ts (B, 3) int32 [secs_lo, secs_hi, nanos], flags (B,) int32 with
+// bit 0 = live, bit 1 = counted, bits 2..9 = template row, bits 10.. =
+// commit id; pub_raw (M, 32) uint8 (column b is validator b mod M); thr:
+// n_thr int32 threshold words laid flat over the rows from V_THRESH on. A
+// dead lane (live = 0) gives an all-zero head and reads no key. blk is the
+// thread's slice for one staged block (16 words, stride apart). On the card
+// sig and pub_raw are 16-byte aligned, the template rows 8-byte aligned.
 CBT_D void stamp_column(int b, int B, const uint8_t* sig, const int32_t* ts,
                         const int32_t* flags, const StampTemplate& tp,
                         const uint8_t* pub_raw, int M, const int32_t* thr,
@@ -455,99 +582,66 @@ CBT_D void stamp_column(int b, int B, const uint8_t* sig, const int32_t* ts,
   const int32_t fl = flags[b];
   if (fl & 1) {
     const uint8_t* sg = sig + (size_t)b * 64;
-    int t = (fl >> 2) & 0xff;
-    if (t >= tp.n_sites) t = tp.n_sites - 1;  // gathers clamp, as in XLA
-    const uint64_t secs = (uint64_t)(uint32_t)ts[3 * b] |
-                          ((uint64_t)(uint32_t)ts[3 * b + 1] << 32);
-    const uint64_t nanos = (uint64_t)(int64_t)ts[3 * b + 2];
-    uint64_t slo, shi, nlo, nhi, olo, ohi;
-    const int sl = leb128(secs, slo, shi), nl = leb128(nanos, nlo, nhi);
-    const int l1 = secs ? sl + 1 : 0, l2 = nanos ? nl + 1 : 0;
-    Msg m;
-    m.pl = tp.pre_len[t];
-    m.xl = tp.suf_len[t];
-    m.ml = 2 + l1 + l2;
-    const int ol = leb128((uint64_t)(m.pl + m.ml + m.xl), olo, ohi);
-    m.ob = bswap64(olo);
-    m.pre = tp.pre + (size_t)t * tp.pm;
-    m.suf = tp.suf + (size_t)t * tp.sm;
-    m.at_pre = ol;
-    m.at_mid = ol + m.pl;
-    m.at_suf = m.at_mid + m.ml;
-    m.at_pad = m.at_suf + m.xl;
-    // the timestamp field, little-endian: tag, length, then each tagged
-    // varint that is not zero
-    uint64_t mid[3] = {((uint64_t)tp.ts_tag[t] & 0xff) |
-                           ((uint64_t)(l1 + l2) << 8),
-                       0, 0};
-    if (secs) or_shifted(mid, 0x08 | (slo << 8), (slo >> 56) | (shi << 8), 16);
-    if (nanos)
-      or_shifted(mid, 0x10 | (nlo << 8), (nlo >> 56) | (nhi << 8),
-                 8 * (2 + l1));
-#pragma unroll
-    for (int i = 0; i < 3; i++) m.mid[i] = bswap64(mid[i]);
-
-    const int total = 64 + m.at_pad;
-    const int nblk = (total + 17 + 127) >> 7;
-    const uint8_t* key = pub_raw + (size_t)(b % M) * 32;
-    uint64_t h[8];
-#pragma unroll
-    for (int k = 0; k < 8; k++) h[k] = kSha512H0[k];
-    for (int j = 0; j < nblk; j++) {
-      stage_block(m, j, nblk, total, sg, key, blk, stride);
-      uint64_t w[16];
-#pragma unroll
-      for (int k = 0; k < 16; k++) w[k] = blk[k * stride];
-      sha512_compress(h, w);
-    }
     uint32_t hw[8];
-    sc_reduce_digest(h, hw);
-
+    row_digest(sg, pub_raw + (size_t)(b % M) * 32, ts + 3 * b, tp,
+               template_row(fl, tp), blk, stride, hw);
     uint32_t sw[16];  // R = sw[0..7], S = sw[8..15], little-endian words
 #pragma unroll
     for (int k = 0; k < 4; k++) load16(sg + 16 * k, sw + 4 * k);
-    // R: 20 13-bit limbs of the low 255 bits, two per word
-    uint32_t rw[9];
-#pragma unroll
-    for (int k = 0; k < 8; k++) rw[k] = sw[k];
-    rw[7] &= 0x7fffffffu;
-    rw[8] = 0;
-    uint32_t rl[20];
-#pragma unroll
-    for (int i = 0; i < 20; i++) {
-      const int q = (13 * i) >> 5, r = (13 * i) & 31;
-      rl[i] = fshr(rw[q], rw[q + 1], r) & 0x1fffu;
-    }
-#pragma unroll
-    for (int i = 0; i < 10; i++) head[V_RY + i] = rl[i] | (rl[i + 10] << 13);
-    // V_S8 row j: bytes j, 8 + j, 16 + j, 24 + j of S; V_H4 row j: nibbles
-    // j, 8 + j, ..., 56 + j of h
-#pragma unroll
-    for (int j = 0; j < 8; j++) {
-      const int q = 8 + (j >> 2);
-      const uint32_t sel = (uint32_t)(j & 3) | ((uint32_t)(4 + (j & 3)) << 4);
-      head[V_S8 + j] = prmt(prmt(sw[q], sw[q + 2], sel),
-                            prmt(sw[q + 4], sw[q + 6], sel), 0x5410);
-      uint32_t h4 = 0;
-#pragma unroll
-      for (int k = 0; k < 8; k++) h4 |= ((hw[k] >> (4 * j)) & 15u) << (4 * k);
-      head[V_H4 + j] = h4;
-    }
-    // precheck: S < L, the borrow out of S - L
-    int64_t borrow = 0;
-#pragma unroll
-    for (int k = 0; k < 8; k++)
-      borrow = ((int64_t)sw[8 + k] - (int64_t)kLWords[k] + borrow) >> 32;
-    head[V_FLAGS] = (sw[7] >> 31) | ((uint32_t)(borrow & 1) << 1) |
+    limb_pairs(sw, head + V_RY);
+    digit_rows(sw + 8, hw, head + V_S8, head + V_H4);
+    head[V_FLAGS] = (sw[7] >> 31) | (s_below_l(sw + 8) << 1) |
                     ((uint32_t)((fl >> 1) & 1) << 2) |
                     ((uint32_t)(fl >> 10) << 3);
   }
 #pragma unroll
   for (int r = 0; r < V_THRESH; r++) out[(size_t)r * B + b] = (int32_t)head[r];
-  for (int r = 0; r < t_rows; r++) {
-    const size_t k = (size_t)r * B + b;
-    out[(size_t)(V_THRESH + r) * B + b] = k < (size_t)n_thr ? thr[k] : 0;
+  threshold_rows(b, B, thr, n_thr, t_rows, out + (size_t)V_THRESH * B);
+}
+
+// Column b of the (C_THRESH + t_rows, B) general packed rows, the layout
+// ops/ed25519_fused.py `pack_rows` builds from a host pack: each row carries
+// its key's limbs, its power and its commit id. sig (B, 64) and key (B, 32)
+// uint8 (both 16-byte aligned on the card), ts and flags as stamp_column's,
+// power (B,) int64, non-negative. A dead lane (live = 0) gives zero rows but
+// its commit id, the padding's sink, and reads nothing else.
+CBT_D void stamp_column_general(int b, int B, const uint8_t* sig,
+                                const uint8_t* key, const int32_t* ts,
+                                const int32_t* flags, const int64_t* power,
+                                const StampTemplate& tp, const int32_t* thr,
+                                int n_thr, int t_rows, int32_t* out,
+                                uint64_t* blk, int stride) {
+  uint32_t head[C_THRESH];
+#pragma unroll
+  for (int r = 0; r < C_THRESH; r++) head[r] = 0;
+  const int32_t fl = flags[b];
+  if (fl & 1) {
+    const uint8_t* sg = sig + (size_t)b * 64;
+    const uint8_t* kb = key + (size_t)b * 32;
+    uint32_t hw[8];
+    row_digest(sg, kb, ts + 3 * b, tp, template_row(fl, tp), blk, stride, hw);
+    uint32_t sw[16], aw[8];  // R || S and A, little-endian words
+#pragma unroll
+    for (int k = 0; k < 4; k++) load16(sg + 16 * k, sw + 4 * k);
+    load16(kb, aw);
+    load16(kb + 16, aw + 4);
+    limb_pairs(aw, head + C_AY);
+    limb_pairs(sw, head + C_RY);
+    digit_rows(sw + 8, hw, head + C_S8, head + C_H4);
+    head[C_FLAGS] = (aw[7] >> 31) | ((sw[7] >> 31) << 1) |
+                    (s_below_l(sw + 8) << 2) |
+                    ((uint32_t)((fl >> 1) & 1) << 3);
+    // the power's five 13-bit limbs, two a word
+    const uint64_t p = (uint64_t)power[b];
+    head[C_POW] = (uint32_t)(p & 0x1fff) | ((uint32_t)(p >> 13) & 0x1fff) << 13;
+    head[C_POW + 1] =
+        ((uint32_t)(p >> 26) & 0x1fff) | ((uint32_t)(p >> 39) & 0x1fff) << 13;
+    head[C_POW + 2] = (uint32_t)(p >> 52) & 0x1fff;
   }
+  head[C_CID] = (uint32_t)(fl >> 10);
+#pragma unroll
+  for (int r = 0; r < C_THRESH; r++) out[(size_t)r * B + b] = (int32_t)head[r];
+  threshold_rows(b, B, thr, n_thr, t_rows, out + (size_t)C_THRESH * B);
 }
 
 }  // namespace cbt_stamp

@@ -249,14 +249,16 @@ STAMP_FUZZ_SECS = (0, 1, 127, 128, 16383, 16384, 1_700_000_000, 2**31 - 1,
 STAMP_FUZZ_NANOS = (0, 1, 127, 128, 999_999_999, 5, 42, -7)
 
 
-def stamp_case(name: str, B: int = 256):
+def stamp_case(name: str, B: int = 256, ts_edges=()):
     """The stamp case `name` of STAMP_CASES over B columns, made from its
     own seed: the template sites (`site_params`: (chain_id, height, round,
     block id or None), `tmpls`, `sites`), the staged deltas (`dsig`,
     `dts`, `dfl`), the (M, 32) keys `pub_raw`, the (C, 6) thresholds and
     `ref`, the rows pack_rows_cached builds from a host pack of the same
     votes (dead columns zero). `msg_lens` are the live rows' sign-bytes
-    lengths."""
+    lengths; `pb` is the host pack of every column, `live`, `counted` and
+    `cids` the columns' flags. The rows after the block-edge rows take the
+    (secs, nanos) of `ts_edges`, live."""
     from cometbft_tpu_torch.types import canonical
     from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
     from cometbft_tpu_torch.types.timestamp import Timestamp
@@ -291,6 +293,8 @@ def stamp_case(name: str, B: int = 256):
     edges = [lens[n] for n in (47, 48, 175, 176) if n in lens]
     for b, (i, c) in enumerate(edges[:B]):
         tidx[b], ts[b], live[b] = i, c, True
+    for b, t in enumerate(ts_edges, len(edges)):
+        ts[b], live[b] = t, True
     site = np.minimum(tidx, t_pad - 1)
     counted = rng.random(B) < 0.75
     cids = rng.integers(0, C, B).astype(np.int32)
@@ -320,4 +324,33 @@ def stamp_case(name: str, B: int = 256):
         B=B, M=M, C=C, site_params=site_params, tmpls=tmpls,
         sites=[t.stamp_site() for t in tmpls], dsig=sig, dts=dts, dfl=dfl,
         pub_raw=keys, thresh=thresh, ref=ref,
-        msg_lens=[len(msgs[b]) for b in np.flatnonzero(live)])
+        msg_lens=[len(msgs[b]) for b in np.flatnonzero(live)], pb=pb,
+        live=live, counted=counted, cids=cids)
+
+
+# the general stamp's extra timestamps: nanos at the int32 edges beside
+# 10-byte seconds at the int64 edges, and zero fields
+STAMP_GENERAL_TS = ((2**63 - 1, 2**31 - 1), (-2**63, -2**31), (0, 2**31 - 1),
+                    (-1, -2**31), (0, 0), (2**62, 0))
+
+
+def stamp_general_case(name: str, B: int = 256):
+    """The stamp case `name` in the general layout (ops/ed25519_fused.py
+    C_*), with STAMP_GENERAL_TS among its timestamps: each column carries
+    its own key (`key`, the case's key of column b mod M) and power
+    (`power`: zero, the largest int64 and seeded values), and `ref` is
+    what kf.pack_rows builds from the host pack of the same votes with
+    those powers, the counted bits, the commit ids and the thresholds. A
+    dead column is zero but its commit id, its flags' bits 10.. (the
+    padding's sink in a stream chunk)."""
+    c = stamp_case(name, B, STAMP_GENERAL_TS)
+    rng = np.random.default_rng(3000 + STAMP_CASES.index(name))
+    c.key = np.ascontiguousarray(c.pub_raw[np.arange(B) % c.M])
+    c.power = rng.integers(0, 2**62, B, dtype=np.int64)
+    c.power[[2, 4]] = (0, 2**63 - 1)
+    power5 = ek.power_limbs(np.where(c.live, c.power, 0))
+    cids = np.where(c.live, c.cids, c.dfl >> 10).astype(np.int32)
+    c.ref = kf.pack_rows(c.pb, power5, c.counted & c.live, cids, c.thresh)
+    c.ref[:kf.C_CID, ~c.live] = 0
+    c.t_rows = c.ref.shape[0] - kf.C_THRESH
+    return c

@@ -50,9 +50,11 @@ KERNELS = {
         "cbt_ed25519_verify_cached": [_P, _I, _P, _I, _P, _P, _P, _P],
         "cbt_ed25519_verify_cached_thread": [_P, _I, _P, _I, _P, _P, _P,
                                              _P]},
-    "stamp_rows.cu": {"cbt_stamp_rows": [
-        _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I, _I,
-        _P, _P]},
+    "stamp_rows.cu": {
+        "cbt_stamp_rows": [_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I,
+                           _P, _I, _P, _I, _I, _P, _P],
+        "cbt_stamp_rows_general": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P,
+                                   _P, _I, _P, _I, _P, _I, _I, _P, _P]},
     "sr25519_verify.cu": {"cbt_sr25519_verify": [_P, _I, _P, _P, _P]},
     "ecdsa_verify.cu": {"cbt_ecdsa_verify": [_P, _I, _P, _P, _P]},
 }
@@ -72,6 +74,8 @@ _HOST_FNS = {
     "cbt_host_verify_cached_quad": ([_P, _I, _P, _I, _P, _P, _P], None),
     "cbt_host_stamp": ([_P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P,
                         _I, _P, _I, _I, _P], None),
+    "cbt_host_stamp_general": ([_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P,
+                                _I, _P, _I, _P, _I, _I, _P], None),
     "cbt_host_sc_reduce": ([_P, _P], None),
     "cbt_host_tally": ([_I, _P, _P, _I, _P, _I, _I, _P, _P], ctypes.c_int),
     "cbt_host_carry_quorum": ([_P, _I, _I, _P, _P, _P], None),

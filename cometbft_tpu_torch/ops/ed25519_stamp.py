@@ -1,4 +1,4 @@
-"""Device-side sign-bytes stamping for the cached path (delta chunks).
+"""Device-side sign-bytes stamping of packed rows from per-row deltas.
 
 Counterpart of the stamping half of the JAX package's
 ops/ed25519_cached.py. A chunk whose rows all stamp ships per-row deltas
@@ -11,8 +11,16 @@ types/canonical.VoteRowTemplate.patch_rows), hashes R || A || msg with
 SHA-512, reduces the digest mod L and assembles the row layout. The rows
 never exist on the host; they go straight to the cached verify kernel.
 
-`stamp_rows_plain` is the plain PyTorch version, taken only for CPU
-tensors; a CUDA tensor launches the kernel or raises.
+`stamp_rows_general` does the same for a chunk of mixed validator sets,
+which the JAX package packs on the host: its deltas also carry each row's
+32 B key and 8 B power, and it writes the EXACT rows of
+`ed25519_fused.pack_rows` over a host pack (the general layout, with the
+key's limbs, the power and the commit id), which go straight to the
+general verify and tally kernels.
+
+`stamp_rows_plain` and `stamp_rows_general_plain` are the plain PyTorch
+versions, taken only for CPU tensors; a CUDA tensor launches the kernel
+or raises.
 """
 from __future__ import annotations
 
@@ -323,23 +331,15 @@ def _uvarint64(lo, hi):
     return _leb_pack(gs)
 
 
-def stamp_rows_plain(sig, ts, flags, pre_mat, pre_len, suf_mat, suf_len,
-                     ts_tag, pub_raw, thr, msg_max: int, t_rows: int):
-    """Plain PyTorch version of the stamp kernel: per-row deltas, the
-    template tensors and the (M, 32) uint8 pubkeys -> the (V_THRESH +
-    t_rows, B) int32 packed rows, bit-identical to pack_rows_cached over a
-    host pack of the expanded batch. Dead lanes (live = 0) give zero
-    columns; thr is the (n_commits, TALLY_LIMBS) threshold matrix."""
-    B = sig.shape[0]
-    dev = sig.device
+def _digest_nibbles(sg, t64, a_row, tmpl, pre_mat, pre_len, suf_mat,
+                    suf_len, ts_tag, msg_max: int):
+    """The 64 base-16 digits of h = SHA-512(R || A || msg) mod L of each
+    row: sg the (B, 64) signature bytes, a_row the (B, 32) key bytes, t64
+    the (B, 3) timestamp words and msg the sign-bytes of template row tmpl
+    with that timestamp (all int64)."""
+    B = sg.shape[0]
+    dev = sg.device
     pm = pre_mat.shape[1]
-    f = flags.to(torch.int64)
-    live = f & 1
-    counted = (f >> 1) & 1
-    tmpl = torch.clamp((f >> 2) & 0xFF, max=pre_mat.shape[0] - 1)
-    cid = f >> 10
-    sg = sig.to(torch.int64)
-    t64 = ts.to(torch.int64)
 
     # timestamp varints + proto3 zero-skip lengths (patch_rows math)
     lo, hi = t64[:, 0] & _M32, t64[:, 1] & _M32
@@ -393,8 +393,6 @@ def stamp_rows_plain(sig, ts, flags, pre_mat, pre_len, suf_mat, suf_len,
     # padded SHA-512 input: R || A || msg || 0x80 || 0* || 128-bit length
     nblk = (64 + msg_max + 17 + 127) // 128
     width = nblk * 128
-    a_row = pub_raw.to(torch.int64)[torch.arange(B, device=dev)
-                                    % pub_raw.shape[0]]
     data = torch.cat([sg[:, :32], a_row, msg,
                       torch.zeros((B, width - 64 - msg_max),
                                   dtype=torch.int64, device=dev)], 1)
@@ -411,27 +409,37 @@ def stamp_rows_plain(sig, ts, flags, pre_mat, pre_len, suf_mat, suf_len,
     for hi_w, lo_w in st:
         for w in (hi_w, lo_w):
             dig += [(w >> (24 - 8 * k)) & 0xFF for k in range(4)]
-    nibs = _sc_reduce_nibbles(dig)
+    return _sc_reduce_nibbles(dig)
 
-    # packed-row assembly (pack_rows_cached's exact layout)
-    def word(parts):  # digits packed low to high into one 32-bit word
-        acc = torch.zeros_like(live)
-        for k, x in enumerate(parts):
-            acc = acc | (x << (32 // len(parts) * k))
-        return acc
 
-    h4_rows = [word([nibs[8 * k + j] for k in range(8)]) * live
-               for j in range(8)]
-    s8_rows = [word([sg[:, 32 + 8 * k + j] for k in range(4)]) * live
-               for j in range(8)]
-    rb = [sg[:, k] for k in range(32)] + [torch.zeros_like(live)] * 3
+def _word(parts):
+    """Digits packed low to high into one 32-bit word."""
+    acc = torch.zeros_like(parts[0])
+    for k, x in enumerate(parts):
+        acc = acc | (x << (32 // len(parts) * k))
+    return acc
+
+
+def _limb_pairs(enc, live):
+    """(B, 32) int64 bytes of a point encoding -> the 10 rows of its y's
+    13-bit limbs (the top bit dropped), limb i | limb i+10 << 13."""
+    rb = [enc[:, k] for k in range(32)] + [torch.zeros_like(live)] * 3
     rb[31] = rb[31] & 0x7F
     rl = []
     for i in range(20):
         j, r = divmod(13 * i, 8)
         win = rb[j] | (rb[j + 1] << 8) | (rb[j + 2] << 16)
         rl.append((win >> r) & 0x1FFF)
-    ry_rows = [(rl[i] | (rl[i + 10] << 13)) * live for i in range(10)]
+    return [(rl[i] | (rl[i + 10] << 13)) * live for i in range(10)]
+
+
+def _scalar_rows(sg, nibs, live):
+    """(s8 rows, h4 rows, precheck): S's byte digits and h's nibbles, 8
+    rows each (row j holds digit j, 8 + j, ...), and S < L."""
+    h4 = [_word([nibs[8 * k + j] for k in range(8)]) * live
+          for j in range(8)]
+    s8 = [_word([sg[:, 32 + 8 * k + j] for k in range(4)]) * live
+          for j in range(8)]
     lt = torch.zeros_like(live, dtype=torch.bool)
     dec = torch.zeros_like(lt)
     for k in range(7, -1, -1):
@@ -439,15 +447,71 @@ def stamp_rows_plain(sig, ts, flags, pre_mat, pre_len, suf_mat, suf_len,
               | (sg[:, 34 + 4 * k] << 16) | (sg[:, 35 + 4 * k] << 24))
         lt = lt | (~dec & (wk < _L_U32[k]))
         dec = dec | (wk != _L_U32[k])
-    precheck = lt.to(torch.int64) * live
-    f_row = ((sg[:, 31] >> 7) * live | (precheck << 1)
-             | ((counted * live) << 2) | ((cid * live) << 3))
-    head = torch.stack(ry_rows + s8_rows + h4_rows + [f_row])
-    # int64 words -> int32 bit patterns
+    return s8, h4, lt.to(torch.int64) * live
+
+
+def _rows(head, thr, t_rows: int):
+    """The head rows (int64 words) as int32 bit patterns over the
+    thresholds laid flat on t_rows rows."""
+    head = torch.stack(head)
+    B = head.shape[1]
     head = ((head + (1 << 31)) & _M32) - (1 << 31)
     flat = thr.reshape(-1).to(torch.int64)
     flat = torch.nn.functional.pad(flat, (0, t_rows * B - flat.numel()))
     return torch.cat([head, flat.reshape(t_rows, B)]).to(torch.int32)
+
+
+def _flag_fields(flags, n_sites: int):
+    """(live, counted, template row, commit id) of (B,) flags words."""
+    f = flags.to(torch.int64)
+    return (f & 1, (f >> 1) & 1, torch.clamp((f >> 2) & 0xFF, max=n_sites - 1),
+            f >> 10)
+
+
+def stamp_rows_plain(sig, ts, flags, pre_mat, pre_len, suf_mat, suf_len,
+                     ts_tag, pub_raw, thr, msg_max: int, t_rows: int):
+    """Plain PyTorch version of the stamp kernel: per-row deltas, the
+    template tensors and the (M, 32) uint8 pubkeys -> the (V_THRESH +
+    t_rows, B) int32 packed rows, bit-identical to pack_rows_cached over a
+    host pack of the expanded batch. Dead lanes (live = 0) give zero
+    columns; thr is the (n_commits, TALLY_LIMBS) threshold matrix."""
+    B = sig.shape[0]
+    live, counted, tmpl, cid = _flag_fields(flags, pre_mat.shape[0])
+    sg = sig.to(torch.int64)
+    a_row = pub_raw.to(torch.int64)[torch.arange(B, device=sig.device)
+                                    % pub_raw.shape[0]]
+    nibs = _digest_nibbles(sg, ts.to(torch.int64), a_row, tmpl, pre_mat,
+                           pre_len, suf_mat, suf_len, ts_tag, msg_max)
+    s8, h4, precheck = _scalar_rows(sg, nibs, live)
+    f_row = ((sg[:, 31] >> 7) * live | (precheck << 1)
+             | ((counted * live) << 2) | ((cid * live) << 3))
+    return _rows(_limb_pairs(sg[:, :32], live) + s8 + h4 + [f_row], thr,
+                 t_rows)
+
+
+def stamp_rows_general_plain(sig, key, ts, flags, power, pre_mat, pre_len,
+                             suf_mat, suf_len, ts_tag, thr, msg_max: int,
+                             t_rows: int):
+    """Plain PyTorch version of the general stamp kernel: per-row deltas
+    with each row's (B, 32) uint8 key and (B,) int64 power, and the
+    template tensors -> the (C_THRESH + t_rows, B) int32 rows that
+    kf.pack_rows builds from a host pack with the powers, counted bits,
+    commit ids and thresholds. A dead lane (live = 0) gives a zero column
+    but its commit id."""
+    live, counted, tmpl, cid = _flag_fields(flags, pre_mat.shape[0])
+    sg = sig.to(torch.int64)
+    kb = key.to(torch.int64)
+    nibs = _digest_nibbles(sg, ts.to(torch.int64), kb, tmpl, pre_mat,
+                           pre_len, suf_mat, suf_len, ts_tag, msg_max)
+    s8, h4, precheck = _scalar_rows(sg, nibs, live)
+    f_row = ((kb[:, 31] >> 7) | ((sg[:, 31] >> 7) << 1)
+             | (counted << 3)) * live | (precheck << 2)
+    pw = [(power >> (ek.POWER_LIMB_BITS * i)) & ek.POWER_MASK
+          for i in range(ek.POWER_LIMBS)]
+    p_rows = [(pw[0] | (pw[1] << 13)) * live, (pw[2] | (pw[3] << 13)) * live,
+              pw[4] * live]
+    return _rows(_limb_pairs(kb, live) + _limb_pairs(sg[:, :32], live) + s8
+                 + h4 + [f_row] + p_rows + [cid], thr, t_rows)
 
 
 # --------------------------------------------------------------------------
@@ -532,6 +596,87 @@ def stamp_rows_cached(sig, ts, flags, ent: TemplateEntry,
     return stamp_rows(_on(sig, torch.uint8, dev), _on(ts, torch.int32, dev),
                       _on(flags, torch.int32, dev), ent, table.pub_raw,
                       _on(thresh, torch.int32, dev), t_rows)
+
+
+def stamp_rows_general(sig: torch.Tensor, key: torch.Tensor,
+                       ts: torch.Tensor, flags: torch.Tensor,
+                       power: torch.Tensor, ent: TemplateEntry,
+                       thr: torch.Tensor, t_rows: int) -> torch.Tensor:
+    """(B, 64) uint8 signatures, (B, 32) uint8 keys, (B, 3) int32 timestamp
+    words, (B,) int32 flags (as `stamp_rows`'), (B,) int64 powers, a
+    template entry and the (n_commits, 6) int32 thresholds -> (C_THRESH +
+    t_rows, B) int32 packed rows in the general layout (kf.C_*).
+
+    CUDA tensors launch csrc/stamp_rows.cu `cbt_stamp_rows_general`, and a
+    sig or key that is not 16-byte aligned raises; CPU tensors run
+    `stamp_rows_general_plain`."""
+    B = sig.shape[0]
+    _check = ec._check
+    _check(sig, "sig", torch.uint8, (B, 64))
+    _check(key, "key", torch.uint8, (B, 32))
+    _check(ts, "ts", torch.int32, (B, 3))
+    _check(flags, "flags", torch.int32, (B,))
+    _check(power, "power", torch.int64, (B,))
+    if thr.dtype != torch.int32 or not thr.is_contiguous():
+        raise ValueError("thr must be contiguous int32")
+    if thr.numel() > t_rows * B:
+        raise ValueError("t_rows rows cannot hold the thresholds")
+    dev = sig.device
+    operands = (key, ts, flags, power, thr, ent.pre_mat, ent.pre_len,
+                ent.suf_mat, ent.suf_len, ent.ts_tag)
+    if dev.type == "cpu" and all(t.device == dev for t in operands):
+        return stamp_rows_general_plain(
+            sig, key, ts, flags, power, ent.pre_mat, ent.pre_len,
+            ent.suf_mat, ent.suf_len, ent.ts_tag, thr, ent.msg_max, t_rows)
+    ec._kernel_device(dev, "stamp_rows_general", *operands)
+    for t, name, q in ((sig, "sig", 16), (key, "key", 16),
+                       (ent.pre_mat, "pre_mat", 8),
+                       (ent.suf_mat, "suf_mat", 8)):
+        if (t.data_ptr() | t.stride(0)) % q:
+            raise ValueError(
+                f"stamp_rows_general: {name} is not {q}-byte aligned")
+    from cometbft_tpu_torch.ops import _build
+
+    fn = _build.kernel_lib("stamp_rows.cu").cbt_stamp_rows_general
+    out = torch.empty((kf.C_THRESH + t_rows, B), dtype=torch.int32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(sig.data_ptr(), key.data_ptr(), ts.data_ptr(),
+                 flags.data_ptr(), power.data_ptr(), B,
+                 ent.pre_mat.data_ptr(), ent.pre_len.data_ptr(),
+                 ent.pre_mat.shape[1], ent.suf_mat.data_ptr(),
+                 ent.suf_len.data_ptr(), ent.suf_mat.shape[1],
+                 ent.ts_tag.data_ptr(), ent.pre_mat.shape[0], thr.data_ptr(),
+                 thr.numel(), t_rows, out.data_ptr(), stream)
+    kf._raise_on(err, "stamp_rows_general")
+    stamp_rows_general.launches += 1
+    return out
+
+
+stamp_rows_general.launches = 0
+
+
+def verify_tally_delta_general(sig, key, ts, flags, power,
+                               ent: TemplateEntry, n_commits: int, thresh,
+                               device=None):
+    """Fused verify + tally for a delta-staged general chunk (host arrays
+    or tensors): `stamp_rows_general` builds the packed rows on `device`
+    (default: the CUDA card), then the general verify and tally kernels
+    consume them; the rows never exist on the host. The threshold rows
+    are `kf.pack_rows`'. Returns (valid (B,) bool, tally (C, 6) int32,
+    quorum (C,) bool)."""
+    dev = resolve(device)
+    B = int(sig.shape[0])
+    thr = _on(thresh, torch.int32, dev)
+    t_rows = max(1, -(-thr.numel() // B))
+    rows = stamp_rows_general(
+        _on(sig, torch.uint8, dev), _on(key, torch.uint8, dev),
+        _on(ts, torch.int32, dev), _on(flags, torch.int32, dev),
+        _on(power, torch.int64, dev), ent, thr, t_rows)
+    verdicts = kf.ed25519_verify(rows)
+    tally, quorum = kf.tally_quorum(verdicts, rows, n_commits)
+    return verdicts != 0, tally, quorum
 
 
 def verify_tally_delta_cached(sig, ts, flags, ent: TemplateEntry,

@@ -162,7 +162,73 @@ def test_mixed_valset_chunk_takes_the_general_kernels(v0):
     assert got == [("ok",), ("InvalidSignatureError", 7), ("ok",),
                    ("NotEnoughPowerError",)]
     assert sv.stats["general_chunks"] == 1
+    assert sv.stats["general_stamped_chunks"] == 1
     assert sv.stats["stamped_chunks"] == 0
+
+
+def _spy(monkeypatch, owner, name):
+    """Count the calls of owner.name (the real one still runs)."""
+    calls = []
+    real = getattr(owner, name)
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(owner, name, spy)
+    return calls
+
+
+def _general_pairs(rng, v0, tamper_at=None, nanos=None):
+    v2 = make_valset(rng)
+    return [make_job(rng, v0, 70), make_job(rng, v2, 71, tamper=tamper_at,
+                                            nanos=nanos),
+            make_job(rng, v0, 72), make_job(rng, v2, 73)]
+
+
+@pytest.mark.parametrize("bad", ["signature", "key"])
+def test_malformed_general_chunk_takes_the_numpy_screen(v0, monkeypatch,
+                                                        bad):
+    """A 63-byte signature or a 31-byte key cannot be staged: the chunk
+    goes to ed25519_kernel.pack_batch's numpy screen, never to the delta
+    staging, and each bad row is blamed as the JAX oracle blames it."""
+    from cometbft_tpu_torch.ops import ed25519_kernel as ek
+
+    rng = np.random.default_rng(38)
+    pairs = _general_pairs(rng, v0)
+    job, jargs = pairs[1]
+    if bad == "signature":
+        for cs in (job.commit.signatures[4], jargs[4].signatures[4]):
+            cs.signature = cs.signature[:63]
+    else:
+        for vals, keys in ((job.vals, tkeys), (jargs[1], jkeys)):
+            vals.validators[4].pub_key = keys.PubKey(
+                vals.validators[4].pub_key.data[:31])
+    screens = _spy(monkeypatch, ek, "pack_batch")
+    stagings = _spy(monkeypatch, bp.StreamVerifier, "_stage_deltas")
+    got, sv = run(pairs)
+    # the bad key is the set's: both of its commits blame it
+    bad_at = (1,) if bad == "signature" else (1, 3)
+    assert got == [("InvalidSignatureError", 4) if j in bad_at else ("ok",)
+                   for j in range(4)]
+    assert screens == [1] and stagings == []
+    assert sv.stats["general_chunks"] == 1
+    assert sv.stats["general_stamped_chunks"] == 0
+
+
+def test_general_chunk_with_a_wide_timestamp_packs_on_the_host(
+        v0, monkeypatch):
+    """A nanos word outside int32 cannot be staged as a delta: the general
+    chunk takes the native host pack, and its signed bytes still verify."""
+    rng = np.random.default_rng(39)
+    pairs = _general_pairs(rng, v0, tamper_at=9, nanos={2: 2**31})
+    packs = _spy(monkeypatch, bp.StreamVerifier, "_host_pack")
+    got, sv = run(pairs)
+    assert got == [("ok",), ("InvalidSignatureError", 9), ("ok",), ("ok",)]
+    assert packs == [1]
+    assert sv.stats["general_chunks"] == 1
+    assert sv.stats["general_stamped_chunks"] == 0
+    assert sv.stats["stage_ms"]["pack"][0] > 0.0
 
 
 def test_churned_valset_patches_the_cached_table(v0):

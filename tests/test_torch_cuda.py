@@ -11,7 +11,8 @@ import torch
 
 from cometbft_tpu_torch.crypto import ed25519_ref as ed
 from cometbft_tpu_torch.edge_cases import (STAMP_CASES, TALLY_CASES,
-                                          stamp_case, tally_edge_case)
+                                          stamp_case, stamp_general_case,
+                                          tally_edge_case)
 from cometbft_tpu_torch.ops import ed25519_cached as ec
 from cometbft_tpu_torch.ops import ed25519_fused as kf
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
@@ -622,6 +623,153 @@ def test_stamp_rows_refuses_a_misaligned_operand(card, operand):
         es.stamp_rows(sig, ts, fl, ent, pub, thr,
                       case.ref.shape[0] - ec.V_THRESH)
     assert es.stamp_rows.launches == before
+
+
+def _stamp_general_both(card, dsig, dkey, dts, dfl, power, sites, thresh,
+                        t_rows):
+    """One stamp_rows_general launch (exactly one) and its plain version on
+    the same card tensors; -> (kernel rows, plain rows) on the host."""
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+
+    ent = es.template_entry(sites, card)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(card)
+            for a in (dsig, dkey, dts, dfl, power)]
+    thr = torch.from_numpy(np.ascontiguousarray(thresh, np.int32)).to(card)
+    before = es.stamp_rows_general.launches
+    got = es.stamp_rows_general(*args, ent, thr, t_rows)
+    want = es.stamp_rows_general_plain(
+        *args, ent.pre_mat, ent.pre_len, ent.suf_mat, ent.suf_len,
+        ent.ts_tag, thr, ent.msg_max, t_rows)
+    torch.cuda.synchronize()
+    assert es.stamp_rows_general.launches == before + 1
+    return got.cpu().numpy(), want.cpu().numpy()
+
+
+@pytest.mark.parametrize("name,B", [(n, 256) for n in STAMP_CASES]
+                         + [("sweep", 200), ("dead", 1000)])
+def test_stamp_rows_general_kernel_on_the_stamp_cases(card, name, B):
+    """The general stamp on the stamp cases in the general layout
+    (edge_cases.stamp_general_case), also at ragged widths: kernel ==
+    plain == kf.pack_rows of the host pack, byte for byte."""
+    case = stamp_general_case(name, B)
+    got, want = _stamp_general_both(card, case.dsig, case.key, case.dts,
+                                    case.dfl, case.power, case.sites,
+                                    case.thresh, case.t_rows)
+    assert np.array_equal(got, want) and np.array_equal(got, case.ref)
+
+
+def test_stamp_rows_general_kernel_at_the_stream_shape(card):
+    """The general stream chunk: 64 commits of 1,000 live precommits
+    (each its own height and template), 64,000 live rows in 65,536
+    columns, the padding in the sink commit 64."""
+    from cometbft_tpu_torch.types import canonical
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.vote import sign_bytes_template
+
+    rng = np.random.default_rng(8)
+    B, C, n = 65_536, 64, 64_000
+    tmpls = [sign_bytes_template(
+        "portbench-chain", canonical.PRECOMMIT_TYPE, 1 + c, 0,
+        BlockID(rng.bytes(32), PartSetHeader(1, rng.bytes(32))))
+        for c in range(C)]
+    cid = np.minimum(np.arange(B) // 1000, C)
+    live = np.arange(B) < n
+    dts = canonical.split_ts_words(1_700_000_000 + cid,
+                                   rng.integers(0, 10**9, B))
+    dfl = np.where(live, 3 | (cid << 2), 0) | (cid << 10)
+    dsig = rng.integers(0, 256, (B, 64), dtype=np.uint8)
+    dkey = rng.integers(0, 256, (B, 32), dtype=np.uint8)
+    power = rng.integers(1, 10**6, B, dtype=np.int64)
+    thresh = np.stack([ek.threshold_limbs(667_000 + c)[0]
+                       for c in range(C + 1)])
+    got, want = _stamp_general_both(
+        card, dsig, dkey, dts, dfl.astype(np.int32), power,
+        [t.stamp_site() for t in tmpls], thresh, 1)
+    assert np.array_equal(got, want)
+    assert (got[kf.C_CID] == cid).all()
+    assert not got[:kf.C_CID, ~live].any()
+
+
+@pytest.mark.parametrize("operand", ["sig", "key"])
+def test_stamp_rows_general_refuses_a_misaligned_operand(card, operand):
+    """A view that is not 16-byte aligned raises before any launch."""
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+
+    case = stamp_general_case("sweep")
+    ent = es.template_entry(case.sites, card)
+    sig, key, ts, fl, power = (
+        torch.from_numpy(a).to(card)
+        for a in (case.dsig, case.key, case.dts, case.dfl, case.power))
+
+    def shifted(t):  # the same bytes, 8 bytes into a fresh buffer
+        buf = torch.zeros(t.numel() + 8, dtype=t.dtype, device=card)
+        view = buf[8:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 8
+        return view
+
+    if operand == "sig":
+        sig = shifted(sig)
+    else:
+        key = shifted(key)
+    thr = torch.from_numpy(case.thresh.astype(np.int32)).to(card)
+    before = es.stamp_rows_general.launches
+    with pytest.raises(ValueError, match="aligned"):
+        es.stamp_rows_general(sig, key, ts, fl, power, ent, thr,
+                              case.t_rows)
+    assert es.stamp_rows_general.launches == before
+
+
+def test_stream_general_chunk_stamps_on_the_card(card):
+    """A chunk of two validator sets on the card's StreamVerifier: one
+    stamp_rows_general launch, no host pack, and the verdicts of the
+    same chunk packed on the host."""
+    from cometbft_tpu_torch.blocksync import pipeline as bp
+    from cometbft_tpu_torch.crypto.keys import PubKey
+    from cometbft_tpu_torch.ops import ed25519_stamp as es
+    from cometbft_tpu_torch.types import commit as tcommit
+    from cometbft_tpu_torch.types.block_id import BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.timestamp import Timestamp
+    from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+
+    rng = np.random.default_rng(9)
+    sets = []
+    for n in (40, 56):
+        seeds = [rng.bytes(32) for _ in range(n)]
+        pubs = [ed.sign_many(s, [])[0] for s in seeds]
+        vs = ValidatorSet([Validator(PubKey(p), 1000 - i)
+                           for i, p in enumerate(pubs)])
+        seed_of = dict(zip(pubs, seeds))
+        sets.append((vs, [seed_of[v.pub_key.data] for v in vs.validators]))
+    jobs = []
+    for h in range(1, 7):
+        vs, seeds = sets[h % 2]
+        bid = BlockID(rng.bytes(32), PartSetHeader(1, rng.bytes(32)))
+        sigs = [tcommit.CommitSig(tcommit.BLOCK_ID_FLAG_COMMIT, v.address,
+                                  Timestamp(1_700_000_000 + h, 7 * i))
+                for i, v in enumerate(vs.validators)]
+        c = tcommit.Commit(h, 0, bid, sigs)
+        for cs, s, m in zip(sigs, seeds, c.sign_bytes_rows("card-chain")):
+            cs.signature = ed.sign(s, m)
+        if h == 3:
+            sig = sigs[5].signature
+            sigs[5].signature = sig[:9] + bytes([sig[9] ^ 4]) + sig[10:]
+        jobs.append(bp.CommitJob(vs, bid, h, c, "card-chain"))
+    before = es.stamp_rows_general.launches
+    sv = bp.StreamVerifier(device=card)
+    got = [None if e is None else (type(e).__name__, getattr(e, "idx", None))
+           for e in sv.verify(jobs)]
+    torch.cuda.synchronize()
+    assert es.stamp_rows_general.launches == before + 1
+    assert sv.stats["general_stamped_chunks"] == 1
+    assert sv.stats["stage_ms"]["pack"] == [0.0]
+    assert got == [None, None, ("InvalidSignatureError", 5), None, None,
+                   None]
+    host = bp.StreamVerifier(device=card)
+    host._stamp_general = lambda *a: None
+    assert [None if e is None else (type(e).__name__, getattr(e, "idx", None))
+            for e in host.verify(jobs)] == got
+    assert host.stats["general_stamped_chunks"] == 0
 
 
 def test_sr25519_verify_kernel_equals_plain(card):

@@ -29,6 +29,7 @@ from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import ed25519_cached as ec
 from cometbft_tpu_torch.ops import ed25519_fused as kf
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
+from cometbft_tpu_torch.ops import ed25519_stamp as es
 from cometbft_tpu_torch.ops import sr25519_kernel as srk
 from cometbft_tpu_torch.types import block_id as tbid
 from cometbft_tpu_torch.types import canonical
@@ -449,14 +450,21 @@ def test_commit_packed_batch_matches_jax_and_plain(v64, pad_to):
 
 
 def _capture(monkeypatch):
-    """Record (copies of) the packed rows of every general and cached
+    """Record (copies of) the packed rows of every general chunk (packed
+    on the host, or stamped on the device) and every host-packed cached
     chunk the port's pipeline dispatches."""
     seen = {"general": [], "cached": []}
     real_g, real_c = kf.verify_tally_rows, ec.verify_tally_rows_cached
+    real_s = es.stamp_rows_general
 
     def general(rows, n_commits, device=None):
         seen["general"].append(np.array(rows))
         return real_g(rows, n_commits, device)
+
+    def stamped(*args):
+        rows = real_s(*args)
+        seen["general"].append(rows.cpu().numpy())
+        return rows
 
     def cached(rows, table, n_commits):
         seen["cached"].append(np.array(rows))
@@ -464,25 +472,30 @@ def _capture(monkeypatch):
 
     monkeypatch.setattr(kf, "verify_tally_rows", general)
     monkeypatch.setattr(ec, "verify_tally_rows_cached", cached)
+    monkeypatch.setattr(es, "stamp_rows_general", stamped)
     return seen
 
 
 def test_stream_host_packs_native_equal_plain_and_jax(monkeypatch):
     """Two valsets of 16: cached chunks that must host-pack (a nanos
     outside int32, among zero, negative and 10-byte timestamps) and a
-    general chunk (both valsets). The native chunks' rows equal the plain
-    ones; the outcomes equal the JAX StreamVerifier's, whose device step
-    runs the port's plain verify and tally on the JAX package's packed
-    rows, which equal the port's."""
+    general chunk (both valsets) that is stamped on the device (zero,
+    negative and 10-byte timestamps, nanos at the int32 edges). The native
+    chunks' rows equal the plain ones; the outcomes equal the JAX
+    StreamVerifier's, whose device step runs the port's plain verify and
+    tally on the JAX package's packed rows, which equal the port's host
+    packs and its stamped general rows."""
     rng = np.random.default_rng(12)
     va, vb = Vals(rng, 16), Vals(rng, 16)
     wide = {0: (2**63 - 1, 2**31), 1: (0, 0), 2: (-1, -1), 3: (0, 999_999_999)}
+    edge = {0: (2**63 - 1, 2**31 - 1), 1: (0, 0), 2: (-1, -2**31),
+            3: (0, 999_999_999)}
     commits = [(va, Commit(rng, va, 20, ts=wide)),
                (va, Commit(rng, va, 21, tamper=2, ts={0: (5, 2**31)})),
                (va, Commit(rng, va, 22, absent=range(4, 16))),
                (va, Commit(rng, va, 23, ts=wide)),
                (va, Commit(rng, va, 24)), (vb, Commit(rng, vb, 25, tamper=6)),
-               (va, Commit(rng, va, 26, ts=wide)),
+               (va, Commit(rng, va, 26, ts=edge)),
                (vb, Commit(rng, vb, 27, absent=range(3)))]
     t_jobs = [bp.CommitJob(v.t, c.tbid, c.height, c.t, CHAIN)
               for v, c in commits]
@@ -499,6 +512,7 @@ def test_stream_host_packs_native_equal_plain_and_jax(monkeypatch):
         assert sv.stats["host_packed_cached_chunks"] == 3
         assert sv.stats["stamped_chunks"] == 1
         assert sv.stats["general_chunks"] == 1
+        assert sv.stats["general_stamped_chunks"] == 1
         rows.append({k: list(v) for k, v in seen.items()})
         for v in seen.values():
             v.clear()
@@ -528,8 +542,8 @@ def test_stream_host_packs_native_equal_plain_and_jax(monkeypatch):
     assert want[2] == ("NotEnoughPowerError",)
     assert want[5] == ("InvalidSignatureError", 6)
     # the JAX package packs both chunks on the general path: its second
-    # chunk's signature rows are the port's general chunk's (the two pad
-    # to different widths)
+    # chunk's signature rows are the port's stamped general chunk's (the
+    # two pad to different widths)
     n = jpacked[1].n
     want_rows = kf.pack_rows(jpacked[1])
     got_rows = rows[0]["general"][0]
@@ -540,6 +554,57 @@ def test_stream_host_packs_native_equal_plain_and_jax(monkeypatch):
 def _raise(err):
     if err is not None:
         raise err
+
+
+def test_stamped_general_rows_equal_pack_rows_of_the_host_pack(monkeypatch):
+    """A general chunk of two valsets of different sizes (16 and 24) with
+    zero, negative and 10-byte timestamps, nanos at the int32 edges,
+    absent, nil and tampered rows and a signature whose S is L: the rows
+    stamped on the device equal kf.pack_rows of the native host pack of
+    the same chunk byte for byte, in every column and row (the padding
+    and the threshold rows included), and the outcomes equal the JAX
+    package's VerifyCommitLight with the oracle."""
+    rng = np.random.default_rng(27)
+    va, vb = Vals(rng, 16), Vals(rng, 24)
+    edge = dict(enumerate(TIMESTAMPS + [(1, 2**31 - 1)]))
+    commits = [(va, Commit(rng, va, 40, ts=edge)),
+               (vb, Commit(rng, vb, 41, ts=edge, tamper=13, absent=(2, 3),
+                           nil=(20,))),
+               (va, Commit(rng, va, 42, absent=range(6, 16))),
+               (vb, Commit(rng, vb, 43))]
+    for cs in (commits[0][1].t.signatures[3], commits[0][1].j.signatures[3]):
+        cs.signature = cs.signature[:32] + L.to_bytes(32, "little")
+    jobs = [bp.CommitJob(v.t, c.tbid, c.height, c.t, CHAIN)
+            for v, c in commits]
+    want = [_outcome(lambda v=v, c=c: jv.verify_commit_light(
+        CHAIN, v.j, c.jbid, c.height, c.j, jv.oracle_batch_fn()))
+        for v, c in commits]
+    assert want == [("InvalidSignatureError", 3),
+                    ("InvalidSignatureError", 13),
+                    ("NotEnoughPowerError",), ("ok",)]
+    seen = _capture(monkeypatch)
+    outcomes = []
+    for stamp in (True, False):
+        if not stamp:
+            monkeypatch.setattr(bp.StreamVerifier, "_stamp_general",
+                                lambda *a: None)
+        sv = bp.StreamVerifier(max_sigs=80, device="cpu", min_device_sigs=1)
+        outcomes.append([_outcome(lambda e=e: _raise(e))
+                         for e in sv.verify(jobs)])
+        assert sv.stats["general_chunks"] == 1
+        assert sv.stats["general_stamped_chunks"] == int(stamp)
+    assert outcomes[0] == outcomes[1] == want
+    stamped, packed = seen["general"]
+    assert stamped.dtype == packed.dtype == np.int32
+    assert stamped.shape == packed.shape == (kf.C_THRESH + 2, 256)
+    assert stamped.tobytes() == packed.tobytes()
+    # what the chunk claims to cover: keys and R with the top bit set,
+    # an S >= L row, padding columns in the sink commit
+    n = 16 + 21 + 6 + 24
+    flags = stamped[kf.C_FLAGS, :n]
+    assert (flags & 1).any() and (flags & 2).any()
+    assert ((flags & 4) == 0).sum() == 1
+    assert (stamped[kf.C_CID, n:] == bp.MAX_COMMITS_PER_CHUNK).all()
 
 
 # --------------------------------------------------------------------------
@@ -575,7 +640,8 @@ def test_missing_compiler_raises_build_error(fresh_build, monkeypatch):
 
 def test_missing_compiler_stops_the_commit_packs(v64, fresh_build,
                                                  monkeypatch):
-    c = Commit(np.random.default_rng(13), v64, 14)
+    # a nanos word past int32: the stream's chunk packs on the host
+    c = Commit(np.random.default_rng(13), v64, 14, ts={0: (5, 2**31)})
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     with pytest.raises(_build.BuildError):
         tv.commit_packed_batch(CHAIN, c.t, v64.pubs)

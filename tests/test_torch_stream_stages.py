@@ -82,22 +82,27 @@ def verifier(branch="general"):
     """Two commits a chunk on either branch: a cached chunk strides its
     commits 128 columns apart (the table's padded size), a general chunk
     packs them densely."""
-    per_commit = N_VALS if branch == "general" else 128
+    per_commit = (128 if branch in ("stamped", "host_packed_cached")
+                  else N_VALS)
     return bp.StreamVerifier(max_sigs=2 * per_commit, device="cpu",
                              min_device_sigs=1)
 
 
 def stream(sets, branch, n=4, seed=72):
     """`n` commits that take `branch`: one shared set (stamped), one
-    shared set with a nanos word past int32 (packed on the host), or
-    two sets in turn (general)."""
+    shared set with a nanos word past int32 (packed on the host), two
+    sets in turn (general_stamped), or two sets in turn with a nanos word
+    past int32 (general, packed on the host)."""
     rng = np.random.default_rng(seed)
     a, b = sets
     if branch == "stamped":
         return [job(rng, a, h) for h in range(1, n + 1)]
     if branch == "host_packed_cached":
         return [job(rng, a, h, nanos=2**31) for h in range(1, n + 1)]
-    return [job(rng, (a, b)[h % 2], h) for h in range(1, n + 1)]
+    if branch == "general_stamped":
+        return [job(rng, (a, b)[h % 2], h) for h in range(1, n + 1)]
+    return [job(rng, (a, b)[h % 2], h, nanos=2**31)
+            for h in range(1, n + 1)]
 
 
 def stage_lists(sv):
@@ -105,7 +110,7 @@ def stage_lists(sv):
 
 
 @pytest.mark.parametrize("branch", ["stamped", "host_packed_cached",
-                                    "general"])
+                                    "general", "general_stamped"])
 def test_chunk_stages_sum_to_host_ms(sets, branch):
     sv = verifier(branch)
     assert sv.verify(stream(sets, branch)) == [None] * 4
@@ -116,9 +121,9 @@ def test_chunk_stages_sum_to_host_ms(sets, branch):
         parts = [sv.stats["stage_ms"][s][k] for s in bp.CHUNK_STAGES]
         assert min(parts) >= 0.0
         assert sum(parts) == pytest.approx(ms, rel=1e-9, abs=1e-9)
-    # the stamped branch never packs on the host; the others do
+    # the stamped branches never pack on the host; the others do
     pack = sv.stats["stage_ms"]["pack"]
-    assert (max(pack) == 0.0) == (branch == "stamped")
+    assert (max(pack) == 0.0) == (branch in ("stamped", "general_stamped"))
     assert all(x > 0.0 for x in sv.stats["stage_ms"]["dispatch"])
     assert all(x > 0.0 for x in sv.stats["stage_ms"]["wait"])
 
@@ -215,9 +220,34 @@ def test_spans_reach_the_ring_with_call_and_chunk(sets):
                         chunk=0) is tracing._NULL_SPAN
 
 
-def test_a_chunk_keeps_nothing_but_its_stage_entries(sets, monkeypatch):
+def test_stamped_general_chunks_open_no_pack_span(sets):
     sv = verifier()
-    jobs = stream(sets, "general", n=2)
+    tracing.enable(capacity=1024)
+    assert sv.verify(stream(sets, "general_stamped")) == [None] * 4
+    evs = [e for e in tracing.export_chrome()["traceEvents"]
+           if e.get("cat") == "blocksync"]
+    tracing.disable()
+    assert {e["name"] for e in evs} == set(SPANS) - {"blocksync.pack"}
+    chunk = [e["args"] for e in evs if e["name"] == "blocksync.chunk"]
+    assert [(a["rows"], a["branch"]) for a in chunk] == \
+        [(32, "general_stamped")] * 2
+    assert sv.stats["general_stamped_chunks"] == 2
+    assert sv.stats["general_chunks"] == 2
+    assert sv.stats["stage_ms"]["pack"] == [0.0, 0.0]
+
+
+def test_a_chunk_keeps_nothing_but_its_stage_entries(sets, monkeypatch):
+    _keeps_nothing(sets, monkeypatch, "general", 10)
+
+
+def test_a_stamped_general_chunk_keeps_nothing_but_its_stage_entries(
+        sets, monkeypatch):
+    _keeps_nothing(sets, monkeypatch, "general_stamped", 8)
+
+
+def _keeps_nothing(sets, monkeypatch, branch, spans):
+    sv = verifier()
+    jobs = stream(sets, branch, n=2)
     sv.verify(jobs)
     returned = []
     span = tracing.span
@@ -238,9 +268,11 @@ def test_a_chunk_keeps_nothing_but_its_stage_entries(sets, monkeypatch):
     finally:
         tracemalloc.stop()
     # a call's precheck; a chunk's own span, rows twice (_pack_any's
-    # table lookup, then the lists), pack, layout, dispatch, layout again
-    # (the chunk's row arrays), wait, verdicts
-    assert len(returned) == calls + 9 * chunks
+    # table lookup, then the lists), layout (the delta staging, which a
+    # host-packed chunk tries first), then on a host-packed chunk pack and
+    # layout (pack_rows), dispatch, layout again (the chunk's row arrays),
+    # wait, verdicts
+    assert len(returned) == calls + spans * chunks
     assert all(s is tracing._NULL_SPAN for s in returned)
     assert len(sv.stats["host_ms"]) == n0 + chunks
     mine = [tracemalloc.Filter(True, bp.__file__),
