@@ -26,6 +26,14 @@ breaker. `faults` counts every recorded fault.
 While a verify plane runs (verifyplane.set_global_plane), a default
 `verify_batch` call becomes a submission to it, so independent callers
 coalesce into shared device passes, as in the JAX package.
+
+Each `verify_batch_direct` call is timed, always, by key-type group and
+by stage, never by row: a `batch.group` span a group (args `key_type`,
+`rows`, `cols`) around the kernel's stages (`stage`: `challenges` for
+sr25519, then `pack`, `dispatch`, `wait`), each a `batch.<stage>` span
+(libs/tracing.py), and a record a call in the bounded ring
+`call_stats()`. `rows_verified()` counts the rows handed to kernels, by
+key type (libs/metrics.py scrapes it).
 """
 from __future__ import annotations
 
@@ -33,7 +41,8 @@ import functools
 import logging
 import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
+from contextlib import contextmanager
 from typing import Callable, Sequence
 
 import numpy as np
@@ -46,6 +55,7 @@ from cometbft_tpu_torch.crypto.keys import (
 )
 from cometbft_tpu_torch.device import DeviceError, default_device, resolve
 from cometbft_tpu_torch.libs import failpoints as fp
+from cometbft_tpu_torch.libs import tracing
 from cometbft_tpu_torch.libs.staging import StagingPool
 
 _log = logging.getLogger(__name__)
@@ -167,6 +177,48 @@ def staging_pool() -> StagingPool:
     return _STAGING
 
 
+# A group's host stages, in the order a kernel's verify_batch runs them:
+# the sr25519 merlin challenges and k mod L, the pack into rows, the
+# upload and launch, and the wait for the validity on the host.
+GROUP_STAGES = ("challenges", "pack", "dispatch", "wait")
+_STAGE_SPANS = {s: f"batch.{s}" for s in GROUP_STAGES}
+
+# One record a verify_batch_direct call, newest last: {"ms": the call,
+# "split": its rows split by key type, "groups": [{"key_type", "rows",
+# "cols", "ms": the group, and each of GROUP_STAGES: ms}]}. A reader (a
+# benchmark metric, an operator's tool) keeps the records of its own
+# calls, whose identity it knows.
+_CALLS: deque = deque(maxlen=4096)
+_GROUP = threading.local()   # .rec: the group record this thread fills
+_ROWS: dict = defaultdict(int)
+_ROWS_LOCK = threading.Lock()
+
+
+def call_stats() -> deque:
+    """The bounded ring of verify_batch_direct's call records."""
+    return _CALLS
+
+
+def rows_verified() -> dict:
+    """{key type: rows handed to its kernel} in this process."""
+    with _ROWS_LOCK:
+        return dict(_ROWS)
+
+
+@contextmanager
+def stage(name: str):
+    """A host stage (GROUP_STAGES) of the key-type group this thread is
+    verifying: its `batch.<name>` span, and its milliseconds added to the
+    group's record. The kernels' verify_batch run their stages in it;
+    outside a group it is the span alone."""
+    rec = getattr(_GROUP, "rec", None)
+    t0 = time.perf_counter()
+    with tracing.span(_STAGE_SPANS[name], "crypto"):
+        yield
+    if rec is not None:
+        rec[name] += (time.perf_counter() - t0) * 1e3
+
+
 # The cached-valset kernel keys its window table on the EXACT pubkey list,
 # so it pays off for whole-valset batches; below one lane tile the general
 # kernel serves (the JAX package's `device_batch_fn(cached=True)` gate).
@@ -180,6 +232,18 @@ def _ed25519_cached(pubs, msgs, sigs, device=None):
         return ed25519_cached.verify_batch_cached(pubs, msgs, sigs,
                                                   device=device)
     return ed25519_fused.verify_batch(pubs, msgs, sigs, device=device)
+
+
+def _ed25519_cached_cols(n: int) -> int:
+    from cometbft_tpu_torch.ops import ed25519_cached, ed25519_fused
+
+    if n >= CACHED_MIN_ROWS:
+        return ed25519_cached.pad_rows(n)
+    return ed25519_fused.pad_to_tile(n)
+
+
+# a kernel's `cols(n)`: the columns it pads n rows to
+_ed25519_cached.cols = _ed25519_cached_cols
 
 
 def _kernel_for(key_type: str) -> Callable | None:
@@ -231,37 +295,64 @@ def verify_batch_direct(
     n = len(pubs)
     valid = np.zeros((n,), np.bool_)
     brk = breaker if breaker is not None else _DEVICE_BREAKER
-    groups: dict = defaultdict(list)
-    for i, p in enumerate(pubs):
-        groups[p.key_type].append(i)
-    for kt, idxs in groups.items():
-        kernel = (kernels or {}).get(kt) or (
-            _cached_kernel_for(kt) if cached else _kernel_for(kt))
-        if kernel is None:
-            continue
-        if not brk.allow():
-            raise DeviceError(
-                f"circuit breaker {brk.name} is open; {len(idxs)} {kt} "
-                f"signatures not verified")
-        try:
-            fp.fail_point("crypto.device_dispatch")
-            sub = kernel(
-                [pubs[i].data for i in idxs],
-                [msgs[i] for i in idxs],
-                [sigs[i] for i in idxs],
-                device=device,
-            )
-        except Exception as exc:
-            brk.record_failure()
-            _log.exception("device batch verify failed for %s (%d sigs)",
-                           kt, len(idxs))
-            if isinstance(exc, DeviceError):
-                raise
-            raise DeviceError(f"device batch verify failed for {len(idxs)} "
-                              f"{kt} signatures: {exc!r}") from exc
-        brk.record_success()
-        valid[np.asarray(idxs)] = np.asarray(sub)
+    call = {"ms": 0.0, "split": 0.0, "groups": []}
+    _CALLS.append(call)
+    t0 = time.perf_counter()
+    try:
+        groups: dict = defaultdict(list)
+        for i, p in enumerate(pubs):
+            groups[p.key_type].append(i)
+        call["split"] = (time.perf_counter() - t0) * 1e3
+        for kt, idxs in groups.items():
+            kernel = (kernels or {}).get(kt) or (
+                _cached_kernel_for(kt) if cached else _kernel_for(kt))
+            if kernel is None:
+                continue
+            if not brk.allow():
+                raise DeviceError(
+                    f"circuit breaker {brk.name} is open; {len(idxs)} {kt} "
+                    f"signatures not verified")
+            valid[np.asarray(idxs)] = _verify_group(
+                kt, kernel, idxs, pubs, msgs, sigs, device, brk, call)
+    finally:
+        call["ms"] = (time.perf_counter() - t0) * 1e3
     return valid
+
+
+def _verify_group(kt, kernel, idxs, pubs, msgs, sigs, device, brk, call):
+    """Rows `idxs`, one key type's, on its kernel under the breaker, in
+    the group's `batch.group` span and record; gathering the rows counts
+    as packing them."""
+    n = len(idxs)
+    pad = getattr(kernel, "cols", None)   # a kernel a test put in: n
+    cols = pad(n) if pad is not None else n
+    rec = {"key_type": kt, "rows": n, "cols": cols, "ms": 0.0,
+           **dict.fromkeys(GROUP_STAGES, 0.0)}
+    call["groups"].append(rec)
+    _GROUP.rec = rec
+    t0 = time.perf_counter()
+    try:
+        with tracing.span("batch.group", "crypto", key_type=kt, rows=n,
+                          cols=cols):
+            with stage("pack"):
+                rows = ([pubs[i].data for i in idxs], [msgs[i] for i in idxs],
+                        [sigs[i] for i in idxs])
+            fp.fail_point("crypto.device_dispatch")
+            sub = kernel(*rows, device=device)
+    except Exception as exc:
+        brk.record_failure()
+        _log.exception("device batch verify failed for %s (%d sigs)", kt, n)
+        if isinstance(exc, DeviceError):
+            raise
+        raise DeviceError(f"device batch verify failed for {n} "
+                          f"{kt} signatures: {exc!r}") from exc
+    finally:
+        _GROUP.rec = None
+        rec["ms"] = (time.perf_counter() - t0) * 1e3
+    brk.record_success()
+    with _ROWS_LOCK:
+        _ROWS[kt] += n
+    return np.asarray(sub)
 
 
 def verify_batch(pubs, msgs, sigs, device=None,

@@ -653,6 +653,14 @@ class NodeMetrics:
         try:
             from cometbft_tpu_torch.crypto import batch as cbatch
 
+            # the rows crypto/batch.py handed each key type's kernel
+            for kt, rows in cbatch.rows_verified().items():
+                self.verify_sigs._set((("key_type", kt),), float(rows))
+        except Exception:  # noqa: BLE001 - scrape must never fail
+            pass
+        try:
+            from cometbft_tpu_torch.crypto import batch as cbatch
+
             st = cbatch.staging_pool().stats()
             pools = [st]
             vp = sys.modules.get("cometbft_tpu_torch.verifyplane.plane")

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cometbft_tpu_torch.crypto import batch as cbatch
 from cometbft_tpu_torch.crypto import secp256k1_ref as ref
 from cometbft_tpu_torch.ops import ecdsa_kernel as eck
 from cometbft_tpu_torch.ops import ed25519_kernel as ek
@@ -219,7 +220,15 @@ def verify_rows(rows, device=None) -> torch.Tensor:
 
 
 def verify_batch(pubkeys, msgs, sigs, device=None) -> np.ndarray:
-    """(pubkey33, msg, sig64) triples -> (n,) bool numpy validity."""
-    pb = eck.pack_batch(pubkeys, msgs, sigs,
-                        pad_to=pad_to_tile(len(pubkeys)))
-    return verify_rows(pack_rows(pb), device).cpu().numpy()[: pb.n]
+    """(pubkey33, msg, sig64) triples -> (n,) bool numpy validity; each
+    host stage a crypto/batch.py `stage`."""
+    with cbatch.stage("pack"):
+        rows = pack_rows(eck.pack_batch(pubkeys, msgs, sigs,
+                                        pad_to=pad_to_tile(len(pubkeys))))
+    with cbatch.stage("dispatch"):
+        valid = verify_rows(rows, device)
+    with cbatch.stage("wait"):
+        return valid.cpu().numpy()[: len(pubkeys)]
+
+
+verify_batch.cols = pad_to_tile

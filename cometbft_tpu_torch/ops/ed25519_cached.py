@@ -48,6 +48,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from cometbft_tpu_torch.crypto import batch as cbatch
 from cometbft_tpu_torch.crypto import ed25519_ref as ref
 from cometbft_tpu_torch.device import resolve
 from cometbft_tpu_torch.ops import curve25519 as curve
@@ -1075,12 +1076,22 @@ def verify_batch_cached(pub_bytes, msgs, sigs,
                         table: Optional[ValsetTable] = None,
                         device=None) -> np.ndarray:
     """Drop-in verify_batch where row i's key is pub_bytes[i]; builds (or
-    LRU-reuses) the valset table for the key list on `device`."""
+    LRU-reuses) the valset table for the key list on `device`, in the
+    `dispatch` stage (crypto/batch.py `stage`)."""
     n = len(pub_bytes)
     if table is None:
-        table = table_for_pubs(pub_bytes, device=device)
-    pb = ek.pack_batch(pub_bytes, msgs, sigs, pad_to=pad_rows(n))
-    return verify_rows_cached(pack_rows_cached(pb), table).cpu().numpy()[:n]
+        with cbatch.stage("dispatch"):
+            table = table_for_pubs(pub_bytes, device=device)
+    with cbatch.stage("pack"):
+        rows = pack_rows_cached(ek.pack_batch(pub_bytes, msgs, sigs,
+                                              pad_to=pad_rows(n)))
+    with cbatch.stage("dispatch"):
+        valid = verify_rows_cached(rows, table)
+    with cbatch.stage("wait"):
+        return valid.cpu().numpy()[:n]
+
+
+verify_batch_cached.cols = pad_rows
 
 
 STAMP_NAMES = ("TemplateEntry", "template_entry", "warm_template",

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cometbft_tpu_torch.crypto import batch as cbatch
 from cometbft_tpu_torch.crypto import ed25519_ref as ref
 from cometbft_tpu_torch.device import resolve
 from cometbft_tpu_torch.ops import curve25519 as curve
@@ -411,7 +412,15 @@ def verify_tally_rows(rows, n_commits: int, device=None):
 
 
 def verify_batch(pubkeys, msgs, sigs, device=None) -> np.ndarray:
-    """(pubkey, msg, sig) triples -> (n,) bool numpy validity."""
-    pb = ek.pack_batch(pubkeys, msgs, sigs, pad_to=pad_to_tile(len(pubkeys)))
-    valid = verify_rows(pack_rows(pb), device)
-    return valid.cpu().numpy()[: pb.n]
+    """(pubkey, msg, sig) triples -> (n,) bool numpy validity; each host
+    stage a crypto/batch.py `stage`."""
+    with cbatch.stage("pack"):
+        rows = pack_rows(ek.pack_batch(pubkeys, msgs, sigs,
+                                       pad_to=pad_to_tile(len(pubkeys))))
+    with cbatch.stage("dispatch"):
+        valid = verify_rows(rows, device)
+    with cbatch.stage("wait"):
+        return valid.cpu().numpy()[: len(pubkeys)]
+
+
+verify_batch.cols = pad_to_tile

@@ -6,7 +6,8 @@ crypto/sr25519/batch.go:44-77, voi's merlin-transcript batch verify). The
 merlin challenge k = H(transcript) is computed on the host by the native
 host packer (native.sr25519_batch_challenges, one call a message length)
 and reduced mod L there too (native.batch_reduce_mod_l), as the
-reference does; with `native=False` the numpy-batched STROBE
+reference does (`challenge_scalars`, a stage of its own in
+`verify_batch`); with `native=False` the numpy-batched STROBE
 (crypto/merlin.BatchTranscript) and Python ints are the plain version.
 The packed rows use the ed25519 ABI
 (ops/ed25519_fused.py `C_*`), byte for byte the JAX package's:
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from cometbft_tpu_torch import native as _native
+from cometbft_tpu_torch.crypto import batch as cbatch
 from cometbft_tpu_torch.crypto import merlin
 from cometbft_tpu_torch.crypto import ristretto_ref as rist
 from cometbft_tpu_torch.crypto import sr25519_ref as sr
@@ -213,15 +215,40 @@ def batch_challenges(msgs, pubs, r_encs, native: bool = True) -> np.ndarray:
     return out
 
 
+def challenge_scalars(pubkeys, msgs, sigs, native: bool = True
+                      ) -> np.ndarray:
+    """k = the merlin challenge mod L of each row: (n, 32) uint8, little
+    endian. A key that is not 32 bytes, or an R of a signature that is not
+    64, goes into the transcript as zeros (the pack's precheck fails the
+    row). The challenges and the reduction run in the native host packer;
+    `native=False` runs the numpy plain version and Python ints."""
+    n = len(pubkeys)
+    if not n:
+        return np.zeros((0, 32), np.uint8)
+    r_encs = [bytes(s[:32]) if len(s) == 64 else b"\x00" * 32 for s in sigs]
+    # the zero key of a short-key row goes in before the transcripts, so
+    # neither route ever sees a key that is not 32 bytes
+    chal = batch_challenges(
+        [bytes(m) for m in msgs],
+        [bytes(p) if len(p) == 32 else b"\x00" * 32 for p in pubkeys],
+        r_encs, native)
+    if native:
+        return _native.batch_reduce_mod_l(chal)
+    from_b, to_b, L = int.from_bytes, int.to_bytes, sr.L
+    return np.frombuffer(b"".join(
+        to_b(from_b(bytes(c), "little") % L, 32, "little")
+        for c in chal), np.uint8).reshape(n, 32).copy()
+
+
 def pack_batch_sr(pubkeys, msgs, sigs, pad_to=None,
                   power5=None, counted=None, commit_ids=None, thresh=None,
-                  native: bool = True):
+                  native: bool = True, k_red=None):
     """sr25519 rows -> compact packed (R, B) int32 array in the ed25519
     layout (`ed25519_fused.pack_rows`), byte for byte the JAX package's
     `pack_batch_sr`. A row whose key is not 32 bytes gets a zero key in
-    the transcript and fails the precheck. The challenges and k mod L run
-    in the native host packer; `native=False` runs the numpy plain
-    version."""
+    the transcript and fails the precheck. `k_red` is the rows'
+    `challenge_scalars`, computed here when not given (`native=False`:
+    the plain version)."""
     n = len(pubkeys)
     pad = pad_to or kf.pad_to_tile(n)
     a_l = np.zeros((pad, NLIMBS), np.int32)
@@ -230,13 +257,8 @@ def pack_batch_sr(pubkeys, msgs, sigs, pad_to=None,
     hdig = np.zeros((pad, 64), np.int32)
     precheck = np.zeros((pad,), np.int32)
 
-    r_encs = [bytes(s[:32]) if len(s) == 64 else b"\x00" * 32 for s in sigs]
-    # the zero key of a short-key row goes in before the transcripts, so
-    # neither route ever sees a key that is not 32 bytes
-    chal = batch_challenges(
-        [bytes(m) for m in msgs],
-        [bytes(p) if len(p) == 32 else b"\x00" * 32 for p in pubkeys],
-        r_encs, native)
+    if k_red is None:
+        k_red = challenge_scalars(pubkeys, msgs, sigs, native)
     lenok = np.array(
         [len(pubkeys[i]) == 32 and len(sigs[i]) == 64
          and bool(sigs[i][63] & 0x80) for i in range(n)], np.bool_)
@@ -256,14 +278,7 @@ def pack_batch_sr(pubkeys, msgs, sigs, pad_to=None,
               & ek.below_words(r_arr, _P_WORDS)
               & ((pk_arr[:, 0] & 1) == 0) & ((r_arr[:, 0] & 1) == 0)
               & ek.s_below_l(s_arr))
-        # k = challenge mod L (native, or Python ints)
-        if native:
-            k_red = _native.batch_reduce_mod_l(chal)
-        else:
-            from_b, to_b, L = int.from_bytes, int.to_bytes, sr.L
-            k_red = np.frombuffer(b"".join(
-                to_b(from_b(bytes(c), "little") % L, 32, "little")
-                for c in chal), np.uint8).reshape(n, 32).copy()
+        k_red = np.array(k_red, np.uint8)
         # zeroing the inputs of failed rows zeroes every derived output
         bad = ~ok
         for arr in (pk_arr, r_arr, s_arr, k_red):
@@ -302,6 +317,16 @@ def verify_tally_rows(rows, n_commits: int, device=None):
 
 
 def verify_batch(pubkeys, msgs, sigs, device=None) -> np.ndarray:
-    """(pubkey, msg, sig) triples -> (n,) bool numpy validity."""
-    rows = pack_batch_sr(pubkeys, msgs, sigs)
-    return verify_rows(rows, device).cpu().numpy()[: len(pubkeys)]
+    """(pubkey, msg, sig) triples -> (n,) bool numpy validity; each host
+    stage a crypto/batch.py `stage`."""
+    with cbatch.stage("challenges"):
+        k_red = challenge_scalars(pubkeys, msgs, sigs)
+    with cbatch.stage("pack"):
+        rows = pack_batch_sr(pubkeys, msgs, sigs, k_red=k_red)
+    with cbatch.stage("dispatch"):
+        valid = verify_rows(rows, device)
+    with cbatch.stage("wait"):
+        return valid.cpu().numpy()[: len(pubkeys)]
+
+
+verify_batch.cols = kf.pad_to_tile

@@ -11,13 +11,21 @@ The whole commit is packed once (vectorized host staging) and verified in
 one device pass; the reference's early 2/3 break becomes "don't collect
 what you don't need" — the collection loop stops at the threshold, the
 device verifies every collected signature.
+
+A batch-verified call's stages are timed, always: the collection loop
+and the sign-bytes, each a span (`validation.collect`,
+`validation.sign_bytes`, libs/tracing.py), and the call's batch_fn, into
+one record a call in the bounded ring `call_stats()`.
 """
 from __future__ import annotations
 
+import time
+from collections import deque
 from typing import Callable, List, Optional
 
 import numpy as np
 
+from cometbft_tpu_torch.libs import tracing
 from cometbft_tpu_torch.types.commit import Commit
 from cometbft_tpu_torch.types.validator import ValidatorSet
 
@@ -50,6 +58,19 @@ BATCH_VERIFY_THRESHOLD = 2
 
 def _should_batch_verify(commit: Commit) -> bool:
     return len(commit.signatures) >= BATCH_VERIFY_THRESHOLD
+
+
+# One record a batch-verified call, newest last: {"rows": signatures
+# collected, and the milliseconds of "collect" (the collection loop),
+# "sign_bytes" and "batch" (the batch_fn call)}. A reader (a benchmark
+# metric, an operator's tool) keeps the records of its own calls, whose
+# identity it knows.
+_CALLS: deque = deque(maxlen=4096)
+
+
+def call_stats() -> deque:
+    """The bounded ring of the batch-verified calls' records."""
+    return _CALLS
 
 
 # Template packing: batch verification builds its sign-bytes via
@@ -282,36 +303,48 @@ def _verify_batch(
     idxs: List[int] = []
     tallied = 0
     seen = set()
-    for idx, cs in enumerate(commit.signatures):
-        if ignore_sig(cs):
-            continue
-        resolved = _row(chain_id, vals, commit, idx, cs, lookup_by_address)
-        if resolved is None:
-            continue
-        if lookup_by_address:
-            # duplicate check only for resolved validators
-            # (validation.go:188-198: skip-unknown precedes seenVals)
-            if cs.validator_address in seen:
-                raise VerificationError(
-                    f"double vote from {cs.validator_address.hex()}"
-                )
-            seen.add(cs.validator_address)
-        pub_key, power = resolved
-        pubs.append(pub_key)
-        sigs.append(cs.signature)
-        idxs.append(idx)
-        if count_sig(cs):
-            tallied += power
-            if not count_all and tallied > voting_power_needed:
-                break
+    rec = {"rows": 0, "collect": 0.0, "sign_bytes": 0.0, "batch": 0.0}
+    _CALLS.append(rec)
+    t0 = time.perf_counter()
+    with tracing.span("validation.collect", "validation"):
+        for idx, cs in enumerate(commit.signatures):
+            if ignore_sig(cs):
+                continue
+            resolved = _row(chain_id, vals, commit, idx, cs,
+                            lookup_by_address)
+            if resolved is None:
+                continue
+            if lookup_by_address:
+                # duplicate check only for resolved validators
+                # (validation.go:188-198: skip-unknown precedes seenVals)
+                if cs.validator_address in seen:
+                    raise VerificationError(
+                        f"double vote from {cs.validator_address.hex()}"
+                    )
+                seen.add(cs.validator_address)
+            pub_key, power = resolved
+            pubs.append(pub_key)
+            sigs.append(cs.signature)
+            idxs.append(idx)
+            if count_sig(cs):
+                tallied += power
+                if not count_all and tallied > voting_power_needed:
+                    break
+    t1 = time.perf_counter()
+    rec["rows"] = len(pubs)
+    rec["collect"] = (t1 - t0) * 1e3
 
     if tallied <= voting_power_needed:
         raise NotEnoughPowerError(tallied, voting_power_needed)
 
     # sign-bytes built AFTER collection: one vectorized template patch
     # over the collected rows
-    msgs = _commit_msgs(chain_id, commit, idxs)
+    with tracing.span("validation.sign_bytes", "validation"):
+        msgs = _commit_msgs(chain_id, commit, idxs)
+    t2 = time.perf_counter()
+    rec["sign_bytes"] = (t2 - t1) * 1e3
     valid = np.asarray(batch_fn(pubs, msgs, sigs))[: len(pubs)]
+    rec["batch"] = (time.perf_counter() - t2) * 1e3
     if not valid.all():
         bad = int(np.flatnonzero(~valid)[0])
         raise InvalidSignatureError(idxs[bad])
